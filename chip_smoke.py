@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
   3. kernels  — runs gather_dist, beam_hop and topk_pool at the main path's
                 shapes, holds each against its plain PyTorch version (exact
                 on integer-valued inputs, within tolerance on float inputs)
-                and times both with CUDA events.
+                and times both with CUDA events; then lut_dist and beam_hop
+                in LUT mode at M = 300 (pq) and M = 600 (int8), which must
+                equal their plain versions bit for bit on float inputs too.
   4. fit      — builds TunedGraphIndex with the ann-laion config
                 (knn_backend="exact", finish_backend="host") on
                 clustered_vectors(300000, 768) from --seed (the config's
@@ -22,8 +24,17 @@ Phases, each printing one JSON line:
                 exactly (ids, dists, counters).
   7. reference — 256 of the queries searched again on the CPU, where every
                 kernel runs its plain PyTorch version, must agree.
-  8. the kernels line: launches on the main path (fit + serve), errors,
-                times and bounds; every kernel must have launched.
+  8. quantized — for pq, then int8, on the index of phase 4: the codec's
+                fit and encode seconds, then 1024 queries with k=10, ef=64,
+                the config's rerank (64) and the fused LUT hop (QPS, recall@10, counters,
+                device-busy share); the staged search must equal it bit for
+                bit, and 256 queries searched again on the CPU must agree.
+  9. the kernels line: launches on the main path (fit + serve for the f32
+                kernels, quantize + serve for the LUT kernels), errors,
+                times and bounds; every kernel must have launched. A LUT
+                kernel's entry holds its M = 300 times with its launches
+                over both backends, and under "by_m" each M's times and
+                launches (pq runs M = 300, int8 M = 600).
 
 Any failed check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -47,6 +58,8 @@ PEAK_BW, PEAK_F32 = 3.35e12, 67e12
 
 TOPK_SHAPE = dict(b=2048, m=96, k=64)      # NSG pool assembly
 HOP_SHAPE = dict(q=1024, ef=64, r=32)      # one serving hop
+LUT_MS = (300, 600)                        # pq (default_pq_m(600)), int8
+LUT_C = 256
 SERVE_RUNS = 7                             # timed searches (median)
 REF_QUERIES = 256                          # searched again on the CPU
 
@@ -254,6 +267,133 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
         replaces="src/repro/kernels/topk_merge/topk_merge.py:86",
         max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bmin,
         bound_by=by, library_ms=None, shape=dict(b=tb, m=tm, k=tk))
+    res.update(lut_kernel_phase(torch, n, g, gpu))
+    return res
+
+
+def lut_bytes(torch, codes, ids, m):
+    """Bytes a LUT scoring of (Q, R) ``ids`` must move: each distinct LUT
+    entry looked up (4 B) and each distinct code row (M B), read once."""
+    q = ids.shape[0]
+    valid = ids >= 0
+    rows = codes[ids.clamp_min(0).long()].long()                 # (Q, R, M)
+    key = ((torch.arange(q, device=ids.device)[:, None, None] * m
+            + torch.arange(m, device=ids.device)) * LUT_C + rows)
+    entries = int(torch.unique(key[valid]).numel())
+    code_rows = int(torch.unique(ids[valid]).numel())
+    return entries * 4 + code_rows * m
+
+
+def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
+    """lut_dist and beam_hop's LUT mode at the quantized path's shapes
+    (M = 300 for pq, 600 for int8), each bit-equal to its plain version.
+    The kernels line carries the pq (M = 300) numbers; both are here."""
+    from repro_torch.kernels.beam_hop import beam_hop_lut_cuda, beam_hop_ref
+    from repro_torch.kernels.lut_dist import lut_dist_cuda, lut_dist_ref
+
+    dev = torch.device("cuda")
+    nq, ef, r = HOP_SHAPE["q"], HOP_SHAPE["ef"], HOP_SHAPE["r"]
+    out = {"lut_dist": {}, "beam_hop_lut": {}}
+    worst = {"lut_dist": 0.0, "beam_hop_lut": 0.0}
+
+    def err(got, want):
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(got)) or not bool(fin.any()):
+            return math.inf
+        return float((got[fin] - want[fin]).abs().max())
+
+    def ids(shape, lo=-1):
+        return torch.randint(lo, n, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    for m in LUT_MS:
+        codes = torch.randint(0, LUT_C, (n, m), generator=g, device=dev,
+                              dtype=torch.uint8)
+        luts = {"int": torch.randint(0, 9, (nq, m, LUT_C), generator=g,
+                                     device=dev).float(),
+                "float": torch.rand((nq, m, LUT_C), generator=g,
+                                    device=dev) * 10}
+        # -- lut_dist: the staged hop's (Q, R) block
+        for kind, lut in luts.items():
+            idx = ids((nq, r))
+            got = lut_dist_cuda(lut, codes, idx)
+            want = lut_dist_ref(lut, codes, idx)
+            worst["lut_dist"] = max(worst["lut_dist"], err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"lut_dist (M={m}) differs from its "
+                                     f"plain version ({kind} data)")
+        sets = Cycle([ids((nq, r)) for _ in range(8)])
+        ms = time_ms(lambda: lut_dist_cuda(lut, codes, sets.next()))
+        plain = time_ms(lambda: lut_dist_ref(lut, codes, sets.next()))
+        # one PyTorch call of the same sum (order aside): embedding_bag
+        # over flat LUT indices, built outside the timing
+        flat_of = lambda s: ((torch.arange(nq, device=dev)[:, None, None] * m
+                              + torch.arange(m, device=dev)) * LUT_C
+                             + codes[s.clamp_min(0).long()].long()
+                             ).view(-1, m)
+        flats = Cycle([flat_of(s) for s in sets.items])
+        table = lut.view(-1, 1)
+        library = time_ms(lambda: torch.nn.functional.embedding_bag(
+            flats.next(), table, mode="sum"))
+        del flats
+        moved = sum(lut_bytes(torch, codes, s, m) for s in sets.items) / 8
+        bmin, by = bound(moved + nq * r * 8, nq * r * m, gpu)
+        out["lut_dist"][m] = dict(ms=ms, plain_ms=plain, bound_ms=bmin,
+                                  bound_by=by, library_ms=library,
+                                  shape=dict(q=nq, r=r, m=m, c=LUT_C, n=n))
+
+        # -- beam_hop, LUT mode: one serving hop of Q queries
+        nbrs = ids((n, r))
+        pool_i = ids((nq, ef))
+        pool_d = torch.where(pool_i >= 0,
+                             torch.randint(0, 10 * m, (nq, ef), generator=g,
+                                           device=dev).float(),
+                             float("inf")).sort(1).values
+        pool_v = torch.rand((nq, ef), generator=g, device=dev) < 0.5
+        for kind, lut in luts.items():
+            sel = ids((nq,))
+            live = sel >= 0
+            nbrs[sel[live].long(), :8] = pool_i[live, :8]   # duplicates
+            args = (sel, nbrs, pool_i, pool_d, pool_v, lut, codes)
+            got = beam_hop_lut_cuda(*args)
+            want = beam_hop_ref(*args, dist_backend="pq")
+            worst["beam_hop_lut"] = max(worst["beam_hop_lut"],
+                                        err(got[1], want[1]))
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(got, want)):
+                raise AssertionError(f"beam_hop LUT mode (M={m}) differs "
+                                     f"from its plain version ({kind} "
+                                     f"data): ids, dists, visited or stats")
+        sels = Cycle([ids((nq,)) for _ in range(8)])
+        ms = time_ms(lambda: beam_hop_lut_cuda(sels.next(), nbrs, pool_i,
+                                               pool_d, pool_v, lut, codes))
+        plain = time_ms(lambda: beam_hop_ref(sels.next(), nbrs, pool_i,
+                                             pool_d, pool_v, lut, codes,
+                                             "pq"))
+        moved = 0.0
+        for s in sels.items:
+            cand = torch.where((s >= 0)[:, None],
+                               nbrs[s.clamp_min(0).long()], -1)
+            moved += lut_bytes(torch, codes, cand, m) / 8
+        bmin, by = bound(moved + nq * r * 4 + 2 * nq * ef * 9 + nq * 12,
+                         nq * r * m, gpu)
+        out["beam_hop_lut"][m] = dict(ms=ms, plain_ms=plain, bound_ms=bmin,
+                                      bound_by=by, library_ms=None,
+                                      shape=dict(q=nq, ef=ef, r=r, m=m,
+                                                 c=LUT_C, n=n))
+        del luts, codes, nbrs
+
+    src = {"lut_dist": ("src/repro_torch/csrc/lut_dist.cu",
+                        "src/repro/kernels/lut_dist/lut_dist.py:47"),
+           "beam_hop_lut": ("src/repro_torch/csrc/beam_hop.cu",
+                            "src/repro/kernels/beam_hop/beam_hop.py:117")}
+    res = {}
+    for name, by_m in out.items():
+        head = by_m[LUT_MS[0]]
+        res[name] = dict(route="cuda", source=src[name][0],
+                         replaces=src[name][1], max_abs_err=worst[name],
+                         **{k_: v for k_, v in head.items() if k_ != "shape"},
+                         shape=head["shape"],
+                         by_m={str(m): v for m, v in by_m.items()})
     return res
 
 
@@ -281,6 +421,86 @@ def profile_busy(torch, fn) -> dict:
             "profiled_wall_ms": wall * 1e3,
             "top_kernels": [{"name": n[:60], "ms": v[0] / 1e3, "count": v[1]}
                             for n, v in top]}
+
+
+def quantized_phase(torch, index, queries, true_i, backend: str,
+                    wrappers: dict, seed: int) -> dict:
+    """Quantize the fitted index with ``backend`` (PQ's k-means++ seeds
+    drawn from ``seed``) and serve the queries through the fused LUT hop
+    with the config's exact rerank; check the staged hop and the CPU.
+    Returns the launches of every kernel over quantize + serve (the counts
+    are zeroed just before and read just after)."""
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.pipeline import TunedGraphIndex
+
+    k, ef, rerank = CONFIG.k, CONFIG.ef_search, CONFIG.rerank
+    n_queries = queries.shape[0]
+    kw = dict(ef=ef, rerank=rerank, dist_backend=backend)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    index.quantize(backend, generator=torch.Generator().manual_seed(seed))
+    quantize_s = time.perf_counter() - t
+    index.search(queries, k, hop_backend="fused", **kw)            # warm
+    times = []
+    for _ in range(SERVE_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d_f, i_f = index.search(queries, k, hop_backend="fused", **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    stats_f = index.search_stats()
+    prof = profile_busy(torch, lambda: index.search(
+        queries, k, hop_backend="fused", **kw))
+    launches = {name: w.launches for name, w in wrappers.items()}
+    serve_s = statistics.median(times)
+    busy = prof["device_busy_ms"]
+    iters = (stats_f["hops"] + stats_f["wasted_hops"]) / n_queries
+    recall = recall_at_k(i_f.cpu(), true_i.cpu())
+    emit("quantized", backend=backend, quantize_seconds=quantize_s,
+         codec_seconds=index.quantize_seconds,
+         code_bytes=index.codes.numel() * index.codes.element_size(),
+         codes_shape=list(index.codes.shape),
+         memory_bytes=index.memory_bytes(), queries=n_queries, k=k, ef=ef,
+         rerank=rerank, runs=SERVE_RUNS, qps=n_queries / serve_s,
+         qps_min=n_queries / max(times), qps_max=n_queries / min(times),
+         seconds=serve_s, recall_at_10=recall, stats=stats_f,
+         loop_iterations=iters, ms_per_iteration=serve_s * 1e3 / iters,
+         device_busy_share=None if busy is None else busy / (serve_s * 1e3),
+         profile=prof, launches=launches)
+    if not (torch.isfinite(d_f).all() and i_f.shape == (n_queries, k)):
+        raise AssertionError(f"{backend} search returned non-finite or "
+                             f"mis-shaped results")
+    if recall < 0.80:
+        raise AssertionError(f"{backend} recall@10 {recall} below the "
+                             f"0.80 floor")
+
+    # the staged LUT hop equals the fused one, bit for bit
+    d_s, i_s = index.search(queries, k, hop_backend="staged", **kw)
+    stats_s = index.search_stats()
+    same = (torch.equal(d_s, d_f) and torch.equal(i_s, i_f)
+            and stats_s == stats_f)
+    # REF_QUERIES of the queries on the CPU, from the saved state (plain
+    # versions of every kernel): the projection's matmul rounds otherwise,
+    # so ids on >= 99% of rows and dists to rtol = atol = 1e-5
+    cpu_index = TunedGraphIndex.from_state(index.state_dict(), device="cpu")
+    nq = min(REF_QUERIES, n_queries)
+    d_c, i_c = cpu_index.search(queries[:nq].cpu(), k, hop_backend="fused",
+                                **kw)
+    rows = float((i_c == i_f[:nq].cpu()).all(1).float().mean())
+    close = torch.allclose(d_c, d_f[:nq].cpu(), rtol=1e-5, atol=1e-5)
+    emit("quantized_checks", backend=backend, staged_equal_to_fused=same,
+         staged_stats=stats_s, cpu_queries=nq, cpu_ids_equal_rows=rows,
+         cpu_dists_close=close,
+         cpu_max_abs_err=float((d_c - d_f[:nq].cpu()).abs().max()))
+    if not same:
+        raise AssertionError(f"{backend}: staged hop differs from the fused "
+                             f"hop")
+    if rows < 0.99 or not close:
+        raise AssertionError(f"{backend}: the card's search disagrees with "
+                             f"the plain PyTorch versions on the CPU")
+    return launches
 
 
 def recall_at_k(found, truth) -> float:
@@ -345,11 +565,13 @@ def main() -> int:
     from repro_torch.core.build.finish import reachable_from
     from repro_torch.core.pipeline import IndexParams, TunedGraphIndex
     from repro_torch.data import clustered_vectors, queries_like
-    from repro_torch.kernels.beam_hop import beam_hop_cuda
+    from repro_torch.kernels.beam_hop import beam_hop_cuda, beam_hop_lut_cuda
     from repro_torch.kernels.gather_dist import gather_dist_cuda
+    from repro_torch.kernels.lut_dist import lut_dist_cuda
     from repro_torch.kernels.topk_merge import topk_merge_cuda
     wrappers = {"gather_dist": gather_dist_cuda, "beam_hop": beam_hop_cuda,
-                "topk_merge": topk_merge_cuda}
+                "topk_merge": topk_merge_cuda, "lut_dist": lut_dist_cuda,
+                "beam_hop_lut": beam_hop_lut_cuda}
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     data = clustered_vectors(gen, n, CONFIG.dim)
@@ -448,13 +670,37 @@ def main() -> int:
         raise AssertionError("the card's search disagrees with the plain "
                              "PyTorch versions on the CPU")
 
-    # 8. the kernels line
+    # 8. quantized serving on the same index: pq (M = 300), then int8
+    # (M = 600) — launch counts of the LUT kernels from these runs
+    # (quantize + serve) only, kept per M
+    lut_launches = {"lut_dist": {}, "beam_hop_lut": {}}
+    for backend, m in zip(("pq", "int8"), LUT_MS):
+        counts = quantized_phase(torch, index, queries, true_i, backend,
+                                 wrappers, args.seed)
+        for name in lut_launches:
+            lut_launches[name][m] = counts[name]
+    launches.update({name: sum(by_m.values())
+                     for name, by_m in lut_launches.items()})
+
+    # 9. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
+    # times at the top, its total launches over both backends, and each
+    # M's times and launches under by_m.
     line = []
     for name, info in kernels.items():
-        info = {k_: v for k_, v in info.items() if k_ != "shape"}
-        line.append({"name": name, **info, "launches": launches[name]})
+        entry = {k_: v for k_, v in info.items()
+                 if k_ not in ("shape", "by_m")}
+        entry["launches"] = launches[name]
+        if name in lut_launches:
+            entry["m"] = LUT_MS[0]
+            entry["by_m"] = {
+                str(m): {**{k_: v for k_, v in info["by_m"][str(m)].items()
+                            if k_ != "shape"},
+                         "launches": lut_launches[name][m]}
+                for m in LUT_MS}
+        line.append({"name": name, **entry})
     print(json.dumps({"kernels": line}), flush=True)
-    if min(launches.values()) <= 0:
+    if min(launches.values()) <= 0 or min(
+            c for by_m in lut_launches.values() for c in by_m.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the main path: "
                              f"{launches}")
     print(smi, flush=True)

@@ -15,6 +15,11 @@ Two hop backends:
     the ``gather_dist`` family (``gather_backend="kernel"``, or the
     default on CUDA).
 
+Under a quantized ``dist_backend`` ("pq" | "int8") the hops score uint8
+codes with a per-query LUT: the staged hop through ``kernels/lut_dist``,
+the fused hop through ``kernels/beam_hop`` in LUT mode, which share one
+left-to-right sum and so agree bit for bit on either device.
+
 Two loop modes: ``while`` runs until no query is live (one host sync per
 hop), ``fori`` runs exactly ``max_iters`` guarded hops.
 
@@ -27,9 +32,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.quant import check_dist_backend
 from repro_torch.kernels.beam_hop import beam_hop as _kernel_beam_hop
 from repro_torch.kernels.beam_hop import merge_one
 from repro_torch.kernels.gather_dist import gather_dist as _kernel_gather_dist
+from repro_torch.kernels.lut_dist import lut_dist as _kernel_lut_dist
 
 INF = float("inf")
 
@@ -92,13 +99,14 @@ def _expand_batch(state, queries, db, neighbors, gather_dist_b):
             n_gath + valid.sum(1, dtype=torch.int32), n_dup + dup)
 
 
-def _expand_fused(state, queries, db, neighbors):
+def _expand_fused(state, q_or_lut, table, neighbors, dist_backend):
     """One ``kernels/beam_hop`` launch: gather + distance + merge fused."""
     pool_i, pool_d, pool_v, n_hops, n_gath, n_dup = state
     pool_v, node, active = _select_frontier(pool_i, pool_d, pool_v)
     sel = torch.where(active, node, -1).to(torch.int32)
     pool_i, pool_d, pool_v, stats = _kernel_beam_hop(
-        sel, neighbors, pool_i, pool_d, pool_v, queries, db)
+        sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
+        dist_backend)
     return (pool_i, pool_d, pool_v, n_hops + active.to(torch.int32),
             n_gath + stats[:, 0], n_dup + stats[:, 1])
 
@@ -129,10 +137,6 @@ def resolve_hop_backend(backend: Optional[str],
     return backend
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"beam_search {what} is not ported yet (ROADMAP Queue 1 item 3 "
-        f"for quantized traversal, item 4 for straggler control)")
 
 
 def beam_search(queries: torch.Tensor, db: torch.Tensor,
@@ -140,26 +144,34 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
                 ef: int, k: int, max_iters: int = 0, mode: str = "while",
                 gather_backend: Optional[str] = None,
                 dist_backend: str = "f32",
+                codes: Optional[torch.Tensor] = None,
+                lut: Optional[torch.Tensor] = None,
                 hop_backend: Optional[str] = None,
                 patience: Optional[int] = None,
                 with_stats: bool = False):
     """Batched graph search.
 
     queries: (Q, D); db: (N, D); neighbors: (N, R) int32 (-1 padded);
-    entry_ids: (Q,) int32 per-query entry points. Returns (dists (Q, k) f32
-    ascending, ids (Q, k) int32, hops (Q,) int32); with ``with_stats=True``
-    the third element is a full ``BeamStats``.
+    entry_ids: (Q,) int32 per-query entry points. Under
+    ``dist_backend="pq"|"int8"`` the hops score ``codes`` (N, M) uint8
+    with ``lut`` (Q, M, C) f32 instead of the f32 rows (the returned
+    distances are then the LUT's approximations). Returns (dists (Q, k)
+    f32 ascending, ids (Q, k) int32, hops (Q,) int32); with
+    ``with_stats=True`` the third element is a full ``BeamStats``.
     """
-    if dist_backend != "f32":
-        raise _not_ported(f"dist_backend={dist_backend!r}")
     if patience is not None:
-        raise _not_ported("patience")
+        raise NotImplementedError(
+            "beam_search patience is not ported yet (ROADMAP Queue 1 item 4,"
+            " straggler control)")
     if mode not in ("while", "fori"):
         raise ValueError(f"bad mode {mode!r}")
+    check_dist_backend(dist_backend)
     max_iters = max_iters or 4 * ef
     gd, body = _batched_hop_setup(queries, db, neighbors,
                                   gather_backend=gather_backend,
-                                  hop_backend=hop_backend)
+                                  hop_backend=hop_backend,
+                                  dist_backend=dist_backend, codes=codes,
+                                  lut=lut)
     state = _seed_batched(queries, db, neighbors, entry_ids, ef, gd)
     state = _run_hops(state, body, max_iters=max_iters, mode=mode)
     pool_i, pool_d, _, hops, gath, dup, wasted = state
@@ -170,12 +182,20 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
 
 
 def _batched_hop_setup(queries, db, neighbors, *, gather_backend,
-                       hop_backend):
+                       hop_backend, dist_backend="f32", codes=None,
+                       lut=None):
     """Resolve the hop backend + distance callable; returns ``(gd, body)``
     where ``gd`` seeds the pool's entry distances and ``body`` is one hop
-    over the 6-tuple core state."""
+    over the 6-tuple core state. Under a quantized ``dist_backend`` ``gd``
+    is the LUT distance (``queries`` and ``db`` only fill its signature)."""
     hop = resolve_hop_backend(hop_backend, db.device)
-    if hop == "fused":
+    if dist_backend != "f32":
+        if codes is None or lut is None:
+            raise ValueError(
+                f"dist_backend={dist_backend!r} needs codes and lut "
+                f"(encode the db with a core.quant codec first)")
+        gd = lambda q, db_, ids: _kernel_lut_dist(lut, codes, ids)
+    elif hop == "fused":
         # the fused hop's in-kernel arithmetic is gather_dist's: seed the
         # pool from the same family so the entry distances carry the bits
         # the hops will reproduce
@@ -186,7 +206,10 @@ def _batched_hop_setup(queries, db, neighbors, *, gather_backend,
         gd = _kernel_gather_dist
 
     if hop == "fused":
-        body = lambda s: _expand_fused(s, queries, db, neighbors)
+        q_or_lut, table = (queries, db) if dist_backend == "f32" else \
+            (lut, codes)
+        body = lambda s: _expand_fused(s, q_or_lut, table, neighbors,
+                                       dist_backend)
     else:
         body = lambda s: _expand_batch(s, queries, db, neighbors, gd)
     return gd, body

@@ -13,11 +13,12 @@ import torch
 
 
 def pairwise_sqdist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Squared L2 distances. q: (Q, D), x: (N, D) -> (Q, N)."""
+    """Squared L2 distances. q: (..., Q, D), x: (..., N, D) -> (..., Q, N)."""
     q32, x32 = q.float(), x.float()
-    qn = (q32 * q32).sum(-1, keepdim=True)                   # (Q, 1)
-    xn = (x32 * x32).sum(-1)                                 # (N,)
-    return (qn + xn[None, :] - 2.0 * (q32 @ x32.T)).clamp_min(0.0)
+    qn = (q32 * q32).sum(-1, keepdim=True)                   # (..., Q, 1)
+    xn = (x32 * x32).sum(-1)                                 # (..., N)
+    return (qn + xn[..., None, :]
+            - 2.0 * (q32 @ x32.transpose(-1, -2))).clamp_min(0.0)
 
 
 def pack_keys(d: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """k-means (k-means++ init + Lloyd) for entry-point clustering (paper
-§3.1, knob k).
+§3.1, knob k) and PQ codebook training.
 
 Random draws come from a ``torch.Generator`` on the CPU, so one seed gives
 one init whatever device holds the data. ``init_centroids`` skips the
@@ -25,18 +25,36 @@ class KMeansResult(NamedTuple):
 def kmeanspp_init(generator: torch.Generator, x: torch.Tensor,
                   k: int) -> torch.Tensor:
     """k-means++ seeding: each next centroid drawn with probability
-    proportional to its squared distance to the nearest chosen one."""
-    n = x.shape[0]
-    first = int(torch.randint(0, n, (), generator=generator))
-    cents = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-    cents[0] = x[first]
-    mind = pairwise_sqdist(x[first][None, :], x)[0]          # (N,)
+    proportional to its squared distance to the nearest chosen one.
+
+    x (N, D) -> (k, D); a batch (B, N, D) -> (B, k, D) runs B independent
+    seedings at once (PQ seeds all its sub-spaces in one run). A run's
+    draws — the first index and k - 1 uniforms per batch member — come from
+    the CPU ``generator`` in one go; each next centroid is then picked on
+    x's device by inverse CDF (a float64 cumsum of the distances, then
+    ``searchsorted``), so no step waits on the host.
+    """
+    batched = x.dim() == 3
+    xb = x if batched else x[None]
+    b, n, _ = xb.shape
+    dev = x.device
+    first = torch.randint(0, n, (b,), generator=generator).to(dev)
+    u = torch.rand((b, max(k - 1, 0)), generator=generator,
+                   dtype=torch.float64).to(dev)
+    rows = torch.arange(b, device=dev)
+    cents = torch.zeros((b, k, xb.shape[2]), dtype=x.dtype, device=dev)
+    cents[:, 0] = xb[rows, first]
+    mind = pairwise_sqdist(cents[:, :1], xb)[:, 0]             # (B, N)
     for i in range(1, k):
-        p = (mind / mind.sum().clamp_min(1e-12)).double().cpu()
-        nxt = int(torch.multinomial(p, 1, generator=generator))
-        cents[i] = x[nxt]
-        mind = torch.minimum(mind, pairwise_sqdist(x[nxt][None, :], x)[0])
-    return cents
+        cdf = torch.cumsum(mind.double(), dim=1)
+        # first point whose cumulative mass exceeds u * total: a point at
+        # distance 0 (already chosen) is never picked while mass remains
+        nxt = torch.searchsorted(cdf, u[:, i - 1:i] * cdf[:, -1:],
+                                 right=True)[:, 0].clamp_max(n - 1)
+        cents[:, i] = xb[rows, nxt]
+        mind = torch.minimum(mind,
+                             pairwise_sqdist(cents[:, i:i + 1], xb)[:, 0])
+    return cents if batched else cents[0]
 
 
 def kmeans(generator: Optional[torch.Generator], x: torch.Tensor, k: int,

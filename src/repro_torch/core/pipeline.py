@@ -2,10 +2,10 @@
 NSG build -> k-means entry points; search = project -> select EP -> beam.
 
 ``IndexParams`` carries every knob of the reference's, so a reference
-state's ``meta["params"]`` loads as is. The port runs the configuration
-of this slice: f32 serving, the exact kNN table, search pools and the host
-finishing pass. Every other option raises ``NotImplementedError`` naming
-the ROADMAP item that brings it.
+state's ``meta["params"]`` loads as is. The port runs the exact kNN table,
+search pools and the host finishing pass, and serves in f32 or quantized
+(pq | int8 LUT traversal with an exact f32 rerank). Every other option
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -25,6 +25,9 @@ from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.entry_points import EntryPointSelector, fit_entry_points
 from repro_torch.core.nsg import NSGGraph, build_nsg
 from repro_torch.core.pca import PCA, fit_pca
+from repro_torch.core.quant import Int8Codec, PQCodec, check_dist_backend, \
+    make_codec
+from repro_torch.kernels.gather_dist import gather_dist
 
 
 @dataclass(frozen=True)
@@ -64,11 +67,7 @@ class IndexParams:
         return IndexParams(**p)
 
 
-def _check_serving(dist_backend: str, patience: int, compact_every: int):
-    if dist_backend != "f32":
-        raise NotImplementedError(
-            f"dist_backend={dist_backend!r}: quantized traversal is not "
-            f"ported yet (ROADMAP Queue 1 item 3)")
+def _check_serving(patience: int, compact_every: int):
     if patience or compact_every:
         raise NotImplementedError(
             "patience / compact_every: straggler control is not ported yet "
@@ -91,14 +90,20 @@ class TunedGraphIndex:
         self.build_stats = None                       # NSGBuildStats of fit
         self.input_dim: int = 0
         self.knn_ids: Optional[torch.Tensor] = None   # build-time kNN table
+        self.codec = None                             # core.quant codec
+        self.codes: Optional[torch.Tensor] = None     # (N, M) uint8 db codes
+        self.codec_backend: Optional[str] = None      # "pq" | "int8"
+        self.quantize_seconds: dict = {}              # codec fit / encode
         self.last_search_stats: Optional[BeamStats] = None
 
     # -- build ------------------------------------------------------------
     def fit(self, data, generator: Optional[torch.Generator] = None):
-        """Build the full pipeline; ``generator`` draws the k-means++ init
-        (default: a CPU generator seeded with 0)."""
+        """Build the full pipeline; ``generator`` draws the k-means++ inits
+        of the entry points and, under a quantized ``dist_backend``, of the
+        PQ codebooks (default: a CPU generator seeded with 0)."""
         p = self.params
-        _check_serving(p.dist_backend, p.patience, p.compact_every)
+        _check_serving(p.patience, p.compact_every)
+        check_dist_backend(p.dist_backend)
         pools = p.pools_backend
         if pools == "auto":
             pools = "search" if p.knn_backend == "exact" else "nndescent"
@@ -160,8 +165,46 @@ class TunedGraphIndex:
         self.eps = fit_entry_points(generator, base, p.ep_clusters)
         synchronize(dev)
         stages["entry_points"] = time.perf_counter() - t
+        if p.dist_backend != "f32":
+            t = time.perf_counter()
+            self.quantize(generator=generator)
+            stages["quantize"] = time.perf_counter() - t
         self.stage_seconds = stages
         self.build_seconds = time.perf_counter() - t0
+        return self
+
+    def quantize(self, dist_backend: Optional[str] = None,
+                 pq_m: Optional[int] = None, *,
+                 generator: Optional[torch.Generator] = None
+                 ) -> "TunedGraphIndex":
+        """Train a traversal codec on the projected base and encode it once.
+
+        Called by ``fit`` when ``params.dist_backend != "f32"`` and by
+        ``search`` when it is asked for another backend than the codec's;
+        call it to quantize an f32-built index after the fact.
+        ``generator`` draws the PQ k-means++ seeds (default: a CPU
+        generator seeded with 0). The seconds of the codec fit and of the
+        encode land in ``quantize_seconds``.
+        """
+        if self.base is None:
+            raise RuntimeError("fit() first")
+        p = self.params
+        backend = dist_backend or (
+            p.dist_backend if p.dist_backend != "f32" else "pq")
+        m = pq_m if pq_m is not None else p.pq_m
+        dev = self.device
+        synchronize(dev)
+        t = time.perf_counter()
+        codec = make_codec(backend, self.base.shape[1], m)
+        codec.fit(self.base, generator=generator)
+        synchronize(dev)
+        t_fit = time.perf_counter() - t
+        t = time.perf_counter()
+        self.codes = codec.encode(self.base).contiguous()
+        synchronize(dev)
+        self.quantize_seconds = {"fit": t_fit,
+                                 "encode": time.perf_counter() - t}
+        self.codec, self.codec_backend = codec, backend
         return self
 
     # -- search -----------------------------------------------------------
@@ -170,25 +213,49 @@ class TunedGraphIndex:
         return self.pca.transform(q) if self.pca is not None else q
 
     def search(self, queries, k: int, *, ef: Optional[int] = None,
-               mode: Optional[str] = None,
+               mode: Optional[str] = None, rerank: Optional[int] = None,
+               dist_backend: Optional[str] = None,
                hop_backend: Optional[str] = None):
         """Returns (dists (Q, k) in projected space, original ids (Q, k)).
 
-        Per-hop work counters of the latest call are kept on the index —
-        read them via ``search_stats()``.
+        Under ``dist_backend="pq"|"int8"`` the beam traverses the codec's
+        uint8 codes (re-quantizing first if the index holds another codec)
+        and its top ``rerank`` survivors are rescored exactly in f32: the
+        returned distances are exact for reranked entries, LUT
+        approximations when ``rerank=0``. Per-hop work counters of the
+        latest call are kept on the index — read them via
+        ``search_stats()``.
         """
         if self.graph is None:
             raise RuntimeError("fit() first")
-        _check_serving(self.params.dist_backend, self.params.patience,
-                       self.params.compact_every)
+        _check_serving(self.params.patience, self.params.compact_every)
         ef = ef or self.params.ef_search
         mode = mode or "while"
+        dist_backend = check_dist_backend(
+            dist_backend or self.params.dist_backend)
+        rerank = rerank if rerank is not None else self.params.rerank
         hop_backend = hop_backend or self.params.hop_backend
         q = self.project(queries).contiguous()
         entries = self.eps.select(q)
+        bs_kw = dict(ef=max(ef, k), mode=mode, hop_backend=hop_backend,
+                     with_stats=True)
+        if dist_backend == "f32":
+            kb = k
+        else:
+            if self.codec is None or self.codec_backend != dist_backend:
+                self.quantize(dist_backend)
+            # keep enough LUT-ranked survivors for the exact tail to pick
+            # a true top-k from
+            kb = min(max(rerank, k), max(ef, k))
+            bs_kw.update(dist_backend=dist_backend, codes=self.codes,
+                         lut=self.codec.lut(q))
         d, i, stats = beam_search(q, self.base, self.graph.neighbors,
-                                  entries, ef=max(ef, k), k=k, mode=mode,
-                                  hop_backend=hop_backend, with_stats=True)
+                                  entries, k=kb, **bs_kw)
+        if dist_backend != "f32":
+            if rerank > 0:
+                d, i = _exact_rerank(q, self.base, i, k)
+            else:
+                d, i = d[:, :k], i[:, :k]
         self.last_search_stats = stats
         orig = torch.where(i >= 0, self.kept_idx[i.clamp_min(0).long()], -1)
         return d, orig
@@ -216,7 +283,8 @@ class TunedGraphIndex:
         return 0 if self.base is None else self.base.shape[0]
 
     def memory_bytes(self) -> int:
-        """Index footprint: vectors + graph + entry-point structures."""
+        """Index footprint: vectors + graph + entry-point structures +
+        quantized codes and codebooks (when a codec is attached)."""
         total = self.base.numel() * self.base.element_size()
         total += self.graph.neighbors.numel() * 4
         total += self.kept_idx.numel() * 4
@@ -224,6 +292,10 @@ class TunedGraphIndex:
             total += (self.pca.components.numel() + self.pca.mean.numel()) * 4
         total += (self.eps.centroids.numel() * 4
                   + self.eps.member_ids.numel() * 4)
+        if self.codes is not None:
+            total += self.codes.numel() * self.codes.element_size()
+        if self.codec is not None:
+            total += self.codec.memory_bytes()
         return int(total)
 
     # -- persistence ------------------------------------------------------
@@ -243,19 +315,22 @@ class TunedGraphIndex:
             arrays["pca_mean"] = self.pca.mean
             arrays["pca_components"] = self.pca.components
             arrays["pca_explained"] = self.pca.explained
+        if self.codec is not None:
+            arrays["codes"] = self.codes
+            if isinstance(self.codec, PQCodec):
+                arrays["codec_codebooks"] = self.codec.codebooks
+            else:                                     # int8 scalar codec
+                arrays["codec_scale"] = self.codec.scale
+                arrays["codec_zero"] = self.codec.zero
         return {"meta": {"params": asdict(self.params),
                          "input_dim": self.input_dim,
-                         "codec_backend": None,
+                         "codec_backend": self.codec_backend,
                          "build_seconds": self.build_seconds},
                 "arrays": {k: v.cpu().numpy() for k, v in arrays.items()}}
 
     @classmethod
     def from_state(cls, state: dict, device=None) -> "TunedGraphIndex":
         meta, a = state["meta"], state["arrays"]
-        if meta.get("codec_backend") is not None or "codes" in a:
-            raise NotImplementedError(
-                "codec state (quantized traversal) is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         idx = cls(IndexParams(**meta["params"]), device=device)
         dev = idx.device
         t = lambda name: torch.from_numpy(np.array(a[name])).to(dev)
@@ -275,7 +350,34 @@ class TunedGraphIndex:
             idx.pca = PCA(mean=t("pca_mean").float(),
                           components=t("pca_components").float(),
                           explained=t("pca_explained").float())
+        backend = meta.get("codec_backend")
+        if backend is not None:
+            if "codec_codebooks" in a:                # PQ
+                books = t("codec_codebooks").float()
+                codec = PQCodec(books.shape[0], books.shape[1])
+                codec.codebooks = books
+            else:                                     # int8
+                codec = Int8Codec()
+                codec.scale = t("codec_scale").float()
+                codec.zero = t("codec_zero").float()
+            idx.codec, idx.codec_backend = codec, backend
+            idx.codes = t("codes").to(torch.uint8).contiguous()
         return idx
+
+
+def _exact_rerank(queries: torch.Tensor, base: torch.Tensor,
+                  ids: torch.Tensor, k: int):
+    """Exact f32 squared-L2 rescoring of the (Q, R') beam survivors -> top-k.
+
+    One gather_dist block over the survivor ids (the kernel on CUDA, its
+    plain diff-square version on the CPU), then a stable ascending sort:
+    among equal distances the lower survivor position comes first, the
+    tie rule of the reference's ``lax.top_k(-d, k)``. Padded ids (-1) carry
+    +inf and sort last.
+    """
+    d = gather_dist(queries, base, ids)
+    pos = torch.sort(d + 0.0, dim=1, stable=True).indices[:, :k]
+    return d.gather(1, pos), ids.gather(1, pos)
 
 
 def build_vanilla_nsg(data, *, degree: int = 32, ef_search: int = 64,

@@ -2,7 +2,9 @@
 //
 // row_sqdist is the one squared-L2 reduction that gather_dist.cu and
 // beam_hop.cu both call, so the fused hop (beam_hop) and the staged hop
-// (gather_dist + a PyTorch merge) produce the same bits on the card. The
+// (gather_dist + a PyTorch merge) produce the same bits on the card;
+// lut_row_sum is its counterpart for quantized codes, shared by lut_dist.cu
+// and beam_hop.cu's LUT mode in the same way. The
 // sort helpers give the kernels that merge pools (beam_hop, topk_merge) an
 // exact stable order: every key is unique because its low bits hold the
 // element's position.
@@ -55,6 +57,49 @@ __device__ __forceinline__ float row_sqdist(const float* __restrict__ q,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(kFullMask, acc, off));
+  return acc;
+}
+
+// Asymmetric (LUT) distance of one code row: sum over m < M of
+// lut[m * C + code[m]], added strictly from m = 0 upwards with
+// round-to-nearest adds — the reference's left-to-right order, so every
+// kernel that calls this equals the plain version bit for bit. One thread
+// computes the whole sum (a warp reduction would reassociate it).
+//
+// The sum starts from -0.0, which x + -0.0 leaves unchanged for every x
+// (+0.0 included), so the result is lut[code[0]] + lut[C + code[1]] + ...
+// exactly. Codes above C - 1 read entry C - 1. With vec4 (M % 4 == 0 and
+// the row 4-byte aligned) the code row is read as uchar4, four codes per
+// load, in the same order. LUT entries go through the read-only path; they
+// are gathered from device memory (one query's table, M * C * 4 bytes, is
+// 300 KB at M = 300 and does not fit in shared memory).
+__device__ __forceinline__ float lut_row_sum(const uint8_t* __restrict__ code,
+                                             const float* __restrict__ lut,
+                                             int m, int c, bool vec4) {
+  const int top = c - 1;
+  float acc = -0.0f;
+  if (vec4) {
+    const uchar4* code4 = reinterpret_cast<const uchar4*>(code);
+    const int n4 = m >> 2;
+#pragma unroll 4
+    for (int i = 0; i < n4; ++i) {
+      const uchar4 v = __ldg(code4 + i);
+      const float* t = lut + (long long)(4 * i) * c;
+      const float a = __ldg(t + min((int)v.x, top));
+      const float b = __ldg(t + c + min((int)v.y, top));
+      const float e = __ldg(t + 2 * c + min((int)v.z, top));
+      const float f = __ldg(t + 3 * c + min((int)v.w, top));
+      acc = __fadd_rn(acc, a);
+      acc = __fadd_rn(acc, b);
+      acc = __fadd_rn(acc, e);
+      acc = __fadd_rn(acc, f);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < m; ++i)
+      acc = __fadd_rn(acc, __ldg(lut + (long long)i * c +
+                                 min((int)__ldg(code + i), top)));
+  }
   return acc;
 }
 

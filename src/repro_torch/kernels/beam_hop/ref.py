@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the fused beam hop, plus the pool merge it
-shares with the staged traversal path (the reference's
+"""Plain PyTorch version of the fused beam hop, in f32 and LUT mode, plus
+the pool merge it shares with the staged traversal path (the reference's
 ``beam_hop/ref.py``).
 
 ``merge_one`` is batched over the leading axes: the staged expansion and
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.gather_dist.ref import gather_dist_ref
+from repro_torch.kernels.lut_dist.ref import lut_dist_ref
 
 INF = float("inf")
 
@@ -40,12 +41,15 @@ def merge_one(pool_i, pool_d, pool_v, cand_i, cand_d):
             vis.gather(-1, order), n_dup)
 
 
-def beam_hop_ref(sel, neighbors, pool_i, pool_d, pool_v, queries, db):
+def beam_hop_ref(sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
+                 dist_backend: str = "f32"):
     """One hop: neighbor gather -> distances -> pool merge.
 
     sel (Q,) int32 selected nodes (-1 = lane inactive this hop);
     neighbors (N, R) int32 (-1 padded); pool_* (Q, ef) with the frontier
-    slot already marked visited; queries (Q, D) f32; db (N, D) f32.
+    slot already marked visited. ``dist_backend="f32"``: q_or_lut is the
+    (Q, D) f32 queries and table the (N, D) f32 db; ``"pq"``/``"int8"``:
+    q_or_lut is the (Q, M, C) f32 LUT and table the (N, M) uint8 codes.
     Returns (pool_i, pool_d, pool_v, stats) with stats (Q, 2) int32 =
     [neighbor rows gathered, duplicate gathers] per query.
     """
@@ -53,7 +57,10 @@ def beam_hop_ref(sel, neighbors, pool_i, pool_d, pool_v, queries, db):
     nbr = neighbors[sel.clamp_min(0).long()]                 # (Q, R)
     valid = (nbr >= 0) & active[:, None]
     safe = torch.where(valid, nbr, 0)
-    nd = gather_dist_ref(queries, db, safe)
+    if dist_backend == "f32":
+        nd = gather_dist_ref(q_or_lut, table, safe)
+    else:
+        nd = lut_dist_ref(q_or_lut, table, safe)
     nd = torch.where(valid, nd, INF)
     pool_i, pool_d, pool_v, n_dup = merge_one(
         pool_i, pool_d, pool_v, torch.where(valid, safe, -1), nd)

@@ -32,6 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gather_dist_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "beam_hop_f32": [_P] * 11 + [_I] * 7 + [_P],
+    "beam_hop_lut": [_P] * 11 + [_I] * 8 + [_P],
+    "lut_dist_f32": [_P] * 4 + [_I] * 6 + [_P],
     "beam_hop_smem_bytes": [_I, _I, _I],
     "topk_merge_rows": [_P] * 6 + [_I] * 5 + [_P],
     "topk_merge_smem_bytes": [_I],
