@@ -12,14 +12,18 @@ Phases, each printing one JSON line:
                 on integer-valued inputs, within tolerance on float inputs)
                 and times both with CUDA events; then lut_dist and beam_hop
                 in LUT mode at M = 300 (pq) and M = 600 (int8), which must
-                equal their plain versions bit for bit on float inputs too.
+                equal their plain versions bit for bit on float inputs too;
+                then l2topk at each of its shapes on the path (AntiHub,
+                kNN, ground truth, k-means, medoid, entry-point select, PQ),
+                exact on tied integer inputs, within rtol 1e-5 on float
+                inputs.
   4. fit      — builds TunedGraphIndex with the ann-laion config
                 (knn_backend="exact", finish_backend="host") on
                 clustered_vectors(300000, 768) from --seed (the config's
                 N and width; only the seed is an option).
   5. serve    — 1024 queries, k=10, ef=64, fused hop: QPS, recall@10 against
                 the exact top-10 in the raw space, the hop counters, and the
-                brute-force QPS.
+                brute-force QPS (the l2topk kernel over the raw vectors).
   6. staged   — the same search with the staged hop must equal the fused one
                 exactly (ids, dists, counters).
   7. reference — 256 of the queries searched again on the CPU, where every
@@ -29,12 +33,26 @@ Phases, each printing one JSON line:
                 the config's rerank (64) and the fused LUT hop (QPS, recall@10, counters,
                 device-busy share); the staged search must equal it bit for
                 bit, and 256 queries searched again on the CPU must agree.
-  9. the kernels line: launches on the main path (fit + serve for the f32
-                kernels, quantize + serve for the LUT kernels), errors,
-                times and bounds; every kernel must have launched. A LUT
-                kernel's entry holds its M = 300 times with its launches
-                over both backends, and under "by_m" each M's times and
-                launches (pq runs M = 300, int8 M = 600).
+  9. tune     — the paper's tuner on the same data and queries: an
+                AnnObjective (base: the config, graph_degree 32) with a TPE
+                study of 8 trials over default_space's rebuild-free knobs
+                (graph_degree, alpha, ep_clusters, ef_search, hop_backend,
+                patience), the structural knobs held at the config's; it
+                must make exactly one structural build and one family pass,
+                every derived graph must be reachable from the medoid, and a
+                repruned trial's graph must equal reprune_nsg's, id for id.
+ 10. tune_cli — python -m repro_torch.launch.tune at N=20000, D=768 (the
+                full default_space: several structural builds) must exit 0
+                and print its Pareto front and build log.
+ 11. the kernels line: launches on the main path (fit + serve for the f32
+                kernels and l2topk, quantize + serve for the LUT kernels),
+                errors, times and bounds; every kernel must have launched.
+                A LUT kernel's entry holds its M = 300 times with its
+                launches over both backends, and under "by_m" each M's
+                times and launches (pq runs M = 300, int8 M = 600); the
+                l2topk entry holds its AntiHub-shape times, and under
+                "by_shape" each shape's; "launches_tune" is each kernel's
+                count over the tune phase.
 
 Any failed check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,6 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 # Data-sheet peaks (NVIDIA H100 SXM, dense, without sparsity) of the one
@@ -62,6 +81,11 @@ LUT_MS = (300, 600)                        # pq (default_pq_m(600)), int8
 LUT_C = 256
 SERVE_RUNS = 7                             # timed searches (median)
 REF_QUERIES = 256                          # searched again on the CPU
+TUNE_TRIALS = 8                            # the tune phase's study
+TUNE_CLI_ARGS = ["--n", "20000", "--dim", "768", "--queries", "256",
+                 "--trials", "6", "--mode", "multi", "--knn-backend", "exact",
+                 "--finish-backend", "host", "--max-degree", "32"]
+TUNE_CLI_TIMEOUT = 600
 
 
 def emit(phase: str, **fields) -> None:
@@ -397,6 +421,89 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
     return res
 
 
+def l2topk_shapes() -> dict:
+    """The l2topk calls of the main path, from the ann-laion config: name
+    -> (Q, N, D, k)."""
+    from repro_torch.configs.ann_laion import ANN_SHAPES, CONFIG
+    from repro_torch.core.quant import default_pq_m
+    n, d0, d = CONFIG.n_database, CONFIG.dim, CONFIG.pca_dim
+    n_kept = max(1, math.ceil(CONFIG.antihub_keep * n))
+    chunk = ANN_SHAPES["build_knn"].batch          # knn_graph's query chunk
+    batch = ANN_SHAPES["search_300k"].batch
+    return {
+        "antihub": (chunk, n, d0, 11),             # raw 10-NN (+ self)
+        "knn": (chunk, n_kept, d, CONFIG.build_knn_k + 1),
+        "ground_truth": (batch, n, d0, CONFIG.k),
+        "kmeans": (n_kept, CONFIG.ep_clusters, d, 1),
+        "medoid": (1, n_kept, d, 1),
+        "entry_select": (batch, CONFIG.ep_clusters, d, 1),
+        "pq": (n_kept, 256, d // default_pq_m(d), 1),
+    }
+
+
+def l2topk_kernel_phase(torch, gpu: str, seed: int) -> dict:
+    """l2topk at each of its main-path shapes against its plain version:
+    integer inputs in [-1, 1] (many tied distances) must give the same ids
+    and the same dist bits; float inputs dists within rtol = atol = 1e-5
+    and ids equal on >= 99% of rows (the kernel sums each dot product in
+    another order than cuBLAS). Both are timed with CUDA events; the plain
+    version is the route the main path took before this kernel (chunked
+    torch.matmul + packed-key torch.topk), not a yardstick of its speed.
+    No single PyTorch call computes a top-k of distances: no library
+    time."""
+    from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 202)
+    out, worst = {}, 0.0
+    for name, (q, n, d, k) in l2topk_shapes().items():
+        for kind in ("int", "float"):
+            if kind == "int":
+                x = torch.randint(-1, 2, (n, d), generator=g,
+                                  device=dev).float()
+                qs = torch.randint(-1, 2, (q, d), generator=g,
+                                   device=dev).float()
+            else:
+                x = torch.randn((n, d), generator=g, device=dev)
+                qs = torch.randn((q, d), generator=g, device=dev)
+            gd, gi = l2topk_cuda(qs, x, k)
+            wd, wi = l2_topk_ref(qs, x, k)
+            if gi.shape != (q, min(k, n)):
+                raise AssertionError(f"l2topk ({name}) shape {gi.shape}")
+            if kind == "int":
+                if not (torch.equal(gi, wi) and torch.equal(
+                        gd.view(torch.int32), wd.view(torch.int32))):
+                    raise AssertionError(f"l2topk ({name}) differs from its "
+                                         f"plain version on integer data")
+            else:
+                err = (gd - wd).abs()
+                rows = float((gi == wi).all(1).float().mean())
+                if not bool((err <= 1e-5 + 1e-5 * wd.abs()).all()) \
+                        or rows < 0.99:
+                    raise AssertionError(
+                        f"l2topk ({name}): dists beyond rtol 1e-5 or ids "
+                        f"equal on {rows:.4f} of rows")
+                worst = max(worst, float(err.max()))
+        big = q * n * d > 1e11
+        reps, warm = (5, 1) if big else (25, 3)
+        ms = time_ms(lambda: l2topk_cuda(qs, x, k), reps, warm)
+        plain = time_ms(lambda: l2_topk_ref(qs, x, k), reps, warm)
+        bmin, by = bound((q + n) * d * 4 + q * k * 8,
+                         2 * q * n * d + 2 * (q + n) * d, gpu)
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bmin, bound_by=by,
+                         library_ms=None,
+                         shape=dict(q=q, n=n, d=d, k=k))
+        del x, qs
+    head = out["antihub"]
+    return dict(route="cuda", source="src/repro_torch/csrc/l2topk.cu",
+                replaces="src/repro/kernels/l2topk/l2topk.py:93",
+                max_abs_err=worst,
+                **{k_: v for k_, v in head.items() if k_ != "shape"},
+                shape=head["shape"], by_shape=out,
+                plain_is="the pre-PR route of the main path (chunked "
+                         "torch.matmul + packed-key torch.topk)")
+
+
 def profile_busy(torch, fn) -> dict:
     """Device-busy milliseconds of one ``fn()`` call from a torch.profiler
     trace (kernels on one stream do not overlap, so their durations add),
@@ -503,6 +610,132 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
     return launches
 
 
+def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
+    """The paper's tuner on the phase-4 data: AnnObjective + a TPE study
+    over default_space's rebuild-free knobs (the structural knobs held at
+    the config's), single objective, recall floor 0.9. Returns the launches
+    of every kernel over the phase (zeroed just before, read just after)."""
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.build import reprune_nsg
+    from repro_torch.core.build.finish import reachable_from
+    from repro_torch.core.pipeline import IndexParams, structural_build_count
+    from repro_torch.core.tuning import (
+        AnnObjective, SearchSpace, Study, TPESampler, default_space,
+    )
+
+    full = default_space(CONFIG.dim, CONFIG.n_database,
+                         max_degree=CONFIG.graph_degree)
+    space = SearchSpace()
+    for name in ("graph_degree", "alpha", "ep_clusters", "ef_search",
+                 "hop_backend", "patience"):
+        space.add(name, full.params[name])
+    base = IndexParams.from_config(CONFIG, knn_backend="exact",
+                                   finish_backend="host",
+                                   graph_degree=CONFIG.graph_degree)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    builds0 = structural_build_count()
+    t = time.perf_counter()
+    obj = AnnObjective(data, queries, k=CONFIG.k, base_params=base,
+                       recall_floor=0.9, qps_repeats=3, seed=seed,
+                       device="cuda")
+    gt_s = time.perf_counter() - t
+    study = Study(space, TPESampler(seed=seed, n_startup=5))
+    study.optimize(obj.single_objective, n_trials=TUNE_TRIALS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {name: w.launches for name, w in wrappers.items()}
+    builds = structural_build_count() - builds0
+    trials = [dict(params=params, recall=r.recall, qps=r.qps,
+                   build_seconds=r.build_seconds, cached=r.cached_build,
+                   repruned=r.repruned, mem_bytes=r.mem_bytes)
+              for params, r in obj.eval_log]
+    try:
+        best = study.best_trial
+        best = dict(number=best.number, params=best.params,
+                    feasible=best.feasible,
+                    recall=best.user_attrs["result"].recall,
+                    qps=best.user_attrs["result"].qps)
+    except ValueError:
+        best = None
+    grid_hits, family_prunes = obj.grid_hits, obj.family_prunes
+
+    # every trial's search again, through the objective's own caches: ids
+    # well shaped and in range (the counters are restored afterwards)
+    shapes_ok = True
+    for params, _ in obj.eval_log:
+        p = replace(obj.base, **params)
+        idx, _, _ = obj._get_index(p)
+        d_t, i_t = idx.search(queries, CONFIG.k, ef=max(p.ef_search,
+                                                        CONFIG.k),
+                              hop_backend=p.hop_backend,
+                              patience=p.patience)
+        shapes_ok &= bool(i_t.shape == (queries.shape[0], CONFIG.k)
+                          and torch.isfinite(d_t).all()
+                          and (i_t >= 0).all()
+                          and (i_t < data.shape[0]).all())
+    obj.grid_hits = grid_hits
+    # derived graphs: reachable from the medoid; one equals reprune_nsg's
+    full_index = next(iter(obj._build_cache.values()))
+    graphs = list(obj._graph_cache.items())
+    reach = [float(reachable_from(g.neighbors.cpu().numpy(),
+                                  int(g.medoid)).mean()) for _, g in graphs]
+    same_as_direct = None
+    if graphs:
+        gkey, g = graphs[0]
+        degree, alpha = gkey[-2], gkey[-1]
+        direct = reprune_nsg(full_index.base, full_index.graph, alpha=alpha,
+                             degree=degree, knn_ids=full_index.knn_ids,
+                             finish_backend="host")
+        same_as_direct = dict(degree=degree, alpha=alpha, equal=bool(
+            torch.equal(direct.neighbors, g.neighbors)
+            and int(direct.medoid) == int(g.medoid)))
+    emit("tune", seconds=seconds, ground_truth_and_setup_seconds=gt_s,
+         trials=trials, structural_builds=builds,
+         family_prunes=family_prunes, grid_hits=grid_hits,
+         best_feasible=best, derived_graphs=len(graphs),
+         derived_reachable=reach, reprune_check=same_as_direct,
+         searches_well_shaped=shapes_ok, launches=launches)
+    if builds != 1 or family_prunes != 1:
+        raise AssertionError(f"tune: {builds} structural builds and "
+                             f"{family_prunes} family passes, expected 1/1")
+    if not graphs or same_as_direct is None or not same_as_direct["equal"]:
+        raise AssertionError("tune: no repruned trial, or its graph differs "
+                             "from reprune_nsg's")
+    if min(reach) < 1.0:
+        raise AssertionError("tune: a derived graph is not reachable from "
+                             "the medoid")
+    if not shapes_ok or len(trials) != TUNE_TRIALS:
+        raise AssertionError("tune: a trial's search returned mis-shaped "
+                             "or non-finite results")
+    return launches
+
+
+def tune_cli_phase(src: Path) -> None:
+    """``python -m repro_torch.launch.tune`` at N=20000, D=768 as a
+    subprocess: it must exit 0 and print its Pareto front and build log."""
+    import os
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.tune", *TUNE_CLI_ARGS],
+        env={**os.environ, "PYTHONPATH": str(src)}, capture_output=True,
+        text=True, timeout=TUNE_CLI_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    front, log = [], []
+    if "-- build log" in proc.stdout:
+        cut = next(i for i, ln in enumerate(lines) if "-- build log" in ln)
+        front = [ln for ln in lines[:cut] if ln.strip()]
+        log = lines[cut:]
+    emit("tune_cli", args=TUNE_CLI_ARGS, returncode=proc.returncode,
+         seconds=time.perf_counter() - t, pareto_front=front, build_log=log,
+         stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+    if proc.returncode != 0 or len(front) < 2 or not any(
+            "structural builds" in ln for ln in log):
+        raise AssertionError("tune_cli: the tuner failed or printed no "
+                             "Pareto front / build log")
+
+
 def recall_at_k(found, truth) -> float:
     hits = sum(len(set(a) & set(b)) for a, b in zip(found.tolist(),
                                                      truth.tolist()))
@@ -557,6 +790,7 @@ def main() -> int:
     n_kept = max(1, math.ceil(CONFIG.antihub_keep * n))     # as antihub does
     t = time.perf_counter()
     kernels = kernel_phase(torch, n_kept, CONFIG.pca_dim, gpu, args.seed)
+    kernels["l2topk"] = l2topk_kernel_phase(torch, gpu, args.seed)
     torch.cuda.synchronize()
     emit("kernels", seconds=time.perf_counter() - t, kernels=kernels)
 
@@ -567,11 +801,12 @@ def main() -> int:
     from repro_torch.data import clustered_vectors, queries_like
     from repro_torch.kernels.beam_hop import beam_hop_cuda, beam_hop_lut_cuda
     from repro_torch.kernels.gather_dist import gather_dist_cuda
+    from repro_torch.kernels.l2topk import l2topk_cuda
     from repro_torch.kernels.lut_dist import lut_dist_cuda
     from repro_torch.kernels.topk_merge import topk_merge_cuda
     wrappers = {"gather_dist": gather_dist_cuda, "beam_hop": beam_hop_cuda,
                 "topk_merge": topk_merge_cuda, "lut_dist": lut_dist_cuda,
-                "beam_hop_lut": beam_hop_lut_cuda}
+                "beam_hop_lut": beam_hop_lut_cuda, "l2topk": l2topk_cuda}
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     data = clustered_vectors(gen, n, CONFIG.dim)
@@ -585,6 +820,7 @@ def main() -> int:
     index = TunedGraphIndex(params, device="cuda").fit(
         data, torch.Generator().manual_seed(args.seed))
     fit_s = time.perf_counter() - t
+    fit_l2topk = l2topk_cuda.launches
     nbrs = index.graph.neighbors
     reach = reachable_from(nbrs.cpu().numpy(), int(index.graph.medoid))
     degree_ok = bool(((nbrs >= 0).sum(1) <= params.graph_degree).all())
@@ -594,7 +830,7 @@ def main() -> int:
          stage_seconds=index.stage_seconds,
          reachable=float(reach.mean()), degree_ok=degree_ok,
          pool_evals=bs.pool_evals, prune_evals=bs.prune_evals,
-         repair_rounds=bs.repair_rounds,
+         repair_rounds=bs.repair_rounds, l2topk_launches=fit_l2topk,
          memory_bytes=index.memory_bytes(),
          peak_device_bytes=torch.cuda.max_memory_allocated())
     if index.ntotal != n_kept:
@@ -638,6 +874,7 @@ def main() -> int:
          loop_iterations=iters, ms_per_iteration=serve_s * 1e3 / iters,
          device_busy_share=None if busy is None else
          busy / (serve_s * 1e3), profile=prof,
+         l2topk_launches=launches["l2topk"] - fit_l2topk,
          brute_force_qps=n_queries / brute_s)
     if not (torch.isfinite(d_f).all() and i_f.shape == (n_queries, k)):
         raise AssertionError("search returned non-finite or mis-shaped "
@@ -682,14 +919,23 @@ def main() -> int:
     launches.update({name: sum(by_m.values())
                      for name, by_m in lut_launches.items()})
 
-    # 9. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
+    # 9-10. the tuner on the same data, then its CLI at N = 20k
+    tune_launches = tune_phase(torch, data, queries, wrappers, args.seed)
+    tune_cli_phase(src)
+
+    # 11. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
     # times at the top, its total launches over both backends, and each
     # M's times and launches under by_m.
     line = []
     for name, info in kernels.items():
         entry = {k_: v for k_, v in info.items()
-                 if k_ not in ("shape", "by_m")}
+                 if k_ not in ("shape", "by_m", "by_shape")}
         entry["launches"] = launches[name]
+        entry["launches_tune"] = tune_launches[name]
+        if "by_shape" in info:
+            entry["by_shape"] = {s_: {k_: v for k_, v in b_.items()
+                                      if k_ != "shape"} | b_["shape"]
+                                 for s_, b_ in info["by_shape"].items()}
         if name in lut_launches:
             entry["m"] = LUT_MS[0]
             entry["by_m"] = {
@@ -703,6 +949,10 @@ def main() -> int:
             c for by_m in lut_launches.values() for c in by_m.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the main path: "
                              f"{launches}")
+    if fit_l2topk <= 0 or launches["l2topk"] <= fit_l2topk \
+            or tune_launches["l2topk"] <= 0:
+        raise AssertionError("l2topk did not launch in each of fit, serve "
+                             "and tune")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,

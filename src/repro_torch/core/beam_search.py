@@ -23,6 +23,11 @@ left-to-right sum and so agree bit for bit on either device.
 Two loop modes: ``while`` runs until no query is live (one host sync per
 hop), ``fori`` runs exactly ``max_iters`` guarded hops.
 
+Straggler control (``patience``/``eps``): a lane also stops after
+``patience`` consecutive hops in which no top-k prefix distance improved
+by more than ``eps``. ``patience=None`` keeps the full-pool-convergence
+rule bit for bit.
+
 The reference's vmap layout is bit-identical to this layout with the
 dot-formula gather, so the port has only this one.
 """
@@ -148,6 +153,7 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
                 lut: Optional[torch.Tensor] = None,
                 hop_backend: Optional[str] = None,
                 patience: Optional[int] = None,
+                eps: float = 0.0,
                 with_stats: bool = False):
     """Batched graph search.
 
@@ -155,14 +161,16 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
     entry_ids: (Q,) int32 per-query entry points. Under
     ``dist_backend="pq"|"int8"`` the hops score ``codes`` (N, M) uint8
     with ``lut`` (Q, M, C) f32 instead of the f32 rows (the returned
-    distances are then the LUT's approximations). Returns (dists (Q, k)
-    f32 ascending, ids (Q, k) int32, hops (Q,) int32); with
+    distances are then the LUT's approximations). ``patience``/``eps``
+    enable adaptive early termination (see the module docstring). Returns
+    (dists (Q, k) f32 ascending, ids (Q, k) int32, hops (Q,) int32); with
     ``with_stats=True`` the third element is a full ``BeamStats``.
     """
-    if patience is not None:
-        raise NotImplementedError(
-            "beam_search patience is not ported yet (ROADMAP Queue 1 item 4,"
-            " straggler control)")
+    if eps < 0.0:
+        raise ValueError(f"eps must be >= 0, got {eps}")
+    if patience is not None and patience < 1:
+        raise ValueError(
+            f"patience must be >= 1 (or None to disable), got {patience}")
     if mode not in ("while", "fori"):
         raise ValueError(f"bad mode {mode!r}")
     check_dist_backend(dist_backend)
@@ -173,8 +181,9 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
                                   dist_backend=dist_backend, codes=codes,
                                   lut=lut)
     state = _seed_batched(queries, db, neighbors, entry_ids, ef, gd)
-    state = _run_hops(state, body, max_iters=max_iters, mode=mode)
-    pool_i, pool_d, _, hops, gath, dup, wasted = state
+    state = _run_hops(state, body, k=k, max_iters=max_iters, mode=mode,
+                      patience=patience, eps=eps)
+    pool_i, pool_d, _, hops, gath, dup, wasted, _ = state
     if with_stats:
         return (pool_d[:, :k], pool_i[:, :k],
                 BeamStats(hops, gath, dup, wasted))
@@ -216,8 +225,8 @@ def _batched_hop_setup(queries, db, neighbors, *, gather_backend,
 
 
 def _seed_batched(queries, db, neighbors, entry_ids, ef, gd):
-    """Entry-seeded 7-tuple loop state:
-    (pool_i, pool_d, pool_v, hops, gathered, dup_gathered, wasted)."""
+    """Entry-seeded 8-tuple loop state:
+    (pool_i, pool_d, pool_v, hops, gathered, dup_gathered, wasted, stale)."""
     nq = queries.shape[0]
     dev = db.device
     entry_ids = entry_ids.to(device=dev, dtype=torch.int32)
@@ -228,33 +237,50 @@ def _seed_batched(queries, db, neighbors, entry_ids, ef, gd):
     pool_d[:, 0] = d0
     pool_v = torch.zeros((nq, ef), dtype=torch.bool, device=dev)
     zeros = torch.zeros((nq,), dtype=torch.int32, device=dev)
-    return (pool_i, pool_d, pool_v, zeros, zeros, zeros, zeros)
+    return (pool_i, pool_d, pool_v, zeros, zeros, zeros, zeros, zeros)
 
 
-def _lane_live(state, *, max_iters):
-    """Per-lane "still working" mask over the loop state."""
+def _lane_live(state, *, max_iters, patience):
+    """Per-lane "still working" mask over the 8-tuple state."""
     pool_i, pool_v, hops = state[0], state[2], state[3]
-    return ((~pool_v) & (pool_i >= 0)).any(1) & (hops < max_iters)
+    live = ((~pool_v) & (pool_i >= 0)).any(1) & (hops < max_iters)
+    if patience is not None:
+        live = live & (state[7] < patience)
+    return live
 
 
-def _run_hops(state, body, *, max_iters, mode):
-    """Advance the batched loop state to convergence.
+def _run_hops(state, body, *, k, max_iters, mode, patience, eps):
+    """Advance the 8-tuple batched loop state to convergence.
 
-    One hop: run the body on every lane, keep its result only on lanes
-    that were live before the hop (the freeze-select), and count a wasted
-    hop on the others. ``while`` stops when no lane is live; ``fori`` runs
-    ``max_iters`` guarded hops.
+    One hop: run the body on every lane and keep its result only on lanes
+    that were live before the hop (the freeze-select). Two straggler
+    counters ride along: ``stale`` (consecutive hops without a top-k prefix
+    improvement > ``eps``; adaptive mode only, frozen with the rest) and
+    ``wasted`` (iterations ridden while not live, updated outside the
+    freeze-select, since the frozen lanes are the ones accruing it).
+    ``while`` stops when no lane is live; ``fori`` runs ``max_iters``
+    guarded hops.
     """
+    adaptive = patience is not None
+
+    def live_of(s):
+        return _lane_live(s, max_iters=max_iters, patience=patience)
+
     def hop(s):
-        keep = _lane_live(s, max_iters=max_iters)
+        keep = live_of(s)
         new = body(s[:6])
+        if adaptive:
+            progress = ((s[1][:, :k] - new[1][:, :k]) > eps).any(1)
+            stale = torch.where(progress, torch.zeros_like(s[7]), s[7] + 1)
+        else:
+            stale = s[7]
         merged = tuple(
             torch.where(keep.view((-1,) + (1,) * (a.dim() - 1)), a, b)
-            for a, b in zip(new, s[:6]))
-        return merged + (s[6] + (~keep).to(torch.int32),)
+            for a, b in zip(new + (stale,), s[:6] + (s[7],)))
+        return merged[:6] + (s[6] + (~keep).to(torch.int32), merged[6])
 
     if mode == "while":
-        while bool(_lane_live(state, max_iters=max_iters).any()):
+        while bool(live_of(state).any()):
             state = hop(state)
         return state
     for _ in range(max_iters):

@@ -1,6 +1,6 @@
 """Graph-build subsystem: the kNN-table dispatch (``build_knn``), the
-α-RNG pruning primitive (``build/prune.py``) and the NSG finishing pass
-(``build/finish.py``).
+α-RNG pruning primitive and the rebuild-free ``reprune`` family
+(``build/prune.py``) and the NSG finishing pass (``build/finish.py``).
 
 Only the exact kNN backend is ported; ``"nndescent"`` raises until the
 NN-Descent slice (ROADMAP Queue 1 item 5).
@@ -13,15 +13,19 @@ from repro_torch.core.build.finish import (
     FINISH_BACKENDS, FinishStats, finish_nsg, repair, require_host,
 )
 from repro_torch.core.build.prune import (
-    alpha_prune, mark_dups, pairwise_rows_sqdist, prune_in_chunks,
-    rows_sqdist_in_chunks,
+    RepruneFamily, alpha_prune, alpha_prune_mask, mark_dups,
+    nsg_from_neighbors, pairwise_rows_sqdist, prune_in_chunks, reprune,
+    reprune_family, reprune_nsg, rows_sqdist_in_chunks,
+    sorted_adjacency_chunk,
 )
 
 __all__ = [
-    "AUTO_NND_MIN_N", "FINISH_BACKENDS", "FinishStats", "alpha_prune",
-    "build_knn", "finish_nsg", "mark_dups", "pairwise_rows_sqdist",
-    "prune_in_chunks", "repair", "require_host", "resolve_backend",
-    "rows_sqdist_in_chunks",
+    "AUTO_NND_MIN_N", "FINISH_BACKENDS", "FinishStats", "RepruneFamily",
+    "alpha_prune", "alpha_prune_mask", "build_knn", "finish_nsg",
+    "mark_dups", "nsg_from_neighbors", "pairwise_rows_sqdist",
+    "prune_in_chunks", "repair", "require_host", "reprune",
+    "reprune_family", "reprune_nsg", "resolve_backend",
+    "rows_sqdist_in_chunks", "sorted_adjacency_chunk",
 ]
 
 # Below this N the exact pass wins on wall-clock; above it the reference

@@ -1,12 +1,21 @@
-"""α-RNG occlusion pruning (the reference's ``core/build/prune.py``, the
-part the build runs: ``alpha_prune`` and its chunked loop).
+"""α-RNG occlusion pruning + rebuild-free ``reprune`` (the reference's
+``core/build/prune.py``; Zhang et al., "Prune, Don't Rebuild").
 
 ``alpha_prune`` generalizes NSG's MRNG edge-selection rule: scanning a
 node's candidate pool nearest-first, candidate q is kept unless some
 already-kept r occludes it — ``d(r, q) < alpha * d(p, q)`` on squared
 distances. ``alpha = 1`` is the MRNG rule.
+
+The greedy scan only ever tests a candidate against earlier-kept ones, so
+pruning at a smaller ``degree`` keeps a prefix of the max-degree scan's
+survivors, and re-scanning a pruned adjacency at ``alpha = 1`` keeps every
+edge. ``reprune`` and ``reprune_family`` use both: a family of
+(alpha, degree) graphs is derived from one cached max-degree graph with
+O(N * R) gather-distances and one occlusion pass — no rebuild.
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -40,18 +49,24 @@ def mark_dups(ids: torch.Tensor) -> torch.Tensor:
                       for s in range(0, ids.shape[0], _DUP_ROWS)])
 
 
-def _alpha_scan(data, node_ids, cand_ids, cand_dists, degree, alpha):
+def _alpha_scan(data, node_ids, cand_ids, cand_dists, degree,
+                alpha: Union[float, torch.Tensor]):
     """The greedy α-RNG occlusion scan over a node block.
 
     Returns (keep (B, degree) ids, kept_mask (B, L) bool). The loop runs
     over the L candidate positions, all B nodes at once, with no host
-    sync: kept rows are written by ``scatter`` whatever ``ok`` is.
+    sync: kept ids are written by ``scatter`` whatever ``ok`` is. The
+    distances from a candidate to the kept rows are one ``gather_dist``
+    block over the kept ids (the kernel on CUDA; on the CPU its plain
+    diff-square version, the reference's arithmetic), so no (B, R, D) copy
+    of the kept rows is held. ``alpha`` is one slack for the block or a
+    (B,) f32 tensor of one per row (``reprune_family`` scans every alpha
+    of its grid in one block); either way the threshold is one f32
+    product ``alpha * d(p, q)``.
     """
     b, L = cand_ids.shape
     dev = cand_ids.device
     keep = torch.full((b, degree), -1, dtype=torch.int32, device=dev)
-    kept_vecs = torch.zeros((b, degree, data.shape[1]), dtype=torch.float32,
-                            device=dev)
     mask = torch.zeros((b, L), dtype=torch.bool, device=dev)
     cnt = torch.zeros((b,), dtype=torch.int64, device=dev)
     slots = torch.arange(degree, device=dev)
@@ -60,18 +75,15 @@ def _alpha_scan(data, node_ids, cand_ids, cand_dists, degree, alpha):
         q = cand_ids[:, j].to(torch.int32)
         dq = cand_dists[:, j]
         qv = data[q.clamp_min(0).long()].float()                   # (B, D)
-        dr = ((kept_vecs - qv[:, None, :]) ** 2).sum(-1)          # (B, R)
+        dr = pairwise_rows_sqdist(qv, data, keep)                  # (B, R)
         occupied = slots[None, :] < cnt[:, None]
-        occluded = (occupied & (dr < alpha * dq[:, None])).any(1)
+        occluded = (occupied & (dr < (alpha * dq)[:, None])).any(1)
         dup = (occupied & (keep == q[:, None])).any(1)
         ok = ((q >= 0) & (q != node_ids) & (cnt < degree) & ~occluded
               & ~dup)
         slot = cnt.clamp_max(degree - 1)[:, None]                 # (B, 1)
         keep.scatter_(1, slot, torch.where(
             ok[:, None], q[:, None], keep.gather(1, slot)))
-        vslot = slot[:, :, None].expand(-1, 1, data.shape[1])
-        kept_vecs.scatter_(1, vslot, torch.where(
-            ok[:, None, None], qv[:, None, :], kept_vecs.gather(1, vslot)))
         mask[:, j] = ok
         cnt += ok
     return keep, mask
@@ -96,3 +108,185 @@ def prune_in_chunks(data, node_ids, cand_ids, cand_dists, degree, chunk,
         alpha_prune(data, node_ids[s:s + chunk], cand_ids[s:s + chunk],
                     cand_dists[s:s + chunk], degree, alpha)
         for s in range(0, node_ids.shape[0], chunk)])
+
+
+def alpha_prune_mask(data: torch.Tensor, node_ids: torch.Tensor,
+                     cand_ids: torch.Tensor, cand_dists: torch.Tensor,
+                     degree: int, alpha: float = 1.0) -> torch.Tensor:
+    """``alpha_prune``'s survivors as a (B, L) bool position mask: the ids
+    ``alpha_prune`` returns are ``cand_ids`` at the True positions, in
+    order."""
+    return _alpha_scan(data, node_ids, cand_ids, cand_dists, degree,
+                       alpha)[1]
+
+
+def sorted_adjacency_chunk(data: torch.Tensor, rows: torch.Tensor,
+                           neighbors: torch.Tensor):
+    """One row chunk's adjacency as distance-ascending pools (ids, dists).
+
+    ``rows`` are the chunk's own vectors (``data[s:e]``); the gather runs
+    against the full ``data``. The sort is stable: equal distances keep
+    their adjacency order, and -1 slots (+inf) go last.
+    """
+    d = pairwise_rows_sqdist(rows, data, neighbors)
+    order = torch.sort(d, dim=1, stable=True).indices
+    return neighbors.gather(1, order), d.gather(1, order)
+
+
+def reprune(data: torch.Tensor, neighbors: torch.Tensor, *,
+            alpha: float = 1.0, degree: Optional[int] = None,
+            chunk: int = 2048) -> torch.Tensor:
+    """Derive an (alpha, degree) adjacency from a cached max-degree one.
+
+    ``neighbors`` is an (N, R_max) pruned adjacency (the alpha=1
+    max-degree graph a build cached). Each row chunk is sorted by distance
+    and re-scanned; the (N, R) f32 distance table never exists whole.
+    """
+    n, rmax = neighbors.shape
+    degree = rmax if degree is None else min(degree, rmax)
+    node_ids = torch.arange(n, dtype=torch.int32, device=neighbors.device)
+    outs = []
+    for s in range(0, n, chunk):
+        cand_i, cand_d = sorted_adjacency_chunk(data, data[s:s + chunk],
+                                                neighbors[s:s + chunk])
+        outs.append(alpha_prune(data, node_ids[s:s + chunk], cand_i, cand_d,
+                                degree, alpha))
+    return torch.cat(outs)
+
+
+def _pack_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(..., L) bool survivor mask -> (..., ceil(L/32)) int32 words: bit b
+    of word w is position 32 w + b (the reference's uint32 words, held as
+    int32 of the same bits)."""
+    l = mask.shape[-1]
+    w = -(-l // 32)
+    m = torch.nn.functional.pad(mask, (0, w * 32 - l))
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
+        torch.arange(32, device=mask.device)
+    words = (m.reshape(m.shape[:-1] + (w, 32)).long() * weights).sum(-1)
+    return words.to(torch.int32)            # wraps bit 31 into the sign
+
+
+def _family_member(cand_ids: torch.Tensor, masks_a: torch.Tensor,
+                   degree: int) -> torch.Tensor:
+    """Unpack one alpha's survivor bitmask into its (N, degree) member:
+    the first ``degree`` survivors of the max-degree scan (the prefix
+    property), so one mask serves every degree."""
+    n, rmax = cand_ids.shape
+    pos = torch.arange(rmax, device=cand_ids.device)
+    word = masks_a[:, pos // 32].long()                         # (N, R)
+    bits = ((word >> (pos % 32)) & 1) != 0
+    rank = torch.cumsum(bits.to(torch.int64), dim=1)
+    take = bits & (rank <= degree)
+    slot = torch.where(take, rank - 1, degree)  # overflow col, sliced off
+    out = torch.full((n, degree + 1), -1, dtype=torch.int32,
+                     device=cand_ids.device)
+    out.scatter_(1, slot, torch.where(take, cand_ids.to(torch.int32), -1))
+    return out[:, :degree]
+
+
+class RepruneFamily:
+    """Memory-lean (alpha, degree) reprune grid: packed survivor bitmasks.
+
+    Holds one 32-bit word per (alpha, node, 32 candidates) — an
+    ``(A, N, ceil(R/32))`` array — against the one shared distance-ascending
+    max-degree adjacency. ``member(a_idx, degree)`` reconstructs any grid
+    member in one unpack pass, equal to the materialized stack's slice.
+    """
+
+    def __init__(self, alphas, cand_ids: torch.Tensor, masks: torch.Tensor):
+        self.alphas = tuple(float(a) for a in alphas)
+        self.cand_ids = cand_ids     # (N, R) sorted max-degree adjacency
+        self.masks = masks           # (A, N, W) int32 survivor bits
+
+    @property
+    def shape(self):
+        n, rmax = self.cand_ids.shape
+        return (len(self.alphas), n, rmax)
+
+    def nbytes(self) -> int:
+        """Grid storage beyond the shared adjacency (the lean part)."""
+        return int(self.masks.numel()) * 4
+
+    def member(self, a_idx: int, degree: Optional[int] = None
+               ) -> torch.Tensor:
+        """(N, degree) ids == ``reprune(..., alpha=alphas[a_idx], degree)``."""
+        rmax = self.cand_ids.shape[1]
+        degree = rmax if degree is None else min(degree, rmax)
+        return _family_member(self.cand_ids, self.masks[a_idx], degree)
+
+    def materialize(self) -> torch.Tensor:
+        """The full (A, N, R) stack (tests / small-N)."""
+        return torch.stack([self.member(i) for i in range(len(self.alphas))])
+
+
+def reprune_family(data: torch.Tensor, neighbors: torch.Tensor,
+                   alphas: Sequence[float], chunk: int = 2048,
+                   materialize: bool = True):
+    """The whole (alpha, degree) grid in one pass over the row chunks.
+
+    Every alpha shares the chunk's distance-ascending candidate pool (the
+    sorted max-degree adjacency), so the A alphas run as one occlusion
+    scan over an (A * chunk)-row block with a per-row alpha; a smaller
+    degree is a prefix of the max-degree scan, so no degree axis exists.
+    ``materialize=True`` returns the (A, N, R_max) stack, with
+    ``stack[i, :, :d] == reprune(data, neighbors, alpha=alphas[i],
+    degree=d)``; ``materialize=False`` returns a ``RepruneFamily`` holding
+    only the packed survivor bitmasks, whose ``member(i, d)`` rebuilds the
+    same arrays on demand.
+    """
+    n, rmax = neighbors.shape
+    dev = neighbors.device
+    node_ids = torch.arange(n, dtype=torch.int32, device=dev)
+    al = torch.tensor([float(a) for a in alphas], dtype=torch.float32,
+                      device=dev)
+    n_alpha = al.shape[0]
+    outs, cand_parts = [], []
+    for s in range(0, n, chunk):
+        ci, cd = sorted_adjacency_chunk(data, data[s:s + chunk],
+                                        neighbors[s:s + chunk])
+        b = ci.shape[0]
+        cand_parts.append(ci)
+        keep, mask = _alpha_scan(
+            data, node_ids[s:s + chunk].repeat(n_alpha), ci.repeat(n_alpha, 1),
+            cd.repeat(n_alpha, 1), rmax, al.repeat_interleave(b))
+        if materialize:
+            outs.append(keep.view(n_alpha, b, rmax))
+        else:
+            outs.append(_pack_mask(mask.view(n_alpha, b, -1)))
+    stacked = torch.cat(outs, dim=1)
+    if materialize:
+        return stacked
+    return RepruneFamily(alphas, torch.cat(cand_parts), stacked)
+
+
+def nsg_from_neighbors(data: torch.Tensor, neighbors: torch.Tensor, medoid,
+                       *, knn_ids: Optional[torch.Tensor] = None,
+                       finish_backend: str = "host"):
+    """Pruned adjacency -> servable ``NSGGraph`` (connectivity repair).
+
+    The shared tail of every rebuild-free derivation: ``reprune_nsg`` and
+    the tuner's ``reprune_family`` lookups both end here. ``knn_ids``
+    supplies repair parents (the build-time kNN table if the caller kept
+    it; default the adjacency itself). Only the host repair is ported.
+    """
+    from repro_torch.core.build.finish import repair, require_host
+    from repro_torch.core.nsg import NSGGraph
+
+    require_host(finish_backend)
+    parents = knn_ids if knn_ids is not None else neighbors
+    nbrs, _ = repair(data, neighbors, medoid, parents)
+    return NSGGraph(neighbors=nbrs.to(torch.int32).contiguous(),
+                    medoid=torch.as_tensor(medoid, dtype=torch.int32,
+                                           device=neighbors.device))
+
+
+def reprune_nsg(data: torch.Tensor, graph, *, alpha: float = 1.0,
+                degree: Optional[int] = None,
+                knn_ids: Optional[torch.Tensor] = None, chunk: int = 2048,
+                finish_backend: str = "host"):
+    """``reprune`` + connectivity repair -> a servable ``NSGGraph``."""
+    nbrs = reprune(data, graph.neighbors, alpha=alpha, degree=degree,
+                   chunk=chunk)
+    return nsg_from_neighbors(data, nbrs, graph.medoid, knn_ids=knn_ids,
+                              finish_backend=finish_backend)

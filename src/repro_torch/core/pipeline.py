@@ -3,14 +3,18 @@ NSG build -> k-means entry points; search = project -> select EP -> beam.
 
 ``IndexParams`` carries every knob of the reference's, so a reference
 state's ``meta["params"]`` loads as is. The port runs the exact kNN table,
-search pools and the host finishing pass, and serves in f32 or quantized
-(pq | int8 LUT traversal with an exact f32 rerank). Every other option
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+search pools and the host finishing pass, serves in f32 or quantized
+(pq | int8 LUT traversal with an exact f32 rerank), with or without
+adaptive termination (``patience``/``eps``), and derives lower-degree or
+larger-alpha graphs without a rebuild (``reprune``, ``with_graph``). Every
+other option raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
+import copy
 import time
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -19,7 +23,7 @@ import torch
 from repro_torch.configs.base import ANNConfig
 from repro_torch.core import antihub as antihub_mod
 from repro_torch.core.beam_search import BeamStats, beam_search
-from repro_torch.core.build import build_knn
+from repro_torch.core.build import build_knn, reprune_nsg
 from repro_torch.core.build.finish import require_host
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.entry_points import EntryPointSelector, fit_entry_points
@@ -28,6 +32,17 @@ from repro_torch.core.pca import PCA, fit_pca
 from repro_torch.core.quant import Int8Codec, PQCodec, check_dist_backend, \
     make_codec
 from repro_torch.kernels.gather_dist import gather_dist
+
+# Process-wide structural-build counter: every TunedGraphIndex.fit (a real
+# graph build: pools + prune + finish) adds one. Rebuild-free derivations
+# (reprune, with_graph, the tuner's grid lookups) do not, so a test can
+# assert that a sweep left it untouched.
+_N_STRUCTURAL_BUILDS = 0
+
+
+def structural_build_count() -> int:
+    """Process-wide count of real (non-derived) NSG pipeline builds."""
+    return _N_STRUCTURAL_BUILDS
 
 
 @dataclass(frozen=True)
@@ -67,11 +82,11 @@ class IndexParams:
         return IndexParams(**p)
 
 
-def _check_serving(patience: int, compact_every: int):
-    if patience or compact_every:
+def _check_serving(compact_every: int):
+    if compact_every:
         raise NotImplementedError(
-            "patience / compact_every: straggler control is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
+            "compact_every: the compacted driver (beam_search_compacted) is "
+            "not ported yet (ROADMAP Queue 1 item 4)")
 
 
 class TunedGraphIndex:
@@ -97,12 +112,20 @@ class TunedGraphIndex:
         self.last_search_stats: Optional[BeamStats] = None
 
     # -- build ------------------------------------------------------------
-    def fit(self, data, generator: Optional[torch.Generator] = None):
+    def fit(self, data, generator: Optional[torch.Generator] = None, *,
+            antihub_knn_ids: Optional[torch.Tensor] = None):
         """Build the full pipeline; ``generator`` draws the k-means++ inits
         of the entry points and, under a quantized ``dist_backend``, of the
-        PQ codebooks (default: a CPU generator seeded with 0)."""
+        PQ codebooks (default: a CPU generator seeded with 0).
+
+        ``antihub_knn_ids``: precomputed (N, >=10) kNN ids of the *raw*
+        database, reused for the AntiHub k-occurrence pass (the tuner
+        computes them once and threads them through every structural
+        build instead of paying an O(N^2) pass each time).
+        """
+        global _N_STRUCTURAL_BUILDS
         p = self.params
-        _check_serving(p.patience, p.compact_every)
+        _check_serving(p.compact_every)
         check_dist_backend(p.dist_backend)
         pools = p.pools_backend
         if pools == "auto":
@@ -124,7 +147,10 @@ class TunedGraphIndex:
 
         t = time.perf_counter()
         if p.antihub_keep < 1.0:
-            _, ah_ids = build_knn(data, 10, backend=p.knn_backend)
+            if antihub_knn_ids is None:
+                _, ah_ids = build_knn(data, 10, backend=p.knn_backend)
+            else:
+                ah_ids = torch.as_tensor(antihub_knn_ids).to(dev)
             self.kept_idx = antihub_mod.antihub_keep_indices(
                 data, p.antihub_keep, k=10, knn_ids=ah_ids)
             sub = data[self.kept_idx.long()]
@@ -171,6 +197,7 @@ class TunedGraphIndex:
             stages["quantize"] = time.perf_counter() - t
         self.stage_seconds = stages
         self.build_seconds = time.perf_counter() - t0
+        _N_STRUCTURAL_BUILDS += 1
         return self
 
     def quantize(self, dist_backend: Optional[str] = None,
@@ -207,6 +234,29 @@ class TunedGraphIndex:
         self.codec, self.codec_backend = codec, backend
         return self
 
+    # -- rebuild-free derivation ("prune, don't rebuild") ------------------
+    def with_graph(self, graph: NSGGraph) -> "TunedGraphIndex":
+        """Shallow clone serving a different (derived) graph; it shares the
+        base vectors, PCA, kept ids, entry points and codes with ``self``."""
+        out = copy.copy(self)
+        out.graph = graph
+        return out
+
+    def reprune(self, *, alpha: float = 1.0,
+                degree: Optional[int] = None) -> "TunedGraphIndex":
+        """Derive a lower-degree / larger-alpha index with no rebuild:
+        O(N * R) gather-distances, one occlusion pass and the connectivity
+        repair."""
+        if self.graph is None:
+            raise RuntimeError("fit() first")
+        g = reprune_nsg(self.base, self.graph, alpha=alpha, degree=degree,
+                        knn_ids=self.knn_ids,
+                        finish_backend=self.params.finish_backend)
+        out = self.with_graph(g)
+        out.params = replace(self.params, alpha=alpha,
+                             graph_degree=g.neighbors.shape[1])
+        return out
+
     # -- search -----------------------------------------------------------
     def project(self, queries: torch.Tensor) -> torch.Tensor:
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
@@ -215,30 +265,36 @@ class TunedGraphIndex:
     def search(self, queries, k: int, *, ef: Optional[int] = None,
                mode: Optional[str] = None, rerank: Optional[int] = None,
                dist_backend: Optional[str] = None,
-               hop_backend: Optional[str] = None):
+               hop_backend: Optional[str] = None,
+               patience: Optional[int] = None,
+               eps: Optional[float] = None):
         """Returns (dists (Q, k) in projected space, original ids (Q, k)).
 
         Under ``dist_backend="pq"|"int8"`` the beam traverses the codec's
         uint8 codes (re-quantizing first if the index holds another codec)
         and its top ``rerank`` survivors are rescored exactly in f32: the
         returned distances are exact for reranked entries, LUT
-        approximations when ``rerank=0``. Per-hop work counters of the
-        latest call are kept on the index — read them via
-        ``search_stats()``.
+        approximations when ``rerank=0``. ``patience``/``eps`` enable
+        adaptive early termination (``patience=0``: off, the stock
+        convergence rule bit for bit); both default to the fit-time params.
+        Per-hop work counters of the latest call are kept on the index —
+        read them via ``search_stats()``.
         """
         if self.graph is None:
             raise RuntimeError("fit() first")
-        _check_serving(self.params.patience, self.params.compact_every)
+        _check_serving(self.params.compact_every)
         ef = ef or self.params.ef_search
         mode = mode or "while"
         dist_backend = check_dist_backend(
             dist_backend or self.params.dist_backend)
         rerank = rerank if rerank is not None else self.params.rerank
         hop_backend = hop_backend or self.params.hop_backend
+        patience = patience if patience is not None else self.params.patience
+        eps = eps if eps is not None else self.params.eps
         q = self.project(queries).contiguous()
         entries = self.eps.select(q)
         bs_kw = dict(ef=max(ef, k), mode=mode, hop_backend=hop_backend,
-                     with_stats=True)
+                     patience=patience or None, eps=eps, with_stats=True)
         if dist_backend == "f32":
             kb = k
         else:

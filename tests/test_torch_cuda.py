@@ -11,7 +11,9 @@ inputs must match exactly; float inputs to rtol = atol = 1e-5, with the
 hop's ids equal on >= 99% of rows (a near-tie may order differently when
 two reductions round differently). The LUT kernels (``lut_dist`` and
 ``beam_hop`` in LUT mode) add in the plain version's order, so they must
-match exactly on float inputs too.
+match exactly on float inputs too. ``l2topk`` sums its dot products in
+another order than cuBLAS: float inputs give dists to rtol 1e-5 and ids on
+>= 99% of rows; integer inputs, ties included, match exactly.
 """
 import pytest
 import torch
@@ -187,3 +189,81 @@ def test_quantized_fused_hop_equals_staged_hop_on_the_card(dev, backend):
     assert torch.equal(fd, sd) and torch.equal(fi, si)
     for a, b in zip(fs, ss):
         assert torch.equal(a, b)
+
+
+# (Q, N, D, k): the main path's widths cut in N, k = 1 / 33 / 128, D = 2
+# (PQ's sub-spaces), Q = 1 (the medoid, split over many blocks), N not a
+# multiple of the 128-row tile, Q not a multiple of the 64-query tile
+L2TOPK_SHAPES = [(300, 5000, 600, 33), (1, 20000, 600, 1), (1000, 3000, 2, 1),
+                 (130, 4097, 768, 11), (77, 1000, 64, 128), (5, 3, 16, 9),
+                 (2000, 256, 600, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("q,n,d,k", L2TOPK_SHAPES)
+def test_l2topk_kernel(dev, kind, q, n, d, k):
+    from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+    g = torch.Generator().manual_seed(q + n + d + k)
+    if kind == "int":      # coordinates in [-1, 1]: many exact ties
+        x = torch.randint(-1, 2, (n, d), generator=g).float().to(dev)
+        qs = torch.randint(-1, 2, (q, d), generator=g).float().to(dev)
+    else:
+        x, qs = _vectors(g, (n, d), kind, dev), _vectors(g, (q, d), kind, dev)
+    gd, gi = l2topk_cuda(qs, x, k)
+    wd, wi = l2_topk_ref(qs, x, k)
+    assert gi.shape == (q, min(k, n)) and gi.dtype == torch.int32
+    if kind == "int":
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    else:
+        torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+        assert (gi == wi).all(1).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_l2topk_kernel_refuses_k_over_128(dev):
+    from repro_torch.core.distances import l2_topk
+    from repro_torch.kernels.l2topk import l2topk_cuda
+    x = torch.zeros((500, 8), device=dev)
+    with pytest.raises(ValueError, match="128"):
+        l2topk_cuda(x[:4], x, 129)
+    with pytest.raises(ValueError, match="128"):
+        l2_topk(x[:4], x, 200)          # no fallback to the plain version
+    assert l2topk_cuda(x[:4], x[:100], 129)[1].shape == (4, 100)
+
+
+@pytest.mark.cuda
+def test_ann_objective_counters_on_the_card_equal_the_cpu_run(dev):
+    from repro_torch.core.pipeline import IndexParams, structural_build_count
+    from repro_torch.core.tuning import AnnObjective
+    g = torch.Generator().manual_seed(3)
+    data = torch.randn((800, 16), generator=g)
+    queries = data[:40] + 0.05 * torch.randn((40, 16), generator=g)
+    base = IndexParams(pca_dim=16, graph_degree=8, build_knn_k=8,
+                       build_candidates=16, ef_search=32, knn_backend="exact",
+                       finish_backend="host")
+    trials = [dict(antihub_keep=0.9, graph_degree=8, alpha=1.0, ep_clusters=4,
+                   hop_backend="fused"),
+              dict(antihub_keep=0.9, graph_degree=6, alpha=1.12,
+                   ep_clusters=4, patience=3),
+              dict(antihub_keep=0.8, pca_dim=12, graph_degree=5, alpha=1.3,
+                   ep_clusters=2, hop_backend="staged"),
+              dict(antihub_keep=0.9, graph_degree=6, alpha=1.08,
+                   ep_clusters=8)]
+    runs = []
+    for device in ("cpu", dev):
+        obj = AnnObjective(data, queries, k=10, base_params=base,
+                           qps_repeats=1, device=device)
+        c0 = structural_build_count()
+        deltas = [(obj.evaluate(p), structural_build_count() - c0)[1]
+                  for p in trials]
+        runs.append((obj, deltas))
+    (cpu, cpu_deltas), (card, card_deltas) = runs
+    assert card_deltas == cpu_deltas == [1, 1, 2, 2]
+    assert (card.family_prunes, card.grid_hits) == \
+        (cpu.family_prunes, cpu.grid_hits) == (2, 3)
+    for (cp, cr), (gp, gr) in zip(cpu.eval_log, card.eval_log):
+        assert cp == gp
+        assert (cr.cached_build, cr.repruned) == (gr.cached_build,
+                                                  gr.repruned)
+        assert abs(cr.recall - gr.recall) <= 0.05

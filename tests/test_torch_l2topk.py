@@ -1,0 +1,223 @@
+"""The port's exact L2 top-k (``kernels/l2topk``, routed under
+``core.distances.l2_topk``) against the reference's.
+
+1. The plain version (what a CPU tensor runs) against
+   ``repro.core.distances.l2_topk``, the oracle of the reference's Pallas
+   kernel: on integer-valued data every distance is exact, so ids and dists
+   must be equal, ties included (lower id first); on float data dists to
+   rtol 1e-5 and ids on >= 99% of rows.
+2. The same inputs against the Pallas kernel ``l2_topk_pallas`` itself
+   (``interpret=True``, as the reference's own tests run it). On tie-free
+   data the ids are equal. On tied data the dists are equal, but the ids
+   follow another tie rule: the Pallas kernel's ``_insert_sorted`` places
+   each candidate before the equal entries already in its list, so a group
+   of tied distances comes out in *descending* id order, while its oracle
+   (and the port) put the lower id first. The groups inside the top-k hold
+   the same ids; the group cut by k may not, once the database spans
+   several blocks: a tied candidate of a later block goes in front of its
+   equals and pushes the last (lower-id) one out. The port keeps the
+   oracle's rule; the test pins the Pallas behaviour so the quirk stays
+   written down.
+3. Dispatch: a CPU tensor runs the plain version, ``backend="cuda"`` on a
+   CPU tensor raises, and the CUDA wrapper refuses CPU tensors and k > 128.
+4. ``FlatIndex`` and ``recall_at_k`` against the reference's.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core  # noqa: F401  (import order of the reference)
+from repro.core.distances import l2_topk as jax_l2_topk
+from repro.core.distances import nearest as jax_nearest
+from repro.core.flat import FlatIndex as JaxFlatIndex
+from repro.core.flat import recall_at_k as jax_recall_at_k
+from repro.kernels.l2topk.l2topk import l2_topk_pallas
+from repro_torch.core.distances import l2_topk, nearest
+from repro_torch.core.flat import FlatIndex, recall_at_k
+from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+from repro_torch.kernels.l2topk.l2topk import MAX_K, split_plan
+from repro_torch.kernels.l2topk.ops import l2_topk as l2_topk_dispatch
+
+
+def _ints(rng, shape, lo=-3, hi=3):
+    return rng.integers(lo, hi + 1, shape).astype(np.float32)
+
+
+def _port(q, x, k, **kw):
+    d, i = l2_topk(torch.from_numpy(q), torch.from_numpy(x), k, **kw)
+    return d.numpy(), i.numpy()
+
+
+def _ref(q, x, k, **kw):
+    d, i = jax_l2_topk(jnp.asarray(q), jnp.asarray(x), k, **kw)
+    return np.asarray(d), np.asarray(i)
+
+
+# (Q, N, D, k, chunk): k = 1, k > N, N not a multiple of chunk, D = 2
+# (PQ's sub-spaces), Q = 1 (the medoid), and the kNN widths
+SHAPES = [(40, 300, 8, 10, 128), (40, 300, 8, 1, 128), (7, 5, 8, 9, 16384),
+          (33, 1000, 16, 33, 256), (64, 700, 2, 1, 256), (1, 900, 16, 5, 512),
+          (25, 130, 8, 128, 64)]
+SHAPE_IDS = ["k10", "k1", "k-over-n", "k33-ragged", "d2-pq", "q1",
+             "k128"]
+
+
+@pytest.mark.parametrize("q,n,d,k,chunk", SHAPES, ids=SHAPE_IDS)
+def test_plain_l2_topk_equals_reference_on_integer_ties(q, n, d, k, chunk):
+    rng = np.random.default_rng(q + n + d + k)
+    # coordinates in [-1, 1]: many tied distances at every width
+    x, qs = _ints(rng, (n, d), -1, 1), _ints(rng, (q, d), -1, 1)
+    pd, pi = _port(qs, x, k, chunk=chunk)
+    jd, ji = _ref(qs, x, k, chunk=chunk)
+    assert pi.shape == (q, min(k, n))
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_array_equal(pd, jd)
+    # ties really occur, and are ordered by id
+    assert (np.diff(pd, axis=1) == 0).any() or min(k, n) == 1
+    tied = np.diff(pd, axis=1) == 0
+    assert (np.diff(pi, axis=1)[tied] > 0).all()
+
+
+@pytest.mark.parametrize("q,n,d,k,chunk", SHAPES, ids=SHAPE_IDS)
+def test_plain_l2_topk_float_data(q, n, d, k, chunk):
+    rng = np.random.default_rng(7 * q + n)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    pd, pi = _port(qs, x, k, chunk=chunk)
+    jd, ji = _ref(qs, x, k, chunk=chunk)
+    np.testing.assert_allclose(pd, jd, rtol=1e-5, atol=1e-5)
+    assert (pi == ji).all(1).mean() >= 0.99
+
+
+def test_nearest_equals_reference():
+    rng = np.random.default_rng(3)
+    x, qs = _ints(rng, (500, 8)), _ints(rng, (60, 8))
+    pd, pi = nearest(torch.from_numpy(qs), torch.from_numpy(x), chunk=128)
+    jd, ji = jax_nearest(jnp.asarray(qs), jnp.asarray(x), chunk=128)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+
+
+def _tie_free(n, d, q, seed):
+    """Integer data whose distances are all distinct and exact in f32:
+    coordinates scaled by s > 2n plus a last coordinate equal to the row
+    id, against queries whose last coordinate is -n, so a distance is
+    s^2 A + (n + id)^2 with (n + id)^2 < s^2."""
+    rng = np.random.default_rng(seed)
+    s = 2 * n + 1
+    x = np.concatenate([_ints(rng, (n, d - 1)) * s,
+                        np.arange(n, dtype=np.float32)[:, None]], 1)
+    qs = np.concatenate([_ints(rng, (q, d - 1)) * s,
+                         np.full((q, 1), -n, np.float32)], 1)
+    return x, qs
+
+
+@pytest.mark.parametrize("k", [1, 6, 10])
+def test_plain_l2_topk_equals_pallas_kernel_when_tie_free(k):
+    x, qs = _tie_free(100, 4, 24, seed=k)
+    pd, pi = _port(qs, x, k)
+    gd, gi = l2_topk_pallas(jnp.asarray(qs), jnp.asarray(x), k,
+                            block_q=8, block_n=32, interpret=True)
+    assert all(len(np.unique(row)) == k for row in pd)
+    np.testing.assert_array_equal(pi, np.asarray(gi))
+    np.testing.assert_array_equal(pd, np.asarray(gd))
+
+
+def test_pallas_kernel_reverses_tied_ids():
+    """40 rows at 3 distinct distances from the query, k=6: the smallest
+    distance is shared by ids 0, 3, ..., 39. The oracle and the port give
+    [0 3 6 9 12 15]; the Pallas kernel the same set in descending order."""
+    x = np.zeros((40, 8), np.float32)
+    x[:, 0] = np.arange(40) % 3 + 1
+    qs = np.zeros((1, 8), np.float32)
+    pd, pi = _port(qs, x, 6)
+    jd, ji = _ref(qs, x, 6)
+    gd, gi = l2_topk_pallas(jnp.asarray(qs), jnp.asarray(x), 6,
+                            interpret=True)
+    np.testing.assert_array_equal(pi[0], [0, 3, 6, 9, 12, 15])
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_array_equal(np.asarray(gi)[0], [15, 12, 9, 6, 3, 0])
+    np.testing.assert_array_equal(pd, np.asarray(gd))
+
+
+@pytest.mark.parametrize("k", [4, 9])
+def test_plain_l2_topk_against_pallas_kernel_with_ties(k):
+    """Random tied integer data over three database blocks: per row the
+    dists are equal; each distance group inside the top-k holds the same
+    ids in both, ascending in the port and descending in the Pallas
+    kernel; the group cut by k holds as many ids, descending there too."""
+    rng = np.random.default_rng(k)
+    x, qs = _ints(rng, (96, 8), -1, 1), _ints(rng, (16, 8), -1, 1)
+    pd, pi = _port(qs, x, k)
+    gd, gi = l2_topk_pallas(jnp.asarray(qs), jnp.asarray(x), k,
+                            block_q=8, block_n=32, interpret=True)
+    gd, gi = np.asarray(gd), np.asarray(gi)
+    np.testing.assert_array_equal(pd, gd)
+    reversed_groups = 0
+    for row in range(pd.shape[0]):
+        for dist in np.unique(pd[row]):
+            mine = pi[row][pd[row] == dist]
+            theirs = gi[row][gd[row] == dist]
+            assert (np.diff(mine) > 0).all()
+            assert (np.diff(theirs) < 0).all()
+            if dist != pd[row, -1]:            # not the group cut by k
+                np.testing.assert_array_equal(mine, np.sort(theirs))
+                reversed_groups += len(mine) > 1
+    assert reversed_groups > 0
+
+
+def test_cpu_tensors_run_the_plain_version():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32))
+    q = x[:20] + 0.1
+    before = l2topk_cuda.launches
+    got = l2_topk_dispatch(q, x, 7, chunk=64)
+    want = l2_topk_ref(q, x, 7, chunk=64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert l2topk_cuda.launches == before
+
+
+def test_forcing_the_kernel_on_cpu_tensors_raises():
+    x = torch.zeros((10, 4))
+    with pytest.raises(RuntimeError, match="backend='cuda'"):
+        l2_topk_dispatch(x, x, 3, backend="cuda")
+    with pytest.raises(ValueError, match="unknown l2topk backend"):
+        l2_topk_dispatch(x, x, 3, backend="pallas")
+    with pytest.raises(ValueError, match="on CUDA"):
+        l2topk_cuda(x, x, 3)
+
+
+def test_split_plan_fills_one_wave_and_leaves_no_split_empty():
+    sms = 132
+    for nq, n in [(4096, 300_000), (4096, 270_000), (1024, 300_000),
+                  (270_000, 256), (1, 270_000), (1024, 64), (5, 129),
+                  (256, 20_000)]:
+        splits, per = split_plan(nq, n, sms)
+        n_tiles = -(-n // 128)
+        q_tiles = -(-nq // 64)
+        assert splits >= 1 and (splits - 1) * per < n_tiles <= splits * per
+        assert splits == 1 or q_tiles * splits <= 2 * sms
+    assert split_plan(1, 270_000, sms)[0] == 2 * sms
+    assert MAX_K == 128
+
+
+def test_flat_index_and_recall_equal_reference():
+    rng = np.random.default_rng(9)
+    x, qs = _ints(rng, (400, 8)), _ints(rng, (30, 8))
+    jd, ji = JaxFlatIndex(jnp.asarray(x)).search(jnp.asarray(qs), 10,
+                                                 chunk=128)
+    flat = FlatIndex(torch.from_numpy(x))
+    pd, pi = flat.search(qs, 10, chunk=128)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+    assert (flat.ntotal, flat.dim, flat.memory_bytes()) == (400, 8, 400 * 32)
+    again = FlatIndex.from_state(flat.state_dict(), device="cpu")
+    assert torch.equal(again.search(qs, 10)[1], pi)
+    assert "chunk" in flat.search_params_space().names()
+    # a prediction that is half right, with one -1 pad
+    pred = np.array(ji)[:, :10].copy()
+    pred[:, 5:] = (pred[:, 5:] + 1) % 400
+    pred[0, 0] = -1
+    assert recall_at_k(torch.from_numpy(pred), pi) == pytest.approx(
+        jax_recall_at_k(jnp.asarray(pred), ji), abs=1e-6)

@@ -106,11 +106,15 @@ def test_fused_hop_equals_staged_kernel_hop(small_nsg, ann_data, mode):
 
 
 def test_unported_options_raise(int_graph):
-    """Straggler control still raises, naming its ROADMAP item; a quantized
-    backend without codes and a LUT, or an unknown backend, is refused."""
+    """A patience below 1 or a negative eps is refused, as the reference
+    refuses them; a quantized backend without codes and a LUT, or an
+    unknown backend, is refused too."""
     data, nbrs, queries, entry = (torch.from_numpy(a) for a in int_graph)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        beam_search(queries, data, nbrs, entry, ef=8, k=4, patience=3)
+    with pytest.raises(ValueError, match="patience"):
+        beam_search(queries, data, nbrs, entry, ef=8, k=4, patience=0)
+    with pytest.raises(ValueError, match="eps"):
+        beam_search(queries, data, nbrs, entry, ef=8, k=4, patience=2,
+                    eps=-1.0)
     with pytest.raises(ValueError, match="codes and lut"):
         beam_search(queries, data, nbrs, entry, ef=8, k=4,
                     dist_backend="pq")
