@@ -44,9 +44,38 @@ Phases, each printing one JSON line:
  10. tune_cli — python -m repro_torch.launch.tune at N=20000, D=768 (the
                 full default_space: several structural builds) must exit 0
                 and print its Pareto front and build log.
- 11. the kernels line: launches on the main path (fit + serve for the f32
-                kernels and l2topk, quantize + serve for the LUT kernels),
-                errors, times and bounds; every kernel must have launched.
+ 11. recsys   — the two-tower retrieval model at its full config (a
+                14,010,368 x 256 f32 table, 14.35 GB; no width or vocabulary
+                cut) from --seed: recsys_score_step at B = 512 (median and
+                p99 of 100 batches) and B = 262,144 (queries/s), then
+                recsys_retrieval_step for 1 user x 1,000,000 candidates, top
+                10. A serve_p99 batch (512 requests) scored again with the
+                plain bag on the card (embedding_bag_ref) must give the same
+                bits, and the retrieval the same top 10.
+ 12. recsys_ann — retrieval through the tuned index: the item tower's
+                embeddings of items 0..299,999 (2M items cut to 300k: the
+                exact kNN grows as N^2) as the database, the user tower's of
+                1024 requests as the queries (ef_search 64, degree 16, 16
+                entry points, exact kNN, host finish): fit seconds,
+                recall@10 against FlatIndex and QPS.
+ 13. recsys_cli — python -m repro_torch.launch.serve --arch
+                two-tower-retrieval must exit 0 and print its line.
+ 14. embedding_bag — the kernel against its plain version on small tables
+                (f32 and bf16, D in {8, 18, 256}, both combiners, no, integer
+                and float weights: bit-equal but for float weights, rtol
+                1e-6), then at the path's three shapes over the full table
+                bit-equal to the plain version on one id set each, and timed
+                beside the plain version and torch's embedding_bag
+                (ms: one event-timed call, host launch included; device_ms:
+                16 calls queued back to back behind a device sleep, cycling
+                the 8 id sets; device_ms_l2_warm: the same on one id set,
+                whose rows stay in L2 at the small shapes).
+ 15. the kernels line: launches on the main path (fit + serve for the f32
+                kernels and l2topk, quantize + serve for the LUT kernels,
+                recsys + recsys_ann for embedding_bag), errors, times and
+                bounds; every kernel must have launched. "launches_recsys"
+                is each kernel's count over phases 11-12, which must be > 0
+                for every kernel of the two-tower path (RECSYS_KERNELS).
                 A LUT kernel's entry holds its M = 300 times with its
                 launches over both backends, and under "by_m" each M's
                 times and launches (pq runs M = 300, int8 M = 600); the
@@ -86,6 +115,20 @@ TUNE_CLI_ARGS = ["--n", "20000", "--dim", "768", "--queries", "256",
                  "--trials", "6", "--mode", "multi", "--knn-backend", "exact",
                  "--finish-backend", "host", "--max-degree", "32"]
 TUNE_CLI_TIMEOUT = 600
+P99_BATCHES = 100                          # timed serve_p99 batches
+BULK_BATCHES = 3                           # timed serve_bulk batches
+RETRIEVAL_REQUESTS = 5                     # timed 1 x 1M retrievals
+RECSYS_ANN_ITEMS = 300_000                 # 2M items cut to 300k
+RECSYS_ANN_QUERIES = 1024
+RECSYS_ANN_PARAMS = dict(antihub_keep=1.0, ep_clusters=16, ef_search=64,
+                         graph_degree=16, build_knn_k=16,
+                         build_candidates=48, knn_backend="exact",
+                         finish_backend="host")
+RECSYS_CLI_TIMEOUT = 300
+# the kernels phases 11-12 run: the bag in the towers, the f32 graph kernels
+# in recsys_ann's fit and search
+RECSYS_KERNELS = ("embedding_bag", "gather_dist", "beam_hop", "topk_merge",
+                  "l2topk")
 
 
 def emit(phase: str, **fields) -> None:
@@ -736,6 +779,305 @@ def tune_cli_phase(src: Path) -> None:
                              "Pareto front / build log")
 
 
+def host_times(torch, fn, runs: int, warmup: int = 2) -> list:
+    """Seconds of each of ``runs`` calls ``fn(i)``, each ended by a device
+    sync (request latency as the caller sees it), after ``warmup`` calls."""
+    for i in range(warmup):
+        fn(i)
+    times = []
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return times
+
+
+def plain_user_embed(torch, model, cfg, batch):
+    """The user tower with the history bag taken by the plain version of
+    embedding_bag on the card (the yardstick of the kernel path)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+    from repro_torch.models.recsys import _l2norm
+    from repro_torch.models.recsys_common import table_offsets
+    off = table_offsets(cfg.table_vocabs)
+    ids = batch["sparse_ids"]
+    u = model.table[ids[0][:, 0] + int(off[0])]
+    hist = torch.where(ids[1] >= 0, ids[1] + int(off[1]), -1)
+    h = embedding_bag_ref(model.table, hist, None, "mean")
+    return _l2norm(model.user_tower(torch.cat([u, h], dim=1)))
+
+
+def recsys_phase(torch, model, cfg, seed: int) -> None:
+    """The two-tower model's serve steps at the config's shapes; the
+    kernel path against the plain bag on the same requests."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import recsys_batch
+    from repro_torch.serve.serve_step import recsys_retrieval_step, \
+        recsys_score_step, top_k
+
+    dev = model.table.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 303)
+    score = recsys_score_step(cfg)
+    k = 10
+    retrieve = recsys_retrieval_step(cfg, k=k)
+
+    b = RECSYS_SHAPES["serve_p99"].batch
+    batches = [recsys_batch(gen, b, cfg) for _ in range(P99_BATCHES)]
+    p99_times = sorted(host_times(torch, lambda i: score(model, batches[i]),
+                                  P99_BATCHES))
+    outs = [score(model, x) for x in batches[:4]]
+    ok = all(o.shape == (b,) and bool(torch.isfinite(o).all())
+             for o in outs)
+    del batches, outs
+
+    bb = RECSYS_SHAPES["serve_bulk"].batch
+    bulk = [recsys_batch(gen, bb, cfg) for _ in range(BULK_BATCHES)]
+    bulk_times = host_times(torch, lambda i: score(model, bulk[i]),
+                            BULK_BATCHES, warmup=1)
+    s_bulk = score(model, bulk[0])
+    ok &= s_bulk.shape == (bb,) and bool(torch.isfinite(s_bulk).all())
+    del bulk, s_bulk
+
+    n_cand = RECSYS_SHAPES["retrieval_cand"].n_candidates
+    cands = torch.arange(n_cand, dtype=torch.int32, device=dev)
+    users = [recsys_batch(gen, 1, cfg) for _ in range(RETRIEVAL_REQUESTS)]
+    ret_times = host_times(torch, lambda i: retrieve(model, users[i], cands),
+                           RETRIEVAL_REQUESTS, warmup=1)
+    top, ids = retrieve(model, users[0], cands)
+
+    # the same requests again with the plain bag: the same bits
+    reqs = recsys_batch(gen, b, cfg)
+    got = score(model, reqs)
+    with torch.inference_mode():
+        sp = reqs["sparse_ids"]
+        items = model.item_embed(sp[2][:, 0], sp[3][:, 0])
+        want = (plain_user_embed(torch, model, cfg, reqs) * items).sum(1)
+        u1 = plain_user_embed(torch, model, cfg, users[0])
+        v = model.item_embed(cands, cands % cfg.table_vocabs[3])
+        ptop, pidx = top_k((u1 @ v.T)[0], k)
+        del v
+    scores_equal = torch.equal(got, want)
+    top_equal = torch.equal(top, ptop) and torch.equal(ids, cands[pidx])
+    distinct = int(torch.unique(ids).numel()) == k
+    table = model.table
+    emit("recsys", config=cfg.name, table_shape=list(table.shape),
+         table_bytes=table.numel() * table.element_size(),
+         tower_params=sum(p.numel() for n_, p in model.named_parameters()
+                          if n_ != "table"),
+         serve_p99=dict(batch=b, runs=P99_BATCHES,
+                        median_ms=statistics.median(p99_times) * 1e3,
+                        p99_ms=p99_times[math.ceil(0.99 * P99_BATCHES) - 1]
+                        * 1e3, max_ms=p99_times[-1] * 1e3),
+         serve_bulk=dict(batch=bb, runs=BULK_BATCHES,
+                         seconds=statistics.median(bulk_times),
+                         qps=bb / statistics.median(bulk_times),
+                         qps_min=bb / max(bulk_times)),
+         retrieval=dict(candidates=n_cand, k=k, runs=RETRIEVAL_REQUESTS,
+                        median_ms=statistics.median(ret_times) * 1e3,
+                        max_ms=max(ret_times) * 1e3,
+                        top_ids=ids.tolist()),
+         plain_bag_requests=b,
+         scores_equal_to_plain_bag=scores_equal,
+         retrieval_equal_to_plain_bag=top_equal,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+    if not ok or not distinct:
+        raise AssertionError("recsys: non-finite or mis-shaped scores, or "
+                             "repeated retrieval ids")
+    if not (scores_equal and top_equal):
+        raise AssertionError("recsys: the kernel path differs from the "
+                             "plain bag on the card")
+
+
+def recsys_ann_phase(torch, model, cfg, seed: int) -> None:
+    """Retrieval through the tuned index: the item tower's embeddings as
+    the database, the user tower's as the queries."""
+    from repro_torch.core.flat import FlatIndex
+    from repro_torch.core.pipeline import IndexParams, TunedGraphIndex
+    from repro_torch.data import recsys_batch
+
+    dev = model.table.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 404)
+    n, nq, k = RECSYS_ANN_ITEMS, RECSYS_ANN_QUERIES, 10
+    items = torch.arange(n, dtype=torch.int32, device=dev) \
+        % cfg.table_vocabs[2]
+    with torch.inference_mode():
+        corpus = model.item_embed(items, items % cfg.table_vocabs[3])
+        users = model.user_embed(recsys_batch(gen, nq, cfg))
+    corpus, users = corpus.clone(), users.clone()   # plain tensors
+    params = IndexParams(pca_dim=cfg.embed_dim, **RECSYS_ANN_PARAMS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    index = TunedGraphIndex(params, device=dev).fit(
+        corpus, torch.Generator().manual_seed(seed))
+    fit_s = time.perf_counter() - t
+    times = host_times(torch, lambda i: index.search(users, k), SERVE_RUNS,
+                       warmup=1)
+    _, approx = index.search(users, k)
+    stats = index.search_stats()
+    _, wide = index.search(users, k, ef=256)        # a 4x wider beam
+    flat = FlatIndex(corpus)
+    flat_times = host_times(torch, lambda i: flat.search(users, k), 3,
+                            warmup=1)
+    _, exact = flat.search(users, k)
+    recall = recall_at_k(approx.cpu(), exact.cpu())
+    recall_wide = recall_at_k(wide.cpu(), exact.cpu())
+    valid = bool(((approx >= 0) & (approx < n)).all())
+    srt = approx.sort(1).values
+    distinct = bool((srt[:, 1:] != srt[:, :-1]).all())
+    serve_s = statistics.median(times)
+    emit("recsys_ann", items=n, cut="2,000,000 items -> 300,000 (exact kNN "
+         "grows as N^2; NN-Descent not ported)", dim=cfg.embed_dim,
+         queries=nq, k=k, params=RECSYS_ANN_PARAMS, fit_seconds=fit_s,
+         stage_seconds=index.stage_seconds, runs=SERVE_RUNS,
+         qps=nq / serve_s, qps_min=nq / max(times), recall_at_10=recall,
+         recall_at_10_ef256=recall_wide, stats=stats,
+         brute_force_qps=nq / statistics.median(flat_times),
+         ids_valid=valid, ids_distinct=distinct)
+    if not (valid and distinct and approx.shape == (nq, k)):
+        raise AssertionError("recsys_ann: invalid or repeated ids in a row")
+
+
+def recsys_cli_phase(src: Path) -> None:
+    """``python -m repro_torch.launch.serve --arch two-tower-retrieval``
+    as a subprocess: it must exit 0 and print the reference's line."""
+    import os
+    import re
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "two-tower-retrieval"], env={**os.environ, "PYTHONPATH": str(src)},
+        capture_output=True, text=True, timeout=RECSYS_CLI_TIMEOUT)
+    line = proc.stdout.strip()
+    ok = proc.returncode == 0 and re.fullmatch(
+        r"two-tower-retrieval: scored batch 8 \(mean -?\d+\.\d{4}\); "
+        r"retrieval top5 ids \[ *\d+( +\d+){4}\]", line) is not None
+    emit("recsys_cli", returncode=proc.returncode, output=line,
+         seconds=time.perf_counter() - t,
+         stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+    if not ok:
+        raise AssertionError("recsys_cli: the serve launcher failed or "
+                             "printed another line")
+
+
+def queued_ms(torch, fn, calls: int = 16) -> float:
+    """Device milliseconds per ``fn()`` without the host's launch overhead:
+    the calls are enqueued behind a ~20 ms device sleep, so they run back
+    to back between the two events (a single event-timed call of a small
+    kernel measures mostly the host's time to launch it)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def embedding_bag_kernel_phase(torch, table, cfg, gpu: str,
+                               seed: int) -> dict:
+    """embedding_bag against its plain version on small tables (f32 and
+    bf16, D in {8, 18, 256}, pads and an all-pad bag, both combiners, no,
+    integer and float weights): bit-equal but under float weights (rtol
+    1e-6). Then timed at the path's shapes over the full table ``table``,
+    cycling 8 id sets against the 50 MB L2, beside the plain version and
+    torch's embedding_bag (mode="mean": the path's ids have no pads); at
+    each of those shapes the kernel must give the plain version's bits on
+    one id set."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_ref
+    from repro_torch.models.recsys_common import table_offsets
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 505)
+    worst, checks = 0.0, 0
+    for d in (8, 18, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            small = torch.randn((5000, d), generator=g, device=dev).to(dtype)
+            ids = torch.randint(-1, 5000, (300, 32), generator=g, device=dev,
+                                dtype=torch.int32)
+            ids[0] = -1
+            ws = {"none": None,
+                  "int": torch.randint(0, 4, (300, 32), generator=g,
+                                       device=dev).float(),
+                  "float": torch.rand((300, 32), generator=g, device=dev)}
+            for combiner in ("sum", "mean"):
+                for kind, w in ws.items():
+                    got = embedding_bag_cuda(small, ids, w, combiner)
+                    want = embedding_bag_ref(small, ids, w, combiner)
+                    checks += 1
+                    if kind == "float":
+                        err = (got - want).abs()
+                        worst = max(worst, float(err.max()))
+                        if not bool((err <= 1e-6 * want.abs()).all()):
+                            raise AssertionError(
+                                f"embedding_bag beyond rtol 1e-6 (D={d}, "
+                                f"{dtype}, {combiner}, float weights)")
+                    elif not torch.equal(got, want):
+                        raise AssertionError(
+                            f"embedding_bag differs from its plain version "
+                            f"(D={d}, {dtype}, {combiner}, {kind} weights)")
+    emit("embedding_bag_checks", checks=checks, max_abs_err_float=worst)
+
+    off = int(table_offsets(cfg.table_vocabs)[1])
+    vocab, bag, d = cfg.table_vocabs[1], cfg.multi_hot[1], table.shape[1]
+    shapes = {"serve_p99": RECSYS_SHAPES["serve_p99"].batch,
+              "recsys_ann": RECSYS_ANN_QUERIES,
+              "serve_bulk": RECSYS_SHAPES["serve_bulk"].batch}
+    out = {}
+    for name, b in shapes.items():
+        sets = Cycle([torch.randint(0, vocab, (b, bag), generator=g,
+                                    device=dev, dtype=torch.int32) + off
+                      for _ in range(8)])
+        longs = Cycle([s_.long() for s_ in sets.items])
+        reps, warm = (5, 1) if b > 100_000 else (25, 3)
+        ms = time_ms(lambda: embedding_bag_cuda(table, sets.next(), None,
+                                                "mean"), reps, warm)
+        plain = time_ms(lambda: embedding_bag_ref(table, sets.next(), None,
+                                                  "mean"), reps, warm)
+        library = time_ms(lambda: torch.nn.functional.embedding_bag(
+            longs.next(), table, mode="mean"), reps, warm)
+        got = embedding_bag_cuda(table, sets.items[0], None, "mean")
+        want = embedding_bag_ref(table, sets.items[0], None, "mean")
+        if not torch.equal(got, want):
+            raise AssertionError(f"embedding_bag differs from its plain "
+                                 f"version at {name} (B={b})")
+        plain_err = float((got - want).abs().max())
+        lib_err = float((torch.nn.functional.embedding_bag(
+            longs.items[0], table, mode="mean") - got).abs().max())
+        del got, want
+        dev_ms = queued_ms(torch, lambda: embedding_bag_cuda(
+            table, sets.next(), None, "mean"))
+        # one id set over and over: its rows stay in L2 where they fit
+        warm_ms = queued_ms(torch, lambda: embedding_bag_cuda(
+            table, sets.items[0], None, "mean"))
+        lib_dev_ms = queued_ms(torch, lambda: torch.nn.functional
+                               .embedding_bag(longs.next(), table,
+                                              mode="mean"))
+        uniq = sum(int(torch.unique(s_).numel()) for s_ in sets.items) / 8
+        bmin, by = bound(uniq * d * 4 + b * bag * 4 + b * d * 4,
+                         2 * b * bag * d, gpu)
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bmin, bound_by=by,
+                         plain_max_abs_err=plain_err, library_ms=library,
+                         library_max_abs_err=lib_err,
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                         device_ms_l2_warm=warm_ms,
+                         unique_rows=uniq, rows_read=b * bag,
+                         shape=dict(b=b, l=bag, d=d))
+        del sets, longs
+    head = out["serve_p99"]
+    return dict(route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+                replaces="src/repro/kernels/embedding_bag/embedding_bag.py:44",
+                max_abs_err=worst,
+                **{k_: v for k_, v in head.items() if k_ != "shape"},
+                shape=head["shape"], by_shape=out)
+
+
 def recall_at_k(found, truth) -> float:
     hits = sum(len(set(a) & set(b)) for a, b in zip(found.tolist(),
                                                      truth.tolist()))
@@ -800,13 +1142,15 @@ def main() -> int:
     from repro_torch.core.pipeline import IndexParams, TunedGraphIndex
     from repro_torch.data import clustered_vectors, queries_like
     from repro_torch.kernels.beam_hop import beam_hop_cuda, beam_hop_lut_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
     from repro_torch.kernels.gather_dist import gather_dist_cuda
     from repro_torch.kernels.l2topk import l2topk_cuda
     from repro_torch.kernels.lut_dist import lut_dist_cuda
     from repro_torch.kernels.topk_merge import topk_merge_cuda
     wrappers = {"gather_dist": gather_dist_cuda, "beam_hop": beam_hop_cuda,
                 "topk_merge": topk_merge_cuda, "lut_dist": lut_dist_cuda,
-                "beam_hop_lut": beam_hop_lut_cuda, "l2topk": l2topk_cuda}
+                "beam_hop_lut": beam_hop_lut_cuda, "l2topk": l2topk_cuda,
+                "embedding_bag": embedding_bag_cuda}
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     data = clustered_vectors(gen, n, CONFIG.dim)
@@ -923,7 +1267,36 @@ def main() -> int:
     tune_launches = tune_phase(torch, data, queries, wrappers, args.seed)
     tune_cli_phase(src)
 
-    # 11. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
+    # 11-12. the two-tower path at full width: its launch counts are zeroed
+    # just before recsys and read just after recsys_ann
+    from repro_torch.configs.two_tower_retrieval import CONFIG as TWO_TOWER
+    from repro_torch.models.recsys import two_tower_init
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = two_tower_init(torch.Generator(device="cuda").manual_seed(
+        args.seed), TWO_TOWER)
+    torch.cuda.synchronize()
+    emit("recsys_init", seconds=time.perf_counter() - t,
+         resident_bytes_before=resident)
+    for w in wrappers.values():
+        w.launches = 0
+    recsys_phase(torch, model, TWO_TOWER, args.seed)
+    recsys_ann_phase(torch, model, TWO_TOWER, args.seed)
+    torch.cuda.synchronize()
+    recsys_launches = {name: w.launches for name, w in wrappers.items()}
+    launches["embedding_bag"] = recsys_launches["embedding_bag"]
+
+    # 13-14. the launcher, then the bag kernel over the full table
+    recsys_cli_phase(src)
+    kernels["embedding_bag"] = embedding_bag_kernel_phase(
+        torch, model.table.detach(), TWO_TOWER, gpu, args.seed)
+    emit("embedding_bag", **kernels["embedding_bag"])
+    del model
+    torch.cuda.empty_cache()
+
+    # 15. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
     # times at the top, its total launches over both backends, and each
     # M's times and launches under by_m.
     line = []
@@ -932,6 +1305,7 @@ def main() -> int:
                  if k_ not in ("shape", "by_m", "by_shape")}
         entry["launches"] = launches[name]
         entry["launches_tune"] = tune_launches[name]
+        entry["launches_recsys"] = recsys_launches[name]
         if "by_shape" in info:
             entry["by_shape"] = {s_: {k_: v for k_, v in b_.items()
                                       if k_ != "shape"} | b_["shape"]
@@ -949,6 +1323,9 @@ def main() -> int:
             c for by_m in lut_launches.values() for c in by_m.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the main path: "
                              f"{launches}")
+    if min(recsys_launches[name] for name in RECSYS_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the two-tower path never launched "
+                             f"in phases 11-12: {recsys_launches}")
     if fit_l2topk <= 0 or launches["l2topk"] <= fit_l2topk \
             or tune_launches["l2topk"] <= 0:
         raise AssertionError("l2topk did not launch in each of fit, serve "

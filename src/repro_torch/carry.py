@@ -1,4 +1,4 @@
-"""Carry an index across from the reference package.
+"""Carry an index or a model across from the reference package.
 
 ``index_from_jax_state`` takes the dict that ``repro``'s
 ``TunedGraphIndex.state_dict()`` returns — with every array passed through
@@ -7,12 +7,20 @@ both packages can search one graph — with its codec (codes, PQ codebooks
 or int8 scale and zero-point) when the reference quantized it. This
 module never imports the reference: it reads the plain
 ``{"meta", "arrays"}`` layout.
+
+``recsys_params_from_jax`` does the same for the two-tower model: it takes
+the reference's params pytree (``{"table", "user_tower": {"layers": [{"w",
+"b"}, ...]}, "item_tower"}``) and returns the port's ``TwoTower``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.pipeline import TunedGraphIndex
+from repro_torch.models.layers import MLP
+from repro_torch.models.recsys import TwoTower
 
 
 def index_from_jax_state(state: dict, device=None) -> TunedGraphIndex:
@@ -21,3 +29,19 @@ def index_from_jax_state(state: dict, device=None) -> TunedGraphIndex:
     arrays = {k: np.asarray(v) for k, v in state["arrays"].items()}
     return TunedGraphIndex.from_state(
         {"meta": state["meta"], "arrays": arrays}, device=device)
+
+
+def recsys_params_from_jax(params: dict, cfg, device=None) -> TwoTower:
+    """Reference two-tower params (any array type numpy reads) -> the
+    port's ``TwoTower`` on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(np.asarray(a))).to(dev)
+
+    def mlp(p):
+        return MLP([t(lyr["w"]) for lyr in p["layers"]],
+                   [t(lyr["b"]) for lyr in p["layers"]])
+
+    return TwoTower(cfg, t(params["table"]), mlp(params["user_tower"]),
+                    mlp(params["item_tower"]))

@@ -1,6 +1,6 @@
 """The paper's own workload: LAION-style 768-d vectors through the tuned
 NSG pipeline (SISAP 2023 Task A)."""
-from repro_torch.configs.base import ANNConfig, ShapeConfig
+from repro_torch.configs.base import ANNConfig, ArchSpec, ShapeConfig
 
 CONFIG = ANNConfig(
     name="ann-laion",
@@ -24,3 +24,13 @@ ANN_SHAPES = {
     "build_knn": ShapeConfig("build_knn", "train", batch=4096,
                              n_candidates=300_000),
 }
+
+SPEC = ArchSpec(
+    arch_id="ann-laion",
+    family="ann",
+    config=CONFIG,
+    shapes=ANN_SHAPES,
+    source="[SISAP23 Task A / arXiv:2309.00472; paper]",
+    notes="The paper's pipeline (TunedGraphIndex); the sharded search "
+          "serve step is not ported (ROADMAP Queue 1 item 9).",
+)

@@ -1,9 +1,35 @@
-"""Config dataclasses of the paper's ANN workload (copied from the
-reference's ``configs/base.py``; the model-family configs are not ported)."""
+"""Config dataclasses of the port (copied from the reference's
+``configs/base.py``): the paper's ANN workload, the recsys family and the
+``ArchSpec`` the launchers select by ``--arch``. The LM and GNN configs are
+not ported."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, Tuple
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    """Sparse-embedding + interaction + MLP ranking/retrieval models."""
+
+    name: str
+    interaction: str                 # dot | self-attn-seq | target-attn
+    embed_dim: int
+    table_vocabs: Tuple[int, ...]    # rows per sparse embedding table
+    n_dense: int = 0                 # dense (numeric) features
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    tower_mlp: Tuple[int, ...] = ()  # two-tower
+    attn_mlp: Tuple[int, ...] = ()   # DIN local activation unit
+    seq_len: int = 0                 # behaviour-sequence length
+    n_blocks: int = 0                # sasrec transformer blocks
+    n_heads: int = 0
+    multi_hot: Tuple[int, ...] = ()  # bag size per table (1 = one-hot)
+    dtype: str = "float32"
+
+    @property
+    def n_sparse(self) -> int:
+        return len(self.table_vocabs)
 
 
 @dataclass(frozen=True)
@@ -54,3 +80,25 @@ class ShapeConfig:
     # Recsys
     batch: int = 0
     n_candidates: int = 0
+
+
+RECSYS_SHAPES: Dict[str, ShapeConfig] = {
+    "train_batch": ShapeConfig("train_batch", "train", batch=65536),
+    "serve_p99": ShapeConfig("serve_p99", "serve", batch=512),
+    "serve_bulk": ShapeConfig("serve_bulk", "serve", batch=262144),
+    "retrieval_cand": ShapeConfig(
+        "retrieval_cand", "retrieval", batch=1, n_candidates=1_000_000),
+}
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    """Everything the launchers need for one ``--arch`` id."""
+
+    arch_id: str
+    family: str                      # recsys | ann (lm | gnn: not ported)
+    config: Any                      # RecsysConfig | ANNConfig
+    shapes: Dict[str, ShapeConfig]
+    smoke_config: Any = None         # reduced same-family config, if any
+    source: str = ""                 # [citation; verification tier]
+    notes: str = ""

@@ -1,3 +1,4 @@
-from repro_torch.data.synthetic import clustered_vectors, queries_like
+from repro_torch.data.synthetic import clustered_vectors, queries_like, \
+    recsys_batch
 
-__all__ = ["clustered_vectors", "queries_like"]
+__all__ = ["clustered_vectors", "queries_like", "recsys_batch"]

@@ -1,5 +1,5 @@
-"""Synthetic LAION-like vectors (the reference's ``data/synthetic.py``
-recipe, drawn from a ``torch.Generator``).
+"""Synthetic LAION-like vectors and recsys batches (the reference's
+``data/synthetic.py`` recipes, drawn from a ``torch.Generator``).
 
 The recipe is the reference's: a Gaussian mixture with Zipf-ish cluster
 weights and a decaying per-dimension spectrum, so PCA has headroom and the
@@ -39,3 +39,23 @@ def queries_like(generator: torch.Generator, data: torch.Tensor,
     noise = torch.randn((n_queries, data.shape[1]), generator=generator,
                         device=dev, dtype=data.dtype)
     return data[idx.to(data.device)] + jitter * noise.to(data.device)
+
+
+def recsys_batch(generator: torch.Generator, batch: int, cfg) -> dict:
+    """Categorical ids per table (+ dense features), with the reference's
+    distributions: uniform int32 ids per table with the config's
+    ``multi_hot`` bag sizes, standard-normal dense features, and
+    Bernoulli(0.3) labels. The behaviour sequences of SASRec and DIN come
+    with those models (ROADMAP Queue 1 items 10.2 and 10.3)."""
+    dev = generator.device
+    multi_hot = cfg.multi_hot or (1,) * cfg.n_sparse
+    out = {"sparse_ids": [
+        torch.randint(0, vocab, (batch, bag), generator=generator,
+                      device=dev, dtype=torch.int32)
+        for vocab, bag in zip(cfg.table_vocabs, multi_hot)]}
+    if cfg.n_dense:
+        out["dense"] = torch.randn((batch, cfg.n_dense), generator=generator,
+                                   device=dev)
+    out["label"] = (torch.rand((batch,), generator=generator, device=dev)
+                    < 0.3).float()
+    return out

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "topk_merge_rows": [_P] * 6 + [_I] * 5 + [_P],
     "topk_merge_smem_bytes": [_I],
     "l2topk_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "embedding_bag": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 

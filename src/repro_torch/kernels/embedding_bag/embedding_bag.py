@@ -1,0 +1,65 @@
+"""Launch wrapper of the CUDA ``embedding_bag`` kernel
+(``csrc/embedding_bag.cu``)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_operands(table, ids, weights, combiner):
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag_cuda: unknown combiner "
+                         f"{combiner!r}")
+    ts = (table, ids) if weights is None else (table, ids, weights)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("embedding_bag_cuda: every operand must be on CUDA")
+    if any(t.device != table.device for t in ts):
+        raise ValueError("embedding_bag_cuda: operands on different devices")
+    if table.dtype not in _DTYPES:
+        raise TypeError(f"embedding_bag_cuda: table must be float32 or "
+                        f"bfloat16, got {table.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError("embedding_bag_cuda: ids must be int32")
+    if weights is not None and weights.dtype != torch.float32:
+        raise TypeError("embedding_bag_cuda: weights must be float32")
+    if table.dim() != 2 or ids.dim() != 2:
+        raise ValueError(f"embedding_bag_cuda: expected (V, D) and (B, L), "
+                         f"got {tuple(table.shape)} and {tuple(ids.shape)}")
+    if weights is not None and weights.shape != ids.shape:
+        raise ValueError(f"embedding_bag_cuda: weights {tuple(weights.shape)}"
+                         f" differ from ids {tuple(ids.shape)}")
+    if table.shape[0] == 0:
+        raise ValueError("embedding_bag_cuda: empty table")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("embedding_bag_cuda: operands must be contiguous")
+
+
+def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None,
+                       combiner: str = "sum") -> torch.Tensor:
+    """table (V, D) f32/bf16, ids (B, L) int32 (-1 pads), weights (B, L)
+    f32 or None -> (B, D) f32. Ids >= V are outside the contract: they are
+    not checked (a check would cost a host sync) and read row V - 1."""
+    _check_operands(table, ids, weights, combiner)
+    b, bag_len = ids.shape
+    v, d = table.shape
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    vec4 = d % 4 == 0 and table.data_ptr() % (4 * table.element_size()) == 0
+    lib = cuda_lib.library()
+    code = lib.embedding_bag(
+        table.data_ptr(), ids.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr(),
+        b, bag_len, v, d, int(combiner == "mean"), int(vec4),
+        int(table.dtype == torch.bfloat16),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    cuda_lib.check(code, "embedding_bag")
+    embedding_bag_cuda.launches += 1
+    return out
+
+
+embedding_bag_cuda.launches = 0

@@ -267,3 +267,83 @@ def test_ann_objective_counters_on_the_card_equal_the_cpu_run(dev):
         assert (cr.cached_build, cr.repruned) == (gr.cached_build,
                                                   gr.repruned)
         assert abs(cr.recall - gr.recall) <= 0.05
+
+
+# embedding_bag: D = 256 (the two-tower width, float4 rows), 8 (one
+# lane-pass short of a warp), 18 (scalar rows, DIN's width), 600 (several
+# lane groups); bags with pads and one all-pad bag
+BAG_SHAPES = [(5000, 256, 300, 32), (100, 8, 64, 5), (700, 18, 33, 7),
+              (2000, 600, 40, 3)]
+
+
+def _bag_inputs(g, v, d, b, l, table_dtype, dev):
+    table = torch.randn((v, d), generator=g).to(table_dtype).to(dev)
+    ids = _ids(g, (b, l), v, dev)
+    ids[0] = -1
+    return table, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weights", ["none", "int", "float"])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,b,l", BAG_SHAPES)
+def test_embedding_bag_kernel(dev, v, d, b, l, table_dtype, weights,
+                              combiner):
+    """Bit-equal to the plain version under unit or integer-valued weights
+    (every fma of the chain is exact to one rounding in both), within rtol
+    1e-6 under float weights (the plain version's float64 sum can round
+    twice)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, \
+        embedding_bag_cuda, embedding_bag_ref
+    g = torch.Generator().manual_seed(v + d + l)
+    table, ids = _bag_inputs(g, v, d, b, l, table_dtype, dev)
+    w = {"none": None,
+         "int": torch.randint(0, 4, (b, l), generator=g).float().to(dev),
+         "float": torch.rand((b, l), generator=g).to(dev)}[weights]
+    n0 = embedding_bag_cuda.launches
+    got = embedding_bag(table, ids, w, combiner)
+    assert embedding_bag_cuda.launches == n0 + 1     # no plain fallback
+    want = embedding_bag_ref(table, ids, w, combiner)
+    assert got.shape == (b, d) and got.dtype == torch.float32
+    assert (got[0] == 0).all()
+    if weights == "float":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_scalar_rows_on_a_misaligned_table(dev):
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_ref
+    g = torch.Generator().manual_seed(11)
+    base, ids = _bag_inputs(g, 301, 16, 50, 9, torch.float32, dev)
+    table = base.view(-1)[1:1 + 300 * 16].view(300, 16)   # 4-byte aligned
+    ids = ids.clamp_max(299)
+    assert torch.equal(embedding_bag_cuda(table, ids, None, "mean"),
+                       embedding_bag_ref(table, ids, None, "mean"))
+
+
+@pytest.mark.cuda
+def test_two_tower_bag_on_the_card_equals_the_cpu_bag(dev):
+    """The model's history bag through the kernel equals the CPU's plain
+    version bit for bit, and the score step returns finite scores."""
+    from repro_torch.configs.two_tower_retrieval import SMOKE
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys
+    from repro_torch.serve.serve_step import recsys_score_step
+    model = recsys.two_tower_init(torch.Generator(device=dev).manual_seed(0),
+                                  SMOKE)
+    batch = recsys_batch(torch.Generator(device=dev).manual_seed(1), 64,
+                         SMOKE)
+    batch["sparse_ids"][1][3, 4:] = -1
+    hist = torch.where(batch["sparse_ids"][1] >= 0,
+                       batch["sparse_ids"][1]
+                       + int(recsys._offsets(SMOKE)[1]), -1)
+    with torch.inference_mode():
+        bag = recsys._bag(None, model.table, hist)
+        bag_cpu = recsys._bag(None, model.table.cpu(), hist.cpu())
+    assert torch.equal(bag.cpu(), bag_cpu)
+    scores = recsys_score_step(SMOKE)(model, batch)
+    assert scores.shape == (64,) and bool(torch.isfinite(scores).all())
