@@ -16,7 +16,10 @@ Phases, each printing one JSON line:
                 then l2topk at each of its shapes on the path (AntiHub,
                 kNN, ground truth, k-means, medoid, entry-point select, PQ),
                 exact on tied integer inputs, within rtol 1e-5 on float
-                inputs.
+                inputs, each through the variant L2TOPK_ROUTES names (tc:
+                3xTF32 on the tensor cores, tile: f32 SIMT tiles, small: the
+                database in shared memory), with its f32 and 3xTF32
+                bounds.
   4. fit      — builds TunedGraphIndex with the ann-laion config
                 (knn_backend="exact", finish_backend="host") on
                 clustered_vectors(300000, 768) from --seed (the config's
@@ -80,8 +83,11 @@ Phases, each printing one JSON line:
                 launches over both backends, and under "by_m" each M's
                 times and launches (pq runs M = 300, int8 M = 600); the
                 l2topk entry holds its AntiHub-shape times, and under
-                "by_shape" each shape's; "launches_tune" is each kernel's
-                count over the tune phase.
+                "by_shape" each shape's, and its launches per variant over
+                the main path, quantize (PQ's codec), tune and the two-tower
+                phases; "launches_tune" is each kernel's count over the
+                tune phase. The fit must launch the tc and tile variants,
+                PQ's codec the small one.
 
 Any failed check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -100,9 +106,10 @@ from pathlib import Path
 
 # Data-sheet peaks (NVIDIA H100 SXM, dense, without sparsity) of the one
 # card this script's bounds were written for, under the name torch reports:
-# (device-memory bytes/s, float32 operations/s outside the tensor cores).
+# device-memory bytes/s, float32 operations/s outside the tensor cores, and
+# TF32 operations/s on them.
 PEAK_CARD = "NVIDIA H100 80GB HBM3"
-PEAK_BW, PEAK_F32 = 3.35e12, 67e12
+PEAK_BW, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
 
 TOPK_SHAPE = dict(b=2048, m=96, k=64)      # NSG pool assembly
 HOP_SHAPE = dict(q=1024, ef=64, r=32)      # one serving hop
@@ -129,6 +136,10 @@ RECSYS_CLI_TIMEOUT = 300
 # in recsys_ann's fit and search
 RECSYS_KERNELS = ("embedding_bag", "gather_dist", "beam_hop", "topk_merge",
                   "l2topk")
+# the l2topk variant each main-path shape must take (PERF.md names them)
+L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
+                 "kmeans": "tile", "medoid": "tile", "entry_select": "tile",
+                 "pq": "small"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -160,9 +171,21 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, ops: float, name: str):
+def zero_counts(wrappers: dict) -> None:
+    """Every wrapper's launch count to 0, l2topk's per-variant counts too."""
+    from repro_torch.kernels.l2topk.l2topk import reset_launches
+    for w in wrappers.values():
+        w.launches = 0
+    reset_launches()
+
+
+def bound(bytes_moved: float, ops: float, name: str, ops_rate=None):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over ``ops_rate`` (default: f32 outside
+    the tensor cores)."""
     bw, flops = peaks(name)
-    t_bytes, t_ops = bytes_moved / bw * 1e3, ops / flops * 1e3
+    t_bytes = bytes_moved / bw * 1e3
+    t_ops = ops / (flops if ops_rate is None else ops_rate) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -489,17 +512,27 @@ def l2topk_kernel_phase(torch, gpu: str, seed: int) -> dict:
     integer inputs in [-1, 1] (many tied distances) must give the same ids
     and the same dist bits; float inputs dists within rtol = atol = 1e-5
     and ids equal on >= 99% of rows (the kernel sums each dot product in
-    another order than cuBLAS). Both are timed with CUDA events; the plain
-    version is the route the main path took before this kernel (chunked
-    torch.matmul + packed-key torch.topk), not a yardstick of its speed.
-    No single PyTorch call computes a top-k of distances: no library
-    time."""
+    another order than cuBLAS). Each shape must take the variant
+    L2TOPK_ROUTES names, and only that variant may count the launches.
+    Both are timed with CUDA events (ms: one call, host launch included;
+    device_ms: queued_ms); the plain version is the route the main path took
+    before this kernel (chunked torch.matmul + packed-key torch.topk), not a
+    yardstick of its speed. The bounds: bytes against the f32 rate outside
+    the tensor cores (bound_f32_ms) and against 3 TF32 products per
+    multiply-add on them (bound_3xtf32_ms); bound_ms is the one of the
+    arithmetic the variant runs. No single PyTorch call computes a top-k of
+    distances: no library time."""
     from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+    from repro_torch.kernels.l2topk.l2topk import variant_for
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 202)
     out, worst = {}, 0.0
     for name, (q, n, d, k) in l2topk_shapes().items():
+        variant = variant_for(q, n, d, min(k, n))
+        if variant != L2TOPK_ROUTES[name]:
+            raise AssertionError(f"l2topk ({name}) routes to {variant}, "
+                                 f"not {L2TOPK_ROUTES[name]}")
         for kind in ("int", "float"):
             if kind == "int":
                 x = torch.randint(-1, 2, (n, d), generator=g,
@@ -509,7 +542,13 @@ def l2topk_kernel_phase(torch, gpu: str, seed: int) -> dict:
             else:
                 x = torch.randn((n, d), generator=g, device=dev)
                 qs = torch.randn((q, d), generator=g, device=dev)
+            before = dict(l2topk_cuda.by_variant)
             gd, gi = l2topk_cuda(qs, x, k)
+            launched = [v for v, c in l2topk_cuda.by_variant.items()
+                        if c != before[v]]
+            if launched != [variant]:
+                raise AssertionError(f"l2topk ({name}) launched {launched}, "
+                                     f"expected the {variant} variant")
             wd, wi = l2_topk_ref(qs, x, k)
             if gi.shape != (q, min(k, n)):
                 raise AssertionError(f"l2topk ({name}) shape {gi.shape}")
@@ -530,10 +569,17 @@ def l2topk_kernel_phase(torch, gpu: str, seed: int) -> dict:
         big = q * n * d > 1e11
         reps, warm = (5, 1) if big else (25, 3)
         ms = time_ms(lambda: l2topk_cuda(qs, x, k), reps, warm)
+        dev_ms = queued_ms(torch, lambda: l2topk_cuda(qs, x, k))
         plain = time_ms(lambda: l2_topk_ref(qs, x, k), reps, warm)
-        bmin, by = bound((q + n) * d * 4 + q * k * 8,
-                         2 * q * n * d + 2 * (q + n) * d, gpu)
-        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bmin, bound_by=by,
+        moved = (q + n) * d * 4 + q * k * 8
+        b32, by32 = bound(moved, 2 * q * n * d + 2 * (q + n) * d, gpu)
+        btc, bytc = bound(moved, 3 * 2 * q * n * d, gpu, PEAK_TF32)
+        bmin, by = (btc, bytc) if variant == "tc" else (b32, by32)
+        out[name] = dict(variant=variant, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain, bound_ms=bmin, bound_by=by,
+                         share_of_bound=bmin / dev_ms,
+                         bound_f32_ms=b32, bound_f32_by=by32,
+                         bound_3xtf32_ms=btc, bound_3xtf32_by=bytc,
                          library_ms=None,
                          shape=dict(q=q, n=n, d=d, k=k))
         del x, qs
@@ -587,8 +633,7 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
     n_queries = queries.shape[0]
     kw = dict(ef=ef, rerank=rerank, dist_backend=backend)
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts(wrappers)
     t = time.perf_counter()
     index.quantize(backend, generator=torch.Generator().manual_seed(seed))
     quantize_s = time.perf_counter() - t
@@ -604,6 +649,7 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
     prof = profile_busy(torch, lambda: index.search(
         queries, k, hop_backend="fused", **kw))
     launches = {name: w.launches for name, w in wrappers.items()}
+    launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
     serve_s = statistics.median(times)
     busy = prof["device_busy_ms"]
     iters = (stats_f["hops"] + stats_f["wasted_hops"]) / n_queries
@@ -676,8 +722,7 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
                                    finish_backend="host",
                                    graph_degree=CONFIG.graph_degree)
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts(wrappers)
     builds0 = structural_build_count()
     t = time.perf_counter()
     obj = AnnObjective(data, queries, k=CONFIG.k, base_params=base,
@@ -689,6 +734,7 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     launches = {name: w.launches for name, w in wrappers.items()}
+    launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
     builds = structural_build_count() - builds0
     trials = [dict(params=params, recall=r.recall, qps=r.qps,
                    build_seconds=r.build_seconds, cached=r.cached_build,
@@ -1158,13 +1204,13 @@ def main() -> int:
     params = IndexParams.from_config(CONFIG, knn_backend="exact",
                                      finish_backend="host")
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts(wrappers)
     t = time.perf_counter()
     index = TunedGraphIndex(params, device="cuda").fit(
         data, torch.Generator().manual_seed(args.seed))
     fit_s = time.perf_counter() - t
     fit_l2topk = l2topk_cuda.launches
+    fit_by_variant = dict(l2topk_cuda.by_variant)
     nbrs = index.graph.neighbors
     reach = reachable_from(nbrs.cpu().numpy(), int(index.graph.medoid))
     degree_ok = bool(((nbrs >= 0).sum(1) <= params.graph_degree).all())
@@ -1175,6 +1221,7 @@ def main() -> int:
          reachable=float(reach.mean()), degree_ok=degree_ok,
          pool_evals=bs.pool_evals, prune_evals=bs.prune_evals,
          repair_rounds=bs.repair_rounds, l2topk_launches=fit_l2topk,
+         l2topk_launches_by_variant=fit_by_variant,
          memory_bytes=index.memory_bytes(),
          peak_device_bytes=torch.cuda.max_memory_allocated())
     if index.ntotal != n_kept:
@@ -1196,6 +1243,7 @@ def main() -> int:
     serve_s = statistics.median(serve_times)
     stats_f = index.search_stats()
     launches = {name: w.launches for name, w in wrappers.items()}
+    main_by_variant = dict(l2topk_cuda.by_variant)
 
     l2_topk(queries, data, k)                                   # warm
     torch.cuda.synchronize()
@@ -1255,11 +1303,14 @@ def main() -> int:
     # (M = 600) — launch counts of the LUT kernels from these runs
     # (quantize + serve) only, kept per M
     lut_launches = {"lut_dist": {}, "beam_hop_lut": {}}
+    lut_by_variant = {}
     for backend, m in zip(("pq", "int8"), LUT_MS):
         counts = quantized_phase(torch, index, queries, true_i, backend,
                                  wrappers, args.seed)
         for name in lut_launches:
             lut_launches[name][m] = counts[name]
+        for v, c in counts["l2topk_by_variant"].items():
+            lut_by_variant[v] = lut_by_variant.get(v, 0) + c
     launches.update({name: sum(by_m.values())
                      for name, by_m in lut_launches.items()})
 
@@ -1280,12 +1331,12 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("recsys_init", seconds=time.perf_counter() - t,
          resident_bytes_before=resident)
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts(wrappers)
     recsys_phase(torch, model, TWO_TOWER, args.seed)
     recsys_ann_phase(torch, model, TWO_TOWER, args.seed)
     torch.cuda.synchronize()
     recsys_launches = {name: w.launches for name, w in wrappers.items()}
+    recsys_by_variant = dict(l2topk_cuda.by_variant)
     launches["embedding_bag"] = recsys_launches["embedding_bag"]
 
     # 13-14. the launcher, then the bag kernel over the full table
@@ -1310,6 +1361,12 @@ def main() -> int:
             entry["by_shape"] = {s_: {k_: v for k_, v in b_.items()
                                       if k_ != "shape"} | b_["shape"]
                                  for s_, b_ in info["by_shape"].items()}
+        if name == "l2topk":
+            entry["launches_by_variant"] = main_by_variant
+            entry["launches_by_variant_tune"] = tune_launches[
+                "l2topk_by_variant"]
+            entry["launches_by_variant_recsys"] = recsys_by_variant
+            entry["launches_by_variant_quantize"] = lut_by_variant
         if name in lut_launches:
             entry["m"] = LUT_MS[0]
             entry["by_m"] = {
@@ -1330,6 +1387,13 @@ def main() -> int:
             or tune_launches["l2topk"] <= 0:
         raise AssertionError("l2topk did not launch in each of fit, serve "
                              "and tune")
+    # the fit's AntiHub and kNN take the tensor cores, its medoid and
+    # k-means the tile variant; PQ's codec the small one
+    if min(fit_by_variant["tc"], fit_by_variant["tile"],
+           lut_by_variant["small"]) <= 0:
+        raise AssertionError(f"an l2topk variant of the main path never "
+                             f"launched: fit {fit_by_variant}, quantize "
+                             f"{lut_by_variant}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,

@@ -17,29 +17,36 @@
 // finite row. Ids >= V are outside the contract; they read row V - 1, as
 // XLA's gather clamps, so a bad id never reads outside the table.
 //
-// Bound on an H100: the bytes of the gathered rows. Serving a 512-request
-// batch of 32-item histories at D = 256 reads 512 * 32 * 1 KB = 16.8 MB of
-// rows, about 5 us at 3.35 TB/s; the FMAs (2 flops per element read) are far
-// below the card's rate, and such small batches are launch-bound.
+// Bound on an H100: the bytes of the distinct rows, read once. Serving a
+// 512-request batch of 32-item histories at D = 256 reads 16,318 distinct
+// 1 KB rows: 5.2 us at 3.35 TB/s; 1024 bags 10.3 us; the 262,144-bag bulk
+// batch 0.69 ms (1.97M distinct of 8.39M rows read). The FMAs (2 flops per
+// element read) are far below the card's rate.
 //
-// Design: one warp per bag, kBagWarps warps per block. A lane owns the
-// VEC-element chunks c = lane, lane + 32, ... of a row (VEC = 4: one 16-byte
-// float4 load for f32, 8 bytes for bf16, when D % 4 == 0 and the table is
-// aligned; VEC = 1 otherwise, e.g. D = 18), so each load instruction of the
-// warp reads a contiguous 512 B (f32) of the row. Chunks go in groups of
-// kChunks per lane (256 f32 columns); wider rows loop over groups. The l loop
-// is unrolled by kUnroll: all kUnroll x kChunks loads of a step are issued
-// before its FMAs, which then run in l order. A bf16 table is widened to f32
-// on load (exact).
+// At small batches the kernel is bound by memory latency, not bandwidth: a
+// warp that loads a bag id and only then its row makes two dependent trips
+// per member. The design cuts the dependent trips and spreads a bag over
+// more warps:
+//   - One warp per (bag, slice of 32 * VEC columns): VEC = 4 gives one
+//     16-byte float4 (8 bytes for bf16) per lane, so D = 256 f32 takes two
+//     warps per bag and B = 512 puts 1024 warps on the card. VEC = 1 (D % 4
+//     != 0, e.g. 18, or a misaligned table) reads one element per lane.
+//   - Ids once per warp: lane l loads ids[bag, l0 + l] and its weight, one
+//     coalesced load per 32 members; each member's id then comes from a
+//     __shfl_sync, so no row load waits behind an id load.
+//   - The l loop is unrolled by kUnroll = 16: all 16 row loads of a step are
+//     issued before its FMAs, which then run in l order. A bag of L = 32
+//     makes 3 dependent trips to memory (ids, then two steps of rows).
+//   - Blocks of 2 warps while the grid is small (every SM gets several
+//     blocks at B = 512), of 8 at bulk sizes.
+// A bf16 table is widened to f32 on load (exact).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace repro_torch {
 
-constexpr int kBagWarps = 4;
-constexpr int kChunks = 2;
-constexpr int kUnroll = 4;
+constexpr int kUnroll = 16;        // divides 32: a step never crosses an id load
 
 template <typename T, int VEC>
 __device__ __forceinline__ void load_chunk(const T* __restrict__ p,
@@ -74,92 +81,99 @@ __device__ __forceinline__ void load_chunk<__nv_bfloat16, 1>(
   out[0] = __bfloat162float(p[0]);
 }
 
+// Warp w of the grid takes bag w / slices, columns [32 * VEC * s, +32 * VEC)
+// with s = w % slices.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kBagWarps * 32)
-embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ ids,
-                     const float* __restrict__ weights,
-                     float* __restrict__ out, int b, int bag_len, int v,
-                     int d, bool mean) {
-  const long long bag = (long long)blockIdx.x * kBagWarps + (threadIdx.x >> 5);
-  if (bag >= b) return;
+__global__ void embedding_bag_kernel(const T* __restrict__ table,
+                                     const int* __restrict__ ids,
+                                     const float* __restrict__ weights,
+                                     float* __restrict__ out, int b,
+                                     int bag_len, int v, int d, int slices,
+                                     bool mean) {
+  const long long warp =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp >= (long long)b * slices) return;          // whole warps only
+  const long long bag = warp / slices;
   const int lane = threadIdx.x & 31;
+  const int c = (int)(warp - bag * slices) * 32 + lane;  // this lane's chunk
+  const bool live = c < d / VEC;
   const int* bag_ids = ids + bag * bag_len;
   const float* bag_w = weights == nullptr ? nullptr : weights + bag * bag_len;
-  const int n_chunks = d / VEC;
-  float* out_row = out + bag * d;
+  const T* col = table + (long long)c * VEC;
 
-  for (int c0 = lane; c0 < n_chunks; c0 += 32 * kChunks) {
-    float acc[kChunks][VEC];
+  float acc[VEC];
 #pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[ch][e] = 0.f;
-    float denom = 0.f;
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  float denom = 0.f;
 
-    for (int l0 = 0; l0 < bag_len; l0 += kUnroll) {
-      float val[kUnroll][kChunks][VEC];
+  for (int l0 = 0; l0 < bag_len; l0 += 32) {
+    const int l = l0 + lane;
+    const int my_id = l < bag_len ? __ldg(bag_ids + l) : -1;
+    const float my_w =
+        my_id < 0 ? 0.f : (bag_w == nullptr ? 1.f : __ldg(bag_w + l));
+    const int members = min(32, bag_len - l0);
+    for (int j = 0; j < members; j += kUnroll) {
+      float val[kUnroll][VEC];
       float wv[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int l = l0 + u;
-        const int id = l < bag_len ? __ldg(bag_ids + l) : -1;
-        wv[u] = id < 0 ? 0.f : (bag_w == nullptr ? 1.f : __ldg(bag_w + l));
-        const T* row = table + (long long)min(id, v - 1) * d;
+        const int id = __shfl_sync(kFullMask, my_id, j + u);
+        wv[u] = __shfl_sync(kFullMask, my_w, j + u);
+        if (id >= 0 && live) {
+          load_chunk<T, VEC>(col + (long long)min(id, v - 1) * d, val[u]);
+        } else {
 #pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch) {
-          const int c = c0 + 32 * ch;
-          if (id >= 0 && c < n_chunks) {
-            load_chunk<T, VEC>(row + (long long)c * VEC, val[u][ch]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) val[u][ch][e] = 0.f;
-          }
+          for (int e = 0; e < VEC; ++e) val[u][e] = 0.f;
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (l0 + u < bag_len) denom = __fadd_rn(denom, wv[u]);
+        if (j + u >= members) break;                  // uniform across the warp
+        denom = __fadd_rn(denom, wv[u]);
 #pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[ch][e] = __fmaf_rn(wv[u], val[u][ch][e], acc[ch][e]);
+        for (int e = 0; e < VEC; ++e)
+          acc[e] = __fmaf_rn(wv[u], val[u][e], acc[e]);
       }
     }
+  }
+  if (!live) return;
 
-    const float div = fmaxf(denom, 1e-9f);
+  const float div = fmaxf(denom, 1e-9f);
+  float r[VEC];
 #pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch) {
-      const int c = c0 + 32 * ch;
-      if (c >= n_chunks) continue;
-      float r[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        r[e] = mean ? __fdiv_rn(acc[ch][e], div) : acc[ch][e];
-      if constexpr (VEC == 4) {
-        *reinterpret_cast<float4*>(out_row + 4 * c) =
-            make_float4(r[0], r[1], r[2], r[3]);
-      } else {
-        out_row[c] = r[0];
-      }
-    }
+  for (int e = 0; e < VEC; ++e) r[e] = mean ? __fdiv_rn(acc[e], div) : acc[e];
+  float* dst = out + bag * d + (long long)c * VEC;
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+    dst[0] = r[0];
   }
 }
 
-template <typename T>
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+template <typename T, int VEC>
 void launch_bag(const void* table, const void* ids, const void* weights,
                 void* out, int b, int bag_len, int v, int d, bool mean,
-                bool vec4, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((b + kBagWarps - 1) / kBagWarps);
-  if (vec4) {
-    embedding_bag_kernel<T, 4><<<grid, kBagWarps * 32, 0, stream>>>(
-        (const T*)table, (const int*)ids, (const float*)weights, (float*)out,
-        b, bag_len, v, d, mean);
-  } else {
-    embedding_bag_kernel<T, 1><<<grid, kBagWarps * 32, 0, stream>>>(
-        (const T*)table, (const int*)ids, (const float*)weights, (float*)out,
-        b, bag_len, v, d, mean);
-  }
+                cudaStream_t stream) {
+  const int slices = (d / VEC + 31) / 32;
+  const long long warps = (long long)b * slices;
+  // 8-warp blocks once the grid holds 4 of them per SM, 2-warp blocks below
+  const int per_block = warps >= 32LL * sm_count() ? 8 : 2;
+  const unsigned grid = (unsigned)((warps + per_block - 1) / per_block);
+  embedding_bag_kernel<T, VEC><<<grid, per_block * 32, 0, stream>>>(
+      (const T*)table, (const int*)ids, (const float*)weights, (float*)out, b,
+      bag_len, v, d, slices, mean);
 }
 
 }  // namespace repro_torch
@@ -171,15 +185,23 @@ extern "C" int embedding_bag(const void* table, const void* ids,
                              const void* weights, void* out, int b,
                              int bag_len, int v, int d, int mean, int vec4,
                              int bf16, void* stream) {
+  using namespace repro_torch;
   if (b > 0 && d > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
     if (bf16) {
-      repro_torch::launch_bag<__nv_bfloat16>(
-          table, ids, weights, out, b, bag_len, v, d, mean != 0, vec4 != 0,
-          (cudaStream_t)stream);
+      if (vec4)
+        launch_bag<__nv_bfloat16, 4>(table, ids, weights, out, b, bag_len, v,
+                                     d, mean != 0, s);
+      else
+        launch_bag<__nv_bfloat16, 1>(table, ids, weights, out, b, bag_len, v,
+                                     d, mean != 0, s);
     } else {
-      repro_torch::launch_bag<float>(table, ids, weights, out, b, bag_len, v,
-                                     d, mean != 0, vec4 != 0,
-                                     (cudaStream_t)stream);
+      if (vec4)
+        launch_bag<float, 4>(table, ids, weights, out, b, bag_len, v, d,
+                             mean != 0, s);
+      else
+        launch_bag<float, 1>(table, ids, weights, out, b, bag_len, v, d,
+                             mean != 0, s);
     }
   }
   return (int)cudaGetLastError();

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "beam_hop_smem_bytes": [_I, _I, _I],
     "topk_merge_rows": [_P] * 6 + [_I] * 5 + [_P],
     "topk_merge_smem_bytes": [_I],
-    "l2topk_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "l2topk_f32": [_P] * 7 + [_I] * 7 + [_P],
     "embedding_bag": [_P] * 4 + [_I] * 7 + [_P],
 }
 

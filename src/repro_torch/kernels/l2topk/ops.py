@@ -14,9 +14,9 @@ from repro_torch.kernels.l2topk.ref import l2_topk_ref
 def l2_topk(queries: torch.Tensor, database: torch.Tensor, k: int,
             chunk: int = 16384, backend: Optional[str] = None):
     """(Q, D), (N, D) -> (dists (Q, k) f32 ascending, ids (Q, k) int32),
-    ties by lower id, k cut to N: the CUDA kernel for CUDA tensors (which
-    takes no ``chunk``: it never holds more than a 64 x 128 tile), the
-    plain version for CPU tensors."""
+    ties by lower id, k cut to N: the CUDA kernels for CUDA tensors (the
+    variant ``l2topk.route`` picks by shape; they take no ``chunk``: none
+    holds the (Q, N) matrix), the plain version for CPU tensors."""
     if use_kernel(database, backend, "l2topk"):
         return l2topk_cuda(queries.float().contiguous(),
                            database.float().contiguous(), k)

@@ -220,6 +220,91 @@ def test_l2topk_kernel(dev, kind, q, n, d, k):
         assert (gi == wi).all(1).float().mean() >= 0.99
 
 
+# (Q, N, D, k) on both sides of every routing boundary, and the variant
+# each must take: the small database (N <= 256, D <= 8, k <= 16), the tensor
+# cores (Q >= 128, N >= 1024, D >= 32, k <= 64; 4 stages up to k = 33, 3
+# above), and the tile variant for the rest; D = 36 is a multiple of 4, not
+# of 8 (nor of the 16-column stage), 37 and 6 of neither
+L2TOPK_ROUTES = [
+    ((1000, 256, 2, 1), "small"), ((1000, 300, 2, 1), "tile"),
+    ((1000, 64, 2, 1), "small"), ((500, 256, 6, 16), "small"),
+    ((500, 256, 2, 17), "tile"), ((700, 256, 9, 5), "tile"),
+    ((300, 5000, 600, 33), "tc"), ((300, 5000, 36, 11), "tc"),
+    ((300, 5000, 37, 34), "tc"),
+    ((1, 20000, 600, 1), "tile"), ((2000, 64, 600, 1), "tile"),
+    ((256, 3000, 600, 64), "tc"), ((256, 3000, 600, 65), "tile"),
+    ((77, 1000, 64, 128), "tile"), ((127, 3000, 600, 10), "tile"),
+    ((128, 1024, 32, 10), "tc"), ((128, 1023, 32, 10), "tile"),
+    ((128, 1024, 31, 10), "tile")]
+
+
+def _l2topk_inputs(g, q, n, d, kind, dev):
+    if kind == "int":      # coordinates in [-1, 1]: many exact ties
+        return (torch.randint(-1, 2, (q, d), generator=g).float().to(dev),
+                torch.randint(-1, 2, (n, d), generator=g).float().to(dev))
+    return _vectors(g, (q, d), kind, dev), _vectors(g, (n, d), kind, dev)
+
+
+def _l2topk_agrees(got, want, kind):
+    (gd, gi), (wd, wi) = got, want
+    assert gi.shape == wi.shape and gi.dtype == torch.int32
+    if kind == "int":
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    else:
+        torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+        assert (gi == wi).all(1).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("shape,variant", L2TOPK_ROUTES,
+                         ids=[f"{v}-{q}x{n}x{d}-k{k}"
+                              for (q, n, d, k), v in L2TOPK_ROUTES])
+def test_l2topk_routes_each_shape_to_its_variant(dev, kind, shape, variant):
+    from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+    from repro_torch.kernels.l2topk.l2topk import variant_for
+    q, n, d, k = shape
+    assert variant_for(q, n, d, min(k, n)) == variant
+    g = torch.Generator().manual_seed(q + n + d + k)
+    qs, x = _l2topk_inputs(g, q, n, d, kind, dev)
+    before = dict(l2topk_cuda.by_variant)
+    got = l2topk_cuda(qs, x, k)
+    after = l2topk_cuda.by_variant
+    assert after[variant] > before[variant]
+    assert all(after[v] == before[v] for v in after if v != variant)
+    _l2topk_agrees(got, l2_topk_ref(qs, x, k), kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("shape", [(5, 3, 16, 3), (1, 700, 40, 7),
+                                   (70, 2000, 100, 64), (3, 40, 2, 1)])
+def test_l2topk_tc_variant_forced_on_ragged_shapes(dev, kind, shape):
+    """The tensor-core variant on shapes its route never gives it: boxes
+    past the last query and row, one stage of columns, one query."""
+    from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+    q, n, d, k = shape
+    g = torch.Generator().manual_seed(q * n + d)
+    qs, x = _l2topk_inputs(g, q, n, d, kind, dev)
+    before = l2topk_cuda.by_variant["tc"]
+    got = l2topk_cuda(qs, x, k, variant="tc")
+    assert l2topk_cuda.by_variant["tc"] > before
+    _l2topk_agrees(got, l2_topk_ref(qs, x, k), kind)
+
+
+@pytest.mark.cuda
+def test_l2topk_forced_variant_must_take_the_shape(dev):
+    from repro_torch.kernels.l2topk import l2topk_cuda
+    x = torch.zeros((500, 8), device=dev)
+    with pytest.raises(ValueError, match="small variant"):
+        l2topk_cuda(x[:4], x, 3, variant="small")
+    with pytest.raises(ValueError, match="tc variant"):
+        l2topk_cuda(x[:4], x, 65, variant="tc")
+
+    with pytest.raises(ValueError, match="unknown variant"):
+        l2topk_cuda(x[:4], x, 3, variant="mma")
+
+
 @pytest.mark.cuda
 def test_l2topk_kernel_refuses_k_over_128(dev):
     from repro_torch.core.distances import l2_topk
@@ -347,3 +432,34 @@ def test_two_tower_bag_on_the_card_equals_the_cpu_bag(dev):
     assert torch.equal(bag.cpu(), bag_cpu)
     scores = recsys_score_step(SMOKE)(model, batch)
     assert scores.shape == (64,) and bool(torch.isfinite(scores).all())
+
+
+# embedding_bag at every launch-geometry edge: bags of one member, of a
+# part of a 16-deep unrolled step, of one id load (32) and just over it,
+# several id loads (100); rows of scalar lanes (18), of one float4 past a
+# 128-column slice (132), of 2 and 3 slices; one bag, a part-filled block,
+# and the serving batch
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 5, 512])
+@pytest.mark.parametrize("d", [18, 132, 256, 384])
+@pytest.mark.parametrize("l", [1, 4, 31, 32, 33, 100])
+def test_embedding_bag_kernel_launch_geometry_edges(dev, l, d, b,
+                                                    table_dtype):
+    """Bit-equal to the plain version under unit and integer weights, both
+    combiners, with pads (the first bag all pads when b > 1)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_ref
+    g = torch.Generator().manual_seed(l * 1000 + d + b)
+    table = torch.randn((3000, d), generator=g).to(table_dtype).to(dev)
+    ids = _ids(g, (b, l), 3000, dev)
+    if b > 1:
+        ids[0] = -1
+    w = torch.randint(0, 4, (b, l), generator=g).float().to(dev)
+    for weights in (None, w):
+        for combiner in ("sum", "mean"):
+            n0 = embedding_bag_cuda.launches
+            got = embedding_bag_cuda(table, ids, weights, combiner)
+            assert embedding_bag_cuda.launches == n0 + 1
+            assert torch.equal(got, embedding_bag_ref(table, ids, weights,
+                                                      combiner))

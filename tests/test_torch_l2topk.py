@@ -21,7 +21,19 @@
 3. Dispatch: a CPU tensor runs the plain version, ``backend="cuda"`` on a
    CPU tensor raises, and the CUDA wrapper refuses CPU tensors and k > 128.
 4. ``FlatIndex`` and ``recall_at_k`` against the reference's.
+5. The CUDA wrapper's routing (a pure function of the shape): the main
+   path's seven shapes take the variants ``chip_smoke.py`` and PERF.md name,
+   forced variants refuse shapes they cannot take, and every split plan
+   fills one wave with no empty split.
+6. The tensor-core variant's arithmetic, emulated in plain PyTorch: each
+   input split into hi = tf32(v) and lo = tf32(v - hi) (bit masks, round to
+   nearest), the dot product as hi.hi + hi.lo + lo.hi. It equals the
+   plain version bit for bit on integer data and stays within its float
+   tolerance, so the kNN table survives the tensor cores' arithmetic.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,8 +48,22 @@ from repro.kernels.l2topk.l2topk import l2_topk_pallas
 from repro_torch.core.distances import l2_topk, nearest
 from repro_torch.core.flat import FlatIndex, recall_at_k
 from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
-from repro_torch.kernels.l2topk.l2topk import MAX_K, split_plan
+from repro_torch.kernels.l2topk.l2topk import (
+    MAX_K, TC_BLOCK_N, TC_BLOCK_Q, TC_MAX_K, VARIANTS, route, split_plan,
+    variant_for,
+)
 from repro_torch.kernels.l2topk.ops import l2_topk as l2_topk_dispatch
+from repro_torch.kernels.l2topk.ref import pack_keys, unpack_keys
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _ints(rng, shape, lo=-3, hi=3):
@@ -172,10 +198,12 @@ def test_cpu_tensors_run_the_plain_version():
     x = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32))
     q = x[:20] + 0.1
     before = l2topk_cuda.launches
+    by_variant = dict(l2topk_cuda.by_variant)
     got = l2_topk_dispatch(q, x, 7, chunk=64)
     want = l2_topk_ref(q, x, 7, chunk=64)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert l2topk_cuda.launches == before
+    assert l2topk_cuda.by_variant == by_variant
 
 
 def test_forcing_the_kernel_on_cpu_tensors_raises():
@@ -198,8 +226,114 @@ def test_split_plan_fills_one_wave_and_leaves_no_split_empty():
         q_tiles = -(-nq // 64)
         assert splits >= 1 and (splits - 1) * per < n_tiles <= splits * per
         assert splits == 1 or q_tiles * splits <= 2 * sms
+        # the tensor-core variant: one 128 x 256 block per SM
+        variant, splits, per = route(nq, n, 768, 10, sms, "tc")
+        n_tiles, q_tiles = -(-n // TC_BLOCK_N), -(-nq // TC_BLOCK_Q)
+        assert variant == "tc"
+        assert splits >= 1 and (splits - 1) * per < n_tiles <= splits * per
+        assert splits == 1 or q_tiles * splits <= sms
     assert split_plan(1, 270_000, sms)[0] == 2 * sms
+    assert route(4096, 300_000, 768, 11, sms)[1:] == (4, 293)
+    assert route(1024, 300_000, 768, 10, sms)[1:] == (16, 74)
     assert MAX_K == 128
+
+
+def test_path_shapes_take_the_variants_perf_names():
+    smoke = _chip_smoke()
+    shapes = smoke.l2topk_shapes()
+    assert set(shapes) == set(smoke.L2TOPK_ROUTES)
+    for name, (q, n, d, k) in shapes.items():
+        assert variant_for(q, n, d, min(k, n)) == smoke.L2TOPK_ROUTES[name]
+        plan = route(q, n, d, min(k, n), 132)
+        assert plan.variant == smoke.L2TOPK_ROUTES[name]
+    assert {v for v in smoke.L2TOPK_ROUTES.values()} == set(VARIANTS)
+
+
+@pytest.mark.parametrize("shape,variant", [
+    ((1000, 256, 2, 1), "small"), ((1000, 300, 2, 1), "tile"),
+    ((500, 256, 8, 16), "small"), ((500, 256, 9, 16), "tile"),
+    ((500, 256, 2, 17), "tile"), ((128, 1024, 32, 64), "tc"),
+    ((127, 1024, 32, 64), "tile"), ((128, 1023, 32, 64), "tile"),
+    ((128, 1024, 31, 64), "tile"), ((128, 1024, 32, 65), "tile"),
+    ((1, 270_000, 600, 1), "tile"), ((77, 1000, 64, 128), "tile")])
+def test_route_boundaries(shape, variant):
+    q, n, d, k = shape
+    assert variant_for(q, n, d, k) == variant
+    assert route(q, n, d, k, 132).variant == variant
+
+
+def test_forced_variants_refuse_what_they_cannot_take():
+    assert route(5, 3, 16, 3, 132, "tc").variant == "tc"
+    assert route(1, 300_000, 600, 1, 132, "tile").variant == "tile"
+    with pytest.raises(ValueError, match="small variant"):
+        route(10, 257, 2, 1, 132, "small")
+    with pytest.raises(ValueError, match="small variant"):
+        route(10, 256, 9, 1, 132, "small")
+    with pytest.raises(ValueError, match="tc variant"):
+        route(500, 5000, 600, TC_MAX_K + 1, 132, "tc")
+
+    with pytest.raises(ValueError, match="unknown variant"):
+        route(500, 5000, 600, 10, 132, "wgmma")
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 by bit masks: half a TF32 ulp added to the
+    magnitude, then the low 13 mantissa bits cleared (round to nearest,
+    ties away from zero)."""
+    return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _l2_topk_3xtf32(q: torch.Tensor, x: torch.Tensor, k: int):
+    """The tc variant's function in plain PyTorch: norms in f32, each dot
+    product from TF32 hi/lo splits with the lo.lo term dropped (every
+    product of two TF32 values is exact in f32)."""
+    qh, xh = _tf32(q), _tf32(x)
+    ql, xl = _tf32(q - qh), _tf32(x - xh)
+    dot = qh @ xh.T + qh @ xl.T + ql @ xh.T
+    qn = (q * q).sum(-1, keepdim=True)
+    xn = (x * x).sum(-1)
+    dist = ((qn + xn[None, :]) - 2.0 * dot).clamp_min(0.0)
+    ids = torch.arange(x.shape[0])[None, :].expand(q.shape[0], -1)
+    keys = torch.topk(pack_keys(dist, ids), min(k, x.shape[0]), dim=1,
+                      largest=False, sorted=True).values
+    return unpack_keys(keys)
+
+
+def test_tf32_split_rounds_to_nearest_and_keeps_the_remainder():
+    v = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 3.0, -2048.0, 1e-3, 0.1])
+    hi = _tf32(v)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert hi[1] == 1.0 + 2.0 ** -10 and hi[3] == -(1.0 + 2.0 ** -10)
+    assert hi[2] == 1.0 + 2.0 ** -10 and hi[0] == 1.0 and hi[5] == -2048.0
+    lo = _tf32(v - hi)
+    # hi + lo carries v to ~2^-21 relative; integers up to 2048 split exactly
+    assert ((hi + lo - v).abs() <= 2.0 ** -21 * v.abs()).all()
+    assert lo[4] == 0 and lo[5] == 0
+
+
+@pytest.mark.parametrize("q,n,d,k", [(64, 2000, 600, 33), (48, 3000, 768, 11),
+                                     (200, 800, 37, 10), (1, 5000, 600, 1)])
+def test_3xtf32_dot_keeps_the_plain_versions_results(q, n, d, k):
+    rng = np.random.default_rng(q + n + d)
+    xi = torch.from_numpy(_ints(rng, (n, d), -1, 1))
+    qi = torch.from_numpy(_ints(rng, (q, d), -1, 1))
+    ed, ei = _l2_topk_3xtf32(qi, xi, k)
+    pd, pi = l2_topk_ref(qi, xi, k)
+    assert torch.equal(ei, pi) and torch.equal(ed.view(torch.int32),
+                                               pd.view(torch.int32))
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    qs = torch.from_numpy(rng.standard_normal((q, d)).astype(np.float32))
+    ed, ei = _l2_topk_3xtf32(qs, x, k)
+    pd, pi = l2_topk_ref(qs, x, k)
+    torch.testing.assert_close(ed, pd, rtol=1e-5, atol=1e-5)
+    assert (ei == pi).all(1).float().mean() >= 0.99
+    # TF32 alone (hi.hi) moves the distances well past that tolerance
+    hd = ((qs * qs).sum(-1, keepdim=True) + (x * x).sum(-1)[None, :]
+          - 2.0 * (_tf32(qs) @ _tf32(x).T)).clamp_min(0.0)
+    full = ((qs * qs).sum(-1, keepdim=True) + (x * x).sum(-1)[None, :]
+            - 2.0 * (qs @ x.T)).clamp_min(0.0)
+    assert ((hd - full).abs() > 1e-5 + 1e-5 * full.abs()).any()
 
 
 def test_flat_index_and_recall_equal_reference():
