@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the port's l2topk and embedding_bag kernels at the main
-path's shapes, on one NVIDIA card, for any checkout of the port.
+"""Device times of the port's l2topk, embedding_bag, gather_dist and
+beam_hop kernels, and of one whole fused search, at the main path's shapes,
+on one NVIDIA card, for any checkout of the port.
 
     python3 benchmarks/torch_kernel_times.py [--src DIR] [--seed 0]
 
@@ -19,8 +20,20 @@ route. embedding_bag runs at serve_p99 (B = 512), recsys_ann's 1024 queries
 and serve_bulk (B = 262,144), L = 32, mean, over a 14,010,368 x 256 f32
 table (the two-tower config's): ``device_ms`` cycles 8 id sets against the
 50 MB L2, ``device_ms_l2_warm`` repeats one, ``library_device_ms`` is
-torch's ``embedding_bag`` on the same cycle. The last lines are the card as
-nvidia-smi names it and one JSON object.
+torch's ``embedding_bag`` on the same cycle.
+
+gather_dist runs over a 270,000 x 600 f32 base (the projected ann-laion
+base) at B = 1024, R = 32 with every id valid (the staged hop, seeding,
+rerank) and at B = 2048, R = 32 with half the ids -1 (the alpha-scan mid
+scan); beam_hop's one-hop entry at ``chip_smoke.HOP_SHAPE`` (random pools,
+sel cycling 8 sets): ``ms`` one event-timed call, ``device_ms`` queued.
+``search`` builds the exact 32-NN graph of that base (clustered rows from
+``--seed``) and runs a fused f32 search of 1024 in-distribution queries at
+ef = 64, k = 10 from random entry points: ``device_ms`` is the device-busy
+time of one search (torch.profiler, ``chip_smoke.profile_busy``),
+``wall_ms`` the median of 7 host-timed searches, with the kernels it
+launched and the hop loop's host syncs where the checkout counts them. The
+last lines are the card as nvidia-smi names it and one JSON object.
 """
 from __future__ import annotations
 
@@ -35,6 +48,96 @@ ROOT = Path(__file__).resolve().parents[1]
 TABLE_ROWS, TABLE_DIM, BAG = 14_010_368, 256, 32
 HISTORY = (10_000_000, 2_000_000)      # the history table's offset and vocab
 BAG_BATCHES = {"serve_p99": 512, "recsys_ann": 1024, "serve_bulk": 262_144}
+BASE = (270_000, 600)                  # the projected ann-laion base
+GATHER_CALLS = {"staged_1024": (1024, 0.0), "alpha_scan_2048": (2048, 0.5)}
+
+
+def hop_times(torch, g) -> dict:
+    """gather_dist, beam_hop's one-hop entry and a whole fused search."""
+    import statistics
+    import time
+    from chip_smoke import HOP_SHAPE, Cycle, profile_busy, queued_ms, time_ms
+    from repro_torch.core import beam_search as bs_mod
+    from repro_torch.core.knn_graph import knn_graph
+    from repro_torch.data import clustered_vectors, queries_like
+    from repro_torch.kernels.beam_hop import beam_hop_cuda
+    from repro_torch.kernels.gather_dist import gather_dist_cuda
+    import repro_torch.kernels.beam_hop as hop_mod
+
+    n, d = BASE
+    nq, ef, r = HOP_SHAPE["q"], HOP_SHAPE["ef"], HOP_SHAPE["r"]
+    dev = "cuda"
+    db = torch.randn((n, d), generator=g, device=dev)
+    out = {"gather_dist": {}}
+    for name, (b, pad) in GATHER_CALLS.items():
+        q = torch.randn((b, d), generator=g, device=dev)
+
+        def ids():
+            i = torch.randint(0, n, (b, r), generator=g, device=dev,
+                              dtype=torch.int32)
+            return torch.where(torch.rand((b, r), generator=g, device=dev)
+                               < pad, -1, i)
+        sets = Cycle([ids() for _ in range(8)])
+        out["gather_dist"][name] = {
+            "ms": time_ms(lambda: gather_dist_cuda(q, db, sets.next())),
+            "device_ms": queued_ms(torch, lambda: gather_dist_cuda(
+                q, db, sets.next())),
+            "valid_ids": float(sum(int((s_ >= 0).sum()) for s_ in sets.items)
+                               / 8)}
+    q = torch.randn((nq, d), generator=g, device=dev)
+    nbrs = torch.randint(-1, n, (n, r), generator=g, device=dev,
+                         dtype=torch.int32)
+    pool_i = torch.randint(-1, n, (nq, ef), generator=g, device=dev,
+                           dtype=torch.int32)
+    pool_d = torch.where(pool_i >= 0, torch.randint(
+        0, 2000, (nq, ef), generator=g, device=dev).float(),
+        float("inf")).sort(1).values
+    pool_v = torch.rand((nq, ef), generator=g, device=dev) < 0.5
+    sels = Cycle([torch.randint(-1, n, (nq,), generator=g, device=dev,
+                                dtype=torch.int32) for _ in range(8)])
+    hop = lambda: beam_hop_cuda(sels.next(), nbrs, pool_i, pool_d, pool_v, q,
+                                db)
+    out["beam_hop"] = {"ms": time_ms(hop),
+                       "device_ms": queued_ms(torch, hop)}
+    del db, q, nbrs, pool_i, pool_d, pool_v, sels
+    torch.cuda.empty_cache()
+
+    data = clustered_vectors(g, n, d)
+    queries = queries_like(g, data, nq)
+    _, graph = knn_graph(data, r)
+    entry = torch.randint(0, n, (nq,), generator=g, device=dev,
+                          dtype=torch.int32)
+    search = lambda: bs_mod.beam_search(queries, data, graph, entry, ef=ef,
+                                        k=10, hop_backend="fused",
+                                        with_stats=True)
+    search()
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        search()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    prof = profile_busy(torch, search)
+    counters = [w for w in ("beam_hop_cuda", "beam_hops_cuda")
+                if hasattr(hop_mod, w)]
+    before = {w: getattr(hop_mod, w).launches for w in counters}
+    syncs = getattr(bs_mod.beam_search, "host_syncs", None)
+    _, ids, stats = search()
+    torch.cuda.synchronize()
+    out["search"] = {
+        "device_ms": prof["device_busy_ms"],
+        "device_kernels": prof.get("device_kernels"),
+        "wall_ms": statistics.median(times) * 1e3,
+        "wall_ms_min": min(times) * 1e3, "wall_ms_max": max(times) * 1e3,
+        "launches": {w: getattr(hop_mod, w).launches - before[w]
+                     for w in counters},
+        "host_syncs": None if syncs is None else
+        bs_mod.beam_search.host_syncs - syncs,
+        "top_kernels": prof["top_kernels"],
+        "stats": {f: int(getattr(stats, f).sum()) for f in stats._fields},
+        "ids_checksum": int(ids.long().sum())}
+    return out
 
 
 def main() -> int:
@@ -55,6 +158,7 @@ def main() -> int:
     import repro_torch.kernels.l2topk.l2topk as l2mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     cuda_lib.library()
     routed = "variant" in inspect.signature(l2topk_cuda).parameters
     g = torch.Generator(device="cuda").manual_seed(args.seed + 606)
@@ -98,6 +202,9 @@ def main() -> int:
                 torch, lambda: torch.nn.functional.embedding_bag(
                     longs.next(), table, mode="mean"))}
         del sets, longs
+    del table
+    torch.cuda.empty_cache()
+    out.update(hop_times(torch, g))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -19,14 +19,21 @@ Phases, each printing one JSON line:
                 inputs, each through the variant L2TOPK_ROUTES names (tc:
                 3xTF32 on the tensor cores, tile: f32 SIMT tiles, small: the
                 database in shared memory), with its f32 and 3xTF32
-                bounds.
+                bounds; and beam_hops, the hop loop kernel, over a whole
+                1024-query search (f32, and LUT mode at M = 300), which must
+                equal the host loop over the one-hop kernel in every field
+                and counter. gather_dist and the hops also give device_ms
+                (queued behind a device sleep, no host launch).
   4. fit      — builds TunedGraphIndex with the ann-laion config
                 (knn_backend="exact", finish_backend="host") on
                 clustered_vectors(300000, 768) from --seed (the config's
                 N and width; only the seed is an option).
   5. serve    — 1024 queries, k=10, ef=64, fused hop: QPS, recall@10 against
                 the exact top-10 in the raw space, the hop counters, and the
-                brute-force QPS (the l2topk kernel over the raw vectors).
+                brute-force QPS (the l2topk kernel over the raw vectors);
+                per_search: the kernels one search launches (one beam_hops
+                launch) and the hop loop's host syncs (one). The fit reports
+                its launches and syncs too (one of each per pool chunk).
   6. staged   — the same search with the staged hop must equal the fused one
                 exactly (ids, dists, counters).
   7. reference — 256 of the queries searched again on the CPU, where every
@@ -65,8 +72,8 @@ Phases, each printing one JSON line:
                 two-tower-retrieval must exit 0 and print its line.
  14. embedding_bag — the kernel against its plain version on small tables
                 (f32 and bf16, D in {8, 18, 256}, both combiners, no, integer
-                and float weights: bit-equal but for float weights, rtol
-                1e-6), then at the path's three shapes over the full table
+                and float weights, and a weighted sum on a float32 midpoint:
+                bit-equal), then at the path's three shapes over the full table
                 bit-equal to the plain version on one id set each, and timed
                 beside the plain version and torch's embedding_bag
                 (ms: one event-timed call, host launch included; device_ms:
@@ -87,7 +94,9 @@ Phases, each printing one JSON line:
                 the main path, quantize (PQ's codec), tune and the two-tower
                 phases; "launches_tune" is each kernel's count over the
                 tune phase. The fit must launch the tc and tile variants,
-                PQ's codec the small one.
+                PQ's codec the small one. The one-hop entries (beam_hop,
+                beam_hop_lut; "on_main_path": false) must launch no time
+                on the main path: the fused search runs beam_hops.
 
 Any failed check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -134,8 +143,12 @@ RECSYS_ANN_PARAMS = dict(antihub_keep=1.0, ep_clusters=16, ef_search=64,
 RECSYS_CLI_TIMEOUT = 300
 # the kernels phases 11-12 run: the bag in the towers, the f32 graph kernels
 # in recsys_ann's fit and search
-RECSYS_KERNELS = ("embedding_bag", "gather_dist", "beam_hop", "topk_merge",
+RECSYS_KERNELS = ("embedding_bag", "gather_dist", "beam_hops", "topk_merge",
                   "l2topk")
+# the one-hop entries of beam_hop.cu: checked and timed in the kernels
+# phase, but no longer on the main path (a fused search on the card runs
+# its whole loop in beam_hops / beam_hops_lut)
+OFF_PATH = ("beam_hop", "beam_hop_lut")
 # the l2topk variant each main-path shape must take (PERF.md names them)
 L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
                  "kmeans": "tile", "medoid": "tile", "entry_select": "tile",
@@ -246,6 +259,7 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
             worst = float(err.max())
     sets = Cycle([ids((b, r)) for _ in range(8)])
     ms = time_ms(lambda: gather_dist_cuda(q, db, sets.next()))
+    dev_ms = queued_ms(torch, lambda: gather_dist_cuda(q, db, sets.next()))
     plain = time_ms(lambda: gather_dist_ref(q, db, sets.next()))
     uniq = sum(int(torch.unique(s[s >= 0]).numel()) for s in sets.items) / 8
     bmin, by = bound(uniq * d * 4 + b * d * 4 + b * r * 8, 3 * b * r * d,
@@ -253,9 +267,9 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
     res["gather_dist"] = dict(
         route="cuda", source="src/repro_torch/csrc/gather_dist.cu",
         replaces="src/repro/kernels/gather_dist/gather_dist.py:34",
-        max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bmin,
-        bound_by=by, library_ms=None,
-        shape=dict(b=b, r=r, d=d, n=n))
+        max_abs_err=worst, ms=ms, device_ms=dev_ms, plain_ms=plain,
+        bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
+        library_ms=None, shape=dict(b=b, r=r, d=d, n=n))
 
     # -- beam_hop: one serving hop of Q queries
     nq, ef = HOP_SHAPE["q"], HOP_SHAPE["ef"]
@@ -306,6 +320,8 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
     sel, nbrs, pool_i, pool_d, pool_v, q, db = args
     ms = time_ms(lambda: beam_hop_cuda(sels.next(), nbrs, pool_i, pool_d,
                                        pool_v, q, db))
+    dev_ms = queued_ms(torch, lambda: beam_hop_cuda(
+        sels.next(), nbrs, pool_i, pool_d, pool_v, q, db))
     plain = time_ms(lambda: beam_hop_ref(sels.next(), nbrs, pool_i, pool_d,
                                          pool_v, q, db))
     gathered = 0.0
@@ -317,9 +333,9 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
     res["beam_hop"] = dict(
         route="cuda", source="src/repro_torch/csrc/beam_hop.cu",
         replaces="src/repro/kernels/beam_hop/beam_hop.py:117",
-        max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bmin,
-        bound_by=by, library_ms=None,
-        shape=dict(q=nq, ef=ef, r=r, d=d, n=n))
+        max_abs_err=worst, ms=ms, device_ms=dev_ms, plain_ms=plain,
+        bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
+        library_ms=None, shape=dict(q=nq, ef=ef, r=r, d=d, n=n))
 
     # -- topk_pool: the NSG pool assembly (beam pool ∪ own kNN list)
     tb, tm, tk = TOPK_SHAPE["b"], TOPK_SHAPE["m"], TOPK_SHAPE["k"]
@@ -456,6 +472,8 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
         sels = Cycle([ids((nq,)) for _ in range(8)])
         ms = time_ms(lambda: beam_hop_lut_cuda(sels.next(), nbrs, pool_i,
                                                pool_d, pool_v, lut, codes))
+        hop_dev_ms = queued_ms(torch, lambda: beam_hop_lut_cuda(
+            sels.next(), nbrs, pool_i, pool_d, pool_v, lut, codes))
         plain = time_ms(lambda: beam_hop_ref(sels.next(), nbrs, pool_i,
                                              pool_d, pool_v, lut, codes,
                                              "pq"))
@@ -466,7 +484,8 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
             moved += lut_bytes(torch, codes, cand, m) / 8
         bmin, by = bound(moved + nq * r * 4 + 2 * nq * ef * 9 + nq * 12,
                          nq * r * m, gpu)
-        out["beam_hop_lut"][m] = dict(ms=ms, plain_ms=plain, bound_ms=bmin,
+        out["beam_hop_lut"][m] = dict(ms=ms, device_ms=hop_dev_ms,
+                                      plain_ms=plain, bound_ms=bmin,
                                       bound_by=by, library_ms=None,
                                       shape=dict(q=nq, ef=ef, r=r, m=m,
                                                  c=LUT_C, n=n))
@@ -484,6 +503,123 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
                          **{k_: v for k_, v in head.items() if k_ != "shape"},
                          shape=head["shape"],
                          by_m={str(m): v for m, v in by_m.items()})
+    return res
+
+
+def hop_loop_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
+    """beam_hops, the hop loop kernel, at the serving shape (Q = 1024, ef =
+    64, R = 32, the config's max_iters = 4 ef, while mode) over a random
+    graph of the projected base's size: f32 at D = d on normal rows, and
+    LUT mode at M = 300 (pq) on uniform codes and a float LUT. Each must
+    equal the host loop over the one-hop kernel (beam_hop_cuda /
+    beam_hop_lut_cuda, core.beam_search._run_hops) in every field of the
+    loop state, bit for bit; f32 also with patience 5. Timed per call from
+    the seeded state (ms: one event-timed call; device_ms: queued_ms)
+    beside the plain loop (beam_hops_ref on the card). The bound counts
+    what this run's search must read: each distinct row the kernel scores
+    (f32: D * 4 B; LUT: its M code bytes and each distinct LUT entry it
+    looks up, 4 B), each distinct expanded graph row, the queries or LUT
+    rows read, and the loop state in and out."""
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.beam_search import _expand_fused, _run_hop_slices, \
+        _run_hops, _seed_batched
+    from repro_torch.kernels.beam_hop import beam_hops_cuda, \
+        beam_hops_lut_cuda, beam_hops_ref, select_frontier
+    from repro_torch.kernels.gather_dist import gather_dist_cuda
+    from repro_torch.kernels.lut_dist import lut_dist_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 707)
+    nq, ef, r = HOP_SHAPE["q"], HOP_SHAPE["ef"], HOP_SHAPE["r"]
+    max_iters, k = 4 * ef, CONFIG.k
+    nbrs = torch.randint(-1, n, (n, r), generator=g, device=dev,
+                         dtype=torch.int32)
+    entry = torch.randint(0, n, (nq,), generator=g, device=dev,
+                          dtype=torch.int32)
+    res = {}
+    for name, m in (("beam_hops", None), ("beam_hops_lut", LUT_MS[0])):
+        if m is None:
+            backend, width = "f32", d
+            table = torch.randn((n, d), generator=g, device=dev)
+            q_or_lut = torch.randn((nq, d), generator=g, device=dev)
+            gd, wrapper = gather_dist_cuda, beam_hops_cuda
+        else:
+            backend, width = "pq", m
+            table = torch.randint(0, LUT_C, (n, m), generator=g, device=dev,
+                                  dtype=torch.uint8)
+            q_or_lut = torch.rand((nq, m, LUT_C), generator=g,
+                                  device=dev) * 10
+            gd = lambda q_, db_, ids: lut_dist_cuda(q_or_lut, table, ids)
+            wrapper = beam_hops_lut_cuda
+        state = _seed_batched(q_or_lut, table, nbrs, entry, ef, gd)
+        # what the search reads: rows scored, LUT entries looked up,
+        # expanded graph rows (marked while the host loop runs)
+        scored = torch.zeros(n, dtype=torch.bool, device=dev)
+        expanded = torch.zeros(n, dtype=torch.bool, device=dev)
+        looked_up = (None if m is None else torch.zeros(
+            (nq, m, LUT_C), dtype=torch.bool, device=dev))
+
+        def body(s):
+            _, node, active = select_frontier(s[0], s[1], s[2])
+            lanes = (active & (s[3] < max_iters)).nonzero()[:, 0]
+            expanded[node[lanes].long()] = True
+            rows = nbrs[node[lanes].long()]                       # (L, R)
+            new = (rows >= 0) & ~(rows[:, :, None]
+                                  == s[0][lanes][:, None, :]).any(-1)
+            scored[rows[new].long()] = True
+            if looked_up is not None:
+                lane_of = lanes[:, None].expand_as(rows)[new]
+                codes = table[rows[new].long()].long()            # (S, M)
+                looked_up[lane_of[:, None], torch.arange(m, device=dev),
+                          codes] = True
+            return _expand_fused(s, q_or_lut, table, nbrs, backend)
+
+        kw = dict(k=k, max_iters=max_iters, mode="while", eps=0.0)
+        checks = [None] + ([5] if m is None else [])
+        for patience in checks:
+            want = _run_hops(state, body if patience is None else
+                             (lambda s: _expand_fused(s, q_or_lut, table,
+                                                      nbrs, backend)),
+                             patience=patience, **kw)
+            got = _run_hop_slices(state, q_or_lut, table, nbrs, backend,
+                                  max_steps=max_iters, patience=patience,
+                                  **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} differs from the host loop "
+                                     f"over the one-hop kernel (patience "
+                                     f"{patience})")
+            if patience is None:
+                stats = want
+        call = lambda: wrapper(nbrs, *state[:6], state[7], q_or_lut, table,
+                               k=k, max_iters=max_iters, max_steps=max_iters)
+        plain_call = lambda: beam_hops_ref(
+            nbrs, *state[:6], state[7], q_or_lut, table, k=k,
+            max_iters=max_iters, max_steps=max_iters)
+        ms = time_ms(call, reps=9, warmup=2)
+        dev_ms = queued_ms(torch, call)
+        plain = time_ms(plain_call, reps=3, warmup=1)
+        hops, gath, dup = (int(t.sum()) for t in stats[3:6])
+        n_scored = int(scored.sum())
+        state_bytes = 2 * nq * ef * 9 + nq * (4 + 6) * 4
+        graph_bytes = int(expanded.sum()) * r * 4
+        if m is None:
+            moved = n_scored * d * 4 + nq * d * 4
+            ops = 3 * (gath - dup) * d
+        else:
+            moved = n_scored * m + int(looked_up.sum()) * 4
+            ops = (gath - dup) * m
+        bmin, by = bound(moved + graph_bytes + state_bytes, ops, gpu)
+        res[name] = dict(
+            route="cuda", source="src/repro_torch/csrc/beam_hop.cu",
+            replaces="src/repro/kernels/beam_hop/beam_hop.py:117",
+            max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain,
+            bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
+            library_ms=None, hops=hops, gathered=gath, dup_gathered=dup,
+            rows_scored_distinct=n_scored,
+            loop_iterations=int((stats[3] + stats[6]).max()),
+            shape=dict(q=nq, ef=ef, r=r, n=n, max_iters=max_iters,
+                       **({"d": d} if m is None else {"m": m, "c": LUT_C})))
+        del table, q_or_lut, scored, looked_up, state
     return res
 
 
@@ -615,8 +751,23 @@ def profile_busy(torch, fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"device_busy_ms": busy_ms if by_name else None,
             "profiled_wall_ms": wall * 1e3,
+            "device_kernels": sum(v[1] for v in by_name.values()),
             "top_kernels": [{"name": n[:60], "ms": v[0] / 1e3, "count": v[1]}
                             for n, v in top]}
+
+
+def per_search(torch, wrappers: dict, fn) -> dict:
+    """The hand-written kernels' launches (those that launched) and the hop
+    loops' host syncs (core.beam_search's count) of one ``fn()`` call."""
+    from repro_torch.core.beam_search import beam_search
+    before = {name: w.launches for name, w in wrappers.items()}
+    syncs = beam_search.host_syncs
+    fn()
+    torch.cuda.synchronize()
+    return {"launches": {name: w.launches - before[name]
+                         for name, w in wrappers.items()
+                         if w.launches != before[name]},
+            "host_syncs": beam_search.host_syncs - syncs}
 
 
 def quantized_phase(torch, index, queries, true_i, backend: str,
@@ -650,6 +801,8 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
         queries, k, hop_backend="fused", **kw))
     launches = {name: w.launches for name, w in wrappers.items()}
     launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
+    one = per_search(torch, wrappers, lambda: index.search(
+        queries, k, hop_backend="fused", **kw))
     serve_s = statistics.median(times)
     busy = prof["device_busy_ms"]
     iters = (stats_f["hops"] + stats_f["wasted_hops"]) / n_queries
@@ -664,13 +817,16 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
          seconds=serve_s, recall_at_10=recall, stats=stats_f,
          loop_iterations=iters, ms_per_iteration=serve_s * 1e3 / iters,
          device_busy_share=None if busy is None else busy / (serve_s * 1e3),
-         profile=prof, launches=launches)
+         profile=prof, launches=launches, per_search=one)
     if not (torch.isfinite(d_f).all() and i_f.shape == (n_queries, k)):
         raise AssertionError(f"{backend} search returned non-finite or "
                              f"mis-shaped results")
     if recall < 0.80:
         raise AssertionError(f"{backend} recall@10 {recall} below the "
                              f"0.80 floor")
+    if one["launches"].get("beam_hops_lut") != 1 or one["host_syncs"] != 1:
+        raise AssertionError(f"a fused {backend} search took {one}, not one "
+                             f"loop launch and one host sync")
 
     # the staged LUT hop equals the fused one, bit for bit
     d_s, i_s = index.search(queries, k, hop_backend="staged", **kw)
@@ -1028,8 +1184,8 @@ def embedding_bag_kernel_phase(torch, table, cfg, gpu: str,
                                seed: int) -> dict:
     """embedding_bag against its plain version on small tables (f32 and
     bf16, D in {8, 18, 256}, pads and an all-pad bag, both combiners, no,
-    integer and float weights): bit-equal but under float weights (rtol
-    1e-6). Then timed at the path's shapes over the full table ``table``,
+    integer and float weights), and on a weighted sum whose float64 sum is
+    a float32 midpoint short of the exact sum: bit-equal. Then timed at the path's shapes over the full table ``table``,
     cycling 8 id sets against the 50 MB L2, beside the plain version and
     torch's embedding_bag (mode="mean": the path's ids have no pads); at
     each of those shapes the kernel must give the plain version's bits on
@@ -1057,18 +1213,22 @@ def embedding_bag_kernel_phase(torch, table, cfg, gpu: str,
                     got = embedding_bag_cuda(small, ids, w, combiner)
                     want = embedding_bag_ref(small, ids, w, combiner)
                     checks += 1
-                    if kind == "float":
-                        err = (got - want).abs()
-                        worst = max(worst, float(err.max()))
-                        if not bool((err <= 1e-6 * want.abs()).all()):
-                            raise AssertionError(
-                                f"embedding_bag beyond rtol 1e-6 (D={d}, "
-                                f"{dtype}, {combiner}, float weights)")
-                    elif not torch.equal(got, want):
+                    worst = max(worst, float((got - want).abs().max()))
+                    if not torch.equal(got, want):
                         raise AssertionError(
                             f"embedding_bag differs from its plain version "
                             f"(D={d}, {dtype}, {combiner}, {kind} weights)")
-    emit("embedding_bag_checks", checks=checks, max_abs_err_float=worst)
+    # 1 + 2^-24 is a float32 midpoint; the exact sum lies 7 * 2^-71 above it
+    mid = (torch.tensor([[1.0], [16773185 * 2.0 ** -48]], device=dev),
+           torch.tensor([[0, 1]], dtype=torch.int32, device=dev),
+           torch.tensor([[1.0, 8390624 * 2.0 ** -23]], device=dev))
+    got = embedding_bag_cuda(*mid, "sum")
+    checks += 1
+    if not (torch.equal(got, embedding_bag_ref(*mid, "sum"))
+            and got.view(torch.int32).item() == 0x3F800001):
+        raise AssertionError("embedding_bag: the weighted midpoint case "
+                             "differs from its plain version or 0x3F800001")
+    emit("embedding_bag_checks", checks=checks, max_abs_err=worst)
 
     off = int(table_offsets(cfg.table_vocabs)[1])
     vocab, bag, d = cfg.table_vocabs[1], cfg.multi_hot[1], table.shape[1]
@@ -1178,6 +1338,8 @@ def main() -> int:
     n_kept = max(1, math.ceil(CONFIG.antihub_keep * n))     # as antihub does
     t = time.perf_counter()
     kernels = kernel_phase(torch, n_kept, CONFIG.pca_dim, gpu, args.seed)
+    kernels.update(hop_loop_phase(torch, n_kept, CONFIG.pca_dim, gpu,
+                                  args.seed))
     kernels["l2topk"] = l2topk_kernel_phase(torch, gpu, args.seed)
     torch.cuda.synchronize()
     emit("kernels", seconds=time.perf_counter() - t, kernels=kernels)
@@ -1187,15 +1349,18 @@ def main() -> int:
     from repro_torch.core.build.finish import reachable_from
     from repro_torch.core.pipeline import IndexParams, TunedGraphIndex
     from repro_torch.data import clustered_vectors, queries_like
-    from repro_torch.kernels.beam_hop import beam_hop_cuda, beam_hop_lut_cuda
+    from repro_torch.core.beam_search import beam_search
+    from repro_torch.kernels.beam_hop import beam_hop_cuda, \
+        beam_hop_lut_cuda, beam_hops_cuda, beam_hops_lut_cuda
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
     from repro_torch.kernels.gather_dist import gather_dist_cuda
     from repro_torch.kernels.l2topk import l2topk_cuda
     from repro_torch.kernels.lut_dist import lut_dist_cuda
     from repro_torch.kernels.topk_merge import topk_merge_cuda
     wrappers = {"gather_dist": gather_dist_cuda, "beam_hop": beam_hop_cuda,
-                "topk_merge": topk_merge_cuda, "lut_dist": lut_dist_cuda,
-                "beam_hop_lut": beam_hop_lut_cuda, "l2topk": l2topk_cuda,
+                "beam_hops": beam_hops_cuda, "topk_merge": topk_merge_cuda,
+                "lut_dist": lut_dist_cuda, "beam_hop_lut": beam_hop_lut_cuda,
+                "beam_hops_lut": beam_hops_lut_cuda, "l2topk": l2topk_cuda,
                 "embedding_bag": embedding_bag_cuda}
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1205,10 +1370,13 @@ def main() -> int:
                                      finish_backend="host")
     torch.cuda.synchronize()
     zero_counts(wrappers)
+    fit_syncs = beam_search.host_syncs
     t = time.perf_counter()
     index = TunedGraphIndex(params, device="cuda").fit(
         data, torch.Generator().manual_seed(args.seed))
     fit_s = time.perf_counter() - t
+    fit_syncs = beam_search.host_syncs - fit_syncs
+    fit_launches = {name: w.launches for name, w in wrappers.items()}
     fit_l2topk = l2topk_cuda.launches
     fit_by_variant = dict(l2topk_cuda.by_variant)
     nbrs = index.graph.neighbors
@@ -1220,7 +1388,8 @@ def main() -> int:
          stage_seconds=index.stage_seconds,
          reachable=float(reach.mean()), degree_ok=degree_ok,
          pool_evals=bs.pool_evals, prune_evals=bs.prune_evals,
-         repair_rounds=bs.repair_rounds, l2topk_launches=fit_l2topk,
+         repair_rounds=bs.repair_rounds, launches=fit_launches,
+         hop_loop_host_syncs=fit_syncs, l2topk_launches=fit_l2topk,
          l2topk_launches_by_variant=fit_by_variant,
          memory_bytes=index.memory_bytes(),
          peak_device_bytes=torch.cuda.max_memory_allocated())
@@ -1244,6 +1413,8 @@ def main() -> int:
     stats_f = index.search_stats()
     launches = {name: w.launches for name, w in wrappers.items()}
     main_by_variant = dict(l2topk_cuda.by_variant)
+    one = per_search(torch, wrappers, lambda: index.search(
+        queries, k, ef=ef, hop_backend="fused"))
 
     l2_topk(queries, data, k)                                   # warm
     torch.cuda.synchronize()
@@ -1265,12 +1436,15 @@ def main() -> int:
          recall_at_10=recall, stats=stats_f,
          loop_iterations=iters, ms_per_iteration=serve_s * 1e3 / iters,
          device_busy_share=None if busy is None else
-         busy / (serve_s * 1e3), profile=prof,
+         busy / (serve_s * 1e3), profile=prof, per_search=one,
          l2topk_launches=launches["l2topk"] - fit_l2topk,
          brute_force_qps=n_queries / brute_s)
     if not (torch.isfinite(d_f).all() and i_f.shape == (n_queries, k)):
         raise AssertionError("search returned non-finite or mis-shaped "
                              "results")
+    if one["launches"].get("beam_hops") != 1 or one["host_syncs"] != 1:
+        raise AssertionError(f"a fused search took {one}, not one loop "
+                             f"launch and one host sync")
     if recall < 0.80:
         raise AssertionError(f"recall@10 {recall} below the 0.80 floor")
 
@@ -1302,7 +1476,7 @@ def main() -> int:
     # 8. quantized serving on the same index: pq (M = 300), then int8
     # (M = 600) — launch counts of the LUT kernels from these runs
     # (quantize + serve) only, kept per M
-    lut_launches = {"lut_dist": {}, "beam_hop_lut": {}}
+    lut_launches = {"lut_dist": {}, "beam_hop_lut": {}, "beam_hops_lut": {}}
     lut_by_variant = {}
     for backend, m in zip(("pq", "int8"), LUT_MS):
         counts = quantized_phase(torch, index, queries, true_i, backend,
@@ -1369,16 +1543,28 @@ def main() -> int:
             entry["launches_by_variant_quantize"] = lut_by_variant
         if name in lut_launches:
             entry["m"] = LUT_MS[0]
-            entry["by_m"] = {
-                str(m): {**{k_: v for k_, v in info["by_m"][str(m)].items()
-                            if k_ != "shape"},
-                         "launches": lut_launches[name][m]}
-                for m in LUT_MS}
+            if "by_m" in info:
+                entry["by_m"] = {
+                    str(m): {**{k_: v for k_, v in info["by_m"][str(m)]
+                                .items() if k_ != "shape"},
+                             "launches": lut_launches[name][m]}
+                    for m in LUT_MS}
+            else:
+                entry["launches_by_m"] = {str(m): lut_launches[name][m]
+                                          for m in LUT_MS}
+        entry["on_main_path"] = name not in OFF_PATH
         line.append({"name": name, **entry})
     print(json.dumps({"kernels": line}), flush=True)
-    if min(launches.values()) <= 0 or min(
-            c for by_m in lut_launches.values() for c in by_m.values()) <= 0:
+    on_path = {name: c for name, c in launches.items() if name not in OFF_PATH}
+    if min(on_path.values()) <= 0 or min(
+            c for name, by_m in lut_launches.items() if name not in OFF_PATH
+            for c in by_m.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the main path: "
+                             f"{launches}")
+    # one loop launch per fused search: 7 timed + 1 warm serve searches,
+    # one per pool chunk in the fit
+    if launches["beam_hop"] + launches["beam_hop_lut"] != 0:
+        raise AssertionError(f"the one-hop kernel ran on the main path: "
                              f"{launches}")
     if min(recsys_launches[name] for name in RECSYS_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the two-tower path never launched "

@@ -9,19 +9,24 @@ whose hop budget is spent) is frozen while its batch-mates continue.
 
 Two hop backends:
   * ``staged``: gather + distance, then the pool merge (``merge_one``) as
-    separate ops — the default on the CPU;
-  * ``fused``: one ``kernels/beam_hop`` launch per hop — the default on
-    CUDA. It equals the staged hop bit for bit when the staged hop runs
-    the ``gather_dist`` family (``gather_backend="kernel"``, or the
-    default on CUDA).
+    separate ops, one host-driven step per hop — the default on the CPU;
+  * ``fused``: gather + distance + merge in one ``kernels/beam_hop`` hop —
+    the default on CUDA. On CUDA the whole hop loop runs on the device, as
+    the reference's ``lax.while_loop`` does: one ``beam_hops`` launch per
+    search (``_run_hop_slices``); on the CPU the host steps the plain hop.
+    It equals the staged hop bit for bit when the staged hop runs the
+    ``gather_dist`` family (``gather_backend="kernel"``, or the default on
+    CUDA).
 
 Under a quantized ``dist_backend`` ("pq" | "int8") the hops score uint8
 codes with a per-query LUT: the staged hop through ``kernels/lut_dist``,
 the fused hop through ``kernels/beam_hop`` in LUT mode, which share one
 left-to-right sum and so agree bit for bit on either device.
 
-Two loop modes: ``while`` runs until no query is live (one host sync per
-hop), ``fori`` runs exactly ``max_iters`` guarded hops.
+Two loop modes: ``while`` runs until no query is live (the host-driven
+loop syncs once per hop, the device loop once per search), ``fori`` runs
+exactly ``max_iters`` guarded hops. ``beam_search.host_syncs`` counts the
+loops' syncs.
 
 Straggler control (``patience``/``eps``): a lane also stops after
 ``patience`` consecutive hops in which no top-k prefix distance improved
@@ -39,7 +44,9 @@ import torch
 
 from repro_torch.core.quant import check_dist_backend
 from repro_torch.kernels.beam_hop import beam_hop as _kernel_beam_hop
-from repro_torch.kernels.beam_hop import merge_one
+from repro_torch.kernels.beam_hop import beam_hops as _kernel_beam_hops
+from repro_torch.kernels.beam_hop import lane_live, merge_one
+from repro_torch.kernels.beam_hop import select_frontier as _select_frontier
 from repro_torch.kernels.gather_dist import gather_dist as _kernel_gather_dist
 from repro_torch.kernels.lut_dist import lut_dist as _kernel_lut_dist
 
@@ -71,22 +78,6 @@ def _sqdist_rows(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def _default_gather_dist(queries, db, ids):
     return _sqdist_rows(queries, db[ids.long()])
-
-
-def _select_frontier(pool_i, pool_d, pool_v):
-    """Pick the closest unvisited pool entry and mark it visited.
-
-    Returns (pool_v, node, active): ``node`` is 0 when the lane has
-    converged (``active`` False) — the caller masks.
-    """
-    unvisited = (~pool_v) & (pool_i >= 0)
-    masked = torch.where(unvisited, pool_d, INF)
-    slot = torch.argmin(masked, dim=-1, keepdim=True)     # first minimum
-    active = unvisited.gather(-1, slot)[..., 0]
-    pool_v = pool_v | (torch.arange(pool_v.shape[-1],
-                                    device=pool_v.device) == slot)
-    node = torch.where(active, pool_i.gather(-1, slot)[..., 0], 0)
-    return pool_v, node, active
 
 
 def _expand_batch(state, queries, db, neighbors, gather_dist_b):
@@ -181,8 +172,16 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
                                   dist_backend=dist_backend, codes=codes,
                                   lut=lut)
     state = _seed_batched(queries, db, neighbors, entry_ids, ef, gd)
-    state = _run_hops(state, body, k=k, max_iters=max_iters, mode=mode,
-                      patience=patience, eps=eps)
+    loop_kw = dict(k=k, max_iters=max_iters, mode=mode, patience=patience,
+                   eps=eps)
+    q_or_lut, table = (queries, db) if dist_backend == "f32" else \
+        (lut, codes)
+    if resolve_hop_backend(hop_backend, db.device) == "fused" \
+            and table.is_cuda:
+        state = _run_hop_slices(state, q_or_lut, table, neighbors,
+                                dist_backend, max_steps=max_iters, **loop_kw)
+    else:
+        state = _run_hops(state, body, **loop_kw)
     pool_i, pool_d, _, hops, gath, dup, wasted, _ = state
     if with_stats:
         return (pool_d[:, :k], pool_i[:, :k],
@@ -242,11 +241,8 @@ def _seed_batched(queries, db, neighbors, entry_ids, ef, gd):
 
 def _lane_live(state, *, max_iters, patience):
     """Per-lane "still working" mask over the 8-tuple state."""
-    pool_i, pool_v, hops = state[0], state[2], state[3]
-    live = ((~pool_v) & (pool_i >= 0)).any(1) & (hops < max_iters)
-    if patience is not None:
-        live = live & (state[7] < patience)
-    return live
+    return lane_live(state[0], state[2], state[3], state[7],
+                     max_iters=max_iters, patience=patience)
 
 
 def _run_hops(state, body, *, k, max_iters, mode, patience, eps):
@@ -280,9 +276,51 @@ def _run_hops(state, body, *, k, max_iters, mode, patience, eps):
         return merged[:6] + (s[6] + (~keep).to(torch.int32), merged[6])
 
     if mode == "while":
-        while bool(live_of(state).any()):
+        while True:
+            beam_search.host_syncs += 1
+            if not bool(live_of(state).any()):
+                return state
             state = hop(state)
-        return state
     for _ in range(max_iters):
         state = hop(state)
     return state
+
+
+def _run_hop_slices(state, q_or_lut, table, neighbors, dist_backend="f32",
+                    *, k, max_iters, mode, patience, eps, max_steps):
+    """``_run_hops`` with the loop on the device: slices of up to
+    ``max_steps`` guarded hops per lane, each one ``kernels/beam_hop``
+    ``beam_hops`` call (one launch on CUDA; the plain loop on the CPU).
+
+    ``while`` runs slices until no lane is live, with one host sync per
+    slice (the live test); ``fori`` runs ``max_iters`` hops in slices of
+    ``max_steps``, with none. A slice's step count is what the reference's
+    loop would have run: the most hops any lane ran in it (``while``), or
+    its length (``fori``); a lane's ``wasted`` grows by that count less its
+    own hops, the iterations it sat through frozen. ``max_steps =
+    max_iters`` takes one slice per search, as the reference's unsliced
+    loop runs; the reference's compaction slices are the same unit.
+    """
+    pool_i, pool_d, pool_v, hops, gath, dup, wasted, stale = state
+    if pool_i.shape[0] == 0:
+        return state
+    left = max_iters
+    while mode == "while" or left > 0:
+        steps = max_steps if mode == "while" else min(max_steps, left)
+        pool_i, pool_d, pool_v, hops, gath, dup, stale, iters, live = \
+            _kernel_beam_hops(neighbors, pool_i, pool_d, pool_v, hops, gath,
+                              dup, stale, q_or_lut, table, dist_backend, k=k,
+                              max_iters=max_iters, max_steps=steps,
+                              patience=patience, eps=eps)
+        if mode == "fori":
+            wasted = wasted + (steps - iters)
+            left -= steps
+            continue
+        wasted = wasted + (iters.max() - iters)
+        beam_search.host_syncs += 1
+        if not bool(live.any()):
+            break
+    return (pool_i, pool_d, pool_v, hops, gath, dup, wasted, stale)
+
+
+beam_search.host_syncs = 0

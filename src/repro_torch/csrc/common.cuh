@@ -1,8 +1,10 @@
 // Device routines shared by the port's hand-written Hopper kernels.
 //
-// row_sqdist is the one squared-L2 reduction that gather_dist.cu and
-// beam_hop.cu both call, so the fused hop (beam_hop) and the staged hop
-// (gather_dist + a PyTorch merge) produce the same bits on the card;
+// row_sqdist, and rows_sqdist_vec4 which reduces several rows the same way
+// with their loads in flight together, are the one squared-L2 reduction
+// that gather_dist.cu and beam_hop.cu both call, so the fused hop
+// (beam_hop) and the staged hop (gather_dist + a PyTorch merge) produce the
+// same bits on the card;
 // lut_row_sum is its counterpart for quantized codes, shared by lut_dist.cu
 // and beam_hop.cu's LUT mode in the same way. The
 // sort helpers give the kernels that merge pools (beam_hop, topk_merge) an
@@ -12,6 +14,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro_torch {
 
@@ -58,6 +62,91 @@ __device__ __forceinline__ float row_sqdist(const float* __restrict__ q,
   for (int off = 16; off > 0; off >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(kFullMask, acc, off));
   return acc;
+}
+
+// Largest per-lane chunk count rows_sqdist_vec4 is instantiated for: rows
+// of d <= 4 * 32 * kMaxLaneChunks floats (1024) take it; longer rows, and
+// rows that are not float4-aligned, go through row_sqdist one at a time.
+constexpr int kMaxLaneChunks = 8;
+
+// Lane chunk count of a float4 row of d floats: ceil(ceil(d / 4) / 32).
+__host__ __device__ __forceinline__ int lane_chunks(int d) {
+  return ((d + 3) / 4 + 31) / 32;
+}
+
+// row_sqdist over up to kG rows of one query at once, by one warp, float4
+// rows only (d % 4 == 0, 16-byte aligned). All cnt rows' loads are issued
+// before any row is reduced, kG * kK float4 per lane in flight instead of
+// row_sqdist's one; then each row is reduced exactly as row_sqdist reduces
+// it: lane l adds its chunks c = l, l + 32, ... in order with the same
+// round-to-nearest subtract and fused multiply-add, and the lanes combine by
+// the same xor tree. So out[g] has row_sqdist's bits, and every kernel that
+// scores rows through either function agrees with every other.
+//
+// kK is the caller's lane_chunks(d) or more; qchunk(k) returns the query's
+// chunk lane + 32 k (from registers or shared memory, as the caller keeps
+// it). Rows g >= cnt are not read and out[g] is then meaningless.
+template <int kK, int kG, class QChunk>
+__device__ __forceinline__ void rows_sqdist_vec4(QChunk qchunk,
+                                                 const float* const (&rows)[kG],
+                                                 int cnt, int n_chunks,
+                                                 float (&out)[kG]) {
+  const int lane = threadIdx.x & 31;
+  float4 x[kG][kK];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    const float4* r4 = reinterpret_cast<const float4*>(rows[g]);
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int c = lane + 32 * k;
+      x[g][k] = (g < cnt && c < n_chunks) ? __ldg(r4 + c)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  float acc[kG];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) acc[g] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    if (lane + 32 * k < n_chunks) {
+      const float4 a = qchunk(k);
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const float4 b = x[g][k];
+        float t;
+        t = __fsub_rn(a.x, b.x); acc[g] = __fmaf_rn(t, t, acc[g]);
+        t = __fsub_rn(a.y, b.y); acc[g] = __fmaf_rn(t, t, acc[g]);
+        t = __fsub_rn(a.z, b.z); acc[g] = __fmaf_rn(t, t, acc[g]);
+        t = __fsub_rn(a.w, b.w); acc[g] = __fmaf_rn(t, t, acc[g]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+      acc[g] = __fadd_rn(acc[g], __shfl_xor_sync(kFullMask, acc[g], off));
+  }
+#pragma unroll
+  for (int g = 0; g < kG; ++g) out[g] = acc[g];
+}
+
+// Calls fn(std::integral_constant<int, kK>) with kK = kk for 1 <= kk <=
+// kMaxLaneChunks and kK = 0 otherwise: the host's choice of a
+// rows_sqdist_vec4 instantiation (0: the row_sqdist path).
+template <class Fn>
+int by_lane_chunks(int kk, Fn&& fn) {
+  switch (kk) {
+    case 1: return fn(std::integral_constant<int, 1>{});
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 3: return fn(std::integral_constant<int, 3>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
+    case 5: return fn(std::integral_constant<int, 5>{});
+    case 6: return fn(std::integral_constant<int, 6>{});
+    case 7: return fn(std::integral_constant<int, 7>{});
+    case 8: return fn(std::integral_constant<int, 8>{});
+    default: return fn(std::integral_constant<int, 0>{});
+  }
 }
 
 // Asymmetric (LUT) distance of one code row: sum over m < M of

@@ -10,33 +10,88 @@
 // 3.35 TB/s; the arithmetic (3 flops per element) is far below the card's
 // rate.
 //
-// Design: one warp per (b, r) pair, 8 warps per block. A warp reads its row
-// with coalesced float4 loads (600 floats = 150 float4, 5 per lane) through
-// row_sqdist, the reduction beam_hop.cu shares, so the staged and fused hops
-// agree bit for bit. Many independent warps in flight hide the latency of
-// the random row gathers. Ids are clamped to the last row (as XLA clamps an
-// out-of-range gather), so a bad id never reads outside db.
+// Design: one warp per (b, slice of kGatherIds ids), 8 warps per block. The
+// warp reads its ids with one load, writes +inf for the ids < 0 and loads
+// no row for them, and scores the valid ones kGatherGroup at a time with
+// rows_sqdist_vec4: the query's chunks stay in registers for the whole
+// slice, and each lane has kGatherGroup rows' float4 loads in flight (20 at
+// D=600) before it reduces any of them. The reduction is row_sqdist's, the
+// one beam_hop.cu shares, so the staged and fused hops agree bit for bit.
+// Rows that are not float4-aligned or longer than 1024 floats go through
+// row_sqdist one at a time (kK = 0). Ids are clamped to the last row (as
+// XLA clamps an out-of-range gather), so a bad id never reads outside db.
 #include "common.cuh"
 
 namespace repro_torch {
 
 constexpr int kGatherWarps = 8;
+constexpr int kGatherIds = 8;     // ids per warp
+constexpr int kGatherGroup = 4;   // rows whose loads are in flight together
 
+template <int kK>
 __global__ void __launch_bounds__(kGatherWarps * 32)
 gather_dist_kernel(const float* __restrict__ q, const float* __restrict__ db,
                    const int* __restrict__ ids, float* __restrict__ out,
                    int b, int r, int n, int d, bool vec4) {
-  const long long pair =
+  const int lane = threadIdx.x & 31;
+  const int slices = (r + kGatherIds - 1) / kGatherIds;
+  const long long task =
       (long long)blockIdx.x * kGatherWarps + (threadIdx.x >> 5);
-  if (pair >= (long long)b * r) return;
-  const int row = (int)(pair / r);
-  const int id = ids[pair];
-  float dist = __int_as_float(0x7f800000);  // +inf
-  if (id >= 0) {
-    const long long x = (long long)min(id, n - 1) * d;
-    dist = row_sqdist(q + (long long)row * d, db + x, d, vec4);
+  if (task >= (long long)b * slices) return;
+  const int row = (int)(task / slices);
+  const int j0 = (int)(task % slices) * kGatherIds;
+  const int cnt_all = min(kGatherIds, r - j0);
+  const long long at = (long long)row * r + j0;
+  const int id = lane < cnt_all ? ids[at + lane] : -1;
+  if (lane < cnt_all && id < 0) out[at + lane] = __int_as_float(0x7f800000);
+  unsigned valid = __ballot_sync(kFullMask, id >= 0);   // warp-uniform
+  const float* qrow = q + (long long)row * d;
+
+  if constexpr (kK == 0) {
+    while (valid) {
+      const int j = __ffs(valid) - 1;
+      valid &= valid - 1;
+      const int idj = __shfl_sync(kFullMask, id, j);
+      const float dist =
+          row_sqdist(qrow, db + (long long)min(idj, n - 1) * d, d, vec4);
+      if (lane == 0) out[at + j] = dist;
+    }
+  } else {
+    const int n_chunks = d >> 2;
+    const float4* q4 = reinterpret_cast<const float4*>(qrow);
+    float4 qv[kK];
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int c = lane + 32 * k;
+      qv[k] = c < n_chunks ? __ldg(q4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    while (valid) {
+      const float* rows[kGatherGroup];
+      int js[kGatherGroup];
+      int cnt = 0;
+#pragma unroll
+      for (int g = 0; g < kGatherGroup; ++g) {
+        js[g] = 0;
+        rows[g] = db;
+        if (valid) {
+          const int j = __ffs(valid) - 1;
+          valid &= valid - 1;
+          const int idj = __shfl_sync(kFullMask, id, j);
+          js[g] = j;
+          rows[g] = db + (long long)min(idj, n - 1) * d;
+          cnt = g + 1;
+        }
+      }
+      float dist[kGatherGroup];
+      rows_sqdist_vec4<kK, kGatherGroup>([&](int k) { return qv[k]; }, rows,
+                                         cnt, n_chunks, dist);
+      if (lane == 0) {
+#pragma unroll
+        for (int g = 0; g < kGatherGroup; ++g)
+          if (g < cnt) out[at + js[g]] = dist[g];
+      }
+    }
   }
-  if ((threadIdx.x & 31) == 0) out[pair] = dist;
 }
 
 }  // namespace repro_torch
@@ -44,15 +99,18 @@ gather_dist_kernel(const float* __restrict__ q, const float* __restrict__ db,
 extern "C" int gather_dist_f32(const void* q, const void* db, const void* ids,
                                void* out, int b, int r, int n, int d,
                                int vec4, void* stream) {
-  const long long pairs = (long long)b * r;
-  if (pairs > 0) {
+  using namespace repro_torch;
+  const long long warps = (long long)b * ((r + kGatherIds - 1) / kGatherIds);
+  if (warps > 0) {
     const unsigned grid =
-        (unsigned)((pairs + repro_torch::kGatherWarps - 1) /
-                   repro_torch::kGatherWarps);
-    repro_torch::gather_dist_kernel<<<grid, repro_torch::kGatherWarps * 32, 0,
-                                      (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)db, (const int*)ids, (float*)out, b, r,
-        n, d, vec4 != 0);
+        (unsigned)((warps + kGatherWarps - 1) / kGatherWarps);
+    by_lane_chunks(vec4 ? lane_chunks(d) : 0, [&](auto kk) {
+      gather_dist_kernel<decltype(kk)::value>
+          <<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>(
+              (const float*)q, (const float*)db, (const int*)ids,
+              (float*)out, b, r, n, d, vec4 != 0);
+      return 0;
+    });
   }
   return (int)cudaGetLastError();
 }

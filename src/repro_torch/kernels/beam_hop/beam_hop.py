@@ -1,25 +1,30 @@
-"""Launch wrappers of the CUDA ``beam_hop`` kernel (``csrc/beam_hop.cu``):
-``beam_hop_cuda`` in f32 mode, ``beam_hop_lut_cuda`` in LUT mode (the pq
+"""Launch wrappers of the CUDA ``beam_hop`` kernels (``csrc/beam_hop.cu``):
+``beam_hop_cuda`` (one hop) and ``beam_hops_cuda`` (the hop loop) in f32
+mode, ``beam_hop_lut_cuda`` and ``beam_hops_lut_cuda`` in LUT mode (the pq
 and int8 backends). Each counts its own launches."""
 from __future__ import annotations
 
+import ctypes
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels import cuda_lib, pow2_at_least
+from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.gather_dist.gather_dist import vec4_ok
 from repro_torch.kernels.lut_dist.lut_dist import MAX_C, codes_vec4_ok
 
-MAX_SORT = 2048          # ef + R, padded to a power of two
+MAX_ENTRIES = 2048       # ef + R: the merge ranks every entry against all
 
 
-def _check_operands(name, sel, neighbors, pool_i, pool_d, pool_v, q_or_lut,
-                    table, table_dtype):
-    named = {"sel": (sel, torch.int32), "neighbors": (neighbors, torch.int32),
+def _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut,
+                    table, table_dtype, **extra):
+    named = {"neighbors": (neighbors, torch.int32),
              "pool_i": (pool_i, torch.int32),
              "pool_d": (pool_d, torch.float32),
              "pool_v": (pool_v, torch.bool),
              "q_or_lut": (q_or_lut, torch.float32),
              "table": (table, table_dtype)}
+    named.update({k: (t, torch.int32) for k, t in extra.items()})
     for arg, (t, dt) in named.items():
         if not t.is_cuda or t.device != table.device:
             raise ValueError(f"{name}: {arg} must be on {table.device}")
@@ -29,44 +34,50 @@ def _check_operands(name, sel, neighbors, pool_i, pool_d, pool_v, q_or_lut,
             raise ValueError(f"{name}: {arg} is not contiguous")
     nq, ef = pool_i.shape
     n, d = table.shape
-    if (sel.shape != (nq,) or pool_d.shape != (nq, ef)
-            or pool_v.shape != (nq, ef) or q_or_lut.shape[:2] != (nq, d)
+    if (pool_d.shape != (nq, ef) or pool_v.shape != (nq, ef)
+            or q_or_lut.shape[:2] != (nq, d)
+            or any(t.shape != (nq,) for t in extra.values())
             or neighbors.dim() != 2 or neighbors.shape[0] != n or n == 0):
-        raise ValueError(f"{name}: shapes disagree: sel {tuple(sel.shape)}, "
-                         f"neighbors {tuple(neighbors.shape)}, pool "
-                         f"{tuple(pool_i.shape)}, q_or_lut "
-                         f"{tuple(q_or_lut.shape)}, table "
-                         f"{tuple(table.shape)}")
-    p = pow2_at_least(ef + neighbors.shape[1])
-    if p > MAX_SORT:
+        raise ValueError(f"{name}: shapes disagree: "
+                         + ", ".join(f"{k} {tuple(t.shape)}"
+                                     for k, (t, _) in named.items()))
+    if ef + neighbors.shape[1] > MAX_ENTRIES:
         raise ValueError(f"{name}: ef + R = {ef + neighbors.shape[1]} "
-                         f"exceeds {MAX_SORT}")
-    return p
+                         f"exceeds {MAX_ENTRIES}")
 
 
-def _outputs(nq, ef, dev):
+def _check_lut(name, lut):
+    if lut.dim() != 3 or not 1 <= lut.shape[2] <= MAX_C:
+        raise ValueError(f"{name}: lut must be (Q, M, C) with C <= {MAX_C}, "
+                         f"got {tuple(lut.shape)}")
+
+
+def _pool_like(nq, ef, dev):
     return (torch.empty((nq, ef), dtype=torch.int32, device=dev),
             torch.empty((nq, ef), dtype=torch.float32, device=dev),
-            torch.empty((nq, ef), dtype=torch.bool, device=dev),
-            torch.empty((nq, 2), dtype=torch.int32, device=dev))
+            torch.empty((nq, ef), dtype=torch.bool, device=dev))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def beam_hop_cuda(sel, neighbors, pool_i, pool_d, pool_v, queries, db):
     """One fused f32 hop over all Q lanes; see ``ref.beam_hop_ref``."""
     if queries.dim() != 2:
         raise ValueError("beam_hop_cuda: queries must be (Q, D)")
-    p = _check_operands("beam_hop_cuda", sel, neighbors, pool_i, pool_d,
-                        pool_v, queries, db, torch.float32)
+    _check_operands("beam_hop_cuda", neighbors, pool_i, pool_d, pool_v,
+                    queries, db, torch.float32, sel=sel)
     lib = cuda_lib.library()
     nq, ef = pool_i.shape
     n, d = db.shape
-    out = _outputs(nq, ef, db.device)
+    out = _pool_like(nq, ef, db.device) + (
+        torch.empty((nq, 2), dtype=torch.int32, device=db.device),)
     code = lib.beam_hop_f32(
         sel.data_ptr(), neighbors.data_ptr(), pool_i.data_ptr(),
         pool_d.data_ptr(), pool_v.data_ptr(), queries.data_ptr(),
         db.data_ptr(), *(t.data_ptr() for t in out), nq, n,
-        neighbors.shape[1], d, ef, p, int(vec4_ok(d, queries, db)),
-        torch.cuda.current_stream(db.device).cuda_stream)
+        neighbors.shape[1], d, ef, int(vec4_ok(d, queries, db)), _stream(db))
     cuda_lib.check(code, "beam_hop_f32")
     beam_hop_cuda.launches += 1
     return out
@@ -75,26 +86,94 @@ def beam_hop_cuda(sel, neighbors, pool_i, pool_d, pool_v, queries, db):
 def beam_hop_lut_cuda(sel, neighbors, pool_i, pool_d, pool_v, lut, codes):
     """One fused LUT-mode hop: lut (Q, M, C) f32, codes (N, M) uint8; see
     ``ref.beam_hop_ref`` with ``dist_backend="pq"|"int8"``."""
-    if lut.dim() != 3 or not 1 <= lut.shape[2] <= MAX_C:
-        raise ValueError(f"beam_hop_lut_cuda: lut must be (Q, M, C) with "
-                         f"C <= {MAX_C}, got {tuple(lut.shape)}")
-    p = _check_operands("beam_hop_lut_cuda", sel, neighbors, pool_i, pool_d,
-                        pool_v, lut, codes, torch.uint8)
+    _check_lut("beam_hop_lut_cuda", lut)
+    _check_operands("beam_hop_lut_cuda", neighbors, pool_i, pool_d, pool_v,
+                    lut, codes, torch.uint8, sel=sel)
     lib = cuda_lib.library()
     nq, ef = pool_i.shape
     n, m = codes.shape
-    out = _outputs(nq, ef, codes.device)
+    out = _pool_like(nq, ef, codes.device) + (
+        torch.empty((nq, 2), dtype=torch.int32, device=codes.device),)
     code = lib.beam_hop_lut(
         sel.data_ptr(), neighbors.data_ptr(), pool_i.data_ptr(),
         pool_d.data_ptr(), pool_v.data_ptr(), lut.data_ptr(),
         codes.data_ptr(), *(t.data_ptr() for t in out), nq, n,
-        neighbors.shape[1], m, lut.shape[2], ef, p,
-        int(codes_vec4_ok(m, codes)),
-        torch.cuda.current_stream(codes.device).cuda_stream)
+        neighbors.shape[1], m, lut.shape[2], ef,
+        int(codes_vec4_ok(m, codes)), _stream(codes))
     cuda_lib.check(code, "beam_hop_lut")
     beam_hop_lut_cuda.launches += 1
     return out
 
 
+def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
+          stale, q_or_lut, table, k, max_iters, max_steps, patience, eps):
+    """Launch the loop kernel; returns the 9 outputs of ``beam_hops_ref``."""
+    for arg, v in (("k", k), ("max_iters", max_iters),
+                   ("max_steps", max_steps)):
+        if not 0 <= v < 2 ** 31:
+            raise ValueError(f"{name}: {arg} = {v} out of range")
+    lut = q_or_lut.dim() == 3
+    if lut:
+        _check_lut(name, q_or_lut)
+    _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
+                    torch.uint8 if lut else torch.float32, hops=hops,
+                    gathered=gathered, dup=dup, stale=stale)
+    lib = cuda_lib.library()
+    nq, ef = pool_i.shape
+    n, d = table.shape
+    dev = table.device
+    out = _pool_like(nq, ef, dev) + tuple(
+        torch.empty((nq,), dtype=torch.int32, device=dev)
+        for _ in range(5)) + (torch.empty((nq,), dtype=torch.bool,
+                                          device=dev),)
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+    ins = ptrs((neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
+                stale))
+    outs = ptrs(out)
+    head = (ins, outs, q_or_lut.data_ptr(), table.data_ptr(), nq, n,
+            neighbors.shape[1], d)
+    tail = (ef, k, max_iters, max_steps,
+            -1 if patience is None else int(patience), float(eps))
+    if lut:
+        code = lib.beam_hops_lut(*head, q_or_lut.shape[2], *tail,
+                                 int(codes_vec4_ok(d, table)), _stream(table))
+    else:
+        code = lib.beam_hops_f32(*head, *tail,
+                                 int(vec4_ok(d, q_or_lut, table)),
+                                 _stream(table))
+    cuda_lib.check(code, "beam_hops_lut" if lut else "beam_hops_f32")
+    return out
+
+
+def beam_hops_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
+                   stale, queries, db, *, k: int, max_iters: int,
+                   max_steps: int, patience: Optional[int] = None,
+                   eps: float = 0.0):
+    """The f32 hop loop, up to ``max_steps`` hops per lane in one launch;
+    see ``ref.beam_hops_ref``."""
+    if queries.dim() != 2:
+        raise ValueError("beam_hops_cuda: queries must be (Q, D)")
+    out = _hops("beam_hops_cuda", neighbors, pool_i, pool_d, pool_v, hops,
+                gathered, dup, stale, queries, db, k, max_iters, max_steps,
+                patience, eps)
+    beam_hops_cuda.launches += 1
+    return out
+
+
+def beam_hops_lut_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered,
+                       dup, stale, lut, codes, *, k: int, max_iters: int,
+                       max_steps: int, patience: Optional[int] = None,
+                       eps: float = 0.0):
+    """The LUT-mode hop loop: lut (Q, M, C) f32, codes (N, M) uint8; see
+    ``ref.beam_hops_ref``."""
+    out = _hops("beam_hops_lut_cuda", neighbors, pool_i, pool_d, pool_v,
+                hops, gathered, dup, stale, lut, codes, k, max_iters,
+                max_steps, patience, eps)
+    beam_hops_lut_cuda.launches += 1
+    return out
+
+
 beam_hop_cuda.launches = 0
 beam_hop_lut_cuda.launches = 0
+beam_hops_cuda.launches = 0
+beam_hops_lut_cuda.launches = 0

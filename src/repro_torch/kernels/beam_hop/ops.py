@@ -7,8 +7,8 @@ import torch
 
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.beam_hop.beam_hop import beam_hop_cuda, \
-    beam_hop_lut_cuda
-from repro_torch.kernels.beam_hop.ref import beam_hop_ref
+    beam_hop_lut_cuda, beam_hops_cuda, beam_hops_lut_cuda
+from repro_torch.kernels.beam_hop.ref import beam_hop_ref, beam_hops_ref
 
 
 def beam_hop(sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
@@ -29,3 +29,26 @@ def beam_hop(sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
         return beam_hop_lut_cuda(*head, table.contiguous())
     return beam_hop_ref(sel, neighbors, pool_i, pool_d, pool_v, q_or_lut,
                         table, dist_backend)
+
+
+def beam_hops(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup, stale,
+              q_or_lut, table, dist_backend: str = "f32", *, k: int,
+              max_iters: int, max_steps: int,
+              patience: Optional[int] = None, eps: float = 0.0,
+              backend: Optional[str] = None):
+    """Up to ``max_steps`` guarded hops per lane in one call -> (pool_i,
+    pool_d, pool_v, hops, gathered, dup_gathered, stale, iters, live); see
+    ``ref.beam_hops_ref``. The operands as ``beam_hop``'s."""
+    kw = dict(k=k, max_iters=max_iters, max_steps=max_steps,
+              patience=patience, eps=eps)
+    if use_kernel(table, backend, "beam_hops"):
+        c = lambda t, dt: t.to(dt).contiguous()
+        i32 = lambda t: c(t, torch.int32)
+        head = (i32(neighbors), i32(pool_i), c(pool_d, torch.float32),
+                c(pool_v, torch.bool), i32(hops), i32(gathered), i32(dup),
+                i32(stale), c(q_or_lut, torch.float32))
+        if dist_backend == "f32":
+            return beam_hops_cuda(*head, table, **kw)
+        return beam_hops_lut_cuda(*head, table.contiguous(), **kw)
+    return beam_hops_ref(neighbors, pool_i, pool_d, pool_v, hops, gathered,
+                         dup, stale, q_or_lut, table, **kw)

@@ -1,10 +1,11 @@
 """Plain PyTorch version of the fused beam hop, in f32 and LUT mode, plus
 the pool merge it shares with the staged traversal path (the reference's
-``beam_hop/ref.py``).
+``beam_hop/ref.py``), and of the hop loop (``beam_hops_ref``: the
+reference's guarded ``_run_hops`` step, repeated).
 
 ``merge_one`` is batched over the leading axes: the staged expansion and
 ``beam_hop_ref`` call the same function, so on the CPU the fused and staged
-hops agree by construction; on the card the kernel reproduces it bit for
+hops agree by construction; on the card the kernels reproduce it bit for
 bit.
 """
 from __future__ import annotations
@@ -66,3 +67,74 @@ def beam_hop_ref(sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
         pool_i, pool_d, pool_v, torch.where(valid, safe, -1), nd)
     stats = torch.stack([valid.sum(1, dtype=torch.int32), n_dup], dim=1)
     return pool_i, pool_d, pool_v, stats
+
+
+def select_frontier(pool_i, pool_d, pool_v):
+    """Pick the closest unvisited pool entry and mark it visited.
+
+    The first minimum of ``where(unvisited & valid, d, +inf)``; its slot is
+    marked visited even when it is no unvisited valid entry (every such
+    entry at +inf). Returns (pool_v, node, active): ``node`` is 0 when the
+    lane is inactive — the caller masks.
+    """
+    unvisited = (~pool_v) & (pool_i >= 0)
+    masked = torch.where(unvisited, pool_d, INF)
+    slot = torch.argmin(masked, dim=-1, keepdim=True)     # first minimum
+    active = unvisited.gather(-1, slot)[..., 0]
+    pool_v = pool_v | (torch.arange(pool_v.shape[-1],
+                                    device=pool_v.device) == slot)
+    node = torch.where(active, pool_i.gather(-1, slot)[..., 0], 0)
+    return pool_v, node, active
+
+
+def lane_live(pool_i, pool_v, hops, stale, *, max_iters, patience):
+    """Per-lane "still working" mask: an unvisited valid entry exists, the
+    hop budget is not spent and (``patience`` set) the lane is not stale."""
+    live = ((~pool_v) & (pool_i >= 0)).any(-1) & (hops < max_iters)
+    if patience is not None:
+        live = live & (stale < patience)
+    return live
+
+
+def beam_hops_ref(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
+                  stale, q_or_lut, table, *, k: int, max_iters: int,
+                  max_steps: int, patience=None, eps: float = 0.0):
+    """Up to ``max_steps`` guarded hops per lane: the reference's
+    ``_run_hops`` step, each lane until it stops being live.
+
+    A step, on each live lane (``lane_live``): ``select_frontier``, then
+    ``beam_hop_ref`` with ``sel = node`` where the slot was active, else -1;
+    hops += active, gathered and dup_gathered += the hop's stats and, with
+    ``patience``, stale = 0 when any of the first k distances fell by more
+    than ``eps`` (f32), else stale + 1. A lane that is not live keeps its
+    state, and never becomes live again. ``q_or_lut``/``table`` are the f32
+    queries and base, or a (Q, M, C) LUT and uint8 codes.
+
+    Returns (pool_i, pool_d, pool_v, hops, gathered, dup_gathered, stale,
+    iters, live): ``iters`` (Q,) int32 the hops each lane ran here, ``live``
+    the live test after them.
+    """
+    dist_backend = "pq" if q_or_lut.dim() == 3 else "f32"
+    iters = torch.zeros_like(hops)
+    state = (pool_i, pool_d, pool_v, hops, gathered, dup, stale)
+    live_of = lambda s: lane_live(s[0], s[2], s[3], s[6],
+                                  max_iters=max_iters, patience=patience)
+    for _ in range(max_steps):
+        keep = live_of(state)
+        if not bool(keep.any()):
+            break
+        p_i, p_d, p_v, h, g, dp, st = state
+        p_v, node, active = select_frontier(p_i, p_d, p_v)
+        sel = torch.where(active, node, -1).to(torch.int32)
+        n_i, n_d, n_v, stats = beam_hop_ref(sel, neighbors, p_i, p_d, p_v,
+                                            q_or_lut, table, dist_backend)
+        if patience is not None:
+            progress = ((p_d[:, :k] - n_d[:, :k]) > eps).any(1)
+            st = torch.where(progress, torch.zeros_like(st), st + 1)
+        new = (n_i, n_d, n_v, h + active.to(torch.int32), g + stats[:, 0],
+               dp + stats[:, 1], st)
+        state = tuple(
+            torch.where(keep.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+            for a, b in zip(new, state))
+        iters = iters + keep.to(torch.int32)
+    return state + (iters, live_of(state))

@@ -28,13 +28,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "gather_dist_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "beam_hop_f32": [_P] * 11 + [_I] * 7 + [_P],
-    "beam_hop_lut": [_P] * 11 + [_I] * 8 + [_P],
+    "beam_hop_f32": [_P] * 11 + [_I] * 6 + [_P],
+    "beam_hop_lut": [_P] * 11 + [_I] * 7 + [_P],
+    "beam_hops_f32": [_P] * 4 + [_I] * 9 + [_F, _I, _P],
+    "beam_hops_lut": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
     "lut_dist_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "beam_hop_smem_bytes": [_I, _I, _I],
     "topk_merge_rows": [_P] * 6 + [_I] * 5 + [_P],
     "topk_merge_smem_bytes": [_I],
     "l2topk_f32": [_P] * 7 + [_I] * 7 + [_P],

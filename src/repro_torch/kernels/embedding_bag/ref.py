@@ -3,9 +3,12 @@ it runs on the CPU, one bag member at a time.
 
 Per column, acc starts at 0 and takes ``acc = fma(w_l, row_l, acc)`` for
 l = 0..L-1 in order (XLA on the CPU contracts the reference's multiply-add
-into that chain). Here the fma is ``(acc + w * row)`` in float64 rounded
-once to float32: the product of two float32 values is exact in float64, so
-only the sum rounds before the final cast. The mean divides by
+into that chain). ``_fma32`` forms that fma with one rounding: the product
+of two float32 values is exact in float64, the float64 sum ``s`` and its
+exact error ``e`` (TwoSum) hold the exact result ``s + e``, and ``s`` is
+rounded to float32 to nearest, except where ``s`` is exactly a float32
+midpoint and ``e`` is not 0: there the exact result lies on ``e``'s side of
+the midpoint, and the rounding goes that way. The mean divides by
 ``max(sum_l w_l, 1e-9)``, summed in l order in float32. One (B, D) slice
 is gathered per step, never a (B, L, D) tensor.
 """
@@ -14,6 +17,25 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def _fma32(w: torch.Tensor, row: torch.Tensor,
+           acc: torch.Tensor) -> torch.Tensor:
+    """float32 ``w * row + acc`` rounded once, as a fused multiply-add."""
+    a = acc.double()
+    p = w.double() * row.double()                  # exact
+    s = a + p
+    bb = s - a
+    e = (a - (s - bb)) + (p - bb)                  # s + e == a + p exactly
+    near = s.float()
+    fd = near.double()
+    # the other float32 neighbour of s; s is a midpoint when it lies
+    # exactly halfway between the two
+    other = torch.nextafter(near, torch.where(s > fd, torch.inf,
+                                              -torch.inf).float())
+    mid = (fd != s) & ((fd + other.double()) * 0.5 == s) & (e != 0)
+    toward_other = (e > 0) == (other > near)
+    return torch.where(mid & toward_other, other, near)
 
 
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
@@ -32,8 +54,7 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     denom = torch.zeros((ids.shape[0], 1), dtype=torch.float32,
                         device=table.device)
     for l in range(ids.shape[1]):
-        row = table[safe[:, l]].double()
-        acc = (acc.double() + w[:, l, None].double() * row).float()
+        acc = _fma32(w[:, l, None], table[safe[:, l]], acc)
         denom = denom + w[:, l, None]
     if combiner == "mean":
         acc = acc / denom.clamp_min(1e-9)

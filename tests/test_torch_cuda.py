@@ -375,10 +375,8 @@ def _bag_inputs(g, v, d, b, l, table_dtype, dev):
 @pytest.mark.parametrize("v,d,b,l", BAG_SHAPES)
 def test_embedding_bag_kernel(dev, v, d, b, l, table_dtype, weights,
                               combiner):
-    """Bit-equal to the plain version under unit or integer-valued weights
-    (every fma of the chain is exact to one rounding in both), within rtol
-    1e-6 under float weights (the plain version's float64 sum can round
-    twice)."""
+    """Bit-equal to the plain version under unit, integer-valued and float
+    weights: both round each fma of the chain once."""
     from repro_torch.kernels.embedding_bag import embedding_bag, \
         embedding_bag_cuda, embedding_bag_ref
     g = torch.Generator().manual_seed(v + d + l)
@@ -392,10 +390,7 @@ def test_embedding_bag_kernel(dev, v, d, b, l, table_dtype, weights,
     want = embedding_bag_ref(table, ids, w, combiner)
     assert got.shape == (b, d) and got.dtype == torch.float32
     assert (got[0] == 0).all()
-    if weights == "float":
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-    else:
-        assert torch.equal(got, want)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -463,3 +458,140 @@ def test_embedding_bag_kernel_launch_geometry_edges(dev, l, d, b,
             assert embedding_bag_cuda.launches == n0 + 1
             assert torch.equal(got, embedding_bag_ref(table, ids, weights,
                                                       combiner))
+
+
+# -- the hop loop kernel (beam_hops) against the host loop over the one-hop
+# kernel: the same states, every field and counter, bit for bit
+
+def _loop_inputs(dev, dist_backend, n=2000, d=40, nq=96, ef=16, r=12):
+    """Integer data with many tied distances, a kNN graph with -1 pads and
+    the entry-seeded loop state; pq: integer LUT entries over random codes."""
+    from repro_torch.core.beam_search import _seed_batched
+    from repro_torch.kernels.gather_dist import gather_dist
+    from repro_torch.kernels.lut_dist import lut_dist
+    g = torch.Generator().manual_seed(31)
+    data = torch.randint(-3, 4, (n, d), generator=g).float().to(dev)
+    q = torch.randint(-3, 4, (nq, d), generator=g).float().to(dev)
+    _, nbrs = knn_graph(data, r)
+    nbrs[::7, r - 3:] = -1
+    entry = torch.randint(0, n, (nq,), generator=g,
+                          dtype=torch.int32).to(dev)
+    if dist_backend == "f32":
+        q_or_lut, table, gd = q, data, gather_dist
+    else:
+        table = torch.randint(0, 16, (n, 8), generator=g,
+                              dtype=torch.uint8).to(dev)
+        q_or_lut = torch.randint(0, 6, (nq, 8, 16), generator=g).float().to(
+            dev)
+        gd = lambda q_, db_, ids: lut_dist(q_or_lut, table, ids)
+    state = _seed_batched(q, data, nbrs, entry, ef, gd)
+    return state, q_or_lut, table, nbrs
+
+
+def _host_loop(state, q_or_lut, table, nbrs, dist_backend, **kw):
+    from repro_torch.core.beam_search import _expand_fused, _run_hops
+    body = lambda s: _expand_fused(s, q_or_lut, table, nbrs, dist_backend)
+    return _run_hops(state, body, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_steps", [1, 7, 40])
+@pytest.mark.parametrize("patience", [None, 2])
+@pytest.mark.parametrize("mode", ["while", "fori"])
+@pytest.mark.parametrize("dist_backend", ["f32", "pq"])
+def test_hop_loop_kernel_equals_the_host_loop(dev, dist_backend, mode,
+                                              patience, max_steps):
+    from repro_torch.core.beam_search import _run_hop_slices
+    from repro_torch.kernels.beam_hop import beam_hops_cuda, \
+        beam_hops_lut_cuda
+    state, q_or_lut, table, nbrs = _loop_inputs(dev, dist_backend)
+    kw = dict(k=10, max_iters=40, mode=mode, patience=patience, eps=0.0)
+    want = _host_loop(state, q_or_lut, table, nbrs, dist_backend, **kw)
+    wrapper = beam_hops_cuda if dist_backend == "f32" else beam_hops_lut_cuda
+    n0 = wrapper.launches
+    got = _run_hop_slices(state, q_or_lut, table, nbrs, dist_backend,
+                          max_steps=max_steps, **kw)
+    assert wrapper.launches > n0
+    if mode == "fori":
+        assert wrapper.launches - n0 == -(-40 // max_steps)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist_backend", ["f32", "pq"])
+def test_hop_loop_kernel_equals_its_plain_version(dev, dist_backend):
+    """One slice, every output: the kernel against beam_hops_ref on the
+    card, iterations and the exit live test included, with a lane whose
+    unvisited entries all sit at +inf."""
+    from repro_torch.kernels.beam_hop import beam_hops, beam_hops_ref
+    state, q_or_lut, table, nbrs = _loop_inputs(dev, dist_backend)
+    pool_i, pool_d, pool_v = (t.clone() for t in state[:3])
+    pool_i[0, :3] = torch.tensor([5, 7, -1])
+    pool_d[0, :3] = torch.tensor([3.0, float("inf"), float("inf")])
+    pool_v[0, :3] = torch.tensor([True, False, False])
+    args = (nbrs, pool_i, pool_d, pool_v, state[3], state[4], state[5],
+            state[7], q_or_lut, table)
+    for patience in (None, 3):
+        kw = dict(k=10, max_iters=40, max_steps=9, patience=patience,
+                  eps=0.0)
+        got = beam_hops(*args, dist_backend, backend="cuda", **kw)
+        want = beam_hops_ref(*args, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(got[7][0]) == (9 if patience is None else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["while", "fori"])
+def test_fused_search_takes_one_loop_launch(dev, mode):
+    """A fused search on the card runs its whole loop in one beam_hops
+    launch, and the while mode syncs the host once for it."""
+    from repro_torch.kernels.beam_hop import beam_hop_cuda, beam_hops_cuda
+    state, q, data, nbrs = _loop_inputs(dev, "f32")
+    entry = state[0][:, 0]
+    h0, l0 = beam_hop_cuda.launches, beam_hops_cuda.launches
+    s0 = beam_search.host_syncs
+    beam_search(q, data, nbrs, entry, ef=16, k=10, mode=mode,
+                hop_backend="fused")
+    assert beam_hops_cuda.launches - l0 == 1
+    assert beam_hop_cuda.launches == h0
+    assert beam_search.host_syncs - s0 == (1 if mode == "while" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [600, 37, 1100, 8])
+def test_gather_dist_kernel_on_pad_heavy_ids(dev, d):
+    """Mostly -1 ids (the alpha-scan's keep table), ids >= N (clamped to the
+    last row), misaligned rows (the scalar path), D % 4 != 0 and D past the
+    grouped path's 1024: the plain version's bits on integer data."""
+    g = torch.Generator().manual_seed(d + 5)
+    n = 3000
+    q = _vectors(g, (300, d), "int", dev)
+    db = _vectors(g, (n + 1, d), "int", dev)
+    ids = torch.randint(0, n + 40, (300, 32), generator=g,
+                        dtype=torch.int32).to(dev)
+    ids[torch.rand((300, 32), generator=g).to(dev) < 0.7] = -1
+    ids[5] = -1
+    for rows in (db[:n], db.view(-1)[1:1 + n * d].view(n, d)):
+        got = gather_dist_cuda(q, rows, ids)
+        assert torch.equal(got, gather_dist_ref(q, rows, ids.clamp_max(
+            n - 1)))
+        assert bool(torch.isinf(got[ids < 0]).all())
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_rounds_the_weighted_sum_once(dev):
+    """A weighted sum whose float64 sum is a float32 midpoint short of the
+    exact sum: the kernel's fma and the plain version give the same bits."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_ref
+    table = torch.tensor([[1.0], [16773185 * 2.0 ** -48]], device=dev)
+    ids = torch.tensor([[0, 1], [0, 1]], dtype=torch.int32, device=dev)
+    w = torch.tensor([[1.0, 8390624 * 2.0 ** -23],
+                      [-1.0, -8390624 * 2.0 ** -23]], device=dev)
+    got = embedding_bag_cuda(table, ids, w, "sum")
+    want = embedding_bag_ref(table, ids, w, "sum")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert got.view(torch.int32)[0, 0].item() == 0x3F800001

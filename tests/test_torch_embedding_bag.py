@@ -9,9 +9,12 @@ CPU) and ``backend="jnp"`` (its take + einsum oracle).
   the oracle and ``recsys._bag``.
 - Float weights: within rtol 1e-6. On the CPU, XLA contracts the Pallas
   kernel's ``acc + w * row`` into one fused multiply-add, which the port
-  reproduces with one rounding of a float64 sum; the oracle's einsum sums
-  in another order. The count of elements that differ at all is printed
-  (``pytest -s``).
+  reproduces by rounding the float64 sum once, with its TwoSum error
+  deciding a float32 midpoint; the oracle's einsum sums in another order.
+  The count of elements that differ at all is printed (``pytest -s``).
+- A weighted sum whose float64 sum lands exactly on a float32 midpoint
+  while the exact sum lies past it: exactly equal to the Pallas kernel and
+  the oracle.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -64,6 +67,9 @@ def test_unit_weights_bit_equal_to_the_reference(v, d, b, l, combiner):
 @pytest.mark.parametrize("combiner", ["sum", "mean"])
 @pytest.mark.parametrize("v,d,b,l", SWEEP)
 def test_float_weights_match_the_reference(v, d, b, l, combiner):
+    """Random float weights: within rtol 1e-6 of both forms of the
+    reference (the oracle's einsum sums in another order than the fma
+    chain); the single-rounding case is pinned exactly below."""
     table, ids, w = _inputs(v, d, b, l, seed=v + l)
     got = _port(table, ids, w, combiner)
     for name, want in zip(("pallas", "jnp"),
@@ -72,6 +78,40 @@ def test_float_weights_match_the_reference(v, d, b, l, combiner):
         print(f"{combiner} {(v, d, b, l)} vs {name}: {n_diff} of "
               f"{got.size} elements differ")
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+# (table, ids, weights) whose float64 sum 1 + 2^-24 is a float32 midpoint
+# while the exact sum, 1 + 2^-24 + 7 * 2^-71, lies above it: an fma rounds
+# up to 0x3F800001, a float64 sum rounded again to float32 ties to even,
+# 0x3F800000. The second bag is its negative (rounds to 0xBF800001).
+MIDPOINT_CASE = (np.array([[1.0], [16773185 * 2.0 ** -48]], np.float32),
+                 np.array([[0, 1], [0, 1]], np.int32),
+                 np.array([[1.0, 8390624 * 2.0 ** -23],
+                           [-1.0, -8390624 * 2.0 ** -23]], np.float32))
+
+
+def test_weighted_sum_rounds_once_as_the_reference():
+    table, ids, w = MIDPOINT_CASE
+    got = _port(table, ids, w, "sum")
+    assert got.view(np.uint32)[:, 0].tolist() == [0x3F800001, 0xBF800001]
+    for want in _reference(table, ids, w, "sum"):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_unit_weights_keep_the_float64_sum_bits(table_dtype):
+    """With unit weights every step adds two float32 values, whose float64
+    sum is never a float32 midpoint short of the exact sum: the single
+    rounding gives the bits of the float64 sum rounded to float32."""
+    table, ids, _ = _inputs(300, 24, 40, 16, seed=17)
+    t = torch.from_numpy(table * 1e3).to(table_dtype)
+    i = torch.from_numpy(ids)
+    acc = torch.zeros((40, 24), dtype=torch.float32)
+    for l in range(16):
+        row = t[i[:, l].clamp_min(0).long()].double()
+        acc = (acc.double() + (i[:, l, None] >= 0).double() * row).float()
+    assert torch.equal(embedding_bag_ref(t, i, None, "sum"), acc)
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean"])

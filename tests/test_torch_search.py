@@ -12,6 +12,9 @@ default) is held to the reference's dot-formula gather (its CPU default,
 The port's fused hop must equal its staged hop exactly when the staged hop
 runs the gather_dist family.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,3 +124,138 @@ def test_unported_options_raise(int_graph):
     with pytest.raises(ValueError, match="dist_backend"):
         beam_search(queries, data, nbrs, entry, ef=8, k=4,
                     dist_backend="int4")
+
+
+# -- the hop loop on the device (``_run_hop_slices`` over ``beam_hops``; its
+# plain version on the CPU) against the reference's guarded ``_run_hops``
+
+LOOP_EF, LOOP_K, LOOP_ITERS = 16, 10, 40
+PQ_M, PQ_C = 4, 16
+
+
+def _loop_operands(int_graph, dist_backend):
+    """(queries, db, neighbors, entry, codes, lut) as numpy; pq: integer
+    codebook LUT entries, so every LUT sum is exact."""
+    data, nbrs, queries, entry = int_graph
+    if dist_backend == "f32":
+        return queries, data, nbrs, entry, None, None
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, PQ_C, (data.shape[0], PQ_M)).astype(np.uint8)
+    lut = rng.integers(0, 6, (queries.shape[0], PQ_M, PQ_C)).astype(
+        np.float32)
+    return queries, data, nbrs, entry, codes, lut
+
+
+def _jax_setup(q, db, nbrs, codes, lut, dist_backend):
+    from repro.core.beam_search import _batched_hop_setup
+    return _batched_hop_setup(
+        q, db, nbrs, gather_dist=None, gather_backend="jnp",
+        dist_backend=dist_backend, codes=codes, lut=lut, hop_backend="staged")
+
+
+@functools.partial(jax.jit, static_argnames=("dist_backend",))
+def _jax_seed(q, db, nbrs, entry, codes, lut, *, dist_backend):
+    from repro.core.beam_search import _seed_batched
+    gd, _ = _jax_setup(q, db, nbrs, codes, lut, dist_backend)
+    return _seed_batched(q, db, nbrs, entry, LOOP_EF, gd)
+
+
+@functools.partial(jax.jit, static_argnames=("dist_backend", "mode",
+                                             "patience"))
+def _jax_run(state, q, db, nbrs, codes, lut, *, dist_backend, mode,
+             patience):
+    from repro.core.beam_search import _run_hops
+    _, body = _jax_setup(q, db, nbrs, codes, lut, dist_backend)
+    return _run_hops(state, body, k=LOOP_K, max_iters=LOOP_ITERS, mode=mode,
+                     patience=patience, eps=0.0)
+
+
+def _as_jax(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _as_torch(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+def _stuck_lane(state):
+    """Lane 0: its one unvisited valid entry sits at +inf behind a visited
+    slot 0, so its frontier select takes slot 0 and the lane idles."""
+    pool_i, pool_d, pool_v = (np.array(a) for a in state[:3])
+    pool_i[0, :3] = [5, 7, -1]
+    pool_d[0, :3] = [3.0, np.inf, np.inf]
+    pool_v[0, :3] = [True, False, False]
+    return (pool_i, pool_d, pool_v) + tuple(np.array(a) for a in state[3:])
+
+
+def _loop_case(int_graph, dist_backend, mode, patience, stuck=False):
+    q, db, nbrs, entry, codes, lut = _loop_operands(int_graph, dist_backend)
+    ops = dict(q=_as_jax(q), db=_as_jax(db), nbrs=_as_jax(nbrs),
+               codes=_as_jax(codes), lut=_as_jax(lut))
+    state = _jax_seed(entry=jnp.asarray(entry), dist_backend=dist_backend,
+                      **ops)
+    if stuck:
+        state = tuple(jnp.asarray(a) for a in _stuck_lane(state))
+    want = _jax_run(state, dist_backend=dist_backend, mode=mode,
+                    patience=patience, **ops)
+    q_or_lut, table = (q, db) if dist_backend == "f32" else (lut, codes)
+    return ([_as_torch(a) for a in state], _as_torch(q_or_lut),
+            _as_torch(table), torch.from_numpy(nbrs),
+            [np.asarray(a) for a in want])
+
+
+LOOP_FIELDS = ("ids", "dists", "visited", "hops", "gathered",
+               "dup_gathered", "wasted", "stale")
+
+
+@pytest.mark.parametrize("max_steps", [1, 7, LOOP_ITERS])
+@pytest.mark.parametrize("patience", [None, 2])
+@pytest.mark.parametrize("mode", ["while", "fori"])
+@pytest.mark.parametrize("dist_backend", ["f32", "pq"])
+def test_hop_loop_slices_equal_the_reference_loop(int_graph, dist_backend,
+                                                  mode, patience, max_steps):
+    """Every field of the loop state, exactly, after the whole loop run in
+    slices of ``max_steps`` (the kernel's unit on the card) against the
+    reference's loop run in one piece."""
+    from repro_torch.core.beam_search import _run_hop_slices
+    state, q_or_lut, table, nbrs, want = _loop_case(
+        int_graph, dist_backend, mode, patience)
+    got = _run_hop_slices(tuple(state), q_or_lut, table, nbrs, dist_backend,
+                          k=LOOP_K, max_iters=LOOP_ITERS, mode=mode,
+                          patience=patience, eps=0.0, max_steps=max_steps)
+    for name, g, w in zip(LOOP_FIELDS, got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert int(got[3].sum()) > 0                  # the lanes did hop
+
+
+@pytest.mark.parametrize("mode,patience", [("fori", None), ("while", 3)])
+@pytest.mark.parametrize("dist_backend", ["f32", "pq"])
+def test_hop_loop_lane_stuck_at_inf(int_graph, dist_backend, mode, patience):
+    """A lane whose unvisited entries all sit at +inf stays live without
+    hopping (its frontier is a visited slot); it ends at max_iters steps or
+    by patience, as in the reference."""
+    from repro_torch.core.beam_search import _run_hop_slices
+    state, q_or_lut, table, nbrs, want = _loop_case(
+        int_graph, dist_backend, mode, patience, stuck=True)
+    got = _run_hop_slices(tuple(state), q_or_lut, table, nbrs, dist_backend,
+                          k=LOOP_K, max_iters=LOOP_ITERS, mode=mode,
+                          patience=patience, eps=0.0, max_steps=7)
+    for name, g, w in zip(LOOP_FIELDS, got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert int(got[3][0]) == 0 and bool(got[2][0, 0])
+
+
+def test_beam_hops_ref_counts_iterations_and_the_live_test(int_graph):
+    """One slice of the plain loop: ``iters`` counts the hops each lane ran
+    (a prefix of the slice), and ``live`` is the live test after them."""
+    from repro_torch.kernels.beam_hop import beam_hops_ref, lane_live
+    state, q, db, nbrs, _ = _loop_case(int_graph, "f32", "while", None)
+    pool_i, pool_d, pool_v, hops, gath, dup, _, stale = state
+    out = beam_hops_ref(nbrs, pool_i, pool_d, pool_v, hops, gath, dup, stale,
+                        q, db, k=LOOP_K, max_iters=LOOP_ITERS, max_steps=5)
+    iters, live = out[7], out[8]
+    assert int(iters.max()) == 5 and int(iters.min()) >= 1
+    assert torch.equal(out[3], hops + iters)    # every hop here was active
+    assert torch.equal(live, lane_live(out[0], out[2], out[3], out[6],
+                                       max_iters=LOOP_ITERS, patience=None))
+    assert not bool((live & (iters < 5)).any())
