@@ -32,8 +32,21 @@ sel cycling 8 sets): ``ms`` one event-timed call, ``device_ms`` queued.
 ef = 64, k = 10 from random entry points: ``device_ms`` is the device-busy
 time of one search (torch.profiler, ``chip_smoke.profile_busy``),
 ``wall_ms`` the median of 7 host-timed searches, with the kernels it
-launched and the hop loop's host syncs where the checkout counts them. The
-last lines are the card as nvidia-smi names it and one JSON object.
+launched and the hop loop's host syncs where the checkout counts them.
+
+``lut_loop`` runs the LUT-mode hop loop over the same graph and queries at
+M = 300 (PQ, ``default_pq_m(600)``) and M = 600 (int8): codes and LUTs
+from the port's codecs fitted on the base (PQ's seeds from ``--seed``).
+Per width: ``device_ms`` of one ``beam_hops_lut_cuda`` call from the seeded
+state (queued_ms), the fused search's device-busy and wall ms with its
+search_stats, and, where the checkout routes the loop
+(``beam_hop.route``), the plan and ``probes``: device ms of the same call
+on the route's plan and on the designs it was chosen over: ``l2_only``
+(nothing resident, the grid cut so that the live LUTs fit ``L2_SHARE`` of
+the L2), ``l2_bounded`` (the route's residency, the grid cut so that the
+live L2 parts fit that share) and ``per_query``, each equal to per_query's
+outputs. The last lines are the card as nvidia-smi names it and one JSON
+object.
 """
 from __future__ import annotations
 
@@ -52,7 +65,7 @@ BASE = (270_000, 600)                  # the projected ann-laion base
 GATHER_CALLS = {"staged_1024": (1024, 0.0), "alpha_scan_2048": (2048, 0.5)}
 
 
-def hop_times(torch, g) -> dict:
+def hop_times(torch, g, seed: int) -> dict:
     """gather_dist, beam_hop's one-hop entry and a whole fused search."""
     import statistics
     import time
@@ -137,6 +150,83 @@ def hop_times(torch, g) -> dict:
         "top_kernels": prof["top_kernels"],
         "stats": {f: int(getattr(stats, f).sum()) for f in stats._fields},
         "ids_checksum": int(ids.long().sum())}
+    out["lut_loop"] = lut_loop_times(torch, data, queries, graph, entry,
+                                     ef, seed)
+    return out
+
+
+def lut_loop_times(torch, data, queries, graph, entry, ef,
+                   seed: int) -> dict:
+    """The LUT loop at pq's and int8's widths over ``graph``; see the
+    module docstring."""
+    import importlib
+    import statistics
+    import time
+    from chip_smoke import profile_busy, queued_ms
+    from repro_torch.core import beam_search as bs_mod
+    from repro_torch.core.quant import make_codec
+    from repro_torch.kernels.lut_dist import lut_dist_cuda
+    # the module (the package's name beam_hop is its dispatch function)
+    bh = importlib.import_module("repro_torch.kernels.beam_hop.beam_hop")
+
+    nq, r = queries.shape[0], graph.shape[1]
+    out = {}
+    for backend in ("pq", "int8"):
+        codec = make_codec(backend, data.shape[1]).fit(
+            data, generator=torch.Generator().manual_seed(seed))
+        codes = codec.encode(data).contiguous()
+        lut = codec.lut(queries).contiguous()
+        m, c = lut.shape[1], lut.shape[2]
+        state = bs_mod._seed_batched(
+            lut, codes, graph, entry, ef,
+            lambda q_, db_, ids: lut_dist_cuda(lut, codes, ids))
+        call = lambda **kw: bh.beam_hops_lut_cuda(
+            graph, *state[:6], state[7], lut, codes, k=10,
+            max_iters=4 * ef, max_steps=4 * ef, **kw)
+        res = {"m": m, "c": c, "device_ms": queued_ms(torch, call)}
+        search = lambda: bs_mod.beam_search(
+            queries, data, graph, entry, ef=ef, k=10, hop_backend="fused",
+            dist_backend=backend, codes=codes, lut=lut, with_stats=True)
+        search()
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            search()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        prof = profile_busy(torch, search)
+        _, ids, stats = search()
+        res.update(search_device_ms=prof["device_busy_ms"],
+                   search_wall_ms=statistics.median(times) * 1e3,
+                   top_kernels=prof["top_kernels"],
+                   stats={f: int(getattr(stats, f).sum())
+                          for f in stats._fields},
+                   ids_checksum=int(ids.long().sum()))
+        if hasattr(bh, "route"):
+            l2, sms = bh._card(codes.device)
+            plan = bh.route(m, c, r, ef, l2, sms)
+            res["plan"] = plan._asdict()
+            share = int(bh.L2_SHARE * l2)
+            l2_part = max(1, (m - plan.resident) * c * 4)
+            plans = {"route": plan,
+                     "l2_only": bh.LutPlan("persistent",
+                                           max(1, share // (m * c * 4)), 0),
+                     "l2_bounded": plan._replace(
+                         grid=max(1, min(plan.grid, share // l2_part))),
+                     "per_query": bh.LutPlan("per_query", 0, 0)}
+            want = call(plan=plans["per_query"])
+            res["probes"] = {}
+            for name, p_ in plans.items():
+                same = all(torch.equal(a, b)
+                           for a, b in zip(call(plan=p_), want))
+                res["probes"][name] = {
+                    "plan": p_._asdict(), "equal_to_per_query": same,
+                    "device_ms": queued_ms(torch, lambda: call(plan=p_),
+                                           calls=4)}
+        out[backend] = res
+        del codec, codes, lut, state
+        torch.cuda.empty_cache()
     return out
 
 
@@ -204,7 +294,7 @@ def main() -> int:
         del sets, longs
     del table
     torch.cuda.empty_cache()
-    out.update(hop_times(torch, g))
+    out.update(hop_times(torch, g, args.seed))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

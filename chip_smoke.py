@@ -10,9 +10,10 @@ Phases, each printing one JSON line:
   3. kernels  — runs gather_dist, beam_hop and topk_pool at the main path's
                 shapes, holds each against its plain PyTorch version (exact
                 on integer-valued inputs, within tolerance on float inputs)
-                and times both with CUDA events; then lut_dist and beam_hop
-                in LUT mode at M = 300 (pq) and M = 600 (int8), which must
-                equal their plain versions bit for bit on float inputs too;
+                and times both with CUDA events; then lut_dist (at R = 1,
+                the pool seed, and R = 32) and beam_hop in LUT mode at M =
+                300 (pq) and M = 600 (int8), which must equal their plain
+                versions bit for bit on float inputs too;
                 then l2topk at each of its shapes on the path (AntiHub,
                 kNN, ground truth, k-means, medoid, entry-point select, PQ),
                 exact on tied integer inputs, within rtol 1e-5 on float
@@ -20,10 +21,13 @@ Phases, each printing one JSON line:
                 3xTF32 on the tensor cores, tile: f32 SIMT tiles, small: the
                 database in shared memory), with its f32 and 3xTF32
                 bounds; and beam_hops, the hop loop kernel, over a whole
-                1024-query search (f32, and LUT mode at M = 300), which must
-                equal the host loop over the one-hop kernel in every field
-                and counter. gather_dist and the hops also give device_ms
-                (queued behind a device sleep, no host launch).
+                1024-query search (f32, and LUT mode at M = 300 and 600 on
+                the persistent variant, also timed on per_query), which
+                must equal the host loop over the one-hop kernel in every
+                field and counter; a LUT shape route sends to per_query
+                (M = 2048) must too. gather_dist, topk_merge, lut_dist and
+                the hops also give device_ms (queued behind a device
+                sleep, no host launch).
   4. fit      — builds TunedGraphIndex with the ann-laion config
                 (knn_backend="exact", finish_backend="host") on
                 clustered_vectors(300000, 768) from --seed (the config's
@@ -40,9 +44,11 @@ Phases, each printing one JSON line:
                 kernel runs its plain PyTorch version, must agree.
   8. quantized — for pq, then int8, on the index of phase 4: the codec's
                 fit and encode seconds, then 1024 queries with k=10, ef=64,
-                the config's rerank (64) and the fused LUT hop (QPS, recall@10, counters,
-                device-busy share); the staged search must equal it bit for
-                bit, and 256 queries searched again on the CPU must agree.
+                the config's rerank (64) and the fused LUT hop (QPS,
+                recall@10, counters, device-busy share), every loop launch
+                on the persistent variant; the staged search must equal it
+                bit for bit, and 256 queries searched again on the CPU must
+                agree.
   9. tune     — the paper's tuner on the same data and queries: an
                 AnnObjective (base: the config, graph_degree 32) with a TPE
                 study of 8 trials over default_space's rebuild-free knobs
@@ -94,7 +100,10 @@ Phases, each printing one JSON line:
                 the main path, quantize (PQ's codec), tune and the two-tower
                 phases; "launches_tune" is each kernel's count over the
                 tune phase. The fit must launch the tc and tile variants,
-                PQ's codec the small one. The one-hop entries (beam_hop,
+                PQ's codec the small one. beam_hops_lut gives its launches
+                per variant per M ("launches_by_variant") and in the kernels
+                phase, where both variants must have launched. The one-hop
+                entries (beam_hop,
                 beam_hop_lut; "on_main_path": false) must launch no time
                 on the main path: the fused search runs beam_hops.
 
@@ -123,6 +132,7 @@ PEAK_BW, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
 TOPK_SHAPE = dict(b=2048, m=96, k=64)      # NSG pool assembly
 HOP_SHAPE = dict(q=1024, ef=64, r=32)      # one serving hop
 LUT_MS = (300, 600)                        # pq (default_pq_m(600)), int8
+PER_QUERY_M = 2048                         # a LUT loop route sends per_query
 LUT_C = 256
 SERVE_RUNS = 7                             # timed searches (median)
 REF_QUERIES = 256                          # searched again on the CPU
@@ -185,11 +195,11 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 
 
 def zero_counts(wrappers: dict) -> None:
-    """Every wrapper's launch count to 0, l2topk's per-variant counts too."""
-    from repro_torch.kernels.l2topk.l2topk import reset_launches
+    """Every wrapper's launch count to 0, the per-variant counts too."""
     for w in wrappers.values():
         w.launches = 0
-    reset_launches()
+        if hasattr(w, "by_variant"):
+            w.by_variant = dict.fromkeys(w.by_variant, 0)
 
 
 def bound(bytes_moved: float, ops: float, name: str, ops_rate=None):
@@ -362,8 +372,9 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
         if bool(fin.any()):
             worst = max(worst, float((gd[fin] - wd[fin]).abs().max()))
     sets = Cycle([pool_inputs("float") for _ in range(8)])
-    ms = time_ms(lambda: topk_merge_cuda(*sets.next(), None, tk,
-                                         merge=False))
+    call = lambda: topk_merge_cuda(*sets.next(), None, tk, merge=False)
+    ms = time_ms(call)
+    dev_ms = queued_ms(torch, call)
     plain = time_ms(lambda: topk_pool_ref(*sets.next(), tk))
     p = 128
     compares = tb * 2 * (p // 2) * 7 * 8 // 2
@@ -371,8 +382,9 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
     res["topk_merge"] = dict(
         route="cuda", source="src/repro_torch/csrc/topk_merge.cu",
         replaces="src/repro/kernels/topk_merge/topk_merge.py:86",
-        max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bmin,
-        bound_by=by, library_ms=None, shape=dict(b=tb, m=tm, k=tk))
+        max_abs_err=worst, ms=ms, device_ms=dev_ms, plain_ms=plain,
+        bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
+        library_ms=None, shape=dict(b=tb, m=tm, k=tk))
     res.update(lut_kernel_phase(torch, n, g, gpu))
     return res
 
@@ -393,7 +405,10 @@ def lut_bytes(torch, codes, ids, m):
 def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
     """lut_dist and beam_hop's LUT mode at the quantized path's shapes
     (M = 300 for pq, 600 for int8), each bit-equal to its plain version.
-    The kernels line carries the pq (M = 300) numbers; both are here."""
+    lut_dist at R = 1 (the pool seed, its call on the main path) and at
+    R = 32 (the staged hop, under "r32"), each with device_ms (queued_ms)
+    and torch's embedding_bag over the same lookups. The kernels line
+    carries the pq (M = 300) numbers; both are here."""
     from repro_torch.kernels.beam_hop import beam_hop_lut_cuda, beam_hop_ref
     from repro_torch.kernels.lut_dist import lut_dist_cuda, lut_dist_ref
 
@@ -419,34 +434,48 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
                                      device=dev).float(),
                 "float": torch.rand((nq, m, LUT_C), generator=g,
                                     device=dev) * 10}
-        # -- lut_dist: the staged hop's (Q, R) block
-        for kind, lut in luts.items():
-            idx = ids((nq, r))
-            got = lut_dist_cuda(lut, codes, idx)
-            want = lut_dist_ref(lut, codes, idx)
-            worst["lut_dist"] = max(worst["lut_dist"], err(got, want))
-            if not torch.equal(got, want):
-                raise AssertionError(f"lut_dist (M={m}) differs from its "
-                                     f"plain version ({kind} data)")
-        sets = Cycle([ids((nq, r)) for _ in range(8)])
-        ms = time_ms(lambda: lut_dist_cuda(lut, codes, sets.next()))
-        plain = time_ms(lambda: lut_dist_ref(lut, codes, sets.next()))
-        # one PyTorch call of the same sum (order aside): embedding_bag
-        # over flat LUT indices, built outside the timing
-        flat_of = lambda s: ((torch.arange(nq, device=dev)[:, None, None] * m
-                              + torch.arange(m, device=dev)) * LUT_C
-                             + codes[s.clamp_min(0).long()].long()
-                             ).view(-1, m)
-        flats = Cycle([flat_of(s) for s in sets.items])
-        table = lut.view(-1, 1)
-        library = time_ms(lambda: torch.nn.functional.embedding_bag(
-            flats.next(), table, mode="sum"))
-        del flats
-        moved = sum(lut_bytes(torch, codes, s, m) for s in sets.items) / 8
-        bmin, by = bound(moved + nq * r * 8, nq * r * m, gpu)
-        out["lut_dist"][m] = dict(ms=ms, plain_ms=plain, bound_ms=bmin,
-                                  bound_by=by, library_ms=library,
-                                  shape=dict(q=nq, r=r, m=m, c=LUT_C, n=n))
+        # -- lut_dist: the pool seed's (Q, 1) entry block (its one call on
+        # the main path), then the staged hop's (Q, R) block
+        by_r = {}
+        for rr, lo in ((1, 0), (r, -1)):
+            for kind, lut in luts.items():
+                idx = ids((nq, rr), lo)
+                got = lut_dist_cuda(lut, codes, idx)
+                want = lut_dist_ref(lut, codes, idx)
+                worst["lut_dist"] = max(worst["lut_dist"], err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"lut_dist (M={m}, R={rr}) differs "
+                                         f"from its plain version ({kind} "
+                                         f"data)")
+            sets = Cycle([ids((nq, rr), lo) for _ in range(8)])
+            call = lambda: lut_dist_cuda(lut, codes, sets.next())
+            ms = time_ms(call)
+            dev_ms = queued_ms(torch, call)
+            plain = time_ms(lambda: lut_dist_ref(lut, codes, sets.next()))
+            # one PyTorch call of the same sum (order aside): embedding_bag
+            # over flat LUT indices, built outside the timing
+            flat_of = lambda s_: (
+                (torch.arange(nq, device=dev)[:, None, None] * m
+                 + torch.arange(m, device=dev)) * LUT_C
+                + codes[s_.clamp_min(0).long()].long()).view(-1, m)
+            flats = Cycle([flat_of(s_) for s_ in sets.items])
+            table = lut.view(-1, 1)
+            library_call = lambda: torch.nn.functional.embedding_bag(
+                flats.next(), table, mode="sum")
+            library = time_ms(library_call)
+            library_dev = queued_ms(torch, library_call)
+            del flats
+            moved = sum(lut_bytes(torch, codes, s_, m)
+                        for s_ in sets.items) / 8
+            bmin, by = bound(moved + nq * rr * 8, nq * rr * m, gpu)
+            by_r[rr] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                            bound_ms=bmin, bound_by=by,
+                            share_of_bound=bmin / dev_ms,
+                            library_ms=library,
+                            library_device_ms=library_dev,
+                            shape=dict(q=nq, r=rr, m=m, c=LUT_C, n=n))
+        out["lut_dist"][m] = dict(by_r[1], **{f"r{r}": {
+            k_: v for k_, v in by_r[r].items() if k_ != "shape"}})
 
         # -- beam_hop, LUT mode: one serving hop of Q queries
         nbrs = ids((n, r))
@@ -510,21 +539,27 @@ def hop_loop_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
     """beam_hops, the hop loop kernel, at the serving shape (Q = 1024, ef =
     64, R = 32, the config's max_iters = 4 ef, while mode) over a random
     graph of the projected base's size: f32 at D = d on normal rows, and
-    LUT mode at M = 300 (pq) on uniform codes and a float LUT. Each must
-    equal the host loop over the one-hop kernel (beam_hop_cuda /
+    LUT mode at M = 300 (pq) and M = 600 (int8) on uniform codes and a
+    float LUT, each on the variant ``beam_hop.route`` picks (persistent).
+    Each must equal the host loop over the one-hop kernel (beam_hop_cuda /
     beam_hop_lut_cuda, core.beam_search._run_hops) in every field of the
     loop state, bit for bit; f32 also with patience 5. Timed per call from
     the seeded state (ms: one event-timed call; device_ms: queued_ms)
-    beside the plain loop (beam_hops_ref on the card). The bound counts
-    what this run's search must read: each distinct row the kernel scores
-    (f32: D * 4 B; LUT: its M code bytes and each distinct LUT entry it
-    looks up, 4 B), each distinct expanded graph row, the queries or LUT
-    rows read, and the loop state in and out."""
+    beside the plain loop (beam_hops_ref on the card); the LUT loop also on
+    the per_query variant (the block-per-query design) as
+    ``per_query_device_ms``. The bound counts what this run's search must
+    read: each distinct row the kernel scores (f32: D * 4 B; LUT: its M
+    code bytes and each distinct LUT entry it looks up, 4 B), each distinct
+    expanded graph row, the queries or LUT rows read, and the loop state in
+    and out. Then a LUT shape the persistent variant cannot take (M =
+    PER_QUERY_M: its staging buffer exceeds a block's shared memory) must
+    route to per_query and equal the host loop and beam_hops_ref."""
     from repro_torch.configs.ann_laion import CONFIG
     from repro_torch.core.beam_search import _expand_fused, _run_hop_slices, \
         _run_hops, _seed_batched
     from repro_torch.kernels.beam_hop import beam_hops_cuda, \
         beam_hops_lut_cuda, beam_hops_ref, select_frontier
+    from repro_torch.kernels.beam_hop.beam_hop import LutPlan, _card, route
     from repro_torch.kernels.gather_dist import gather_dist_cuda
     from repro_torch.kernels.lut_dist import lut_dist_cuda
 
@@ -536,8 +571,9 @@ def hop_loop_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
                          dtype=torch.int32)
     entry = torch.randint(0, n, (nq,), generator=g, device=dev,
                           dtype=torch.int32)
-    res = {}
-    for name, m in (("beam_hops", None), ("beam_hops_lut", LUT_MS[0])):
+    res, lut_by_m = {}, {}
+    for name, m in [("beam_hops", None)] + [("beam_hops_lut", m_)
+                                            for m_ in LUT_MS]:
         if m is None:
             backend, width = "f32", d
             table = torch.randn((n, d), generator=g, device=dev)
@@ -576,6 +612,8 @@ def hop_loop_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
 
         kw = dict(k=k, max_iters=max_iters, mode="while", eps=0.0)
         checks = [None] + ([5] if m is None else [])
+        by_variant = (None if m is None
+                      else dict(beam_hops_lut_cuda.by_variant))
         for patience in checks:
             want = _run_hops(state, body if patience is None else
                              (lambda s: _expand_fused(s, q_or_lut, table,
@@ -585,18 +623,25 @@ def hop_loop_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
                                   max_steps=max_iters, patience=patience,
                                   **kw)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"{name} differs from the host loop "
-                                     f"over the one-hop kernel (patience "
-                                     f"{patience})")
+                raise AssertionError(f"{name} (width {width}) differs from "
+                                     f"the host loop over the one-hop "
+                                     f"kernel (patience {patience})")
             if patience is None:
                 stats = want
-        call = lambda: wrapper(nbrs, *state[:6], state[7], q_or_lut, table,
-                               k=k, max_iters=max_iters, max_steps=max_iters)
+        if m is not None and (beam_hops_lut_cuda.by_variant["persistent"]
+                              == by_variant["persistent"]):
+            raise AssertionError(f"the LUT loop at M={m} did not run on the "
+                                 f"persistent variant")
+        call = lambda **plan: wrapper(
+            nbrs, *state[:6], state[7], q_or_lut, table, k=k,
+            max_iters=max_iters, max_steps=max_iters, **plan)
         plain_call = lambda: beam_hops_ref(
             nbrs, *state[:6], state[7], q_or_lut, table, k=k,
             max_iters=max_iters, max_steps=max_iters)
         ms = time_ms(call, reps=9, warmup=2)
         dev_ms = queued_ms(torch, call)
+        per_query = (None if m is None else queued_ms(
+            torch, lambda: call(plan=LutPlan("per_query", 0, 0))))
         plain = time_ms(plain_call, reps=3, warmup=1)
         hops, gath, dup = (int(t.sum()) for t in stats[3:6])
         n_scored = int(scored.sum())
@@ -609,7 +654,7 @@ def hop_loop_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
             moved = n_scored * m + int(looked_up.sum()) * 4
             ops = (gath - dup) * m
         bmin, by = bound(moved + graph_bytes + state_bytes, ops, gpu)
-        res[name] = dict(
+        entry_ = dict(
             route="cuda", source="src/repro_torch/csrc/beam_hop.cu",
             replaces="src/repro/kernels/beam_hop/beam_hop.py:117",
             max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain,
@@ -619,8 +664,68 @@ def hop_loop_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
             loop_iterations=int((stats[3] + stats[6]).max()),
             shape=dict(q=nq, ef=ef, r=r, n=n, max_iters=max_iters,
                        **({"d": d} if m is None else {"m": m, "c": LUT_C})))
+        if m is None:
+            res[name] = entry_
+        else:
+            entry_.update(per_query_device_ms=per_query,
+                          plan=route(m, LUT_C, r, ef,
+                                     *_card(dev))._asdict())
+            lut_by_m[m] = entry_
         del table, q_or_lut, scored, looked_up, state
+    head = lut_by_m[LUT_MS[0]]
+    res["beam_hops_lut"] = dict(
+        {k_: v for k_, v in head.items() if k_ != "shape"},
+        shape=head["shape"], by_m={str(m): v for m, v in lut_by_m.items()},
+        per_query_route=per_query_route_check(torch, seed))
     return res
+
+
+def per_query_route_check(torch, seed: int) -> dict:
+    """A LUT loop the persistent variant cannot take (M = PER_QUERY_M, C =
+    256: its staging buffer alone exceeds a block's shared memory) on a
+    small random graph: ``route`` must pick per_query, the wrapper must
+    count it there, and the result must equal the host loop over the
+    one-hop kernel and beam_hops_ref in every output."""
+    from repro_torch.core.beam_search import _expand_fused, _run_hop_slices, \
+        _run_hops, _seed_batched
+    from repro_torch.kernels.beam_hop import beam_hops_lut_cuda, \
+        beam_hops_ref
+    from repro_torch.kernels.beam_hop.beam_hop import _card, route
+    from repro_torch.kernels.lut_dist import lut_dist_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 808)
+    nq, n, r, ef, m = 64, 4096, HOP_SHAPE["r"], HOP_SHAPE["ef"], PER_QUERY_M
+    plan = route(m, LUT_C, r, ef, *_card(dev))
+    if plan.variant != "per_query":
+        raise AssertionError(f"route sent M={m} to {plan}, not per_query")
+    nbrs = torch.randint(-1, n, (n, r), generator=g, device=dev,
+                         dtype=torch.int32)
+    codes = torch.randint(0, LUT_C, (n, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    lut = torch.rand((nq, m, LUT_C), generator=g, device=dev) * 10
+    entry = torch.randint(0, n, (nq,), generator=g, device=dev,
+                          dtype=torch.int32)
+    state = _seed_batched(lut, codes, nbrs, entry, ef,
+                          lambda q_, db_, ids: lut_dist_cuda(lut, codes, ids))
+    kw = dict(k=10, max_iters=4 * ef, eps=0.0)
+    before = beam_hops_lut_cuda.by_variant["per_query"]
+    want = _run_hops(state, lambda s: _expand_fused(s, lut, codes, nbrs,
+                                                    "pq"), mode="while",
+                     patience=None, **kw)
+    got = _run_hop_slices(state, lut, codes, nbrs, "pq", mode="while",
+                          patience=None, max_steps=4 * ef, **kw)
+    args = (nbrs, *state[:6], state[7], lut, codes)
+    got9 = beam_hops_lut_cuda(*args, max_steps=4 * ef, **kw)
+    want9 = beam_hops_ref(*args, max_steps=4 * ef, **kw)
+    if beam_hops_lut_cuda.by_variant["per_query"] - before != 2:
+        raise AssertionError("the per_query launches were not counted")
+    if not (all(torch.equal(a, b) for a, b in zip(got, want))
+            and all(torch.equal(a, b) for a, b in zip(got9, want9))):
+        raise AssertionError(f"the per_query LUT loop (M={m}) differs from "
+                             f"the host loop or beam_hops_ref")
+    return dict(m=m, c=LUT_C, q=nq, n=n, plan=plan._asdict(),
+                hops=int(want[3].sum()), equal=True)
 
 
 def l2topk_shapes() -> dict:
@@ -801,6 +906,8 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
         queries, k, hop_backend="fused", **kw))
     launches = {name: w.launches for name, w in wrappers.items()}
     launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
+    launches["lut_loop_by_variant"] = dict(
+        wrappers["beam_hops_lut"].by_variant)
     one = per_search(torch, wrappers, lambda: index.search(
         queries, k, hop_backend="fused", **kw))
     serve_s = statistics.median(times)
@@ -827,6 +934,12 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
     if one["launches"].get("beam_hops_lut") != 1 or one["host_syncs"] != 1:
         raise AssertionError(f"a fused {backend} search took {one}, not one "
                              f"loop launch and one host sync")
+    if (launches["lut_loop_by_variant"]["per_query"] != 0
+            or launches["lut_loop_by_variant"]["persistent"]
+            != launches["beam_hops_lut"]):
+        raise AssertionError(f"the {backend} searches did not all run the "
+                             f"persistent LUT loop: "
+                             f"{launches['lut_loop_by_variant']}")
 
     # the staged LUT hop equals the fused one, bit for bit
     d_s, i_s = index.search(queries, k, hop_backend="staged", **kw)
@@ -1329,7 +1442,7 @@ def main() -> int:
     from repro_torch.kernels import cuda_lib
     lib = cuda_lib.library()
     ptxas = [ln.strip() for ln in lib.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=lib.build_seconds, ptxas=ptxas)
 
     # 3. kernels at the main path's shapes, against their plain versions
@@ -1343,6 +1456,11 @@ def main() -> int:
     kernels["l2topk"] = l2topk_kernel_phase(torch, gpu, args.seed)
     torch.cuda.synchronize()
     emit("kernels", seconds=time.perf_counter() - t, kernels=kernels)
+    from repro_torch.kernels.beam_hop import beam_hops_lut_cuda
+    checked_variants = dict(beam_hops_lut_cuda.by_variant)
+    if min(checked_variants.values()) <= 0:
+        raise AssertionError(f"a LUT loop variant never launched in the "
+                             f"kernels phase: {checked_variants}")
 
     # 4-5. the main path: fit, then serve — launch counts from these only
     from repro_torch.core.distances import l2_topk
@@ -1477,7 +1595,7 @@ def main() -> int:
     # (M = 600) — launch counts of the LUT kernels from these runs
     # (quantize + serve) only, kept per M
     lut_launches = {"lut_dist": {}, "beam_hop_lut": {}, "beam_hops_lut": {}}
-    lut_by_variant = {}
+    lut_by_variant, loop_by_variant = {}, {}
     for backend, m in zip(("pq", "int8"), LUT_MS):
         counts = quantized_phase(torch, index, queries, true_i, backend,
                                  wrappers, args.seed)
@@ -1485,6 +1603,7 @@ def main() -> int:
             lut_launches[name][m] = counts[name]
         for v, c in counts["l2topk_by_variant"].items():
             lut_by_variant[v] = lut_by_variant.get(v, 0) + c
+        loop_by_variant[str(m)] = counts["lut_loop_by_variant"]
     launches.update({name: sum(by_m.values())
                      for name, by_m in lut_launches.items()})
 
@@ -1541,6 +1660,9 @@ def main() -> int:
                 "l2topk_by_variant"]
             entry["launches_by_variant_recsys"] = recsys_by_variant
             entry["launches_by_variant_quantize"] = lut_by_variant
+        if name == "beam_hops_lut":
+            entry["launches_by_variant"] = loop_by_variant
+            entry["launches_by_variant_kernels_phase"] = checked_variants
         if name in lut_launches:
             entry["m"] = LUT_MS[0]
             if "by_m" in info:

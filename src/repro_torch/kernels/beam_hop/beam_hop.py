@@ -1,11 +1,32 @@
 """Launch wrappers of the CUDA ``beam_hop`` kernels (``csrc/beam_hop.cu``):
 ``beam_hop_cuda`` (one hop) and ``beam_hops_cuda`` (the hop loop) in f32
 mode, ``beam_hop_lut_cuda`` and ``beam_hops_lut_cuda`` in LUT mode (the pq
-and int8 backends). Each counts its own launches."""
+and int8 backends). Each counts its own launches.
+
+The LUT loop has two variants, which compute the same function; ``route``
+picks one by shape before the launch, and ``beam_hops_lut_cuda.by_variant``
+counts each one's launches:
+
+- ``persistent``: ``grid`` blocks of ``THREADS`` threads, one per SM, walk
+  the queries one after another, each query's first ``resident``
+  sub-tables copied into shared memory and the rest read through the L2
+  (kept there with an evict_last policy), every thread gathering lookups
+  (pq and int8 serving);
+- ``per_query``: one block per query, one thread per candidate reading the
+  LUT from device memory, for shapes the first cannot take (more than
+  ``THREADS`` candidates per hop, a staging buffer over a block's shared
+  memory, or one LUT's L2 part over ``L2_SHARE`` of the L2).
+
+A grid cut so that the live LUTs' L2 parts fit the L2 lost to a grid of
+every SM (int8 at M = 600 on an H100; the probes of
+``benchmarks/torch_kernel_times.py``, PERF.md §6): a hop's latency, not
+the L2's capacity, bounds the loop.
+"""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -14,6 +35,74 @@ from repro_torch.kernels.gather_dist.gather_dist import vec4_ok
 from repro_torch.kernels.lut_dist.lut_dist import MAX_C, codes_vec4_ok
 
 MAX_ENTRIES = 2048       # ef + R: the merge ranks every entry against all
+
+# The persistent LUT loop's launch plan: one block per SM.
+THREADS = 512                # its threads per block (csrc kPersistentThreads)
+SMEM_PER_BLOCK = 232_448     # the most one block may take on an H100 (227 KB)
+L2_SHARE = 0.8               # of the L2 one LUT's L2 part may fill
+CTL_WORDS = 8                # csrc kCtl
+LUT_VARIANTS = ("persistent", "per_query")
+
+
+class LutPlan(NamedTuple):
+    variant: str             # "persistent" or "per_query"
+    grid: int                # persistent: blocks (each walks queries)
+    resident: int            # persistent: sub-tables per LUT in shared memory
+
+
+def _align16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def persistent_smem_bytes(ef: int, r: int, m: int, c: int,
+                          resident: int) -> int:
+    """Shared memory of one persistent block (csrc PersistentLayout): the
+    hop's pools and keys, r staged code rows of an odd number of words, the
+    (M - resident) x r staging buffer and the resident sub-tables."""
+    hop = (ef + r) * 8 + (6 * ef + 3 * r + CTL_WORDS) * 4
+    code_words = (m + 3) // 4 | 1
+    stage = _align16(_align16(hop) + r * code_words * 4)
+    return _align16(stage + (m - resident) * r * 4) + resident * c * 4
+
+
+@functools.lru_cache(maxsize=None)
+def route(m: int, c: int, r: int, ef: int, l2_bytes: int,
+          sm_count: int) -> LutPlan:
+    """The LUT loop's variant for (M, C) LUTs, R candidates per hop and an
+    ef pool, on a card with ``l2_bytes`` of L2 and ``sm_count`` SMs.
+
+    persistent when R <= THREADS, its block fits SMEM_PER_BLOCK with
+    nothing resident, and one LUT's L2 part fits ``L2_SHARE`` of the L2;
+    then ``resident`` is the most sub-tables (a multiple of 4, or all M)
+    that keep the block within SMEM_PER_BLOCK, and ``grid`` one block per
+    SM."""
+    if r > THREADS or persistent_smem_bytes(ef, r, m, c, 0) > SMEM_PER_BLOCK:
+        return LutPlan("per_query", 0, 0)
+    resident = next(s for s in [m] + list(range(m // 4 * 4, -1, -4))
+                    if persistent_smem_bytes(ef, r, m, c, s) <= SMEM_PER_BLOCK)
+    if (m - resident) * c * 4 > L2_SHARE * l2_bytes:
+        return LutPlan("per_query", 0, 0)
+    return LutPlan("persistent", sm_count, resident)
+
+
+def _check_plan(name, plan, m, c, r, ef):
+    if plan.variant not in LUT_VARIANTS:
+        raise ValueError(f"{name}: unknown variant {plan.variant!r}; "
+                         f"expected one of {LUT_VARIANTS}")
+    if plan.variant == "persistent" and not (
+            plan.grid >= 1 and r <= THREADS
+            and (plan.resident == m
+                 or 0 <= plan.resident < m and plan.resident % 4 == 0)
+            and persistent_smem_bytes(ef, r, m, c, plan.resident)
+            <= SMEM_PER_BLOCK):
+        raise ValueError(f"{name}: the persistent variant cannot take "
+                         f"{plan} at M={m}, C={c}, R={r}, ef={ef}")
+
+
+@functools.lru_cache(maxsize=None)
+def _card(device: torch.device):
+    props = torch.cuda.get_device_properties(device)
+    return props.L2_cache_size, props.multi_processor_count
 
 
 def _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut,
@@ -106,8 +195,10 @@ def beam_hop_lut_cuda(sel, neighbors, pool_i, pool_d, pool_v, lut, codes):
 
 
 def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
-          stale, q_or_lut, table, k, max_iters, max_steps, patience, eps):
-    """Launch the loop kernel; returns the 9 outputs of ``beam_hops_ref``."""
+          stale, q_or_lut, table, k, max_iters, max_steps, patience, eps,
+          plan=None):
+    """Launch the loop kernel (LUT mode: on ``plan``, else on ``route``'s);
+    returns the 9 outputs of ``beam_hops_ref`` and the plan."""
     for arg, v in (("k", k), ("max_iters", max_iters),
                    ("max_steps", max_steps)):
         if not 0 <= v < 2 ** 31:
@@ -118,9 +209,15 @@ def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
     _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
                     torch.uint8 if lut else torch.float32, hops=hops,
                     gathered=gathered, dup=dup, stale=stale)
-    lib = cuda_lib.library()
     nq, ef = pool_i.shape
     n, d = table.shape
+    if lut:
+        shape = (d, q_or_lut.shape[2], neighbors.shape[1], ef)
+        if plan is None:
+            plan = route(*shape, *_card(table.device))
+        else:
+            _check_plan(name, plan, *shape)
+    lib = cuda_lib.library()
     dev = table.device
     out = _pool_like(nq, ef, dev) + tuple(
         torch.empty((nq,), dtype=torch.int32, device=dev)
@@ -135,14 +232,19 @@ def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
     tail = (ef, k, max_iters, max_steps,
             -1 if patience is None else int(patience), float(eps))
     if lut:
-        code = lib.beam_hops_lut(*head, q_or_lut.shape[2], *tail,
-                                 int(codes_vec4_ok(d, table)), _stream(table))
+        c = q_or_lut.shape[2]
+        lut_vec4 = (d * c) % 4 == 0 and q_or_lut.data_ptr() % 16 == 0
+        code = lib.beam_hops_lut(*head, c, *tail,
+                                 int(codes_vec4_ok(d, table)),
+                                 plan.grid if plan.variant == "persistent"
+                                 else 0, plan.resident, int(lut_vec4),
+                                 _stream(table))
     else:
         code = lib.beam_hops_f32(*head, *tail,
                                  int(vec4_ok(d, q_or_lut, table)),
                                  _stream(table))
     cuda_lib.check(code, "beam_hops_lut" if lut else "beam_hops_f32")
-    return out
+    return out, plan
 
 
 def beam_hops_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
@@ -153,9 +255,9 @@ def beam_hops_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
     see ``ref.beam_hops_ref``."""
     if queries.dim() != 2:
         raise ValueError("beam_hops_cuda: queries must be (Q, D)")
-    out = _hops("beam_hops_cuda", neighbors, pool_i, pool_d, pool_v, hops,
-                gathered, dup, stale, queries, db, k, max_iters, max_steps,
-                patience, eps)
+    out, _ = _hops("beam_hops_cuda", neighbors, pool_i, pool_d, pool_v,
+                   hops, gathered, dup, stale, queries, db, k, max_iters,
+                   max_steps, patience, eps)
     beam_hops_cuda.launches += 1
     return out
 
@@ -163,13 +265,15 @@ def beam_hops_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
 def beam_hops_lut_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered,
                        dup, stale, lut, codes, *, k: int, max_iters: int,
                        max_steps: int, patience: Optional[int] = None,
-                       eps: float = 0.0):
+                       eps: float = 0.0, plan: Optional[LutPlan] = None):
     """The LUT-mode hop loop: lut (Q, M, C) f32, codes (N, M) uint8; see
-    ``ref.beam_hops_ref``."""
-    out = _hops("beam_hops_lut_cuda", neighbors, pool_i, pool_d, pool_v,
-                hops, gathered, dup, stale, lut, codes, k, max_iters,
-                max_steps, patience, eps)
+    ``ref.beam_hops_ref``. On ``route``'s plan unless one is forced (tests,
+    measurements); a forced plan must fit the kernel."""
+    out, plan = _hops("beam_hops_lut_cuda", neighbors, pool_i, pool_d,
+                      pool_v, hops, gathered, dup, stale, lut, codes, k,
+                      max_iters, max_steps, patience, eps, plan)
     beam_hops_lut_cuda.launches += 1
+    beam_hops_lut_cuda.by_variant[plan.variant] += 1
     return out
 
 
@@ -177,3 +281,4 @@ beam_hop_cuda.launches = 0
 beam_hop_lut_cuda.launches = 0
 beam_hops_cuda.launches = 0
 beam_hops_lut_cuda.launches = 0
+beam_hops_lut_cuda.by_variant = dict.fromkeys(LUT_VARIANTS, 0)

@@ -595,3 +595,161 @@ def test_embedding_bag_kernel_rounds_the_weighted_sum_once(dev):
     want = embedding_bag_ref(table, ids, w, "sum")
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert got.view(torch.int32)[0, 0].item() == 0x3F800001
+
+
+# -- the LUT hop loop's persistent variant (beam_hop.route): against the
+# host loop over the one-hop kernel (which keeps lut_row_sum) and against
+# beam_hops_ref, every output, bit for bit
+
+def _lut_loop_inputs(dev, m, c, kind, aligned=True, nq=96, n=2000, r=12,
+                     ef=16):
+    """A kNN graph with -1 pads over random integer rows, codes over all of
+    0..255 (so codes above C - 1 take the clamp), the LUT and the
+    entry-seeded loop state; unaligned: the codes start one byte into
+    their buffer (code rows read byte by byte)."""
+    from repro_torch.core.beam_search import _seed_batched
+    from repro_torch.kernels.lut_dist import lut_dist
+    g = torch.Generator().manual_seed(m * 1000 + c)
+    data = torch.randint(-3, 4, (n, 16), generator=g).float().to(dev)
+    _, nbrs = knn_graph(data, r)
+    nbrs[::7, r - 3:] = -1
+    raw = torch.randint(0, 256, (n * m + 1,), generator=g,
+                        dtype=torch.uint8).to(dev)
+    codes = (raw[:n * m] if aligned else raw[1:]).view(n, m)
+    lut = _lut(g, (nq, m, c), kind, dev)
+    entry = torch.randint(0, n, (nq,), generator=g,
+                          dtype=torch.int32).to(dev)
+    state = _seed_batched(lut, codes, nbrs, entry, ef,
+                          lambda q_, db_, ids: lut_dist(lut, codes, ids))
+    return state, lut, codes, nbrs
+
+
+def _lut_loop_args(state, lut, codes, nbrs):
+    return (nbrs, *state[:6], state[7], lut, codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("c", [1, 16, 256])
+@pytest.mark.parametrize("m", [1, 3, 7, 300, 600])
+def test_lut_loop_persistent_equals_host_loop_and_plain(dev, m, c, kind,
+                                                        aligned):
+    from repro_torch.core.beam_search import _run_hop_slices
+    from repro_torch.kernels.beam_hop import beam_hops_lut_cuda, \
+        beam_hops_ref
+    from repro_torch.kernels.beam_hop.beam_hop import _card, route
+    state, lut, codes, nbrs = _lut_loop_inputs(dev, m, c, kind, aligned)
+    assert route(m, c, 12, 16, *_card(codes.device)).variant == "persistent"
+    kw = dict(k=10, max_iters=40, mode="while", patience=None, eps=0.0)
+    want = _host_loop(state, lut, codes, nbrs, "pq", **kw)
+    n0 = dict(beam_hops_lut_cuda.by_variant)
+    got = _run_hop_slices(state, lut, codes, nbrs, "pq", max_steps=40, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[3].sum()) > 0
+    del kw["mode"]
+    args = _lut_loop_args(state, lut, codes, nbrs)
+    got9 = beam_hops_lut_cuda(*args, max_steps=40, **kw)
+    for a, b in zip(got9, beam_hops_ref(*args, max_steps=40, **kw)):
+        assert torch.equal(a, b)
+    assert beam_hops_lut_cuda.by_variant["persistent"] == n0["persistent"] + 2
+    assert beam_hops_lut_cuda.by_variant["per_query"] == n0["per_query"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_steps", [1, 7, 40])
+@pytest.mark.parametrize("patience", [None, 2])
+@pytest.mark.parametrize("mode", ["while", "fori"])
+def test_lut_loop_persistent_in_slices(dev, mode, patience, max_steps):
+    """The loop at M = 300, C = 256 on float LUTs, run in slices of
+    max_steps hops, equals the host loop in every field."""
+    from repro_torch.core.beam_search import _run_hop_slices
+    from repro_torch.kernels.beam_hop import beam_hops_lut_cuda
+    state, lut, codes, nbrs = _lut_loop_inputs(dev, 300, 256, "float")
+    kw = dict(k=10, max_iters=40, mode=mode, patience=patience, eps=0.0)
+    want = _host_loop(state, lut, codes, nbrs, "pq", **kw)
+    n0 = beam_hops_lut_cuda.by_variant["persistent"]
+    got = _run_hop_slices(state, lut, codes, nbrs, "pq",
+                          max_steps=max_steps, **kw)
+    if mode == "fori":
+        assert beam_hops_lut_cuda.by_variant["persistent"] - n0 == \
+            -(-40 // max_steps)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", ["route", 0])
+@pytest.mark.parametrize("grid", [1, 7, "route"])
+@pytest.mark.parametrize("m", [300, 600])
+def test_lut_loop_grid_and_residency_do_not_change_the_result(dev, m, grid,
+                                                              resident):
+    """Q = 96 lanes (not a multiple of 7), lane 0 stuck with its unvisited
+    entries at +inf: every grid and residency, and the per_query variant,
+    give beam_hops_ref's 9 outputs."""
+    from repro_torch.kernels.beam_hop import beam_hops_lut_cuda, \
+        beam_hops_ref
+    from repro_torch.kernels.beam_hop.beam_hop import LutPlan, _card, route
+    state, lut, codes, nbrs = _lut_loop_inputs(dev, m, 256, "float")
+    pool_i, pool_d, pool_v = (t.clone() for t in state[:3])
+    pool_i[0, :3] = torch.tensor([5, 7, -1])
+    pool_d[0, :3] = torch.tensor([3.0, float("inf"), float("inf")])
+    pool_v[0, :3] = torch.tensor([True, False, False])
+    state = (pool_i, pool_d, pool_v) + tuple(state[3:])
+    plan = route(m, 256, 12, 16, *_card(codes.device))
+    plan = plan._replace(
+        grid=plan.grid if grid == "route" else grid,
+        resident=plan.resident if resident == "route" else resident)
+    args = _lut_loop_args(state, lut, codes, nbrs)
+    kw = dict(k=10, max_iters=40, max_steps=9, patience=3, eps=0.0)
+    want = beam_hops_ref(*args, **kw)
+    for p in (plan, LutPlan("per_query", 0, 0)):
+        for a, b in zip(beam_hops_lut_cuda(*args, plan=p, **kw), want):
+            assert torch.equal(a, b)
+    assert int(want[7][0]) == 3
+
+
+@pytest.mark.cuda
+def test_lut_loop_empty_batch(dev):
+    from repro_torch.kernels.beam_hop import beam_hops_lut_cuda
+    state, lut, codes, nbrs = _lut_loop_inputs(dev, 300, 256, "int")
+    empty = tuple(t[:0] for t in state)
+    out = beam_hops_lut_cuda(nbrs, *empty[:6], empty[7], lut[:0], codes,
+                             k=10, max_iters=40, max_steps=40)
+    assert [t.shape[0] for t in out] == [0] * 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,variant", [(300, "persistent"),
+                                       (2048, "per_query")])
+def test_lut_loop_route_picks_the_counted_variant(dev, m, variant):
+    """route decides from the shape; the wrapper launches and counts that
+    variant, and both equal beam_hops_ref."""
+    from repro_torch.kernels.beam_hop import beam_hops_lut_cuda, \
+        beam_hops_ref
+    from repro_torch.kernels.beam_hop.beam_hop import _card, route
+    state, lut, codes, nbrs = _lut_loop_inputs(dev, m, 256, "float", nq=24,
+                                               r=32)
+    assert route(m, 256, 32, 16, *_card(codes.device)).variant == variant
+    n0 = dict(beam_hops_lut_cuda.by_variant)
+    args = _lut_loop_args(state, lut, codes, nbrs)
+    kw = dict(k=10, max_iters=40, max_steps=40)
+    for a, b in zip(beam_hops_lut_cuda(*args, **kw),
+                    beam_hops_ref(*args, **kw)):
+        assert torch.equal(a, b)
+    assert {v: beam_hops_lut_cuda.by_variant[v] - n0[v] for v in n0} == \
+        {v: int(v == variant) for v in n0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,r,ef,resident", [
+    (300, 256, 32, 64, 200), (600, 256, 32, 64, 148), (7, 1, 12, 16, 7),
+    (3, 16, 32, 64, 0), (1, 256, 128, 8, 1), (600, 256, 32, 64, 0)])
+def test_lut_loop_smem_layout_matches_the_kernel(dev, m, c, r, ef, resident):
+    """The route's shared-memory formula is the kernel's own."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.beam_hop.beam_hop import persistent_smem_bytes
+    lib = cuda_lib.library()
+    assert lib.beam_hops_lut_smem_bytes(ef, r, m, c, resident) == \
+        persistent_smem_bytes(ef, r, m, c, resident)
