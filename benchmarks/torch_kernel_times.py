@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the port's l2topk, embedding_bag, gather_dist and
-beam_hop kernels, and of one whole fused search, at the main path's shapes,
-on one NVIDIA card, for any checkout of the port.
+"""Device times of the port's l2topk, embedding_bag, topk_merge, lut_dist,
+gather_dist and beam_hop kernels, and of one whole fused search, at the
+main path's shapes, on one NVIDIA card, for any checkout of the port.
 
     python3 benchmarks/torch_kernel_times.py [--src DIR] [--seed 0]
 
@@ -45,8 +45,18 @@ on the route's plan and on the designs it was chosen over: ``l2_only``
 (nothing resident, the grid cut so that the live LUTs fit ``L2_SHARE`` of
 the L2), ``l2_bounded`` (the route's residency, the grid cut so that the
 live L2 parts fit that share) and ``per_query``, each equal to per_query's
-outputs. The last lines are the card as nvidia-smi names it and one JSON
-object.
+outputs.
+
+``topk_merge`` runs at ``chip_smoke.TOPK_SHAPES`` (the NSG pool assembly
+B = 2048, M = 96, k = 64; the device finish's union, k = 96; NN-Descent's
+merge, M = 116, k = 32, merge mode) on ``chip_smoke.topk_inputs`` float
+rows cycling 8 sets, and ``lut_dist`` over 1024 queries' (M, 256) LUTs and
+270,000 uniform code rows at M = 300 and 600 with R = 1 (the pool seed)
+... 32 (the staged hop): ``device_ms`` (queued) of the checkout's own
+call; where it routes the kernel (``route``), the variant it picks and the
+device ms of every variant (``variants``), the measurements behind both
+routes. The last lines are the card as
+nvidia-smi names it and one JSON object.
 """
 from __future__ import annotations
 
@@ -230,6 +240,55 @@ def lut_loop_times(torch, data, queries, graph, entry, ef,
     return out
 
 
+LUT_RS = (1, 2, 4, 8, 16, 32)          # pairs = 1024 R: the crossover sweep
+
+
+def topk_lut_times(torch, g, n: int) -> dict:
+    """topk_merge and lut_dist; see the module docstring."""
+    import importlib
+    from chip_smoke import (HOP_SHAPE, LUT_C, LUT_MS, TOPK_SHAPES, Cycle,
+                            queued_ms, topk_inputs)
+    tm = importlib.import_module("repro_torch.kernels.topk_merge.topk_merge")
+    ld = importlib.import_module("repro_torch.kernels.lut_dist.lut_dist")
+    out = {"topk_merge": {}, "lut_dist": {}}
+    for name, shape in TOPK_SHAPES.items():
+        k, merge = shape["k"], shape["merge"]
+        sets = Cycle([topk_inputs(torch, g, shape, "float")
+                      for _ in range(8)])
+        call = lambda **kw: tm.topk_merge_cuda(*sets.next(), k, merge=merge,
+                                               **kw)
+        res = {"device_ms": queued_ms(torch, call)}
+        if hasattr(tm, "route"):
+            res["variant"] = tm.route(shape["m"])
+            res["variants"] = {v: queued_ms(torch, lambda: call(variant=v))
+                               for v in tm.VARIANTS}
+        out["topk_merge"][name] = res
+        del sets
+    nq = HOP_SHAPE["q"]
+    for m in LUT_MS:
+        codes = torch.randint(0, LUT_C, (n, m), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        lut = torch.rand((nq, m, LUT_C), generator=g, device="cuda")
+        by_r = {}
+        for r in LUT_RS:
+            sets = Cycle([torch.randint(0, n, (nq, r), generator=g,
+                                        device="cuda", dtype=torch.int32)
+                          for _ in range(8)])
+            call = lambda **kw: ld.lut_dist_cuda(lut, codes, sets.next(),
+                                                 **kw)
+            res = {"device_ms": queued_ms(torch, call)}
+            if hasattr(ld, "route"):
+                res["variant"] = ld.route(nq * r)
+                res["variants"] = {v: queued_ms(torch, lambda: call(
+                    variant=v)) for v in ld.VARIANTS}
+            by_r[str(r)] = res
+            del sets
+        out["lut_dist"][str(m)] = by_r
+        del codes, lut
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -294,6 +353,7 @@ def main() -> int:
         del sets, longs
     del table
     torch.cuda.empty_cache()
+    out.update(topk_lut_times(torch, g, BASE[0]))
     out.update(hop_times(torch, g, args.seed))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,13 +7,20 @@ Phases, each printing one JSON line:
   1. device   — refuses to run without CUDA; prints the card's name and
                 power limit as nvidia-smi reports them.
   2. build    — builds the hand-written kernels (csrc/*.cu, nvcc, sm_90a).
-  3. kernels  — runs gather_dist, beam_hop and topk_pool at the main path's
-                shapes, holds each against its plain PyTorch version (exact
-                on integer-valued inputs, within tolerance on float inputs)
-                and times both with CUDA events; then lut_dist (at R = 1,
-                the pool seed, and R = 32) and beam_hop in LUT mode at M =
-                300 (pq) and M = 600 (int8), which must equal their plain
-                versions bit for bit on float inputs too;
+  3. kernels  — runs gather_dist and beam_hop at the main path's shapes,
+                holds each against its plain PyTorch version (exact on
+                integer-valued inputs, within tolerance on float inputs)
+                and times both with CUDA events; then topk_merge at
+                TOPK_SHAPES (the NSG pool assembly, the device finish's
+                union, NN-Descent's merge) through each of its variants
+                (warp, block), bit-equal to its plain version on integer
+                and float rows, each variant's device_ms with its bound and
+                share;
+                then lut_dist (at R = 1, the pool seed, and R = 32) through
+                each of its variants (warp, thread) and beam_hop in LUT mode
+                at M = 300 (pq) and M = 600 (int8), which must equal their
+                plain versions bit for bit on float inputs too (lut_dist
+                also gives the 32-byte sectors its lookups touch);
                 then l2topk at each of its shapes on the path (AntiHub,
                 kNN, ground truth, k-means, medoid, entry-point select, PQ),
                 exact on tied integer inputs, within rtol 1e-5 on float
@@ -31,7 +38,9 @@ Phases, each printing one JSON line:
   4. fit      — builds TunedGraphIndex with the ann-laion config
                 (knn_backend="exact", finish_backend="host") on
                 clustered_vectors(300000, 768) from --seed (the config's
-                N and width; only the seed is an option).
+                N and width; only the seed is an option); every topk_pool
+                of its pool assembly must take the variant topk_merge's
+                route names (warp).
   5. serve    — 1024 queries, k=10, ef=64, fused hop: QPS, recall@10 against
                 the exact top-10 in the raw space, the hop counters, and the
                 brute-force QPS (the l2topk kernel over the raw vectors);
@@ -46,7 +55,9 @@ Phases, each printing one JSON line:
                 fit and encode seconds, then 1024 queries with k=10, ef=64,
                 the config's rerank (64) and the fused LUT hop (QPS,
                 recall@10, counters, device-busy share), every loop launch
-                on the persistent variant; the staged search must equal it
+                on the persistent variant and every pool seed's lut_dist on
+                the variant its route names (warp); the staged search must
+                equal it
                 bit for bit, and 256 queries searched again on the CPU must
                 agree.
   9. tune     — the paper's tuner on the same data and queries: an
@@ -102,10 +113,12 @@ Phases, each printing one JSON line:
                 tune phase. The fit must launch the tc and tile variants,
                 PQ's codec the small one. beam_hops_lut gives its launches
                 per variant per M ("launches_by_variant") and in the kernels
-                phase, where both variants must have launched. The one-hop
-                entries (beam_hop,
-                beam_hop_lut; "on_main_path": false) must launch no time
-                on the main path: the fused search runs beam_hops.
+                phase, where both variants must have launched; topk_merge
+                its launches per variant over fit + serve, tune and the
+                two-tower phases (and under "by_shape" each shape's), and
+                lut_dist per M over quantize + serve. The one-hop entries
+                (beam_hop, beam_hop_lut; "on_main_path": false) must launch
+                no time on the main path: the fused search runs beam_hops.
 
 Any failed check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -130,6 +143,14 @@ PEAK_CARD = "NVIDIA H100 80GB HBM3"
 PEAK_BW, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
 
 TOPK_SHAPE = dict(b=2048, m=96, k=64)      # NSG pool assembly
+# topk_merge at the next slices' shapes (ann-laion: degree 32, chunks and
+# blocks of 2048 rows): the device finish's union (pool mode, R + rev_cap =
+# 32 + 64 kept whole) and NN-Descent's merge under the reference's
+# nn_descent defaults at k = 32 (kk = 32 table entries + mc - 1 = 20 direct
+# + u_slots = 64 proposal candidates)
+TOPK_SHAPES = {"pool_assembly": dict(TOPK_SHAPE, merge=False),
+               "finish_union": dict(b=2048, m=96, k=96, merge=False),
+               "nn_descent_merge": dict(b=2048, m=116, k=32, merge=True)}
 HOP_SHAPE = dict(q=1024, ef=64, r=32)      # one serving hop
 LUT_MS = (300, 600)                        # pq (default_pq_m(600)), int8
 PER_QUERY_M = 2048                         # a LUT loop route sends per_query
@@ -230,8 +251,6 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
     from repro_torch.kernels.beam_hop import beam_hop_cuda, beam_hop_ref
     from repro_torch.kernels.gather_dist import gather_dist_cuda, \
         gather_dist_ref
-    from repro_torch.kernels.topk_merge import topk_merge_cuda, \
-        topk_pool_ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 101)
@@ -347,46 +366,91 @@ def kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
         bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
         library_ms=None, shape=dict(q=nq, ef=ef, r=r, d=d, n=n))
 
-    # -- topk_pool: the NSG pool assembly (beam pool ∪ own kNN list)
-    tb, tm, tk = TOPK_SHAPE["b"], TOPK_SHAPE["m"], TOPK_SHAPE["k"]
-
-    def pool_inputs(kind):
-        # ids repeat within a row; one id carries one distance per row
-        idx = torch.randint(-1, 3 * tm, (tb, tm), generator=g, device=dev,
-                            dtype=torch.int32)
-        table = (torch.randint(0, 50, (tb, 3 * tm), generator=g,
-                               device=dev).float() if kind == "int"
-                 else torch.rand((tb, 3 * tm), generator=g, device=dev))
-        ds = torch.where(idx >= 0, table.gather(1, idx.clamp_min(0).long()),
-                         float("inf"))
-        return idx, ds
-
-    worst = 0.0
-    for kind in ("int", "float"):
-        idx, ds = pool_inputs(kind)
-        gi, gd, _ = topk_merge_cuda(idx, ds, None, tk, merge=False)
-        wi, wd = topk_pool_ref(idx, ds, tk)
-        if not (torch.equal(gi, wi) and torch.equal(gd, wd)):
-            raise AssertionError(f"topk_pool differs ({kind} data)")
-        fin = torch.isfinite(wd)
-        if bool(fin.any()):
-            worst = max(worst, float((gd[fin] - wd[fin]).abs().max()))
-    sets = Cycle([pool_inputs("float") for _ in range(8)])
-    call = lambda: topk_merge_cuda(*sets.next(), None, tk, merge=False)
-    ms = time_ms(call)
-    dev_ms = queued_ms(torch, call)
-    plain = time_ms(lambda: topk_pool_ref(*sets.next(), tk))
-    p = 128
-    compares = tb * 2 * (p // 2) * 7 * 8 // 2
-    bmin, by = bound(tb * tm * 8 + tb * tk * 8, compares, gpu)
-    res["topk_merge"] = dict(
-        route="cuda", source="src/repro_torch/csrc/topk_merge.cu",
-        replaces="src/repro/kernels/topk_merge/topk_merge.py:86",
-        max_abs_err=worst, ms=ms, device_ms=dev_ms, plain_ms=plain,
-        bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
-        library_ms=None, shape=dict(b=tb, m=tm, k=tk))
+    res["topk_merge"] = topk_kernel_phase(torch, g, gpu)
     res.update(lut_kernel_phase(torch, n, g, gpu))
     return res
+
+
+def topk_inputs(torch, g, shape: dict, kind: str):
+    """(ids, dists, fresh) rows of ``shape``: ids repeat within a row and
+    carry one distance per id per row (as a pool's copies of a node do),
+    integer-valued or float; fresh random (merge mode) or None."""
+    dev = torch.device("cuda")
+    b, m = shape["b"], shape["m"]
+    idx = torch.randint(-1, 3 * m, (b, m), generator=g, device=dev,
+                        dtype=torch.int32)
+    table = (torch.randint(0, 50, (b, 3 * m), generator=g,
+                           device=dev).float() if kind == "int"
+             else torch.rand((b, 3 * m), generator=g, device=dev))
+    ds = torch.where(idx >= 0, table.gather(1, idx.clamp_min(0).long()),
+                     float("inf"))
+    fresh = (torch.rand((b, m), generator=g, device=dev) < 0.5
+             if shape["merge"] else None)
+    return idx, ds, fresh
+
+
+def topk_kernel_phase(torch, g, gpu: str) -> dict:
+    """topk_merge at TOPK_SHAPES, each variant equal to its plain version
+    on integer and float rows; device_ms of each (queued_ms) with its bound
+    and share, the route's variant at the top of each shape."""
+    from repro_torch.kernels.topk_merge import topk_merge_cuda, \
+        topk_merge_ref, topk_pool_ref
+    from repro_torch.kernels.topk_merge.topk_merge import VARIANTS, route
+
+    def run(args, k, merge, variant):
+        return topk_merge_cuda(*args, k, merge=merge, variant=variant)
+
+    def plain(args, k, merge):
+        ids, ds, fresh = args
+        if not merge:
+            return (*topk_pool_ref(ids, ds, k), None)
+        return topk_merge_ref(ids, ds, fresh, ids[:, :0], ds[:, :0], k)
+
+    by_shape, worst = {}, 0.0
+    for name, shape in TOPK_SHAPES.items():
+        b, m, k, merge = shape["b"], shape["m"], shape["k"], shape["merge"]
+        for kind in ("int", "float"):
+            args = topk_inputs(torch, g, shape, kind)
+            want = plain(args, k, merge)
+            for v in VARIANTS:
+                got = run(args, k, merge, v)
+                if not all(w_ is None or torch.equal(a_, w_)
+                           for a_, w_ in zip(got, want)):
+                    raise AssertionError(f"topk_merge ({name}, {v}) differs "
+                                         f"from its plain version ({kind} "
+                                         f"data)")
+                fin = torch.isfinite(want[1])
+                if bool(fin.any()):
+                    worst = max(worst, float(
+                        (got[1][fin] - want[1][fin]).abs().max()))
+        sets = Cycle([topk_inputs(torch, g, shape, "float")
+                      for _ in range(8)])
+        p = 1 << max(5, (m - 1).bit_length())
+        stages = p.bit_length() - 1
+        compares = b * 2 * (p // 2) * stages * (stages + 1) // 2
+        per = 9 if merge else 8
+        bmin, by = bound(b * m * per + b * k * per, compares, gpu)
+        variants = {}
+        for v in VARIANTS:
+            dev_ms = queued_ms(torch, lambda: run(sets.next(), k, merge, v))
+            variants[v] = dict(device_ms=dev_ms,
+                               share_of_bound=bmin / dev_ms)
+        chosen = route(m)
+        by_shape[name] = dict(
+            variant=chosen,
+            ms=time_ms(lambda: run(sets.next(), k, merge, chosen)),
+            device_ms=variants[chosen]["device_ms"],
+            plain_ms=time_ms(lambda: plain(sets.next(), k, merge)),
+            bound_ms=bmin, bound_by=by,
+            share_of_bound=variants[chosen]["share_of_bound"],
+            variants=variants, shape=dict(shape))
+        del sets
+    head = by_shape["pool_assembly"]
+    return dict(route="cuda", source="src/repro_torch/csrc/topk_merge.cu",
+                replaces="src/repro/kernels/topk_merge/topk_merge.py:86",
+                max_abs_err=worst,
+                **{k_: v for k_, v in head.items() if k_ != "shape"},
+                library_ms=None, shape=head["shape"], by_shape=by_shape)
 
 
 def lut_bytes(torch, codes, ids, m):
@@ -402,6 +466,20 @@ def lut_bytes(torch, codes, ids, m):
     return entries * 4 + code_rows * m
 
 
+def lut_sector_bytes(torch, codes, ids, m):
+    """The 32-byte sectors such a scoring touches: each distinct sector of
+    the LUT that holds a looked-up entry (8 entries per sector) and the
+    sectors of each distinct code row."""
+    q = ids.shape[0]
+    valid = ids >= 0
+    rows = codes[ids.clamp_min(0).long()].long()
+    key = ((torch.arange(q, device=ids.device)[:, None, None] * m
+            + torch.arange(m, device=ids.device)) * LUT_C + rows)
+    sectors = int(torch.unique(key[valid] // 8).numel())
+    code_rows = int(torch.unique(ids[valid]).numel())
+    return sectors * 32 + code_rows * -(-m // 32) * 32
+
+
 def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
     """lut_dist and beam_hop's LUT mode at the quantized path's shapes
     (M = 300 for pq, 600 for int8), each bit-equal to its plain version.
@@ -411,6 +489,7 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
     carries the pq (M = 300) numbers; both are here."""
     from repro_torch.kernels.beam_hop import beam_hop_lut_cuda, beam_hop_ref
     from repro_torch.kernels.lut_dist import lut_dist_cuda, lut_dist_ref
+    from repro_torch.kernels.lut_dist.lut_dist import VARIANTS, route
 
     dev = torch.device("cuda")
     nq, ef, r = HOP_SHAPE["q"], HOP_SHAPE["ef"], HOP_SHAPE["r"]
@@ -440,17 +519,21 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
         for rr, lo in ((1, 0), (r, -1)):
             for kind, lut in luts.items():
                 idx = ids((nq, rr), lo)
-                got = lut_dist_cuda(lut, codes, idx)
                 want = lut_dist_ref(lut, codes, idx)
-                worst["lut_dist"] = max(worst["lut_dist"], err(got, want))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"lut_dist (M={m}, R={rr}) differs "
-                                         f"from its plain version ({kind} "
-                                         f"data)")
+                for v in VARIANTS:
+                    got = lut_dist_cuda(lut, codes, idx, variant=v)
+                    worst["lut_dist"] = max(worst["lut_dist"],
+                                            err(got, want))
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"lut_dist (M={m}, R={rr}, {v}) differs from "
+                            f"its plain version ({kind} data)")
             sets = Cycle([ids((nq, rr), lo) for _ in range(8)])
             call = lambda: lut_dist_cuda(lut, codes, sets.next())
             ms = time_ms(call)
             dev_ms = queued_ms(torch, call)
+            variants = {v: queued_ms(torch, lambda: lut_dist_cuda(
+                lut, codes, sets.next(), variant=v)) for v in VARIANTS}
             plain = time_ms(lambda: lut_dist_ref(lut, codes, sets.next()))
             # one PyTorch call of the same sum (order aside): embedding_bag
             # over flat LUT indices, built outside the timing
@@ -467,10 +550,18 @@ def lut_kernel_phase(torch, n: int, g, gpu: str) -> dict:
             del flats
             moved = sum(lut_bytes(torch, codes, s_, m)
                         for s_ in sets.items) / 8
+            sectors = sum(lut_sector_bytes(torch, codes, s_, m)
+                          for s_ in sets.items) / 8
             bmin, by = bound(moved + nq * rr * 8, nq * rr * m, gpu)
             by_r[rr] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
                             bound_ms=bmin, bound_by=by,
                             share_of_bound=bmin / dev_ms,
+                            variant=route(nq * rr),
+                            variants={v: dict(device_ms=t_,
+                                              share_of_bound=bmin / t_)
+                                      for v, t_ in variants.items()},
+                            sector_bytes=sectors,
+                            sector_ms=sectors / PEAK_BW * 1e3,
                             library_ms=library,
                             library_device_ms=library_dev,
                             shape=dict(q=nq, r=rr, m=m, c=LUT_C, n=n))
@@ -884,6 +975,7 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
     are zeroed just before and read just after)."""
     from repro_torch.configs.ann_laion import CONFIG
     from repro_torch.core.pipeline import TunedGraphIndex
+    from repro_torch.kernels.lut_dist.lut_dist import route as lut_route
 
     k, ef, rerank = CONFIG.k, CONFIG.ef_search, CONFIG.rerank
     n_queries = queries.shape[0]
@@ -908,6 +1000,7 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
     launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
     launches["lut_loop_by_variant"] = dict(
         wrappers["beam_hops_lut"].by_variant)
+    launches["lut_dist_by_variant"] = dict(wrappers["lut_dist"].by_variant)
     one = per_search(torch, wrappers, lambda: index.search(
         queries, k, hop_backend="fused", **kw))
     serve_s = statistics.median(times)
@@ -940,6 +1033,15 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
         raise AssertionError(f"the {backend} searches did not all run the "
                              f"persistent LUT loop: "
                              f"{launches['lut_loop_by_variant']}")
+    # the pool seed's (Q, 1) LUT distances: one call per search, each on
+    # the variant lut_dist's route names for Q pairs
+    seed_variant = lut_route(n_queries)
+    if launches["lut_dist"] <= 0 or launches["lut_dist_by_variant"] != {
+            v: launches["lut_dist"] if v == seed_variant else 0
+            for v in launches["lut_dist_by_variant"]}:
+        raise AssertionError(f"the {backend} pool seeds did not all run "
+                             f"lut_dist's {seed_variant} variant: "
+                             f"{launches['lut_dist_by_variant']}")
 
     # the staged LUT hop equals the fused one, bit for bit
     d_s, i_s = index.search(queries, k, hop_backend="staged", **kw)
@@ -1004,6 +1106,8 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
     seconds = time.perf_counter() - t
     launches = {name: w.launches for name, w in wrappers.items()}
     launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
+    launches["topk_merge_by_variant"] = dict(
+        wrappers["topk_merge"].by_variant)
     builds = structural_build_count() - builds0
     trials = [dict(params=params, recall=r.recall, qps=r.qps,
                    build_seconds=r.build_seconds, cached=r.cached_build,
@@ -1475,6 +1579,8 @@ def main() -> int:
     from repro_torch.kernels.l2topk import l2topk_cuda
     from repro_torch.kernels.lut_dist import lut_dist_cuda
     from repro_torch.kernels.topk_merge import topk_merge_cuda
+    from repro_torch.kernels.topk_merge.topk_merge import \
+        route as topk_route
     wrappers = {"gather_dist": gather_dist_cuda, "beam_hop": beam_hop_cuda,
                 "beam_hops": beam_hops_cuda, "topk_merge": topk_merge_cuda,
                 "lut_dist": lut_dist_cuda, "beam_hop_lut": beam_hop_lut_cuda,
@@ -1497,6 +1603,7 @@ def main() -> int:
     fit_launches = {name: w.launches for name, w in wrappers.items()}
     fit_l2topk = l2topk_cuda.launches
     fit_by_variant = dict(l2topk_cuda.by_variant)
+    fit_topk_by_variant = dict(topk_merge_cuda.by_variant)
     nbrs = index.graph.neighbors
     reach = reachable_from(nbrs.cpu().numpy(), int(index.graph.medoid))
     degree_ok = bool(((nbrs >= 0).sum(1) <= params.graph_degree).all())
@@ -1509,6 +1616,7 @@ def main() -> int:
          repair_rounds=bs.repair_rounds, launches=fit_launches,
          hop_loop_host_syncs=fit_syncs, l2topk_launches=fit_l2topk,
          l2topk_launches_by_variant=fit_by_variant,
+         topk_merge_launches_by_variant=fit_topk_by_variant,
          memory_bytes=index.memory_bytes(),
          peak_device_bytes=torch.cuda.max_memory_allocated())
     if index.ntotal != n_kept:
@@ -1517,6 +1625,14 @@ def main() -> int:
     if not reach.all() or not degree_ok:
         raise AssertionError("graph not reachable from the medoid, or a "
                              "row exceeds the degree")
+    # every pool assembly (one topk_pool per chunk) on the routed variant
+    pool_variant = topk_route(TOPK_SHAPE["m"])
+    if fit_launches["topk_merge"] <= 0 or fit_topk_by_variant != {
+            v: fit_launches["topk_merge"] if v == pool_variant else 0
+            for v in fit_topk_by_variant}:
+        raise AssertionError(f"the fit's pool assembly did not all run "
+                             f"topk_merge's {pool_variant} variant: "
+                             f"{fit_topk_by_variant}")
 
     k, ef = CONFIG.k, CONFIG.ef_search
     index.search(queries, k, ef=ef, hop_backend="fused")       # warm
@@ -1531,6 +1647,7 @@ def main() -> int:
     stats_f = index.search_stats()
     launches = {name: w.launches for name, w in wrappers.items()}
     main_by_variant = dict(l2topk_cuda.by_variant)
+    main_topk_by_variant = dict(topk_merge_cuda.by_variant)
     one = per_search(torch, wrappers, lambda: index.search(
         queries, k, ef=ef, hop_backend="fused"))
 
@@ -1595,7 +1712,7 @@ def main() -> int:
     # (M = 600) — launch counts of the LUT kernels from these runs
     # (quantize + serve) only, kept per M
     lut_launches = {"lut_dist": {}, "beam_hop_lut": {}, "beam_hops_lut": {}}
-    lut_by_variant, loop_by_variant = {}, {}
+    lut_by_variant, loop_by_variant, lut_dist_by_variant = {}, {}, {}
     for backend, m in zip(("pq", "int8"), LUT_MS):
         counts = quantized_phase(torch, index, queries, true_i, backend,
                                  wrappers, args.seed)
@@ -1604,6 +1721,7 @@ def main() -> int:
         for v, c in counts["l2topk_by_variant"].items():
             lut_by_variant[v] = lut_by_variant.get(v, 0) + c
         loop_by_variant[str(m)] = counts["lut_loop_by_variant"]
+        lut_dist_by_variant[str(m)] = counts["lut_dist_by_variant"]
     launches.update({name: sum(by_m.values())
                      for name, by_m in lut_launches.items()})
 
@@ -1630,6 +1748,7 @@ def main() -> int:
     torch.cuda.synchronize()
     recsys_launches = {name: w.launches for name, w in wrappers.items()}
     recsys_by_variant = dict(l2topk_cuda.by_variant)
+    recsys_topk_by_variant = dict(topk_merge_cuda.by_variant)
     launches["embedding_bag"] = recsys_launches["embedding_bag"]
 
     # 13-14. the launcher, then the bag kernel over the full table
@@ -1660,6 +1779,13 @@ def main() -> int:
                 "l2topk_by_variant"]
             entry["launches_by_variant_recsys"] = recsys_by_variant
             entry["launches_by_variant_quantize"] = lut_by_variant
+        if name == "topk_merge":
+            entry["launches_by_variant"] = main_topk_by_variant
+            entry["launches_by_variant_tune"] = tune_launches[
+                "topk_merge_by_variant"]
+            entry["launches_by_variant_recsys"] = recsys_topk_by_variant
+        if name == "lut_dist":
+            entry["launches_by_variant"] = lut_dist_by_variant
         if name == "beam_hops_lut":
             entry["launches_by_variant"] = loop_by_variant
             entry["launches_by_variant_kernels_phase"] = checked_variants

@@ -36,8 +36,8 @@ _SIGNATURES = {
     "beam_hops_f32": [_P] * 4 + [_I] * 9 + [_F, _I, _P],
     "beam_hops_lut": [_P] * 4 + [_I] * 10 + [_F] + [_I] * 4 + [_P],
     "beam_hops_lut_smem_bytes": [_I] * 5,
-    "lut_dist_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "topk_merge_rows": [_P] * 6 + [_I] * 5 + [_P],
+    "lut_dist_f32": [_P] * 4 + [_I] * 7 + [_P],
+    "topk_merge_rows": [_P] * 6 + [_I] * 6 + [_P],
     "topk_merge_smem_bytes": [_I],
     "l2topk_f32": [_P] * 7 + [_I] * 7 + [_P],
     "embedding_bag": [_P] * 4 + [_I] * 7 + [_P],

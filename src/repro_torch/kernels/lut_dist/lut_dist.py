@@ -1,11 +1,42 @@
-"""Launch wrapper of the CUDA ``lut_dist`` kernel (``csrc/lut_dist.cu``)."""
+"""Launch wrapper of the CUDA ``lut_dist`` kernels (``csrc/lut_dist.cu``).
+
+Two variants compute the same function, bit for bit; ``route`` picks one by
+the number of (q, r) pairs, and each counts its own launches in
+``lut_dist_cuda.by_variant`` (``lut_dist_cuda.launches`` is their sum):
+
+- ``warp`` (at most ``WARP_MAX_PAIRS`` pairs): one warp per pair, its
+  lookups issued together (the quantized pool seed's Q x 1);
+- ``thread``: one thread per pair, for calls whose pairs already fill the
+  card (the staged LUT hop's Q x R).
+"""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import cuda_lib
 
 MAX_C = 256              # codes are uint8
+VARIANTS = ("thread", "warp")     # the C entry point's variant codes
+# The largest pair count routed to the warp variant. Measured at Q = 1024,
+# R = 1 ... 32 (benchmarks/torch_kernel_times.py, NVIDIA H100 80GB HBM3,
+# 700 W, device ms, warp / thread, two runs): up to R = 8 the warp variant
+# is faster (M = 300: 0.0596 / 0.0695; M = 600: 0.1226 / 0.1291 and
+# 0.1223 / 0.1297), from R = 16 the thread variant (0.0853 / 0.0834;
+# 0.1789 / 0.1597), whose warps of one query share each 1 KB sub-table.
+WARP_MAX_PAIRS = 8192
+
+
+def route(pairs: int, variant: Optional[str] = None) -> str:
+    """The variant a call of ``pairs`` (q, r) pairs takes; ``variant``
+    forces one (tests, measurements). Both take every shape."""
+    if variant is None:
+        return "warp" if pairs <= WARP_MAX_PAIRS else "thread"
+    if variant not in VARIANTS:
+        raise ValueError(f"lut_dist_cuda: unknown variant {variant!r}; "
+                         f"expected one of {VARIANTS}")
+    return variant
 
 
 def _check_operands(lut, codes, ids):
@@ -38,20 +69,28 @@ def codes_vec4_ok(m: int, codes: torch.Tensor) -> bool:
 
 
 def lut_dist_cuda(lut: torch.Tensor, codes: torch.Tensor,
-                  ids: torch.Tensor) -> torch.Tensor:
-    """lut (Q, M, C) f32, codes (N, M) uint8, ids (Q, R) int32 -> (Q, R)."""
+                  ids: torch.Tensor,
+                  variant: Optional[str] = None) -> torch.Tensor:
+    """lut (Q, M, C) f32, codes (N, M) uint8, ids (Q, R) int32 -> (Q, R).
+    The variant is ``route``'s unless one is forced."""
     _check_operands(lut, codes, ids)
     lib = cuda_lib.library()
     q, m, c = lut.shape
     r = ids.shape[1]
+    variant = route(q * r, variant)
     out = torch.empty((q, r), dtype=torch.float32, device=codes.device)
+    if q * r == 0:
+        return out                       # nothing to launch
     code = lib.lut_dist_f32(
         lut.data_ptr(), codes.data_ptr(), ids.data_ptr(), out.data_ptr(),
         q, r, codes.shape[0], m, c, int(codes_vec4_ok(m, codes)),
+        VARIANTS.index(variant),
         torch.cuda.current_stream(codes.device).cuda_stream)
-    cuda_lib.check(code, "lut_dist_f32")
+    cuda_lib.check(code, f"lut_dist_f32 ({variant})")
     lut_dist_cuda.launches += 1
+    lut_dist_cuda.by_variant[variant] += 1
     return out
 
 
 lut_dist_cuda.launches = 0
+lut_dist_cuda.by_variant = dict.fromkeys(VARIANTS, 0)

@@ -109,6 +109,98 @@ def test_topk_kernel_both_modes(dev, m, k):
         assert torch.equal(a, b)
 
 
+def _topk_rows(g, b, m, kind, dev):
+    """(B, M) candidate rows with the edges in their first rows: all -1;
+    one id repeated (distinct dists, then all tied); ids tied in distance
+    across ids; then random rows whose ids repeat and carry one distance
+    per id per row (pool assembly) or not (merge). B = 517 is not a
+    multiple of the warp variant's 8 rows per block."""
+    ids = torch.randint(-1, max(2 * m // 3, 2), (b, m), generator=g,
+                        dtype=torch.int32)
+    span = 6 if kind == "int" else 1000
+    table = torch.randint(0, span, (b, 2 * m + 2), generator=g).float()
+    if kind == "float":
+        table = table / 7.0
+    ds = torch.where(ids >= 0, table.gather(1, ids.clamp_min(0).long()),
+                     float("inf"))
+    ids[0] = -1
+    ds[0] = float("inf")
+    ids[1] = 5
+    ds[1] = torch.arange(m, 0, -1).float()
+    ids[2] = 7
+    ds[2] = 3.0
+    ids[3] = torch.arange(m, dtype=torch.int32)
+    ds[3] = 1.0
+    return ids.to(dev), ds.to(dev)
+
+
+TOPK_WIDTHS = [(1, 1), (20, 20), (32, 7), (64, 64), (96, 64), (116, 32),
+               (256, 100), (300, 100), (2048, 64)]  # p = 32 ... 2048
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("variant", ["warp", "block"])
+@pytest.mark.parametrize("m,k", TOPK_WIDTHS)
+def test_topk_pool_variants_equal_the_plain_version(dev, m, k, variant,
+                                                   kind):
+    from repro_torch.kernels.topk_merge.topk_merge import WARP_MAX_SORT
+    if variant == "warp" and m > WARP_MAX_SORT:
+        with pytest.raises(ValueError, match="warp variant"):
+            topk_merge_cuda(*_topk_rows(torch.Generator(), 4, m, kind, dev),
+                            None, k, merge=False, variant=variant)
+        return
+    g = torch.Generator().manual_seed(m * 10 + k)
+    ids, ds = _topk_rows(g, 517, m, kind, dev)
+    want = topk_pool_ref(ids, ds, k)
+    n0 = dict(topk_merge_cuda.by_variant)
+    gi, gd, _ = topk_merge_cuda(ids, ds, None, k, merge=False,
+                                variant=variant)
+    assert torch.equal(gi, want[0]) and torch.equal(gd, want[1])
+    assert {v: topk_merge_cuda.by_variant[v] - n0[v] for v in n0} == \
+        {v: int(v == variant) for v in n0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("variant", ["warp", "block"])
+@pytest.mark.parametrize("m,k", TOPK_WIDTHS)
+def test_topk_merge_variants_equal_the_plain_version(dev, m, k, variant,
+                                                    kind):
+    """Merge mode with any fresh pattern (the whole row as the current
+    table, no candidates), and fresh and old copies of one id."""
+    from repro_torch.kernels.topk_merge.topk_merge import WARP_MAX_SORT
+    if variant == "warp" and m > WARP_MAX_SORT:
+        return                     # refused: the pool test checks it
+    g = torch.Generator().manual_seed(m * 10 + k + 1)
+    ids, ds = _topk_rows(g, 517, m, kind, dev)
+    fresh = (torch.rand((517, m), generator=g) < 0.5).to(dev)
+    fresh[2, ::2] = True           # one id, fresh and old copies alike
+    fresh[2, 1::2] = False
+    empty_i, empty_d = ids[:, :0], ds[:, :0]
+    want = topk_merge_ref(ids, ds, fresh, empty_i, empty_d, k)
+    n0 = topk_merge_cuda.by_variant[variant]
+    got = topk_merge_cuda(ids, ds, fresh, k, merge=True, variant=variant)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert topk_merge_cuda.by_variant[variant] == n0 + 1
+    if m >= 3:                     # the dispatcher's table + candidates
+        h = m // 3
+        merged = (ids[:, :h], ds[:, :h], fresh[:, :h], ids[:, h:],
+                  ds[:, h:], k)
+        for a, b in zip(topk_merge(*merged), topk_merge_ref(*merged)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_topk_empty_batch_launches_nothing(dev):
+    ids = torch.zeros((0, 96), dtype=torch.int32, device=dev)
+    n0 = topk_merge_cuda.launches
+    out = topk_merge_cuda(ids, ids.float(), None, 64, merge=False)
+    assert [t.shape for t in out] == [(0, 64)] * 3
+    assert topk_merge_cuda.launches == n0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["while", "fori"])
 def test_fused_hop_equals_staged_hop_on_the_card(dev, mode):
@@ -144,6 +236,67 @@ def test_lut_dist_kernel_bit_exact(dev, kind, m, c):
     got = lut_dist_cuda(lut, codes, ids)
     assert torch.equal(got, lut_dist_ref(lut, codes, ids))
     assert bool(torch.isinf(got[ids < 0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r", [1, 32])
+@pytest.mark.parametrize("c", [1, 16, 256])
+@pytest.mark.parametrize("m", [1, 3, 7, 300, 600, 2100])
+@pytest.mark.parametrize("variant", ["thread", "warp"])
+def test_lut_dist_variants_bit_exact(dev, variant, m, c, r, aligned):
+    """Each variant on float LUTs (the sum's order shows in the bits):
+    codes over all of 0..255 (above C - 1 they take the clamp), -1 and
+    out-of-range ids, code rows one byte off alignment (read byte by
+    byte), M = 2100 over the warp variant's 1,024-entry chunks."""
+    g = torch.Generator().manual_seed(m * 7 + c + r)
+    n, q = 700, 40
+    lut = _lut(g, (q, m, c), "float", dev)
+    raw = torch.randint(0, 256, (n * m + 1,), generator=g,
+                        dtype=torch.uint8).to(dev)
+    codes = (raw[:n * m] if aligned else raw[1:]).view(n, m)
+    ids = torch.randint(-1, n + 30, (q, r), generator=g,
+                        dtype=torch.int32).to(dev)
+    ids[0] = -1
+    n0 = dict(lut_dist_cuda.by_variant)
+    got = lut_dist_cuda(lut, codes, ids, variant=variant)
+    assert torch.equal(got, lut_dist_ref(lut, codes, ids.clamp_max(n - 1)))
+    assert bool(torch.isinf(got[ids < 0]).all())
+    assert {v: lut_dist_cuda.by_variant[v] - n0[v] for v in n0} == \
+        {v: int(v == variant) for v in n0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("side", [0, 1])
+def test_lut_dist_route_sides_of_the_crossover(dev, kind, side):
+    """WARP_MAX_PAIRS pairs take the warp variant, one more the thread
+    variant; both give the plain version's bits."""
+    from repro_torch.kernels.lut_dist.lut_dist import WARP_MAX_PAIRS, route
+    pairs = WARP_MAX_PAIRS + side
+    want_variant = route(pairs)
+    assert want_variant == ("thread" if side else "warp")
+    g = torch.Generator().manual_seed(11 + side)
+    lut = _lut(g, (pairs, 12, 256), kind, dev)
+    codes = torch.randint(0, 256, (3000, 12), generator=g,
+                          dtype=torch.uint8).to(dev)
+    ids = _ids(g, (pairs, 1), 3000, dev)
+    n0 = dict(lut_dist_cuda.by_variant)
+    got = lut_dist_cuda(lut, codes, ids)
+    assert torch.equal(got, lut_dist_ref(lut, codes, ids))
+    assert {v: lut_dist_cuda.by_variant[v] - n0[v] for v in n0} == \
+        {v: int(v == want_variant) for v in n0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["thread", "warp"])
+def test_lut_dist_empty_batch_launches_nothing(dev, variant):
+    lut = torch.zeros((0, 300, 256), device=dev)
+    codes = torch.zeros((10, 300), dtype=torch.uint8, device=dev)
+    ids = torch.zeros((0, 1), dtype=torch.int32, device=dev)
+    n0 = lut_dist_cuda.launches
+    assert lut_dist_cuda(lut, codes, ids, variant=variant).shape == (0, 1)
+    assert lut_dist_cuda.launches == n0
 
 
 @pytest.mark.cuda
