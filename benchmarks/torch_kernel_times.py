@@ -49,7 +49,10 @@ outputs.
 
 ``topk_merge`` runs at ``chip_smoke.TOPK_SHAPES`` (the NSG pool assembly
 B = 2048, M = 96, k = 64; the device finish's union, k = 96; NN-Descent's
-merge, M = 116, k = 32, merge mode) on ``chip_smoke.topk_inputs`` float
+merge, M = 116, k = 32, merge mode; the rest of the default fit's widths:
+the random-projection joins M = 64 / 52, the subset seed M = 42, the
+AntiHub table's rounds M = 80, the table pools M = 192, k = 64, pool mode)
+on ``chip_smoke.topk_inputs`` float
 rows cycling 8 sets, and ``lut_dist`` over 1024 queries' (M, 256) LUTs and
 270,000 uniform code rows at M = 300 and 600 with R = 1 (the pool seed)
 ... 32 (the staged hop): ``device_ms`` (queued) of the checkout's own

@@ -262,20 +262,22 @@ def reprune_family(data: torch.Tensor, neighbors: torch.Tensor,
 
 def nsg_from_neighbors(data: torch.Tensor, neighbors: torch.Tensor, medoid,
                        *, knn_ids: Optional[torch.Tensor] = None,
-                       finish_backend: str = "host"):
+                       finish_backend: str = "auto"):
     """Pruned adjacency -> servable ``NSGGraph`` (connectivity repair).
 
     The shared tail of every rebuild-free derivation: ``reprune_nsg`` and
     the tuner's ``reprune_family`` lookups both end here. ``knn_ids``
     supplies repair parents (the build-time kNN table if the caller kept
-    it; default the adjacency itself). Only the host repair is ported.
+    it; default the adjacency itself); ``finish_backend`` picks the repair
+    (``build/finish.py``: the device's batched rounds by default, the host
+    loop for parity).
     """
-    from repro_torch.core.build.finish import repair, require_host
+    from repro_torch.core.build.finish import repair
     from repro_torch.core.nsg import NSGGraph
 
-    require_host(finish_backend)
     parents = knn_ids if knn_ids is not None else neighbors
-    nbrs, _ = repair(data, neighbors, medoid, parents)
+    nbrs, _ = repair(data, neighbors, medoid, parents,
+                     backend=finish_backend)
     return NSGGraph(neighbors=nbrs.to(torch.int32).contiguous(),
                     medoid=torch.as_tensor(medoid, dtype=torch.int32,
                                            device=neighbors.device))
@@ -284,7 +286,7 @@ def nsg_from_neighbors(data: torch.Tensor, neighbors: torch.Tensor, medoid,
 def reprune_nsg(data: torch.Tensor, graph, *, alpha: float = 1.0,
                 degree: Optional[int] = None,
                 knn_ids: Optional[torch.Tensor] = None, chunk: int = 2048,
-                finish_backend: str = "host"):
+                finish_backend: str = "auto"):
     """``reprune`` + connectivity repair -> a servable ``NSGGraph``."""
     nbrs = reprune(data, graph.neighbors, alpha=alpha, degree=degree,
                    chunk=chunk)

@@ -1,28 +1,33 @@
 """NSG graph construction (Fu et al., VLDB'19), the reference's
-``core/nsg.py`` with the search pools and the host finishing pass.
+``core/nsg.py``.
 
 Build phases:
   1. medoid (navigating node) — one distance pass;
-  2. per-node candidate pools: beam search *on the kNN graph* toward each
-     node (batched, chunked over nodes), united with the node's own kNN
-     list through ``kernels/topk_merge`` (``topk_pool``);
+  2. per-node candidate pools, two backends (``pools_backend``):
+     * ``"search"`` — beam search *on the kNN graph* toward each node
+       (batched, chunked over nodes), united with the node's own kNN list
+       through ``kernels/topk_merge`` (``topk_pool``);
+     * ``"nndescent"`` — pools derived from the kNN *table* (forward ∪
+       reverse ∪ 1-hop expansion, ``build/pools.py``); what ``"auto"``
+       resolves to whenever the table's distances are in hand;
   3. α-RNG occlusion pruning (``build/prune.py``);
   4-5. reverse-edge interconnect + re-prune, then connectivity repair
-     (``build/finish.py``, host path).
-
-The table-derived pools (``pools_backend="nndescent"``) and the device
-finishing pass are not ported yet and raise.
+     (``build/finish.py``: the device pass, what ``"auto"`` resolves to,
+     or the host path).
 """
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.beam_search import beam_search
-from repro_torch.core.build.finish import finish_nsg, require_host
-from repro_torch.core.build.prune import pairwise_rows_sqdist, prune_in_chunks
+from repro_torch.core.build.finish import finish_nsg, resolve_finish_backend
+from repro_torch.core.build.pools import nnd_candidate_pools
+from repro_torch.core.build.prune import (
+    pairwise_rows_sqdist, prune_in_chunks, rows_sqdist_in_chunks,
+)
 from repro_torch.core.device import synchronize
 from repro_torch.core.distances import nearest
 from repro_torch.kernels.topk_merge import topk_pool
@@ -35,12 +40,12 @@ class NSGGraph(NamedTuple):
 
 class NSGBuildStats(NamedTuple):
     """Work accounting for one NSG build."""
-    pools_backend: str     # "search" (the only ported backend)
+    pools_backend: str     # "search" | "nndescent" (resolved)
     n: int
     degree: int
     pool_evals: int        # phase-2 database-distance evaluations
     prune_evals: int       # phases 3-4, derived from the actual widths
-    finish_backend: str = "host"
+    finish_backend: str = "host"        # "host" | "device" (resolved)
     interconnect_seconds: float = 0.0   # phase-4 wall-clock (to ready)
     repair_seconds: float = 0.0         # phase-5 wall-clock (to ready)
     repair_rounds: int = 0              # attach rounds until reachable
@@ -48,7 +53,18 @@ class NSGBuildStats(NamedTuple):
     prune_seconds: float = 0.0          # phase-3 wall-clock (to ready)
 
 
-POOLS_BACKENDS = ("search", "nndescent")
+POOLS_BACKENDS = ("search", "nndescent", "auto")
+
+
+def resolve_pools_backend(backend: str, knn_dists) -> str:
+    """Resolve ``"auto"``: table-derived pools whenever dists are in hand."""
+    if backend not in POOLS_BACKENDS:
+        raise ValueError(
+            f"unknown pools backend {backend!r}; expected one of "
+            f"{POOLS_BACKENDS}")
+    if backend == "auto":
+        return "nndescent" if knn_dists is not None else "search"
+    return backend
 
 
 def _candidate_pools(data, knn_ids, medoid, n_candidates, chunk):
@@ -81,28 +97,39 @@ def _candidate_pools(data, knn_ids, medoid, n_candidates, chunk):
 
 def build_nsg(data: torch.Tensor, knn_ids: torch.Tensor, *, degree: int,
               n_candidates: int = 64, chunk: int = 2048,
-              alpha: float = 1.0, pools_backend: str = "search",
-              finish_backend: str = "host", with_stats: bool = False):
+              alpha: float = 1.0, pools_backend: str = "auto",
+              knn_dists: Optional[torch.Tensor] = None,
+              finish_backend: str = "auto", with_stats: bool = False):
     """Build an NSG over ``data`` from its kNN graph.
 
+    ``pools_backend``: ``"search"`` (beam-search pools), ``"nndescent"``
+    (table-derived pools; without ``knn_dists`` the table's distances are
+    computed here, one O(N * K) gather pass counted in ``pool_evals``) or
+    ``"auto"`` (table-derived whenever ``knn_dists`` is given).
+    ``finish_backend``: ``"device"`` (what ``"auto"`` resolves to) or
+    ``"host"``.
     Returns the ``NSGGraph`` — plus an ``NSGBuildStats`` when
     ``with_stats`` is set.
     """
     n = data.shape[0]
-    if pools_backend not in POOLS_BACKENDS:
-        raise ValueError(f"unknown pools backend {pools_backend!r}; "
-                         f"expected one of {POOLS_BACKENDS}")
-    if pools_backend != "search":
-        raise NotImplementedError(
-            "pools_backend 'nndescent' is not ported yet (ROADMAP Queue 1 "
-            "item 5, the NN-Descent slice); pass pools_backend='search'")
-    require_host(finish_backend)
+    resolved = resolve_pools_backend(pools_backend, knn_dists)
+    resolved_finish = resolve_finish_backend(finish_backend)
     _, medoid = nearest(data.float().mean(0, keepdim=True), data)
     medoid = medoid[0]
 
     t_pools = time.perf_counter()
-    cand_i, cand_d, pool_evals = _candidate_pools(
-        data, knn_ids, medoid, n_candidates, chunk)
+    if resolved == "nndescent":
+        if knn_dists is None:
+            knn_dists = rows_sqdist_in_chunks(data, knn_ids, chunk)
+            pool_evals = int(n) * int(knn_ids.shape[1])
+        else:
+            pool_evals = 0
+        cand_i, cand_d, ev = nnd_candidate_pools(
+            data, knn_ids, knn_dists, n_candidates, chunk=chunk)
+        pool_evals += ev
+    else:
+        cand_i, cand_d, pool_evals = _candidate_pools(
+            data, knn_ids, medoid, n_candidates, chunk)
     synchronize(cand_d.device)
     t_prune = time.perf_counter()
     node_ids = torch.arange(n, dtype=torch.int32, device=data.device)
@@ -112,14 +139,16 @@ def build_nsg(data: torch.Tensor, knn_ids: torch.Tensor, *, degree: int,
     prune_seconds = time.perf_counter() - t_prune
 
     nbrs, fstats = finish_nsg(data, nbrs, medoid, knn_ids, degree=degree,
-                              alpha=alpha, chunk=chunk)
+                              alpha=alpha, chunk=chunk,
+                              backend=resolved_finish)
     graph = NSGGraph(neighbors=nbrs, medoid=medoid)
     if not with_stats:
         return graph
+    # occlusion + interconnect work derived from the widths actually built
     prune_evals = (n * cand_i.shape[1] * degree + fstats.union_dist_evals
                    + n * fstats.union_width * degree)
     return graph, NSGBuildStats(
-        pools_backend=pools_backend, n=n, degree=degree,
+        pools_backend=resolved, n=n, degree=degree,
         pool_evals=int(pool_evals), prune_evals=int(prune_evals),
         finish_backend=fstats.backend,
         interconnect_seconds=fstats.interconnect_seconds,

@@ -2,13 +2,14 @@
 NSG build -> k-means entry points; search = project -> select EP -> beam.
 
 ``IndexParams`` carries every knob of the reference's, so a reference
-state's ``meta["params"]`` loads as is. The port runs the exact kNN table,
-search pools and the host finishing pass, serves in f32 or quantized
-(pq | int8 LUT traversal with an exact f32 rerank), with or without
-adaptive termination (``patience``/``eps``), and derives lower-degree or
-larger-alpha graphs without a rebuild (``reprune``, ``with_graph``). Every
-other option raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+state's ``meta["params"]`` loads as is. The port builds with either kNN
+backend (exact or NN-Descent, with the AntiHub-subset reuse of the raw
+table), either pools backend (beam search or table-derived) and either
+finishing pass (device or host), serves in f32 or quantized (pq | int8 LUT
+traversal with an exact f32 rerank), with or without adaptive termination
+(``patience``/``eps``), and derives lower-degree or larger-alpha graphs
+without a rebuild (``reprune``, ``with_graph``). ``compact_every`` raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ import torch
 from repro_torch.configs.base import ANNConfig
 from repro_torch.core import antihub as antihub_mod
 from repro_torch.core.beam_search import BeamStats, beam_search
-from repro_torch.core.build import build_knn, reprune_nsg
-from repro_torch.core.build.finish import require_host
+from repro_torch.core.build import build_knn, reprune_nsg, resolve_backend
+from repro_torch.core.build.nn_descent import NNDDraws, nn_descent
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.entry_points import EntryPointSelector, fit_entry_points
 from repro_torch.core.nsg import NSGGraph, build_nsg
@@ -38,6 +39,21 @@ from repro_torch.kernels.gather_dist import gather_dist
 # (reprune, with_graph, the tuner's grid lookups) do not, so a test can
 # assert that a sweep left it untouched.
 _N_STRUCTURAL_BUILDS = 0
+
+# NN-Descent refinement rounds for the AntiHub-subset reuse path: the
+# filtered raw-data table is already a good approximation, so a few patch
+# rounds replace a from-scratch build.
+SUBSET_PATCH_ROUNDS = 3
+
+
+def fold_in(generator: torch.Generator, data: int, device) -> NNDDraws:
+    """NN-Descent's draws for one seeded step: a generator on ``device``
+    derived from ``generator``'s seed and ``data`` without drawing from
+    ``generator`` (the counterpart of the reference's
+    ``jax.random.fold_in(key, data)``: the step moves no other draw of the
+    fit)."""
+    return NNDDraws(torch.Generator(device=device).manual_seed(
+        (generator.initial_seed() * 1_000_003 + data) % 2 ** 63))
 
 
 def structural_build_count() -> int:
@@ -101,7 +117,9 @@ class TunedGraphIndex:
         self.graph: Optional[NSGGraph] = None
         self.eps: Optional[EntryPointSelector] = None
         self.build_seconds: float = 0.0
+        self.knn_seconds: float = 0.0                 # kNN-graph phase
         self.stage_seconds: dict = {}                 # per build stage
+        self.knn_stats: dict = {}                     # BuildStats per table
         self.build_stats = None                       # NSGBuildStats of fit
         self.input_dim: int = 0
         self.knn_ids: Optional[torch.Tensor] = None   # build-time kNN table
@@ -116,39 +134,37 @@ class TunedGraphIndex:
             antihub_knn_ids: Optional[torch.Tensor] = None):
         """Build the full pipeline; ``generator`` draws the k-means++ inits
         of the entry points and, under a quantized ``dist_backend``, of the
-        PQ codebooks (default: a CPU generator seeded with 0).
+        PQ codebooks (default: a CPU generator seeded with 0). NN-Descent's
+        draws come from generators derived from its seed (``fold_in`` 17
+        for the AntiHub table, 23 for the structural one, as the
+        reference's keys), so they move no other draw.
 
         ``antihub_knn_ids``: precomputed (N, >=10) kNN ids of the *raw*
         database, reused for the AntiHub k-occurrence pass (the tuner
         computes them once and threads them through every structural
-        build instead of paying an O(N^2) pass each time).
+        build) and, under NN-Descent, to seed the subset's table.
         """
         global _N_STRUCTURAL_BUILDS
         p = self.params
         _check_serving(p.compact_every)
         check_dist_backend(p.dist_backend)
-        pools = p.pools_backend
-        if pools == "auto":
-            pools = "search" if p.knn_backend == "exact" else "nndescent"
-        if pools != "search":
-            raise NotImplementedError(
-                f"pools_backend={p.pools_backend!r} resolves to table-derived "
-                f"pools, not ported yet (ROADMAP Queue 1 item 5, the "
-                f"NN-Descent slice); pass knn_backend='exact'")
-        require_host(p.finish_backend)
         dev = self.device
         generator = generator if generator is not None else \
             torch.Generator().manual_seed(0)
         t0 = time.perf_counter()
         stages = {}
+        self.knn_stats = {}
         data = torch.as_tensor(data, dtype=torch.float32).to(dev)
         n, d0 = data.shape
         self.input_dim = d0
 
         t = time.perf_counter()
+        ah_ids = None
         if p.antihub_keep < 1.0:
             if antihub_knn_ids is None:
-                _, ah_ids = build_knn(data, 10, backend=p.knn_backend)
+                _, ah_ids, self.knn_stats["antihub"] = build_knn(
+                    data, 10, backend=p.knn_backend,
+                    draws=fold_in(generator, 17, dev), with_stats=True)
             else:
                 ah_ids = torch.as_tensor(antihub_knn_ids).to(dev)
             self.kept_idx = antihub_mod.antihub_keep_indices(
@@ -172,16 +188,39 @@ class TunedGraphIndex:
         stages["pca"] = time.perf_counter() - t
 
         t = time.perf_counter()
-        _, self.knn_ids = build_knn(base, p.build_knn_k,
-                                    backend=p.knn_backend)
+        knn_draws = fold_in(generator, 23, dev)
+        if (resolve_backend(p.knn_backend, base.shape[0]) == "nndescent"
+                and ah_ids is not None):
+            # AntiHub reuse: filter the raw table to the kept subset, remap
+            # its ids, and let a few NN-Descent patch rounds repair the
+            # filtering and the projection instead of a from-scratch build
+            kept = self.kept_idx.long()
+            remap = torch.full((n,), -1, dtype=torch.int32, device=dev)
+            remap[kept] = torch.arange(kept.shape[0], dtype=torch.int32,
+                                       device=dev)
+            kept_tab = ah_ids[kept]
+            init = torch.where(kept_tab >= 0,
+                               remap[kept_tab.clamp_min(0).long()], -1)
+            knn_dists, self.knn_ids, stats = nn_descent(
+                base, p.build_knn_k, draws=knn_draws, init_ids=init,
+                init_passes=1, rounds=SUBSET_PATCH_ROUNDS, with_stats=True)
+        else:
+            knn_dists, self.knn_ids, stats = build_knn(
+                base, p.build_knn_k, backend=p.knn_backend,
+                draws=knn_draws, with_stats=True)
+        self.knn_stats["knn"] = stats
         synchronize(dev)
-        stages["knn"] = time.perf_counter() - t
+        self.knn_seconds = stages["knn"] = time.perf_counter() - t
 
+        pools = p.pools_backend
+        if pools == "auto":
+            # table-derived pools unless the kNN side is explicitly exact
+            pools = "search" if p.knn_backend == "exact" else "nndescent"
         self.graph, self.build_stats = build_nsg(
             base, self.knn_ids, degree=p.graph_degree,
             n_candidates=p.build_candidates, alpha=p.alpha,
-            pools_backend="search", finish_backend=p.finish_backend,
-            with_stats=True)
+            pools_backend=pools, knn_dists=knn_dists,
+            finish_backend=p.finish_backend, with_stats=True)
         stages["pools"] = self.build_stats.pools_seconds
         stages["prune"] = self.build_stats.prune_seconds
         stages["finish"] = (self.build_stats.interconnect_seconds

@@ -36,12 +36,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.build import (
-    build_knn, nsg_from_neighbors, reprune_family, require_host,
+    build_knn, nsg_from_neighbors, reprune_family, resolve_finish_backend,
 )
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.entry_points import fit_entry_points
 from repro_torch.core.flat import FlatIndex, recall_at_k
-from repro_torch.core.pipeline import IndexParams, TunedGraphIndex
+from repro_torch.core.pipeline import IndexParams, TunedGraphIndex, fold_in
 from repro_torch.core.quant import make_codec
 from repro_torch.core.tuning.space import Categorical, Float, Int, SearchSpace
 from repro_torch.core.tuning.study import Trial
@@ -105,8 +105,9 @@ class AnnObjective:
     every (graph_degree, alpha) trial is derived from it.
 
     ``seed`` seeds every random draw (k-means++ of the entry points and of
-    PQ codebooks): each draw starts from a fresh CPU generator seeded with
-    it, as the reference reuses one key. ``device`` defaults to the card.
+    PQ codebooks, NN-Descent's draws through ``fold_in``): each draw starts
+    from a fresh CPU generator seeded with it, as the reference reuses one
+    key. ``device`` defaults to the card.
     """
 
     def __init__(self, data, queries, k: int = 10,
@@ -126,7 +127,7 @@ class AnnObjective:
         self.mem_limit = mem_limit_bytes
         self.seed = seed
         self.base = base_params or IndexParams(pca_dim=self.data.shape[1])
-        require_host(self.base.finish_backend)
+        resolve_finish_backend(self.base.finish_backend)   # validate
         self.max_degree = self.base.graph_degree
         self.alpha_grid = tuple(sorted(
             alpha_grid if alpha_grid is not None else DEFAULT_ALPHA_GRID))
@@ -154,8 +155,9 @@ class AnnObjective:
     def _antihub_knn_ids(self, p: IndexParams):
         """The raw database's kNN table for AntiHub — computed once ever."""
         if self._antihub_ids is None:
-            _, self._antihub_ids = build_knn(self.data, 10,
-                                             backend=p.knn_backend)
+            _, self._antihub_ids = build_knn(
+                self.data, 10, backend=p.knn_backend,
+                draws=fold_in(self._generator(), 17, self.device))
         return self._antihub_ids
 
     def _snap_alpha(self, alpha: float) -> Tuple[int, float]:

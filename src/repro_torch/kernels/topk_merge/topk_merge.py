@@ -11,6 +11,10 @@ their sum):
   assembly, the device finish's union, NN-Descent's merge);
 - ``block`` (p <= ``MAX_SORT``): one 128-thread block per row in shared
   memory, two barrier-separated sorts (wider rows).
+
+``topk_merge_cuda.by_mode`` splits the same launches by mode (``merge``:
+NN-Descent's table updates; ``pool``: the pool assembly and the device
+finish's union) and variant.
 """
 from __future__ import annotations
 
@@ -87,8 +91,11 @@ def topk_merge_cuda(ids: torch.Tensor, dists: torch.Tensor,
     cuda_lib.check(code, f"topk_merge_rows ({variant})")
     topk_merge_cuda.launches += 1
     topk_merge_cuda.by_variant[variant] += 1
+    topk_merge_cuda.by_mode["merge" if merge else "pool"][variant] += 1
     return out_i, out_d, out_f
 
 
 topk_merge_cuda.launches = 0
 topk_merge_cuda.by_variant = dict.fromkeys(VARIANTS, 0)
+topk_merge_cuda.by_mode = {mode: dict.fromkeys(VARIANTS, 0)
+                           for mode in ("merge", "pool")}

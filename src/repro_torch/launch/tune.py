@@ -2,7 +2,7 @@
 reference's ``launch/tune.py`` in its paper-pipeline mode).
 
     PYTHONPATH=src python -m repro_torch.launch.tune --n 2000 --dim 64 \\
-        --trials 15 --mode multi --knn-backend exact --finish-backend host
+        --trials 15 --mode multi
 
 It tunes the paper's full pipeline (``AnnObjective`` over
 ``default_space``) with a TPE study and prints the best trial (single) or
@@ -13,9 +13,9 @@ The port runs on the card by default; ``--device cpu`` runs every kernel's
 plain PyTorch version on the CPU instead (the counterpart of the
 reference's platform choice). The defaults ``--finish-backend auto`` and,
 at N >= 8192, ``--knn-backend auto`` resolve to the device finishing pass
-and NN-Descent, which are not ported yet (ROADMAP Queue 1 item 5): pass
-``--knn-backend exact --finish-backend host``. ``--spec`` (ROADMAP Queue 1
-item 7) and ``--shards`` (item 9) are not ported yet either.
+and NN-Descent (with table-derived pools), as in the reference.
+``--spec`` (ROADMAP Queue 1 item 7) and ``--shards`` (item 9) are not
+ported yet and raise.
 """
 from __future__ import annotations
 

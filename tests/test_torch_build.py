@@ -177,13 +177,25 @@ def test_build_nsg_identical_to_reference(int_data, int_knn):
 
 
 def test_unported_build_options_raise(int_data, int_knn):
+    """The options that raised before the NN-Descent and device-finish
+    slices now run: table pools with the host finish, search pools with
+    the device finish (both equal to the reference's graph), and the
+    NN-Descent kNN backend."""
     data, ids = torch.from_numpy(int_data), torch.from_numpy(int_knn[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_nsg(data, ids, degree=8, pools_backend="nndescent",
-                  finish_backend="host")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_nsg(data, ids, degree=8, pools_backend="search",
-                  finish_backend="auto")
+    for pools, finish in (("nndescent", "host"), ("search", "auto")):
+        kw = dict(degree=8, n_candidates=16, chunk=128,
+                  pools_backend=pools, finish_backend=finish,
+                  with_stats=True)
+        want, wstats = jax_build_nsg(jnp.asarray(int_data),
+                                     jnp.asarray(int_knn[1]),
+                                     merge_backend="jnp", **kw)
+        got, gstats = build_nsg(data, ids, **kw)
+        _eq(got.neighbors, want.neighbors)
+        assert gstats.pools_backend == wstats.pools_backend == pools
+        assert gstats.finish_backend == wstats.finish_backend
+        assert (gstats.pool_evals, gstats.prune_evals) == \
+            (wstats.pool_evals, wstats.prune_evals)
     from repro_torch.core.build import build_knn
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_knn(data, 8, backend="nndescent")
+    d, i, stats = build_knn(data, 8, backend="nndescent", with_stats=True)
+    assert d.shape == i.shape == (data.shape[0], 8)
+    assert stats.backend == "nndescent" and stats.rounds >= 1

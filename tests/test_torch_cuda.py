@@ -906,3 +906,121 @@ def test_lut_loop_smem_layout_matches_the_kernel(dev, m, c, r, ef, resident):
     lib = cuda_lib.library()
     assert lib.beam_hops_lut_smem_bytes(ef, r, m, c, resident) == \
         persistent_smem_bytes(ef, r, m, c, resident)
+
+
+# -- NN-Descent, the table pools and the device finish on the card: the
+# same draws (made on the CPU) and integer data give the CPU's results bit
+# for bit, so every duplicate-index scatter resolves the same on CUDA
+
+class _CpuDraws:
+    """NN-Descent draws from a CPU generator, the projection taken on the
+    CPU, so the card and the CPU get the same numbers."""
+
+    def __init__(self, seed):
+        from repro_torch.core.build.nn_descent import NNDDraws
+        self.draws = NNDDraws(torch.Generator().manual_seed(seed))
+
+    def rp_order(self, data):
+        return self.draws.rp_order(data.cpu()).to(data.device)
+
+    def round(self, n, k, s_rev, device):
+        return self.draws.round(n, k, s_rev, device)
+
+
+def _int_table(n, d, k, seed):
+    """Symmetric integer data (x and -x: the mean, and so the medoid, is
+    exact on both devices), its exact kNN table with holes, fresh flags."""
+    g = torch.Generator().manual_seed(seed)
+    half = torch.randint(-7, 8, (n // 2, d), generator=g).float()
+    data = torch.cat([half, -half])
+    dists, ids = knn_graph(data, k)
+    holes = torch.rand(ids.shape, generator=g) < 0.2
+    ids = torch.where(holes, -1, ids)
+    dists = torch.where(holes, float("inf"), dists)
+    order = torch.sort(dists, dim=1, stable=True).indices
+    fresh = (torch.rand(ids.shape, generator=g) < 0.5) & (ids >= 0)
+    return data, ids.gather(1, order), dists.gather(1, order), fresh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_rev,u_slots", [(5, 40), (1, 4)])
+def test_nn_descent_round_on_the_card_equals_the_cpu(dev, s_rev, u_slots):
+    from repro_torch.core.build.nn_descent import NNDDraws, _round
+    n, k = 3000, 20
+    data, ids, dists, fresh = _int_table(n, 16, k, 0)
+    norms = (data * data).sum(-1)
+    draws = NNDDraws(torch.Generator().manual_seed(1)).round(n, k, s_rev,
+                                                             "cpu")
+    cpu = _round(draws, data, norms, ids, dists, fresh, 5, s_rev, u_slots,
+                 512)
+    card_draws = type(draws)(*(x.to(dev) if torch.is_tensor(x) else x
+                               for x in draws))
+    topk_merge_cuda.launches = 0
+    card = _round(card_draws, data.to(dev), norms.to(dev), ids.to(dev),
+                  dists.to(dev), fresh.to(dev), 5, s_rev, u_slots, 512)
+    assert topk_merge_cuda.launches == -(-n // 512)
+    for c, g in zip(cpu, card):
+        assert torch.equal(c, g.cpu())
+
+
+@pytest.mark.cuda
+def test_nn_descent_on_the_card_equals_the_cpu(dev):
+    from repro_torch.core.build.nn_descent import nn_descent
+    g = torch.Generator().manual_seed(2)
+    data = torch.randint(0, 16, (5000, 12), generator=g).float()
+    init = torch.randint(-1, 5000, (5000, 10), generator=g)
+    for kw in (dict(), dict(init_ids=init, init_passes=1, rounds=3)):
+        cpu = nn_descent(data, 16, draws=_CpuDraws(3), with_stats=True, **kw)
+        card = nn_descent(data.to(dev), 16, draws=_CpuDraws(3),
+                          with_stats=True, **kw)
+        assert torch.equal(cpu[0], card[0].cpu())
+        assert torch.equal(cpu[1], card[1].cpu())
+        assert cpu[2] == card[2]
+
+
+@pytest.mark.cuda
+def test_table_pools_and_device_finish_on_the_card_equal_the_cpu(dev):
+    from repro_torch.core.build.finish import (
+        finish_nsg, propagate_reach, reachable_from,
+        repair_connectivity_device,
+    )
+    from repro_torch.core.build.pools import nnd_candidate_pools
+    from repro_torch.core.nsg import build_nsg
+    n = 4000
+    data, ids, dists, _ = _int_table(n, 16, 16, 4)
+    cpu = nnd_candidate_pools(data, ids, dists, 32, chunk=1024)
+    card = nnd_candidate_pools(data.to(dev), ids.to(dev), dists.to(dev), 32,
+                               chunk=1024)
+    assert torch.equal(cpu[0], card[0].cpu())
+    assert torch.equal(cpu[1], card[1].cpu())
+    assert cpu[2] == card[2]
+    # a whole build through them, then repair of a graph with islands
+    g_cpu, s_cpu = build_nsg(data, ids, degree=12, n_candidates=32,
+                             chunk=1024, knn_dists=dists, with_stats=True)
+    g_card, s_card = build_nsg(data.to(dev), ids.to(dev), degree=12,
+                               n_candidates=32, chunk=1024,
+                               knn_dists=dists.to(dev), with_stats=True)
+    assert torch.equal(g_cpu.neighbors, g_card.neighbors.cpu())
+    assert s_cpu[:5] == s_card[:5]
+    assert s_card.finish_backend == "device"
+    nbrs = g_cpu.neighbors.clone()
+    cut = torch.randperm(n, generator=torch.Generator().manual_seed(5))[:300]
+    nbrs[torch.isin(nbrs, cut)] = -1
+    medoid = int(g_cpu.medoid)
+    out = [repair_connectivity_device(data.to(d_), nbrs.to(d_), medoid,
+                                      ids.to(d_), return_protected=True)
+           for d_ in ("cpu", dev)]
+    assert out[0][2] == out[1][2] >= 1
+    assert torch.equal(out[0][0], out[1][0].cpu())
+    assert torch.equal(out[0][1], out[1][1].cpu())
+    assert reachable_from(out[1][0].cpu().numpy(), medoid).all()
+    f_cpu, fs_cpu = finish_nsg(data, nbrs, medoid, ids, degree=12)
+    f_card, fs_card = finish_nsg(data.to(dev), nbrs.to(dev), medoid,
+                                 ids.to(dev), degree=12)
+    assert torch.equal(f_cpu, f_card.cpu())
+    assert fs_cpu.repair_rounds == fs_card.repair_rounds
+    steps = propagate_reach.steps
+    seed = torch.zeros(n, dtype=torch.bool, device=dev)
+    seed[medoid] = True
+    assert propagate_reach(f_card, seed).all()
+    assert propagate_reach.steps > steps

@@ -32,6 +32,17 @@ TOPK_CASES = [
     ("nsg_pool_assembly", 64 + 32, "warp"),        # ef pool + own kNN list
     ("device_finish_union", 32 + 2 * 32, "warp"),  # R + rev_cap
     ("nn_descent_merge", 32 + 20 + 64, "warp"),    # kk + (mc - 1) + u_slots
+    # the default fit's NN-Descent merges (merge mode, table width kk plus
+    # its candidates): the random-projection joins (bsize 32) of the
+    # AntiHub table (kk 20) and the structural one (kk 32), the subset
+    # seed (10 raw neighbours) and the AntiHub table's rounds (20 direct
+    # + u_slots 40)
+    ("rp_join_knn", 32 + 32, "warp"),
+    ("rp_join_antihub", 20 + 32, "warp"),
+    ("subset_seed", 32 + 10, "warp"),
+    ("nn_descent_merge_antihub", 20 + 20 + 40, "warp"),
+    # the table pools (pool mode): 32 forward + 32 reverse + 32 x 4 hops
+    ("table_pools", 32 + 32 + 32 * 4, "warp"),
     ("one", 1, "warp"),
     ("p32", 32, "warp"),
     ("p256", 256, "warp"),

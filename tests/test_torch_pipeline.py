@@ -88,9 +88,12 @@ def test_port_fit_reaches_reference_recall(jax_index, ann_data):
 
 def test_unported_options_raise_and_default_device(ann_data):
     data = torch.from_numpy(np.array(ann_data["data"]))
-    auto = IndexParams(pca_dim=32)                # auto -> table pools
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TunedGraphIndex(auto, device="cpu").fit(data)
+    # all-default backends (table pools, device finish) now fit and serve
+    auto = TunedGraphIndex(IndexParams(pca_dim=32), device="cpu").fit(data)
+    assert auto.build_stats.pools_backend == "nndescent"
+    assert auto.build_stats.finish_backend == "device"
+    _, ids = auto.search(_queries(ann_data), 10)
+    assert ids.shape == (len(ann_data["queries"]), 10)
     # patience is ported; the compacted driver is not
     compacted = IndexParams(**{**PARAMS, "dist_backend": "pq",
                                "compact_every": 4})
