@@ -42,17 +42,29 @@ Phases, each printing one JSON line:
                 clustered_vectors(300000, 768) from --seed (the config's
                 N and width; only the seed is an option); every topk_pool
                 of its pool assembly must take the variant topk_merge's
-                route names (warp).
+                route names (warp), and its two α-scans (the prune stage
+                and the interconnect's re-prune) one alpha_scan launch per
+                2048-row chunk each.
   5. serve    — 1024 queries, k=10, ef=64, fused hop: QPS, recall@10 against
                 the exact top-10 in the raw space, the hop counters, and the
                 brute-force QPS (the l2topk kernel over the raw vectors);
                 per_search: the kernels one search launches (one beam_hops
                 launch) and the hop loop's host syncs (one). The fit reports
                 its launches and syncs too (one of each per pool chunk).
+                At --seed 0 recall@10 must be the baseline's (BASELINE_SEED0).
   6. staged   — the same search with the staged hop must equal the fused one
                 exactly (ids, dists, counters).
   7. reference — 256 of the queries searched again on the CPU, where every
                 kernel runs its plain PyTorch version, must agree.
+ 7b. serve_compacted — the same index served through the compacted
+                search (search(..., compact_every=)) at COMPACT_SETTINGS
+                (16 hops with patience off, 8 with patience 8) against the
+                uncompacted fused search at the same patience: ids, dists,
+                hops, gathered and dup_gathered equal, wasted_hops no more,
+                the slices' batch sizes powers of two that never grow, one
+                host sync per slice; QPS of both (median of 7 batches of
+                1024, in turns), launches and host syncs per search. Run in
+                f32 here and after each quantized phase in its backend.
   8. quantized — for pq, then int8, on the index of phase 4: the codec's
                 fit and encode seconds, then 1024 queries with k=10, ef=64,
                 the config's rerank (64) and the fused LUT hop (QPS,
@@ -73,7 +85,12 @@ Phases, each printing one JSON line:
                 and variant (all warp), recall@10 and QPS of the 1024
                 queries at ef = 64 beside the exact/host fit's recall@10;
                 every node must be reachable from the medoid, and both
-                recalls must clear their floors (FIT_AUTO_*_FLOOR).
+                recalls must clear their floors (FIT_AUTO_*_FLOOR); one
+                alpha_scan launch per chunk of each α-scan; at --seed 0 both
+                recalls and the gather_dist launches must be the
+                baseline's, less the launches of its per-position α-scan
+                loop (one per candidate position of each chunk: 283 of
+                21,403).
   9. tune     — the paper's tuner on the same data and queries: an
                 AnnObjective (base: the config, graph_degree 32) with a TPE
                 study of 8 trials over default_space's rebuild-free knobs
@@ -81,11 +98,20 @@ Phases, each printing one JSON line:
                 patience), the structural knobs held at the config's; it
                 must make exactly one structural build and one family pass,
                 every derived graph must be reachable from the medoid, and a
-                repruned trial's graph must equal reprune_nsg's, id for id.
+                repruned trial's graph must equal reprune_nsg's, id for id;
+                the family pass, run again and timed alone
+                (family_pass_seconds), must give the same packed masks.
  10. tune_cli — python -m repro_torch.launch.tune at N=20000, D=768 with
                 its default backends (NN-Descent, table pools, the device
                 finish; the full default_space: several structural builds)
                 must exit 0 and print its Pareto front and build log.
+10b. alpha_scan — the α-scan kernel on the operands fit_auto and the
+                tuner gave it (recorded by ScanRecorder): the first and last
+                chunk of the prune stage (B = 2048, L = 64), of the
+                interconnect's re-prune (L = 96) and of the family pass
+                (9 x 2048 rows, L = 32, one alpha per row); keep and mask
+                must equal the plain version's (on the card) exactly; ms,
+                device_ms, plain_ms and the bound of each first chunk.
  11. recsys   — the two-tower retrieval model at its full config (a
                 14,010,368 x 256 f32 table, 14.35 GB; no width or vocabulary
                 cut) from --seed: recsys_score_step at B = 512 (median and
@@ -205,10 +231,30 @@ RECSYS_CLI_TIMEOUT = 300
 # 0.50039; the same on every run), each about one point below
 FIT_AUTO_RECALL_FLOOR = 0.91
 FIT_AUTO_TABLE_RECALL_FLOOR = 0.49
+# The baseline at --seed 0 on an NVIDIA H100 80GB HBM3, measured while the
+# α-scan still stepped its candidate positions from the host: recall@10 of
+# the exact/host fit and of fit_auto, fit_auto's kNN-table recall (all to 5
+# places), and fit_auto's gather_dist launches over the fit and its 8
+# searches, of which
+# the per-position loop took one per candidate position of every chunk
+# (prune L = 64, the interconnect's re-prune L = 96). The kernel gives the
+# same graph, so the recalls must not move, and the loop's launches must go.
+BASELINE_SEED0 = {"fit": 0.97822, "fit_auto": 0.92256,
+                  "knn_table": 0.50039, "fit_auto_gather_dist": 21_403}
+SCAN_CHUNK = 2048                          # rows per α-scan launch
+SCAN_LOOP_POSITIONS = 64 + 96              # the loop's steps per chunk
+# the α-scan's path shapes, by the recorder's key (L, per-row alpha): the
+# prune stage (pools of 64), the interconnect's re-prune (forward 32 +
+# reverse 64) and a reprune_family pass (the 32-wide adjacency, one alpha
+# per row over the grid's 9 alphas)
+SCAN_SHAPES = {"prune": (64, False), "interconnect": (96, False),
+               "reprune_family": (32, True)}
+# the compacted search's settings: (compact_every, patience)
+COMPACT_SETTINGS = ((16, None), (8, 8))
 # the kernels phases 11-12 run: the bag in the towers, the f32 graph kernels
 # in recsys_ann's fit and search
 RECSYS_KERNELS = ("embedding_bag", "gather_dist", "beam_hops", "topk_merge",
-                  "l2topk")
+                  "l2topk", "alpha_scan")
 # the one-hop entries of beam_hop.cu: checked and timed in the kernels
 # phase, but no longer on the main path (a fused search on the card runs
 # its whole loop in beam_hops / beam_hops_lut)
@@ -1105,6 +1151,16 @@ def quantized_phase(torch, index, queries, true_i, backend: str,
     return launches
 
 
+def check_scans(phase: str, fit_launches: dict, n_kept: int) -> None:
+    """A fit's α-scans take one alpha_scan launch per chunk: 2048-row
+    chunks of the prune stage and of the interconnect's re-prune."""
+    want = 2 * math.ceil(n_kept / SCAN_CHUNK)
+    if fit_launches["alpha_scan"] != want:
+        raise AssertionError(f"{phase}: {fit_launches['alpha_scan']} "
+                             f"alpha_scan launches in the fit, expected "
+                             f"{want} (one per chunk of both scans)")
+
+
 def fit_auto_phase(torch, data, queries, true_i, wrappers: dict,
                    seed: int, exact_recall: float) -> dict:
     """ann-laion fitted as its config says (IndexParams.from_config(CONFIG)
@@ -1170,6 +1226,7 @@ def fit_auto_phase(torch, data, queries, true_i, wrappers: dict,
          qps_max=queries.shape[0] / min(times),
          recall_floor=FIT_AUTO_RECALL_FLOOR,
          table_recall_floor=FIT_AUTO_TABLE_RECALL_FLOOR,
+         baseline_seed0=BASELINE_SEED0,
          peak_device_bytes=torch.cuda.max_memory_allocated())
     if (params.knn_backend, bs.pools_backend, bs.finish_backend) != (
             "auto", "nndescent", "device") or set(index.knn_stats) != {
@@ -1190,6 +1247,19 @@ def fit_auto_phase(torch, data, queries, true_i, wrappers: dict,
                                                         k)):
         raise AssertionError("fit_auto: search returned non-finite or "
                              "mis-shaped results")
+    check_scans("fit_auto", fit_launches, index.ntotal)
+    if seed == 0 and launches["gather_dist"] != \
+            BASELINE_SEED0["fit_auto_gather_dist"] - SCAN_LOOP_POSITIONS * \
+            math.ceil(index.ntotal / SCAN_CHUNK):
+        raise AssertionError(
+            f"fit_auto: {launches['gather_dist']} gather_dist launches; "
+            f"expected the baseline's {BASELINE_SEED0['fit_auto_gather_dist']}"
+            f" less the per-position loop's")
+    if seed == 0 and (round(recall, 5), round(table_recall, 5)) != (
+            BASELINE_SEED0["fit_auto"], BASELINE_SEED0["knn_table"]):
+        raise AssertionError(f"fit_auto: recall@10 {recall} or table recall "
+                             f"{table_recall} moved from the baseline's at "
+                             f"seed 0")
     if recall < FIT_AUTO_RECALL_FLOOR or \
             table_recall < FIT_AUTO_TABLE_RECALL_FLOOR:
         raise AssertionError(f"fit_auto: recall@10 {recall} or kNN-table "
@@ -1203,7 +1273,7 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
     the config's), single objective, recall floor 0.9. Returns the launches
     of every kernel over the phase (zeroed just before, read just after)."""
     from repro_torch.configs.ann_laion import CONFIG
-    from repro_torch.core.build import reprune_nsg
+    from repro_torch.core.build import reprune_family, reprune_nsg
     from repro_torch.core.build.finish import reachable_from
     from repro_torch.core.pipeline import IndexParams, structural_build_count
     from repro_torch.core.tuning import (
@@ -1249,6 +1319,16 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
     except ValueError:
         best = None
     grid_hits, family_prunes = obj.grid_hits, obj.family_prunes
+    # the study's family pass again, timed alone: the same packed masks
+    full_index = next(iter(obj._build_cache.values()))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    family = reprune_family(full_index.base, full_index.graph.neighbors,
+                            obj.alpha_grid, materialize=False)
+    torch.cuda.synchronize()
+    family_s = time.perf_counter() - t
+    family_same = torch.equal(
+        family.masks, next(iter(obj._family_cache.values())).masks)
 
     # every trial's search again, through the objective's own caches: ids
     # well shaped and in range (the counters are restored afterwards)
@@ -1266,7 +1346,6 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
                           and (i_t < data.shape[0]).all())
     obj.grid_hits = grid_hits
     # derived graphs: reachable from the medoid; one equals reprune_nsg's
-    full_index = next(iter(obj._build_cache.values()))
     graphs = list(obj._graph_cache.items())
     reach = [float(reachable_from(g.neighbors.cpu().numpy(),
                                   int(g.medoid)).mean()) for _, g in graphs]
@@ -1283,12 +1362,17 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
     emit("tune", seconds=seconds, ground_truth_and_setup_seconds=gt_s,
          trials=trials, structural_builds=builds,
          family_prunes=family_prunes, grid_hits=grid_hits,
+         family_pass_seconds=family_s, family_pass_alphas=len(obj.alpha_grid),
+         family_pass_equal=family_same,
          best_feasible=best, derived_graphs=len(graphs),
          derived_reachable=reach, reprune_check=same_as_direct,
          searches_well_shaped=shapes_ok, launches=launches)
     if builds != 1 or family_prunes != 1:
         raise AssertionError(f"tune: {builds} structural builds and "
                              f"{family_prunes} family passes, expected 1/1")
+    if not family_same:
+        raise AssertionError("tune: the family pass run again gave other "
+                             "masks")
     if not graphs or same_as_direct is None or not same_as_direct["equal"]:
         raise AssertionError("tune: no repruned trial, or its graph differs "
                              "from reprune_nsg's")
@@ -1323,6 +1407,172 @@ def tune_cli_phase(src: Path) -> None:
             "structural builds" in ln for ln in log):
         raise AssertionError("tune_cli: the tuner failed or printed no "
                              "Pareto front / build log")
+
+
+class ScanRecorder:
+    """Keeps the operands of the first and the last α-scan kernel call of
+    each path shape (the key (L, per-row alpha)) whose key is in ``on``: it
+    stands in for ``alpha_scan_cuda`` in ``kernels/alpha_scan/ops.py``,
+    passes every call on to the wrapper (which launches and counts it) and
+    copies nothing."""
+
+    def __init__(self, torch, ops):
+        self.tensor, self.ops, self.real = torch.Tensor, ops, \
+            ops.alpha_scan_cuda
+        self.calls, self.on = {}, set()
+        ops.alpha_scan_cuda = self
+
+    def __call__(self, *args):
+        key = (args[2].shape[1], isinstance(args[5], self.tensor))
+        if key in self.on:
+            self.calls[key] = (self.calls.get(key, (args,))[0], args)
+        return self.real(*args)
+
+
+def scan_work(torch, data, node_ids, cand_ids, cand_dists, degree, alpha,
+              mask):
+    """(distance evaluations, distinct candidate rows) that one α-scan of
+    these inputs needs, given its result ``mask``: an eligible candidate
+    (valid, not the node, not yet kept, fewer than ``degree`` kept and at
+    least one) tests the kept rows in order up to the first that occludes
+    it, all of them if none does."""
+    from repro_torch.kernels.gather_dist import gather_dist_ref
+    b, l = cand_ids.shape
+    m = mask.to(torch.int32)
+    before = torch.cumsum(m, 1) - m
+    keep = torch.full((b, degree), -1, dtype=torch.int32,
+                      device=data.device)
+    slots = torch.arange(degree, device=data.device)
+    evals = 0
+    for j in range(l):
+        q, c = cand_ids[:, j], before[:, j]
+        occupied = slots[None, :] < c[:, None]
+        dup = (occupied & (keep == q[:, None])).any(1)
+        eligible = (q >= 0) & (q != node_ids) & (c < degree) & (c > 0) & ~dup
+        dr = gather_dist_ref(data[q.clamp_min(0).long()], data, keep)
+        occ = occupied & (dr < (alpha * cand_dists[:, j])[:, None])
+        first = torch.where(occ.any(1), occ.to(torch.int32).argmax(1) + 1, c)
+        evals += int(torch.where(eligible, first, 0).sum())
+        slot = c.clamp_max(degree - 1).long()[:, None]
+        keep.scatter_(1, slot, torch.where(mask[:, j:j + 1], q[:, None],
+                                           keep.gather(1, slot)))
+    return evals, int(torch.unique(cand_ids[cand_ids >= 0]).numel())
+
+
+def alpha_scan_kernel_phase(torch, calls: dict, gpu: str) -> dict:
+    """alpha_scan at its three path shapes on the operands the fit and the
+    tuner gave it (``ScanRecorder``): the first and the last chunk of
+    fit_auto's prune stage and of its interconnect, and of the tuner's
+    reprune_family pass. The kernel must give its plain version's keep and
+    mask exactly (torch.equal; the plain version runs on the card, its
+    distances through gather_dist's kernel). Timed on each first chunk
+    (ms: one event-timed call; device_ms: queued_ms) beside the plain
+    version; the bound counts each input once (the distinct candidate rows,
+    D * 4 B each, the pools, the node ids, a per-row alpha, the outputs)
+    and the distances this data needs (3 D operations each, f32)."""
+    from repro_torch.kernels.alpha_scan import alpha_scan_cuda, \
+        alpha_scan_ref
+
+    by_shape = {}
+    for name, key in SCAN_SHAPES.items():
+        if key not in calls:
+            raise AssertionError(f"alpha_scan: the {name} scan (L, per-row "
+                                 f"alpha = {key}) never ran")
+        for args in calls[key]:
+            keep, mask = alpha_scan_cuda(*args)
+            want = alpha_scan_ref(*args)
+            if not (torch.equal(keep, want[0])
+                    and torch.equal(mask, want[1])):
+                raise AssertionError(f"alpha_scan differs from its plain "
+                                     f"version at the {name} shape")
+        args = calls[key][0]
+        data, node_ids, cand_ids, cand_dists, degree, alpha = args
+        ms = time_ms(lambda: alpha_scan_cuda(*args))
+        dev_ms = queued_ms(torch, lambda: alpha_scan_cuda(*args))
+        plain = time_ms(lambda: alpha_scan_ref(*args), reps=5, warmup=1)
+        evals, rows = scan_work(torch, data, node_ids, cand_ids, cand_dists,
+                                degree, alpha, alpha_scan_cuda(*args)[1])
+        b, l = cand_ids.shape
+        d = data.shape[1]
+        per_row = key[1]
+        bmin, by = bound(rows * d * 4 + b * l * 9 + b * 4
+                         + (b * 4 if per_row else 0) + b * degree * 4,
+                         3 * evals * d, gpu)
+        by_shape[name] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bmin,
+            bound_by=by, share_of_bound=bmin / dev_ms, evals=evals,
+            distinct_rows=rows, kept=int(keep.ge(0).sum()),
+            shape=dict(b=b, l=l, degree=degree, d=d,
+                       per_row_alpha=per_row))
+    top = by_shape["prune"]
+    return dict(route="cuda", source="src/repro_torch/csrc/alpha_scan.cu",
+                replaces="src/repro/core/build/prune.py:66",
+                max_abs_err=0.0, ms=top["ms"], device_ms=top["device_ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"],
+                share_of_bound=top["share_of_bound"], library_ms=None,
+                by_shape=by_shape)
+
+
+def serve_compacted_phase(torch, index, queries, true_i, backend: str,
+                          wrappers: dict) -> None:
+    """The compacted search on the exact/host index: ``search(...,
+    compact_every=)`` under ``backend`` (rerank 64 for pq and int8) at each
+    of COMPACT_SETTINGS, against the uncompacted fused search at the same
+    patience. ids, dists, hops, gathered and dup_gathered must be equal,
+    wasted_hops no more, and the slices' batch sizes powers of two that
+    never grow. QPS: the median of SERVE_RUNS batches of each, in turns;
+    launches and host syncs of one search of each."""
+    from repro_torch.configs.ann_laion import CONFIG
+    k, n = CONFIG.k, queries.shape[0]
+    kw = dict(ef=CONFIG.ef_search, dist_backend=backend,
+              rerank=CONFIG.rerank, hop_backend="fused")
+    for every, patience in COMPACT_SETTINGS:
+        def run(c):
+            return index.search(queries, k, compact_every=c,
+                                patience=patience or 0, **kw)
+        d0, i0 = run(0)
+        s0 = index.search_stats()
+        d1, i1 = run(every)
+        s1 = index.search_stats()
+        shapes = list(index.last_compaction_shapes)
+        times = {0: [], every: []}
+        for _ in range(SERVE_RUNS):
+            for c in (0, every):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run(c)
+                torch.cuda.synchronize()
+                times[c].append(time.perf_counter() - t)
+        one = per_search(torch, wrappers, lambda: run(every))
+        one_plain = per_search(torch, wrappers, lambda: run(0))
+        same = (torch.equal(d0, d1) and torch.equal(i0, i1) and all(
+            s1[f] == s0[f] for f in ("hops", "gathered", "dup_gathered")))
+        emit("serve_compacted", backend=backend, compact_every=every,
+             patience=patience, queries=n, runs=SERVE_RUNS,
+             qps=n / statistics.median(times[every]),
+             qps_min=n / max(times[every]), qps_max=n / min(times[every]),
+             qps_uncompacted=n / statistics.median(times[0]),
+             qps_uncompacted_min=n / max(times[0]),
+             qps_uncompacted_max=n / min(times[0]),
+             recall_at_10=recall_at_k(i1.cpu(), true_i.cpu()),
+             equal_to_uncompacted=same, stats=s1, stats_uncompacted=s0,
+             wasted_hops=s1["wasted_hops"],
+             wasted_hops_uncompacted=s0["wasted_hops"], slices=len(shapes),
+             shape_log=shapes, per_search=one,
+             per_search_uncompacted=one_plain)
+        if not same or s1["wasted_hops"] > s0["wasted_hops"]:
+            raise AssertionError(f"serve_compacted ({backend}, every "
+                                 f"{every}, patience {patience}): results "
+                                 f"differ from the uncompacted search")
+        if shapes[0] != n or any(b & (b - 1) for b in shapes) or any(
+                a < b for a, b in zip(shapes, shapes[1:])):
+            raise AssertionError(f"serve_compacted: slice batch sizes "
+                                 f"{shapes} are not non-increasing powers "
+                                 f"of two from {n}")
+        if one["host_syncs"] != len(shapes):
+            raise AssertionError(f"serve_compacted: {one['host_syncs']} host "
+                                 f"syncs for {len(shapes)} slices")
 
 
 def host_times(torch, fn, runs: int, warmup: int = 2) -> list:
@@ -1699,6 +1949,8 @@ def main() -> int:
     from repro_torch.core.pipeline import IndexParams, TunedGraphIndex
     from repro_torch.data import clustered_vectors, queries_like
     from repro_torch.core.beam_search import beam_search
+    from repro_torch.kernels.alpha_scan import alpha_scan_cuda
+    from repro_torch.kernels.alpha_scan import ops as scan_ops
     from repro_torch.kernels.beam_hop import beam_hop_cuda, \
         beam_hop_lut_cuda, beam_hops_cuda, beam_hops_lut_cuda
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -1712,7 +1964,9 @@ def main() -> int:
                 "beam_hops": beam_hops_cuda, "topk_merge": topk_merge_cuda,
                 "lut_dist": lut_dist_cuda, "beam_hop_lut": beam_hop_lut_cuda,
                 "beam_hops_lut": beam_hops_lut_cuda, "l2topk": l2topk_cuda,
-                "embedding_bag": embedding_bag_cuda}
+                "embedding_bag": embedding_bag_cuda,
+                "alpha_scan": alpha_scan_cuda}
+    recorder = ScanRecorder(torch, scan_ops)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     data = clustered_vectors(gen, n, CONFIG.dim)
@@ -1749,6 +2003,7 @@ def main() -> int:
     if index.ntotal != n_kept:
         raise AssertionError(f"fit kept {index.ntotal} rows; the kernel "
                              f"phase ran at {n_kept}")
+    check_scans("fit", fit_launches, index.ntotal)
     if not reach.all() or not degree_ok:
         raise AssertionError("graph not reachable from the medoid, or a "
                              "row exceeds the degree")
@@ -1809,6 +2064,9 @@ def main() -> int:
                              f"launch and one host sync")
     if recall < 0.80:
         raise AssertionError(f"recall@10 {recall} below the 0.80 floor")
+    if args.seed == 0 and round(recall, 5) != BASELINE_SEED0["fit"]:
+        raise AssertionError(f"recall@10 {recall} moved from the baseline's "
+                             f"{BASELINE_SEED0['fit']} at seed 0")
 
     # 6. staged hop == fused hop, bit for bit
     d_s, i_s = index.search(queries, k, ef=ef, hop_backend="staged")
@@ -1834,6 +2092,7 @@ def main() -> int:
     if rows < 0.99 or not close:
         raise AssertionError("the card's search disagrees with the plain "
                              "PyTorch versions on the CPU")
+    serve_compacted_phase(torch, index, queries, true_i, "f32", wrappers)
 
     # 8. quantized serving on the same index: pq (M = 300), then int8
     # (M = 600) — launch counts of the LUT kernels from these runs
@@ -1843,6 +2102,8 @@ def main() -> int:
     for backend, m in zip(("pq", "int8"), LUT_MS):
         counts = quantized_phase(torch, index, queries, true_i, backend,
                                  wrappers, args.seed)
+        serve_compacted_phase(torch, index, queries, true_i, backend,
+                              wrappers)
         for name in lut_launches:
             lut_launches[name][m] = counts[name]
         for v, c in counts["l2topk_by_variant"].items():
@@ -1853,12 +2114,22 @@ def main() -> int:
                      for name, by_m in lut_launches.items()})
 
     # 8b. the config's own backends: NN-Descent, table pools, device finish
+    recorder.on = {SCAN_SHAPES["prune"], SCAN_SHAPES["interconnect"]}
     auto_launches = fit_auto_phase(torch, data, queries, true_i, wrappers,
                                    args.seed, recall)
 
     # 9-10. the tuner on the same data, then its CLI at N = 20k
+    recorder.on = {SCAN_SHAPES["reprune_family"]}
     tune_launches = tune_phase(torch, data, queries, wrappers, args.seed)
+    recorder.on = set()
     tune_cli_phase(src)
+
+    # 10b. alpha_scan on the pools fit_auto and the tuner gave it
+    kernels["alpha_scan"] = alpha_scan_kernel_phase(torch, recorder.calls,
+                                                    gpu)
+    emit("alpha_scan", **kernels["alpha_scan"])
+    recorder.calls.clear()          # the fits' pools and bases it held
+    torch.cuda.empty_cache()
 
     # 11-12. the two-tower path at full width: its launch counts are zeroed
     # just before recsys and read just after recsys_ann

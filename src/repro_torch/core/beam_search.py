@@ -31,7 +31,9 @@ loops' syncs.
 Straggler control (``patience``/``eps``): a lane also stops after
 ``patience`` consecutive hops in which no top-k prefix distance improved
 by more than ``eps``. ``patience=None`` keeps the full-pool-convergence
-rule bit for bit.
+rule bit for bit. ``beam_search_compacted`` runs the fused loop in slices
+of ``compact_every`` hops and between slices gathers the live lanes into a
+smaller power-of-two batch, with the same results.
 
 The reference's vmap layout is bit-identical to this layout with the
 dot-formula gather, so the port has only this one.
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.quant import check_dist_backend
@@ -49,6 +52,7 @@ from repro_torch.kernels.beam_hop import lane_live, merge_one
 from repro_torch.kernels.beam_hop import select_frontier as _select_frontier
 from repro_torch.kernels.gather_dist import gather_dist as _kernel_gather_dist
 from repro_torch.kernels.lut_dist import lut_dist as _kernel_lut_dist
+from repro_torch.serve.batching import bucket_for, pow2_buckets
 
 INF = float("inf")
 
@@ -286,41 +290,205 @@ def _run_hops(state, body, *, k, max_iters, mode, patience, eps):
     return state
 
 
+def _hop_slice(state, q_or_lut, table, neighbors, dist_backend="f32", *,
+               k, max_iters, patience, eps, max_steps, mode="while"):
+    """Advance the 8-tuple state by one slice: up to ``max_steps`` guarded
+    hops per lane in one ``kernels/beam_hop`` ``beam_hops`` call (one
+    launch on CUDA; the plain loop on the CPU). Returns ``(state, live)``,
+    ``live`` the per-lane continuation mask after the slice (on the
+    device: the caller decides whether to read it).
+
+    The slice's step count is what the reference's loop would have run: the
+    most hops any lane ran in it (``while``), or ``max_steps`` (``fori``);
+    a lane's ``wasted`` grows by that count less its own hops, the
+    iterations it sat through frozen.
+    """
+    pool_i, pool_d, pool_v, hops, gath, dup, wasted, stale = state
+    pool_i, pool_d, pool_v, hops, gath, dup, stale, iters, live = \
+        _kernel_beam_hops(neighbors, pool_i, pool_d, pool_v, hops, gath,
+                          dup, stale, q_or_lut, table, dist_backend, k=k,
+                          max_iters=max_iters, max_steps=max_steps,
+                          patience=patience, eps=eps)
+    ran = iters.max() if mode == "while" else max_steps
+    return (pool_i, pool_d, pool_v, hops, gath, dup, wasted + (ran - iters),
+            stale), live
+
+
 def _run_hop_slices(state, q_or_lut, table, neighbors, dist_backend="f32",
                     *, k, max_iters, mode, patience, eps, max_steps):
-    """``_run_hops`` with the loop on the device: slices of up to
-    ``max_steps`` guarded hops per lane, each one ``kernels/beam_hop``
-    ``beam_hops`` call (one launch on CUDA; the plain loop on the CPU).
+    """``_run_hops`` with the loop on the device: ``_hop_slice`` after
+    ``_hop_slice`` of up to ``max_steps`` hops each.
 
     ``while`` runs slices until no lane is live, with one host sync per
     slice (the live test); ``fori`` runs ``max_iters`` hops in slices of
-    ``max_steps``, with none. A slice's step count is what the reference's
-    loop would have run: the most hops any lane ran in it (``while``), or
-    its length (``fori``); a lane's ``wasted`` grows by that count less its
-    own hops, the iterations it sat through frozen. ``max_steps =
-    max_iters`` takes one slice per search, as the reference's unsliced
-    loop runs; the reference's compaction slices are the same unit.
+    ``max_steps``, with none. ``max_steps = max_iters`` takes one slice per
+    search, as the reference's unsliced loop runs; the compaction slices of
+    ``beam_search_compacted`` are the same unit.
     """
-    pool_i, pool_d, pool_v, hops, gath, dup, wasted, stale = state
-    if pool_i.shape[0] == 0:
+    if state[0].shape[0] == 0:
         return state
     left = max_iters
     while mode == "while" or left > 0:
         steps = max_steps if mode == "while" else min(max_steps, left)
-        pool_i, pool_d, pool_v, hops, gath, dup, stale, iters, live = \
-            _kernel_beam_hops(neighbors, pool_i, pool_d, pool_v, hops, gath,
-                              dup, stale, q_or_lut, table, dist_backend, k=k,
-                              max_iters=max_iters, max_steps=steps,
-                              patience=patience, eps=eps)
+        state, live = _hop_slice(state, q_or_lut, table, neighbors,
+                                 dist_backend, k=k, max_iters=max_iters,
+                                 patience=patience, eps=eps,
+                                 max_steps=steps, mode=mode)
         if mode == "fori":
-            wasted = wasted + (steps - iters)
             left -= steps
             continue
-        wasted = wasted + (iters.max() - iters)
         beam_search.host_syncs += 1
         if not bool(live.any()):
             break
-    return (pool_i, pool_d, pool_v, hops, gath, dup, wasted, stale)
+    return state
+
+
+def _compact_seed(queries, db, neighbors, entry_ids, *, ef,
+                  dist_backend="f32", codes=None, lut=None):
+    """Pool seeding for the compacted search: the fused hop's entry
+    distances (``gather_dist``, or ``lut_dist`` under a quantized
+    backend), so the seed carries the bits its hops reproduce."""
+    gd, _ = _batched_hop_setup(queries, db, neighbors, gather_backend=None,
+                               hop_backend="fused",
+                               dist_backend=dist_backend, codes=codes,
+                               lut=lut)
+    return _seed_batched(queries, db, neighbors, entry_ids, ef, gd)
+
+
+def _mask_lanes_dead(state, start):
+    """Make lanes ``start:`` inert: an empty pool is never live, and its
+    results are +inf / -1. Writes in place: the caller owns every state
+    tensor (fresh from the seed, a slice or a gather)."""
+    state[0][start:] = -1
+    state[1][start:] = INF
+    return state
+
+
+def beam_search_compacted(queries: torch.Tensor, db: torch.Tensor,
+                          neighbors: torch.Tensor, entry_ids: torch.Tensor,
+                          *, ef: int, k: int, compact_every: int,
+                          max_iters: int = 0, mode: str = "while",
+                          dist_backend: str = "f32",
+                          codes: Optional[torch.Tensor] = None,
+                          lut: Optional[torch.Tensor] = None,
+                          patience: Optional[int] = None,
+                          eps: float = 0.0,
+                          with_stats: bool = False,
+                          shape_log: Optional[list] = None):
+    """``beam_search`` with active-query compaction.
+
+    A host loop over ``_hop_slice``: each slice runs up to
+    ``compact_every`` hops per lane in one fused loop call (one
+    ``beam_hops`` launch on CUDA, the plain loop on the CPU), then the host
+    reads the live mask (its one sync per slice, counted in
+    ``beam_search.host_syncs``). Finished lanes' results are copied to
+    their original slots on the device (``index_copy_``); the survivors are
+    gathered on the device (one ``index_select`` per state tensor) into the
+    smallest power-of-two bucket that holds them
+    (``serve/batching.pow2_buckets``), the bucket's spare lanes filled with
+    the first survivor and made inert. Batch cost then tracks the
+    distribution of per-query hop counts instead of the max.
+
+    Lanes never interact, so ids, dists, hops, gathered and dup_gathered
+    equal the uncompacted fused search's bit for bit; ``wasted_hops`` is
+    what shrinks: a lane stops riding at its first slice boundary after its
+    termination. The hop is always the fused one (the staged hop equals it
+    bit for bit on the card). ``shape_log``, when given, gets each slice's
+    batch size appended.
+
+    Only while mode exists here (fori's fixed trip count is the straggler
+    cost compaction removes), and the stats are flushed per lane, so
+    ``with_stats`` shapes match ``beam_search``'s.
+    """
+    if mode != "while":
+        raise ValueError(
+            f"compaction requires mode='while' (mode={mode!r}): a fixed "
+            f"fori trip count is exactly the straggler cost it removes")
+    if compact_every < 1:
+        raise ValueError(f"compact_every must be >= 1, got {compact_every}")
+    if eps < 0.0:
+        raise ValueError(f"eps must be >= 0, got {eps}")
+    if patience is not None and patience < 1:
+        raise ValueError(
+            f"patience must be >= 1 (or None to disable), got {patience}")
+    check_dist_backend(dist_backend)
+    nq = queries.shape[0]
+    dev = db.device
+    max_iters = max_iters or 4 * ef
+    buckets = pow2_buckets(nq)
+    quantized = dist_backend != "f32"
+    if quantized and (codes is None or lut is None):
+        raise ValueError(
+            f"dist_backend={dist_backend!r} needs codes and lut "
+            f"(encode the db with a core.quant codec first)")
+
+    b0 = bucket_for(nq, buckets)
+    fill = torch.zeros((b0,), dtype=torch.int64)
+    fill[:nq] = torch.arange(nq)
+    fill = fill.to(dev)
+
+    def pad(a):
+        """Rows of ``a`` up to the first bucket, the first row repeated."""
+        return a if b0 == nq else a.index_select(0, fill)
+
+    q_cur = pad(queries.to(dev))
+    lut_cur = pad(lut) if quantized else None
+    state = _compact_seed(q_cur, db, neighbors,
+                          pad(entry_ids.to(device=dev, dtype=torch.int32)),
+                          ef=ef, dist_backend=dist_backend, codes=codes,
+                          lut=lut_cur)
+    state = _mask_lanes_dead(state, nq)
+    # q_or_lut carries the lanes: the queries (f32) or their LUTs
+    q_or_lut, table = (q_cur, db) if not quantized else (lut_cur, codes)
+    orig = np.arange(b0, dtype=np.int64)
+    orig[nq:] = -1
+
+    out_d = torch.full((nq, k), INF, dtype=torch.float32, device=dev)
+    out_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    out_stats = torch.zeros((4, nq), dtype=torch.int32, device=dev)
+
+    def flush(rows):
+        src = torch.from_numpy(rows).to(dev)
+        dst = torch.from_numpy(orig[rows]).to(dev)
+        out_d.index_copy_(0, dst, state[1].index_select(0, src)[:, :k])
+        out_i.index_copy_(0, dst, state[0].index_select(0, src)[:, :k])
+        out_stats.index_copy_(1, dst, torch.stack(state[3:7])
+                              .index_select(1, src))
+        orig[rows] = -1
+
+    # hops strictly increase on every live lane, so the slice loop is
+    # bounded; the +1 covers the all-dead exit slice
+    for _ in range(-(-max_iters // compact_every) + 1):
+        state, live = _hop_slice(state, q_or_lut, table, neighbors,
+                                 dist_backend, k=k, max_iters=max_iters,
+                                 patience=patience, eps=eps,
+                                 max_steps=compact_every)
+        if shape_log is not None:
+            shape_log.append(int(q_or_lut.shape[0]))
+        live_np = live.cpu().numpy()
+        beam_search.host_syncs += 1
+        done = np.nonzero(~live_np & (orig >= 0))[0]
+        if done.size:
+            flush(done)
+        survivors = np.nonzero(live_np)[0]
+        if survivors.size == 0:
+            break
+        nb = bucket_for(survivors.size, buckets)
+        if nb < q_or_lut.shape[0]:
+            idx = np.full(nb, survivors[0], np.int64)
+            idx[:survivors.size] = survivors
+            take = torch.from_numpy(idx).to(dev)
+            state = _mask_lanes_dead(
+                tuple(a.index_select(0, take) for a in state),
+                survivors.size)
+            q_or_lut = q_or_lut.index_select(0, take)
+            orig = np.concatenate(
+                [orig[survivors], np.full(nb - survivors.size, -1,
+                                          np.int64)])
+
+    if with_stats:
+        return out_d, out_i, BeamStats(*out_stats.unbind(0))
+    return out_d, out_i, out_stats[0]
 
 
 beam_search.host_syncs = 0

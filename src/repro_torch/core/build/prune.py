@@ -12,13 +12,18 @@ survivors, and re-scanning a pruned adjacency at ``alpha = 1`` keeps every
 edge. ``reprune`` and ``reprune_family`` use both: a family of
 (alpha, degree) graphs is derived from one cached max-degree graph with
 O(N * R) gather-distances and one occlusion pass — no rebuild.
+
+The occlusion scan itself is ``kernels/alpha_scan``: one kernel launch per
+row chunk on CUDA (the reference's one compiled loop per chunk), its plain
+version on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.alpha_scan import alpha_scan
 from repro_torch.kernels.gather_dist import gather_dist
 from repro_torch.kernels.topk_merge.ref import mark_dups as _mark_dups_block
 
@@ -49,46 +54,6 @@ def mark_dups(ids: torch.Tensor) -> torch.Tensor:
                       for s in range(0, ids.shape[0], _DUP_ROWS)])
 
 
-def _alpha_scan(data, node_ids, cand_ids, cand_dists, degree,
-                alpha: Union[float, torch.Tensor]):
-    """The greedy α-RNG occlusion scan over a node block.
-
-    Returns (keep (B, degree) ids, kept_mask (B, L) bool). The loop runs
-    over the L candidate positions, all B nodes at once, with no host
-    sync: kept ids are written by ``scatter`` whatever ``ok`` is. The
-    distances from a candidate to the kept rows are one ``gather_dist``
-    block over the kept ids (the kernel on CUDA; on the CPU its plain
-    diff-square version, the reference's arithmetic), so no (B, R, D) copy
-    of the kept rows is held. ``alpha`` is one slack for the block or a
-    (B,) f32 tensor of one per row (``reprune_family`` scans every alpha
-    of its grid in one block); either way the threshold is one f32
-    product ``alpha * d(p, q)``.
-    """
-    b, L = cand_ids.shape
-    dev = cand_ids.device
-    keep = torch.full((b, degree), -1, dtype=torch.int32, device=dev)
-    mask = torch.zeros((b, L), dtype=torch.bool, device=dev)
-    cnt = torch.zeros((b,), dtype=torch.int64, device=dev)
-    slots = torch.arange(degree, device=dev)
-    node_ids = node_ids.to(torch.int32)
-    for j in range(L):
-        q = cand_ids[:, j].to(torch.int32)
-        dq = cand_dists[:, j]
-        qv = data[q.clamp_min(0).long()].float()                   # (B, D)
-        dr = pairwise_rows_sqdist(qv, data, keep)                  # (B, R)
-        occupied = slots[None, :] < cnt[:, None]
-        occluded = (occupied & (dr < (alpha * dq)[:, None])).any(1)
-        dup = (occupied & (keep == q[:, None])).any(1)
-        ok = ((q >= 0) & (q != node_ids) & (cnt < degree) & ~occluded
-              & ~dup)
-        slot = cnt.clamp_max(degree - 1)[:, None]                 # (B, 1)
-        keep.scatter_(1, slot, torch.where(
-            ok[:, None], q[:, None], keep.gather(1, slot)))
-        mask[:, j] = ok
-        cnt += ok
-    return keep, mask
-
-
 def alpha_prune(data: torch.Tensor, node_ids: torch.Tensor,
                 cand_ids: torch.Tensor, cand_dists: torch.Tensor,
                 degree: int, alpha: float = 1.0) -> torch.Tensor:
@@ -97,8 +62,8 @@ def alpha_prune(data: torch.Tensor, node_ids: torch.Tensor,
     node_ids: (B,); cand_ids/cand_dists: (B, L) distance-ascending candidate
     pools (-1 padded). Returns (B, degree) pruned neighbor ids.
     """
-    return _alpha_scan(data, node_ids, cand_ids, cand_dists, degree,
-                       alpha)[0]
+    return alpha_scan(data, node_ids, cand_ids, cand_dists, degree,
+                      alpha)[0]
 
 
 def prune_in_chunks(data, node_ids, cand_ids, cand_dists, degree, chunk,
@@ -116,8 +81,8 @@ def alpha_prune_mask(data: torch.Tensor, node_ids: torch.Tensor,
     """``alpha_prune``'s survivors as a (B, L) bool position mask: the ids
     ``alpha_prune`` returns are ``cand_ids`` at the True positions, in
     order."""
-    return _alpha_scan(data, node_ids, cand_ids, cand_dists, degree,
-                       alpha)[1]
+    return alpha_scan(data, node_ids, cand_ids, cand_dists, degree,
+                      alpha)[1]
 
 
 def sorted_adjacency_chunk(data: torch.Tensor, rows: torch.Tensor,
@@ -247,7 +212,7 @@ def reprune_family(data: torch.Tensor, neighbors: torch.Tensor,
                                         neighbors[s:s + chunk])
         b = ci.shape[0]
         cand_parts.append(ci)
-        keep, mask = _alpha_scan(
+        keep, mask = alpha_scan(
             data, node_ids[s:s + chunk].repeat(n_alpha), ci.repeat(n_alpha, 1),
             cd.repeat(n_alpha, 1), rmax, al.repeat_interleave(b))
         if materialize:

@@ -7,9 +7,9 @@ backend (exact or NN-Descent, with the AntiHub-subset reuse of the raw
 table), either pools backend (beam search or table-derived) and either
 finishing pass (device or host), serves in f32 or quantized (pq | int8 LUT
 traversal with an exact f32 rerank), with or without adaptive termination
-(``patience``/``eps``), and derives lower-degree or larger-alpha graphs
-without a rebuild (``reprune``, ``with_graph``). ``compact_every`` raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+(``patience``/``eps``) and with or without active-query compaction
+(``compact_every``), and derives lower-degree or larger-alpha graphs
+without a rebuild (``reprune``, ``with_graph``).
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.configs.base import ANNConfig
 from repro_torch.core import antihub as antihub_mod
-from repro_torch.core.beam_search import BeamStats, beam_search
+from repro_torch.core.beam_search import BeamStats, beam_search, \
+    beam_search_compacted
 from repro_torch.core.build import build_knn, reprune_nsg, resolve_backend
 from repro_torch.core.build.nn_descent import NNDDraws, nn_descent
 from repro_torch.core.device import resolve_device, synchronize
@@ -98,13 +99,6 @@ class IndexParams:
         return IndexParams(**p)
 
 
-def _check_serving(compact_every: int):
-    if compact_every:
-        raise NotImplementedError(
-            "compact_every: the compacted driver (beam_search_compacted) is "
-            "not ported yet (ROADMAP Queue 1 item 4)")
-
-
 class TunedGraphIndex:
     """antihub ∘ pca ∘ nsg ∘ entry-points, searchable. Fit is build-time."""
 
@@ -128,6 +122,7 @@ class TunedGraphIndex:
         self.codec_backend: Optional[str] = None      # "pq" | "int8"
         self.quantize_seconds: dict = {}              # codec fit / encode
         self.last_search_stats: Optional[BeamStats] = None
+        self.last_compaction_shapes: Optional[list] = None
 
     # -- build ------------------------------------------------------------
     def fit(self, data, generator: Optional[torch.Generator] = None, *,
@@ -146,7 +141,6 @@ class TunedGraphIndex:
         """
         global _N_STRUCTURAL_BUILDS
         p = self.params
-        _check_serving(p.compact_every)
         check_dist_backend(p.dist_backend)
         dev = self.device
         generator = generator if generator is not None else \
@@ -306,7 +300,8 @@ class TunedGraphIndex:
                dist_backend: Optional[str] = None,
                hop_backend: Optional[str] = None,
                patience: Optional[int] = None,
-               eps: Optional[float] = None):
+               eps: Optional[float] = None,
+               compact_every: Optional[int] = None):
         """Returns (dists (Q, k) in projected space, original ids (Q, k)).
 
         Under ``dist_backend="pq"|"int8"`` the beam traverses the codec's
@@ -315,13 +310,16 @@ class TunedGraphIndex:
         returned distances are exact for reranked entries, LUT
         approximations when ``rerank=0``. ``patience``/``eps`` enable
         adaptive early termination (``patience=0``: off, the stock
-        convergence rule bit for bit); both default to the fit-time params.
+        convergence rule bit for bit); both default to the fit-time params,
+        as does ``compact_every``: > 0 serves through the compacted search
+        (``core.beam_search.beam_search_compacted``, the fused hop loop in
+        slices of that many hops, whatever ``hop_backend`` says), whose
+        per-slice batch sizes land in ``last_compaction_shapes``.
         Per-hop work counters of the latest call are kept on the index —
         read them via ``search_stats()``.
         """
         if self.graph is None:
             raise RuntimeError("fit() first")
-        _check_serving(self.params.compact_every)
         ef = ef or self.params.ef_search
         mode = mode or "while"
         dist_backend = check_dist_backend(
@@ -330,10 +328,12 @@ class TunedGraphIndex:
         hop_backend = hop_backend or self.params.hop_backend
         patience = patience if patience is not None else self.params.patience
         eps = eps if eps is not None else self.params.eps
+        compact_every = (compact_every if compact_every is not None
+                         else self.params.compact_every)
         q = self.project(queries).contiguous()
         entries = self.eps.select(q)
-        bs_kw = dict(ef=max(ef, k), mode=mode, hop_backend=hop_backend,
-                     patience=patience or None, eps=eps, with_stats=True)
+        bs_kw = dict(ef=max(ef, k), mode=mode, patience=patience or None,
+                     eps=eps, with_stats=True)
         if dist_backend == "f32":
             kb = k
         else:
@@ -344,8 +344,17 @@ class TunedGraphIndex:
             kb = min(max(rerank, k), max(ef, k))
             bs_kw.update(dist_backend=dist_backend, codes=self.codes,
                          lut=self.codec.lut(q))
-        d, i, stats = beam_search(q, self.base, self.graph.neighbors,
-                                  entries, k=kb, **bs_kw)
+        self.last_compaction_shapes = None
+        if compact_every:
+            shape_log: list = []
+            d, i, stats = beam_search_compacted(
+                q, self.base, self.graph.neighbors, entries, k=kb,
+                compact_every=compact_every, shape_log=shape_log, **bs_kw)
+            self.last_compaction_shapes = shape_log
+        else:
+            d, i, stats = beam_search(q, self.base, self.graph.neighbors,
+                                      entries, k=kb, hop_backend=hop_backend,
+                                      **bs_kw)
         if dist_backend != "f32":
             if rerank > 0:
                 d, i = _exact_rerank(q, self.base, i, k)

@@ -241,17 +241,14 @@ class AnnObjective:
             # keep the log honest: record the grid point actually served
             params["alpha"] = self._snap_alpha(float(params["alpha"]))[1]
         p = replace(self.base, **params)
-        if p.compact_every:
-            raise NotImplementedError(
-                "compact_every: the compacted driver is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
         t0 = time.perf_counter()
         idx, cached, repruned = self._get_index(p)
         synchronize(self.device)
         build_s = time.perf_counter() - t0
         ef = max(p.ef_search, self.k)
         kw = dict(ef=ef, dist_backend=p.dist_backend, rerank=p.rerank,
-                  hop_backend=p.hop_backend, patience=p.patience, eps=p.eps)
+                  hop_backend=p.hop_backend, patience=p.patience, eps=p.eps,
+                  compact_every=p.compact_every)
         _, i = idx.search(self.queries, self.k, **kw)         # warm-up
         synchronize(self.device)
         times = []

@@ -14,6 +14,8 @@ plain PyTorch version on the CPU instead (the counterpart of the
 reference's platform choice). The defaults ``--finish-backend auto`` and,
 at N >= 8192, ``--knn-backend auto`` resolve to the device finishing pass
 and NN-Descent (with table-derived pools), as in the reference.
+``--patience``, ``--eps`` and ``--compact-every`` set the serving knobs of
+every trial (``--compact-every 8``: the compacted search).
 ``--spec`` (ROADMAP Queue 1 item 7) and ``--shards`` (item 9) are not
 ported yet and raise.
 """
@@ -78,14 +80,18 @@ def _parser() -> argparse.ArgumentParser:
                          "knob is tuned (it is in default_space); this "
                          "pins the base value")
     ap.add_argument("--patience", type=int, default=None,
-                    help="adaptive early-termination hops (0 = stock "
-                         "convergence); tuned like --hop-backend")
+                    help="adaptive early-termination hops (core.beam_search"
+                         " straggler control): a lane stops after this many "
+                         "hops without top-k progress > --eps; 0 = stock "
+                         "convergence. The knob is tuned (it is in "
+                         "default_space); this pins its base value")
     ap.add_argument("--eps", type=float, default=None,
                     help="top-k improvement threshold that counts as "
                          "progress for --patience (squared-L2 units)")
     ap.add_argument("--compact-every", type=int, default=None,
-                    help="active-query compaction slice length (not ported "
-                         "yet: ROADMAP Queue 1 item 4; 0 = off)")
+                    help="active-query compaction slice length: gather "
+                         "surviving lanes into a smaller pow2 bucket every "
+                         "this many hops (0 = the plain batched search)")
     ap.add_argument("--pca-dim", type=int, default=None,
                     help="pipeline PCA target dim (default: --dim, i.e. "
                          "projection off)")

@@ -1024,3 +1024,125 @@ def test_table_pools_and_device_finish_on_the_card_equal_the_cpu(dev):
     seed[medoid] = True
     assert propagate_reach(f_card, seed).all()
     assert propagate_reach.steps > steps
+
+
+# -- the α-scan kernel (csrc/alpha_scan.cu) against its plain version. The
+# plain version scores the kept rows through gather_dist's kernel, and the
+# kernel through the same reduction, so they agree bit for bit on float
+# data too.
+
+def _scan_inputs(b, l, n, d, kind, dev, seed=0):
+    """Distance-ascending candidate pools of b nodes over n rows: each
+    node's l nearest rows (so occlusion bites), with its own id, a
+    duplicate and -1 pads mixed in, re-sorted by the plain gather."""
+    g = torch.Generator().manual_seed(seed)
+    data = _vectors(g, (n, d), kind, dev)
+    _, ids = knn_graph(data, l)
+    nodes = torch.randint(0, n, (b,), generator=g, dtype=torch.int32).to(dev)
+    ids = ids[nodes.long()].clone()
+    ids[:, 5] = nodes                                     # self
+    ids[:, 7] = ids[:, 2]                                 # a duplicate
+    ids[(torch.rand((b, l), generator=g) < 0.1).to(dev)] = -1
+    dists = gather_dist_ref(data[nodes.long()], data, ids)
+    order = torch.sort(dists, dim=1, stable=True).indices
+    return data, nodes, ids.gather(1, order), dists.gather(1, order)
+
+
+# (B, L, degree, D, per-row alpha): the prune stage, the interconnect's
+# re-prune, a reprune_family pass (9 alphas x 2048 rows), scalar rows
+SCAN_SHAPES = [(2048, 64, 32, 600, False), (2048, 96, 32, 600, False),
+               (9 * 2048, 32, 32, 600, True), (256, 40, 16, 37, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("b,l,degree,d,per_row", SCAN_SHAPES)
+def test_alpha_scan_kernel_equals_the_plain_version(dev, b, l, degree, d,
+                                                    per_row, kind):
+    from repro_torch.kernels.alpha_scan import alpha_scan_cuda, \
+        alpha_scan_ref
+    data, nodes, ids, dists = _scan_inputs(b // 9 if per_row else b, l,
+                                           6000, d, kind, dev)
+    if per_row:
+        nodes, ids, dists = nodes.repeat(9), ids.repeat(9, 1), \
+            dists.repeat(9, 1)
+        alphas = torch.linspace(1.0, 1.4, 9, device=dev)
+        alpha_list = [alphas.repeat_interleave(b // 9)]
+    else:
+        alpha_list = [1.0, 1.2]
+    for alpha in alpha_list:
+        n0 = alpha_scan_cuda.launches
+        keep, mask = alpha_scan_cuda(data, nodes, ids, dists, degree, alpha)
+        assert alpha_scan_cuda.launches == n0 + 1
+        want_keep, want_mask = alpha_scan_ref(data, nodes, ids, dists,
+                                              degree, alpha)
+        assert torch.equal(keep, want_keep) and torch.equal(mask, want_mask)
+        assert 0 < int(mask.sum()) < int((ids >= 0).sum())
+
+
+@pytest.mark.cuda
+def test_alpha_scan_kernel_operand_checks_and_counts(dev):
+    from repro_torch.core.build.prune import prune_in_chunks
+    from repro_torch.kernels.alpha_scan import alpha_scan, alpha_scan_cuda, \
+        alpha_scan_ref
+    data, nodes, ids, dists = _scan_inputs(300, 24, 2000, 40, "int", dev)
+    n0 = alpha_scan_cuda.launches
+    bad = [
+        (data.double(), nodes, ids, dists, 8, 1.0),
+        (data, nodes.long(), ids, dists, 8, 1.0),
+        (data, nodes, ids.long(), dists, 8, 1.0),
+        (data, nodes, ids, dists[:, :-1], 8, 1.0),
+        (data, nodes[:-1], ids, dists, 8, 1.0),
+        (data, nodes, ids, dists, 25, 1.0),                  # degree > L
+        (data, nodes, ids, dists, 0, 1.0),
+        (data, nodes, ids.t().contiguous().t(), dists, 8, 1.0),
+        (data.cpu(), nodes, ids, dists, 8, 1.0),
+        (data, nodes, ids, dists, 8, torch.ones(299, device=dev)),
+        (data, nodes, ids, dists, 8, torch.ones(300, device=dev).double()),
+    ]
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            alpha_scan_cuda(*args)
+    assert alpha_scan_cuda.launches == n0
+    keep, mask = alpha_scan_cuda(data, nodes[:0], ids[:0], dists[:0], 8, 1.0)
+    assert keep.shape == (0, 8) and mask.shape == (0, 24)
+    assert alpha_scan_cuda.launches == n0                    # B = 0
+    # the dispatch: a degree past L scans at L and pads with -1
+    keep, mask = alpha_scan(data, nodes, ids, dists, 30, 1.1)
+    want = alpha_scan_ref(data, nodes, ids, dists, 30, 1.1)
+    assert torch.equal(keep, want[0]) and torch.equal(mask, want[1])
+    assert alpha_scan_cuda.launches == n0 + 1
+    # one launch per chunk through prune_in_chunks
+    prune_in_chunks(data, nodes, ids, dists, 8, 128, 1.0)
+    assert alpha_scan_cuda.launches == n0 + 1 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["f32", "pq"])
+def test_compacted_search_equals_the_uncompacted_one_on_the_card(dev,
+                                                                 backend):
+    from repro_torch.core.beam_search import beam_search_compacted
+    from repro_torch.core.quant import make_codec
+    g = torch.Generator().manual_seed(11)
+    data = torch.randn((4000, 64), generator=g).to(dev)
+    _, nbrs = knn_graph(data, 16)
+    q = data[:300] + 0.05 * torch.randn((300, 64), generator=g).to(dev)
+    entry = torch.zeros(300, dtype=torch.int32, device=dev)
+    kw = dict(ef=32, k=10, with_stats=True)
+    if backend == "pq":
+        codec = make_codec("pq", 64, 16)
+        codec.fit(data, generator=torch.Generator().manual_seed(0))
+        kw.update(dist_backend="pq", codes=codec.encode(data).contiguous(),
+                  lut=codec.lut(q))
+    for patience in (None, 4):
+        plain = beam_search(q, data, nbrs, entry, hop_backend="fused",
+                            patience=patience, **kw)
+        log = []
+        got = beam_search_compacted(q, data, nbrs, entry, compact_every=8,
+                                    patience=patience, shape_log=log, **kw)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1],
+                                                             plain[1])
+        for a, b in zip(got[2][:3], plain[2][:3]):
+            assert torch.equal(a, b)
+        assert (got[2].wasted_hops <= plain[2].wasted_hops).all()
+        assert log[0] == 512 and all(a >= b for a, b in zip(log, log[1:]))

@@ -94,11 +94,14 @@ def test_unported_options_raise_and_default_device(ann_data):
     assert auto.build_stats.finish_backend == "device"
     _, ids = auto.search(_queries(ann_data), 10)
     assert ids.shape == (len(ann_data["queries"]), 10)
-    # patience is ported; the compacted driver is not
+    # the compacted search is ported too: a pq index with compact_every
+    # fits and serves through it
     compacted = IndexParams(**{**PARAMS, "dist_backend": "pq",
                                "compact_every": 4})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TunedGraphIndex(compacted, device="cpu").fit(data)
+    cidx = TunedGraphIndex(compacted, device="cpu").fit(data)
+    _, ids = cidx.search(_queries(ann_data), 10)
+    assert ids.shape == (len(ann_data["queries"]), 10)
+    assert cidx.last_compaction_shapes[0] == 64
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TunedGraphIndex(IndexParams(**PARAMS))
