@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device times of the port's l2topk, embedding_bag, topk_merge, lut_dist,
-gather_dist and beam_hop kernels, and of one whole fused search, at the
-main path's shapes, on one NVIDIA card, for any checkout of the port.
+gather_dist, beam_hop and alpha_scan kernels, and of one whole fused
+search, at the main path's shapes, on one NVIDIA card, for any checkout of
+the port.
 
     python3 benchmarks/torch_kernel_times.py [--src DIR] [--seed 0]
 
@@ -16,11 +17,12 @@ above 1e11 multiply-adds), ``device_ms`` 16 calls queued behind a device
 sleep (``chip_smoke.queued_ms``). Where the checkout routes l2topk by
 shape, each shape also gives its variant and the device ms of every other
 variant that takes it (``alt_device_ms``), the measurement behind the
-route. embedding_bag runs at serve_p99 (B = 512), recsys_ann's 1024 queries
-and serve_bulk (B = 262,144), L = 32, mean, over a 14,010,368 x 256 f32
-table (the two-tower config's): ``device_ms`` cycles 8 id sets against the
-50 MB L2, ``device_ms_l2_warm`` repeats one, ``library_device_ms`` is
-torch's ``embedding_bag`` on the same cycle.
+route; a shape the checkout's l2topk refuses (k past its lists) gives
+``refused``. embedding_bag runs at serve_p99 (B = 512), recsys_ann's 1024
+queries and serve_bulk (B = 262,144), L = 32, mean, over a 14,010,368 x
+256 f32 table (the two-tower config's): ``device_ms`` cycles 8 id sets
+against the 50 MB L2, ``device_ms_l2_warm`` repeats one,
+``library_device_ms`` is torch's ``embedding_bag`` on the same cycle.
 
 gather_dist runs over a 270,000 x 600 f32 base (the projected ann-laion
 base) at B = 1024, R = 32 with every id valid (the staged hop, seeding,
@@ -58,8 +60,18 @@ rows cycling 8 sets, and ``lut_dist`` over 1024 queries' (M, 256) LUTs and
 ... 32 (the staged hop): ``device_ms`` (queued) of the checkout's own
 call; where it routes the kernel (``route``), the variant it picks and the
 device ms of every variant (``variants``), the measurements behind both
-routes. The last lines are the card as
-nvidia-smi names it and one JSON object.
+routes.
+
+``alpha_scan`` runs at its three path shapes over a 270,000 x 600
+clustered base (``--seed``), pools of 2048 nodes from their exact nearest
+rows (``l2topk``; distance-ascending, the node itself first): the prune
+stage (L = 64, alpha 1.2), the interconnect's re-prune (L = 96, 70% of the
+64 reverse slots -1, alpha 1.2) and a reprune_family pass (the prune's
+kept 32 as pools, 9 x 2048 rows, one alpha per row from the tuner's
+grid 1.00 ... 1.40): ``device_ms`` (queued) of the checkout's own call and,
+where it routes the kernel (``route``), its variant and each variant's
+``variants`` device ms, with the kept count and a checksum of the masks.
+The last lines are the card as nvidia-smi names it and one JSON object.
 """
 from __future__ import annotations
 
@@ -292,6 +304,64 @@ def topk_lut_times(torch, g, n: int) -> dict:
     return out
 
 
+SCAN_NODES, SCAN_ALPHA = 2048, 1.2
+SCAN_GRID = tuple(round(1.0 + 0.05 * i, 2) for i in range(9))
+
+
+def alpha_scan_times(torch, g) -> dict:
+    """alpha_scan at the prune, interconnect and family shapes; see the
+    module docstring."""
+    import importlib
+    from chip_smoke import queued_ms
+    from repro_torch.data import clustered_vectors
+    from repro_torch.kernels.alpha_scan import alpha_scan_cuda
+    from repro_torch.kernels.gather_dist import gather_dist
+    from repro_torch.kernels.l2topk import l2topk_cuda
+    scan_mod = importlib.import_module(
+        "repro_torch.kernels.alpha_scan.alpha_scan")
+
+    n, d = BASE
+    data = clustered_vectors(g, n, d)
+    nodes = torch.randperm(n, generator=g, device="cuda")[:SCAN_NODES]
+    nodes = nodes.to(torch.int32)
+    near_d, near_i = l2topk_cuda(data[nodes.long()].contiguous(), data, 96)
+    inter_i = near_i.clone()
+    drop = torch.rand((SCAN_NODES, 64), generator=g, device="cuda") < 0.7
+    inter_i[:, 32:][drop] = -1
+    inter_d = torch.where(inter_i >= 0, near_d, float("inf"))
+    order = torch.sort(inter_d, dim=1, stable=True).indices
+    inter_i, inter_d = inter_i.gather(1, order), inter_d.gather(1, order)
+    prune_i, prune_d = near_i[:, :64].contiguous(), \
+        near_d[:, :64].contiguous()
+    kept, _ = alpha_scan_cuda(data, nodes, prune_i, prune_d, 32, SCAN_ALPHA)
+    fam_d = gather_dist(data[nodes.long()].contiguous(), data, kept)
+    order = torch.sort(fam_d, dim=1, stable=True).indices
+    fam_i, fam_d = kept.gather(1, order), fam_d.gather(1, order)
+    grid = torch.tensor(SCAN_GRID, device="cuda").repeat_interleave(
+        SCAN_NODES)
+    calls = {
+        "prune": (data, nodes, prune_i, prune_d, 32, SCAN_ALPHA),
+        "interconnect": (data, nodes, inter_i.contiguous(),
+                         inter_d.contiguous(), 32, SCAN_ALPHA),
+        "reprune_family": (data, nodes.repeat(9), fam_i.repeat(9, 1),
+                           fam_d.repeat(9, 1), 32, grid)}
+    routed = hasattr(scan_mod, "route")
+    out = {}
+    for name, args in calls.items():
+        keep, mask = alpha_scan_cuda(*args)
+        r = {"device_ms": queued_ms(torch, lambda: alpha_scan_cuda(*args)),
+             "kept": int((keep >= 0).sum()),
+             "mask_checksum": int((mask.long() * torch.arange(
+                 mask.shape[1], device="cuda")).sum())}
+        if routed:
+            b, l = args[2].shape
+            r["variant"] = scan_mod.route(32, l, d)
+            r["variants"] = {v: queued_ms(torch, lambda v=v: alpha_scan_cuda(
+                *args, variant=v)) for v in scan_mod.VARIANTS}
+        out[name] = r
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -319,6 +389,12 @@ def main() -> int:
         x = torch.randn((n, d), generator=g, device="cuda")
         qs = torch.randn((q, d), generator=g, device="cuda")
         reps, warm = (5, 1) if q * n * d > 1e11 else (25, 3)
+        try:
+            l2topk_cuda(qs, x, k)
+        except ValueError as exc:                # k past the checkout's
+            out["l2topk"][name] = {"refused": str(exc)}
+            del x, qs
+            continue
         r = {"ms": time_ms(lambda: l2topk_cuda(qs, x, k), reps, warm),
              "device_ms": queued_ms(torch, lambda: l2topk_cuda(qs, x, k))}
         if routed:
@@ -355,6 +431,8 @@ def main() -> int:
                     longs.next(), table, mode="mean"))}
         del sets, longs
     del table
+    torch.cuda.empty_cache()
+    out["alpha_scan"] = alpha_scan_times(torch, g)
     torch.cuda.empty_cache()
     out.update(topk_lut_times(torch, g, BASE[0]))
     out.update(hop_times(torch, g, args.seed))

@@ -24,14 +24,15 @@ Phases, each printing one JSON line:
                 plain versions bit for bit on float inputs too (lut_dist
                 also gives the 32-byte sectors its lookups touch);
                 then l2topk at each of its shapes on the path (AntiHub,
-                kNN, ground truth, k-means, medoid, entry-point select, PQ),
-                exact on tied integer inputs, within rtol 1e-5 on float
-                inputs, each through the variant L2TOPK_ROUTES names (tc:
-                3xTF32 on the tensor cores, tile: f32 SIMT tiles, small: the
-                database in shared memory), with its f32 and 3xTF32
-                bounds; and beam_hops, the hop loop kernel, over a whole
-                1024-query search (f32, and LUT mode at M = 300 and 600 on
-                the persistent variant, also timed on per_query), which
+                kNN, ground truth, k-means, medoid, entry-point select, PQ)
+                and at FlatIndex's k = 256 over the raw base, exact on tied
+                integer inputs, within rtol 1e-5 on float inputs, each
+                through the variant L2TOPK_ROUTES names (tc: 3xTF32 on the
+                tensor cores, tile: f32 SIMT tiles, small: the database in
+                shared memory, wide: k past the tile lists), with its f32
+                and 3xTF32 bounds; and beam_hops, the hop loop kernel, over a
+                whole 1024-query search (f32, and LUT mode at M = 300 and
+                600 on the persistent variant, also timed on per_query), which
                 must equal the host loop over the one-hop kernel in every
                 field and counter; a LUT shape route sends to per_query
                 (M = 2048) must too. gather_dist, topk_merge, lut_dist and
@@ -44,7 +45,8 @@ Phases, each printing one JSON line:
                 of its pool assembly must take the variant topk_merge's
                 route names (warp), and its two α-scans (the prune stage
                 and the interconnect's re-prune) one alpha_scan launch per
-                2048-row chunk each.
+                2048-row chunk each, all on the variant alpha_scan's
+                route names (staged).
   5. serve    — 1024 queries, k=10, ef=64, fused hop: QPS, recall@10 against
                 the exact top-10 in the raw space, the hop counters, and the
                 brute-force QPS (the l2topk kernel over the raw vectors);
@@ -110,8 +112,11 @@ Phases, each printing one JSON line:
                 chunk of the prune stage (B = 2048, L = 64), of the
                 interconnect's re-prune (L = 96) and of the family pass
                 (9 x 2048 rows, L = 32, one alpha per row); keep and mask
-                must equal the plain version's (on the card) exactly; ms,
-                device_ms, plain_ms and the bound of each first chunk.
+                of each variant (warp, staged) must equal the plain
+                version's (on the card) exactly; ms, device_ms and share of
+                bound of each variant (timed in turns), plain_ms and the
+                bound of each first chunk; the variant each shape routes
+                to, which every α-scan launch of the fits must have taken.
  11. recsys   — the two-tower retrieval model at its full config (a
                 14,010,368 x 256 f32 table, 14.35 GB; no width or vocabulary
                 cut) from --seed: recsys_score_step at B = 512 (median and
@@ -157,7 +162,11 @@ Phases, each printing one JSON line:
                 phase, where both variants must have launched; topk_merge
                 its launches per variant over fit + serve, tune and the
                 two-tower phases (and under "by_shape" each shape's), and
-                lut_dist per M over quantize + serve; "launches_fit_auto"
+                lut_dist per M over quantize + serve; alpha_scan its
+                launches per variant over the main fit
+                ("launches_by_variant") and each fit
+                ("launches_by_variant_fits"), and under "variants" each
+                variant's times; "launches_fit_auto"
                 is each kernel's count over phase 8b (topk_merge's also by
                 mode, l2topk's by variant). The one-hop entries
                 (beam_hop, beam_hop_lut; "on_main_path": false) must launch
@@ -259,10 +268,12 @@ RECSYS_KERNELS = ("embedding_bag", "gather_dist", "beam_hops", "topk_merge",
 # phase, but no longer on the main path (a fused search on the card runs
 # its whole loop in beam_hops / beam_hops_lut)
 OFF_PATH = ("beam_hop", "beam_hop_lut")
-# the l2topk variant each main-path shape must take (PERF.md names them)
+# the k of the wide l2topk call (FlatIndex.search over the raw base)
+FLAT_WIDE_K = 256
+# the l2topk variant each shape must take (PERF.md names them)
 L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
                  "kmeans": "tile", "medoid": "tile", "entry_select": "tile",
-                 "pq": "small"}
+                 "pq": "small", "flat_wide": "wide"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -901,8 +912,9 @@ def per_query_route_check(torch, seed: int) -> dict:
 
 
 def l2topk_shapes() -> dict:
-    """The l2topk calls of the main path, from the ann-laion config: name
-    -> (Q, N, D, k)."""
+    """The l2topk calls of the main path, from the ann-laion config, and a
+    FlatIndex search at wide k over the same raw base: name -> (Q, N, D,
+    k)."""
     from repro_torch.configs.ann_laion import ANN_SHAPES, CONFIG
     from repro_torch.core.quant import default_pq_m
     n, d0, d = CONFIG.n_database, CONFIG.dim, CONFIG.pca_dim
@@ -917,7 +929,29 @@ def l2topk_shapes() -> dict:
         "medoid": (1, n_kept, d, 1),
         "entry_select": (batch, CONFIG.ep_clusters, d, 1),
         "pq": (n_kept, 256, d // default_pq_m(d), 1),
+        # FlatIndex.search at k past the tile variant's lists: the one
+        # call here that is not on the main path
+        "flat_wide": (batch, n, d0, FLAT_WIDE_K),
     }
+
+
+def wide_ids_hold(torch, qs, x, gd, gi, chunk: int = 128) -> bool:
+    """At wide k a float near-tie inside the list is likely and the kernel
+    and the plain version round differently, so there the ids are held by
+    what they are: unique in each row, and each id's own distance
+    (recomputed by the plain formula) within rtol = atol = 1e-5 of the
+    distance returned beside it."""
+    from repro_torch.kernels.l2topk.ref import pairwise_sqdist
+    srt = torch.sort(gi, dim=1).values
+    if not bool((srt[:, 1:] != srt[:, :-1]).all()):
+        return False
+    for s in range(0, qs.shape[0], chunk):
+        ids = gi[s:s + chunk].long()
+        own = pairwise_sqdist(qs[s:s + chunk, None, :], x[ids]).squeeze(1)
+        ref = gd[s:s + chunk]
+        if not bool(((own - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()):
+            return False
+    return True
 
 
 def l2topk_kernel_phase(torch, gpu: str, seed: int) -> dict:
@@ -927,6 +961,8 @@ def l2topk_kernel_phase(torch, gpu: str, seed: int) -> dict:
     and ids equal on >= 99% of rows (the kernel sums each dot product in
     another order than cuBLAS). Each shape must take the variant
     L2TOPK_ROUTES names, and only that variant may count the launches.
+    At the wide shape (k = 256) float ids are held by wide_ids_hold
+    instead of row equality: near-ties inside 256 entries are common.
     Both are timed with CUDA events (ms: one call, host launch included;
     device_ms: queued_ms); the plain version is the route the main path took
     before this kernel (chunked torch.matmul + packed-key torch.topk), not a
@@ -973,8 +1009,9 @@ def l2topk_kernel_phase(torch, gpu: str, seed: int) -> dict:
             else:
                 err = (gd - wd).abs()
                 rows = float((gi == wi).all(1).float().mean())
-                if not bool((err <= 1e-5 + 1e-5 * wd.abs()).all()) \
-                        or rows < 0.99:
+                if not bool((err <= 1e-5 + 1e-5 * wd.abs()).all()) or (
+                        rows < 0.99 if variant != "wide"
+                        else not wide_ids_hold(torch, qs, x, gd, gi)):
                     raise AssertionError(
                         f"l2topk ({name}): dists beyond rtol 1e-5 or ids "
                         f"equal on {rows:.4f} of rows")
@@ -1184,6 +1221,7 @@ def fit_auto_phase(torch, data, queries, true_i, wrappers: dict,
     fit_s = time.perf_counter() - t
     fit_launches = {name: w.launches for name, w in wrappers.items()}
     by_mode = {m: dict(c) for m, c in wrappers["topk_merge"].by_mode.items()}
+    scan_by_variant = dict(wrappers["alpha_scan"].by_variant)
     reach_steps = propagate_reach.steps - steps0
     k, ef = CONFIG.k, CONFIG.ef_search
     index.search(queries, k, ef=ef)                              # warm
@@ -1197,6 +1235,7 @@ def fit_auto_phase(torch, data, queries, true_i, wrappers: dict,
     launches = {name: w.launches for name, w in wrappers.items()}
     launches["topk_merge_by_mode"] = by_mode
     launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
+    launches["alpha_scan_by_variant"] = scan_by_variant
     recall = recall_at_k(i_a.cpu(), true_i.cpu())
     serve_s = statistics.median(times)
     # the kNN table against the exact 32-NN of the same base (l2topk)
@@ -1305,6 +1344,8 @@ def tune_phase(torch, data, queries, wrappers: dict, seed: int) -> dict:
     launches["l2topk_by_variant"] = dict(wrappers["l2topk"].by_variant)
     launches["topk_merge_by_variant"] = dict(
         wrappers["topk_merge"].by_variant)
+    launches["alpha_scan_by_variant"] = dict(
+        wrappers["alpha_scan"].by_variant)
     builds = structural_build_count() - builds0
     trials = [dict(params=params, recall=r.recall, qps=r.qps,
                    build_seconds=r.build_seconds, cached=r.cached_build,
@@ -1422,11 +1463,11 @@ class ScanRecorder:
         self.calls, self.on = {}, set()
         ops.alpha_scan_cuda = self
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         key = (args[2].shape[1], isinstance(args[5], self.tensor))
         if key in self.on:
             self.calls[key] = (self.calls.get(key, (args,))[0], args)
-        return self.real(*args)
+        return self.real(*args, **kw)
 
 
 def scan_work(torch, data, node_ids, cand_ids, cand_dists, degree, alpha,
@@ -1459,58 +1500,89 @@ def scan_work(torch, data, node_ids, cand_ids, cand_dists, degree, alpha,
     return evals, int(torch.unique(cand_ids[cand_ids >= 0]).numel())
 
 
-def alpha_scan_kernel_phase(torch, calls: dict, gpu: str) -> dict:
+def alpha_scan_kernel_phase(torch, calls: dict, gpu: str,
+                            fit_by_variant: dict) -> dict:
     """alpha_scan at its three path shapes on the operands the fit and the
     tuner gave it (``ScanRecorder``): the first and the last chunk of
     fit_auto's prune stage and of its interconnect, and of the tuner's
-    reprune_family pass. The kernel must give its plain version's keep and
-    mask exactly (torch.equal; the plain version runs on the card, its
-    distances through gather_dist's kernel). Timed on each first chunk
-    (ms: one event-timed call; device_ms: queued_ms) beside the plain
-    version; the bound counts each input once (the distinct candidate rows,
-    D * 4 B each, the pools, the node ids, a per-row alpha, the outputs)
-    and the distances this data needs (3 D operations each, f32)."""
+    reprune_family pass. Each variant, forced, must give its plain
+    version's keep and mask exactly (torch.equal; the plain version runs on
+    the card, its distances through gather_dist's kernel). Each variant is
+    timed on each first chunk, in turns (warp, staged, staged, warp; ms:
+    one event-timed call; device_ms: queued_ms, the median of its two
+    turns), beside the plain version; the shape's top-level times are the
+    variant ``route`` gives it, which the fits' launches must all have
+    taken (``fit_by_variant``: the exact/host fit's, fit_auto's, tune's).
+    The bound counts each input once (the distinct candidate rows, D * 4 B
+    each, the pools, the node ids, a per-row alpha, the outputs) and the
+    distances this data needs (3 D operations each, f32), whatever a
+    variant computes."""
     from repro_torch.kernels.alpha_scan import alpha_scan_cuda, \
         alpha_scan_ref
+    from repro_torch.kernels.alpha_scan.alpha_scan import VARIANTS, route
+    from repro_torch.kernels.gather_dist.gather_dist import vec4_ok
 
-    by_shape = {}
+    by_shape, routed_all = {}, set()
     for name, key in SCAN_SHAPES.items():
         if key not in calls:
             raise AssertionError(f"alpha_scan: the {name} scan (L, per-row "
                                  f"alpha = {key}) never ran")
         for args in calls[key]:
-            keep, mask = alpha_scan_cuda(*args)
             want = alpha_scan_ref(*args)
-            if not (torch.equal(keep, want[0])
-                    and torch.equal(mask, want[1])):
-                raise AssertionError(f"alpha_scan differs from its plain "
-                                     f"version at the {name} shape")
+            for variant in VARIANTS:
+                keep, mask = alpha_scan_cuda(*args, variant=variant)
+                if not (torch.equal(keep, want[0])
+                        and torch.equal(mask, want[1])):
+                    raise AssertionError(f"alpha_scan ({variant}) differs "
+                                         f"from its plain version at the "
+                                         f"{name} shape")
         args = calls[key][0]
         data, node_ids, cand_ids, cand_dists, degree, alpha = args
-        ms = time_ms(lambda: alpha_scan_cuda(*args))
-        dev_ms = queued_ms(torch, lambda: alpha_scan_cuda(*args))
-        plain = time_ms(lambda: alpha_scan_ref(*args), reps=5, warmup=1)
-        evals, rows = scan_work(torch, data, node_ids, cand_ids, cand_dists,
-                                degree, alpha, alpha_scan_cuda(*args)[1])
         b, l = cand_ids.shape
         d = data.shape[1]
+        routed = route(degree, l, d, vec4_ok(d, data))
+        routed_all.add(routed)
+        evals, rows = scan_work(torch, data, node_ids, cand_ids, cand_dists,
+                                degree, alpha, alpha_scan_cuda(*args)[1])
         per_row = key[1]
         bmin, by = bound(rows * d * 4 + b * l * 9 + b * 4
                          + (b * 4 if per_row else 0) + b * degree * 4,
                          3 * evals * d, gpu)
+        turns = {v: [] for v in VARIANTS}
+        ones = {v: [] for v in VARIANTS}
+        for variant in VARIANTS + VARIANTS[::-1]:
+            run = (lambda v=variant: alpha_scan_cuda(*args, variant=v))
+            ones[variant].append(time_ms(run))
+            turns[variant].append(queued_ms(torch, run))
+        variants = {v: dict(ms=statistics.median(ones[v]),
+                            device_ms=statistics.median(turns[v]),
+                            device_ms_turns=turns[v],
+                            share_of_bound=bmin / statistics.median(
+                                turns[v])) for v in VARIANTS}
+        plain = time_ms(lambda: alpha_scan_ref(*args), reps=5, warmup=1)
+        top = variants[routed]
         by_shape[name] = dict(
-            ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bmin,
-            bound_by=by, share_of_bound=bmin / dev_ms, evals=evals,
-            distinct_rows=rows, kept=int(keep.ge(0).sum()),
-            shape=dict(b=b, l=l, degree=degree, d=d,
-                       per_row_alpha=per_row))
+            variant=routed, ms=top["ms"], device_ms=top["device_ms"],
+            plain_ms=plain, bound_ms=bmin, bound_by=by,
+            share_of_bound=top["share_of_bound"], evals=evals,
+            distinct_rows=rows, kept=int(alpha_scan_ref(*args)[0].ge(0)
+                                         .sum()),
+            variants=variants,
+            shape=dict(b=b, l=l, degree=degree, d=d, per_row_alpha=per_row))
+    for phase, counts in fit_by_variant.items():
+        launched = {v for v, c in counts.items() if c > 0}
+        if not launched <= routed_all or not launched:
+            raise AssertionError(f"alpha_scan: {phase}'s launches took "
+                                 f"{counts}, not the routed {routed_all}")
     top = by_shape["prune"]
     return dict(route="cuda", source="src/repro_torch/csrc/alpha_scan.cu",
                 replaces="src/repro/core/build/prune.py:66",
-                max_abs_err=0.0, ms=top["ms"], device_ms=top["device_ms"],
-                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-                bound_by=top["bound_by"],
+                max_abs_err=0.0, variant=top["variant"], ms=top["ms"],
+                device_ms=top["device_ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                 share_of_bound=top["share_of_bound"], library_ms=None,
+                variants=top["variants"],
+                launches_by_variant_fits=fit_by_variant,
                 by_shape=by_shape)
 
 
@@ -1985,6 +2057,7 @@ def main() -> int:
     fit_l2topk = l2topk_cuda.launches
     fit_by_variant = dict(l2topk_cuda.by_variant)
     fit_topk_by_variant = dict(topk_merge_cuda.by_variant)
+    fit_scan_by_variant = dict(alpha_scan_cuda.by_variant)
     nbrs = index.graph.neighbors
     reach = reachable_from(nbrs.cpu().numpy(), int(index.graph.medoid))
     degree_ok = bool(((nbrs >= 0).sum(1) <= params.graph_degree).all())
@@ -2125,8 +2198,11 @@ def main() -> int:
     tune_cli_phase(src)
 
     # 10b. alpha_scan on the pools fit_auto and the tuner gave it
-    kernels["alpha_scan"] = alpha_scan_kernel_phase(torch, recorder.calls,
-                                                    gpu)
+    kernels["alpha_scan"] = alpha_scan_kernel_phase(
+        torch, recorder.calls, gpu,
+        {"fit": fit_scan_by_variant,
+         "fit_auto": auto_launches["alpha_scan_by_variant"],
+         "tune": tune_launches["alpha_scan_by_variant"]})
     emit("alpha_scan", **kernels["alpha_scan"])
     recorder.calls.clear()          # the fits' pools and bases it held
     torch.cuda.empty_cache()
@@ -2193,6 +2269,8 @@ def main() -> int:
                 "topk_merge_by_mode"]
         if name == "lut_dist":
             entry["launches_by_variant"] = lut_dist_by_variant
+        if name == "alpha_scan":
+            entry["launches_by_variant"] = fit_scan_by_variant
         if name == "beam_hops_lut":
             entry["launches_by_variant"] = loop_by_variant
             entry["launches_by_variant_kernels_phase"] = checked_variants

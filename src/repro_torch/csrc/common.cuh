@@ -1,10 +1,11 @@
 // Device routines shared by the port's hand-written Hopper kernels.
 //
-// row_sqdist, and rows_sqdist_vec4 which reduces several rows the same way
-// with their loads in flight together, are the one squared-L2 reduction
-// that gather_dist.cu and beam_hop.cu both call, so the fused hop
-// (beam_hop) and the staged hop (gather_dist + a PyTorch merge) produce the
-// same bits on the card;
+// row_sqdist, and rows_sqdist_vec4 and sqdist_chunks which reduce several
+// rows the same way (with their loads in flight together, or from chunks
+// the caller holds), are the one squared-L2 reduction that gather_dist.cu,
+// beam_hop.cu and alpha_scan.cu call, so the fused hop (beam_hop) and the
+// staged hop (gather_dist + a PyTorch merge) produce the same bits on the
+// card, and the α-scan's kernels those of its plain loop over gather_dist;
 // lut_row_sum is its counterpart for quantized codes, shared by lut_dist.cu
 // and beam_hop.cu's LUT mode in the same way. The
 // sort helpers give the kernels that merge pools (beam_hop, topk_merge) an
@@ -74,14 +75,53 @@ __host__ __device__ __forceinline__ int lane_chunks(int d) {
   return ((d + 3) / 4 + 31) / 32;
 }
 
+// The arithmetic of row_sqdist on float4 chunks the caller already has at
+// hand, for kG rows of one query at once, by one warp: lane l adds its
+// chunks c = l, l + 32, ... of each row in order with the same
+// round-to-nearest subtract and fused multiply-add, and the lanes combine
+// by the same xor tree, so out[g] has row_sqdist's bits. qchunk(k) returns
+// the query's chunk lane + 32 k and xchunk(g, k) row g's (from registers or
+// shared memory, as the caller keeps them); neither is called for a chunk
+// at or past n_chunks. kK is the caller's lane_chunks(d) or more.
+template <int kK, int kG, class QChunk, class XChunk>
+__device__ __forceinline__ void sqdist_chunks(QChunk qchunk, XChunk xchunk,
+                                              int n_chunks,
+                                              float (&out)[kG]) {
+  const int lane = threadIdx.x & 31;
+  float acc[kG];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) acc[g] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    if (lane + 32 * k < n_chunks) {
+      const float4 a = qchunk(k);
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const float4 b = xchunk(g, k);
+        float t;
+        t = __fsub_rn(a.x, b.x); acc[g] = __fmaf_rn(t, t, acc[g]);
+        t = __fsub_rn(a.y, b.y); acc[g] = __fmaf_rn(t, t, acc[g]);
+        t = __fsub_rn(a.z, b.z); acc[g] = __fmaf_rn(t, t, acc[g]);
+        t = __fsub_rn(a.w, b.w); acc[g] = __fmaf_rn(t, t, acc[g]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+      acc[g] = __fadd_rn(acc[g], __shfl_xor_sync(kFullMask, acc[g], off));
+  }
+#pragma unroll
+  for (int g = 0; g < kG; ++g) out[g] = acc[g];
+}
+
 // row_sqdist over up to kG rows of one query at once, by one warp, float4
 // rows only (d % 4 == 0, 16-byte aligned). All cnt rows' loads are issued
 // before any row is reduced, kG * kK float4 per lane in flight instead of
-// row_sqdist's one; then each row is reduced exactly as row_sqdist reduces
-// it: lane l adds its chunks c = l, l + 32, ... in order with the same
-// round-to-nearest subtract and fused multiply-add, and the lanes combine by
-// the same xor tree. So out[g] has row_sqdist's bits, and every kernel that
-// scores rows through either function agrees with every other.
+// row_sqdist's one; then sqdist_chunks reduces them. So out[g] has
+// row_sqdist's bits, and every kernel that scores rows through either
+// function agrees with every other.
 //
 // kK is the caller's lane_chunks(d) or more; qchunk(k) returns the query's
 // chunk lane + 32 k (from registers or shared memory, as the caller keeps
@@ -103,32 +143,8 @@ __device__ __forceinline__ void rows_sqdist_vec4(QChunk qchunk,
                                           : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  float acc[kG];
-#pragma unroll
-  for (int g = 0; g < kG; ++g) acc[g] = 0.f;
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    if (lane + 32 * k < n_chunks) {
-      const float4 a = qchunk(k);
-#pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        const float4 b = x[g][k];
-        float t;
-        t = __fsub_rn(a.x, b.x); acc[g] = __fmaf_rn(t, t, acc[g]);
-        t = __fsub_rn(a.y, b.y); acc[g] = __fmaf_rn(t, t, acc[g]);
-        t = __fsub_rn(a.z, b.z); acc[g] = __fmaf_rn(t, t, acc[g]);
-        t = __fsub_rn(a.w, b.w); acc[g] = __fmaf_rn(t, t, acc[g]);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int g = 0; g < kG; ++g)
-      acc[g] = __fadd_rn(acc[g], __shfl_xor_sync(kFullMask, acc[g], off));
-  }
-#pragma unroll
-  for (int g = 0; g < kG; ++g) out[g] = acc[g];
+  sqdist_chunks<kK, kG>(qchunk, [&](int g, int k) { return x[g][k]; },
+                        n_chunks, out);
 }
 
 // Calls fn(std::integral_constant<int, kK>) with kK = kk for 1 <= kk <=

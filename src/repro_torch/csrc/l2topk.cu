@@ -17,7 +17,7 @@
 // are offered, nor on the tiling or the split. The norms are one lane-strided
 // FMA chain per lane and a fixed xor-shuffle tree (l2topk_norms_kernel).
 //
-// Three variants, picked by shape in the wrapper (kernels/l2topk/l2topk.py,
+// Four variants, picked by shape in the wrapper (kernels/l2topk/l2topk.py,
 // route), each launched and counted on its own:
 //
 // tile (SIMT, f32): the dot product of one (query, row) pair is one
@@ -32,7 +32,19 @@
 //   few that pass). Bound: operations, 2 Q N D at 67 TFLOP/s.
 //   Takes the shapes the others do not: the medoid (Q = 1, split over the
 //   database), k-means and entry-point assignment (N = 64 centroids), and
-//   k > 64.
+//   64 < k <= 128.
+//
+// wide (SIMT, f32): any k <= N, for k past the tile variant's 128-entry
+//   shared lists (FlatIndex.search and the exact kNN table at wide k). The
+//   tile variant's distance tiles (tile_distances, the same bits), but each
+//   query's running top-k is a sorted list of k keys in global memory; the
+//   candidates below its k-th key collect in a 128-key buffer per query in
+//   shared memory, and a full buffer is sorted (bitonic, one warp) and
+//   merged into the list (each key to its rank in the union; l2topk_wide_
+//   kernel). Split-N as for tile, with its own merge (l2topk_wide_merge_
+//   kernel). Bound: as tile, operations, 2 Q N D at 67 TFLOP/s; the merges
+//   add O(k) list traffic per buffer, which the L2 holds at the widths
+//   callers ask for.
 //
 // small (SIMT, f32): the whole database (N <= 256 rows of D <= 8) sits in
 //   shared memory. For k = 1 a thread owns four queries (each row read from
@@ -213,6 +225,118 @@ __device__ __forceinline__ unsigned long long dist_key(float qn, float xn,
   return ((unsigned long long)__float_as_uint(dist) << 32) | (unsigned)id;
 }
 
+// The (kBQ x kBN) distance tile of queries q0.. against database rows
+// t0.. (rows at or past n_end read as zeros) into s_tile, as the tile and
+// wide variants both compute it: each dot product one sequential FMA chain
+// over d = 0..D-1, in stages of kBK columns (query and row stages in shared
+// memory, transposed and padded, the next stage prefetched into registers,
+// a 4 x 8 register micro-tile per thread), then (qn + xn) - 2 dot clamped
+// at 0, -0.0 as +0.0. Starts and ends with a barrier: the previous tile's
+// readers of s_tile are done before its first stage is stored.
+__device__ __forceinline__ void tile_distances(
+    const float* __restrict__ q, const float* __restrict__ x,
+    const float* __restrict__ xn, const float (&qn_r)[kTM], int nq,
+    int n_end, int d, int q0, int t0, float* s_q, float* s_x,
+    float* s_tile) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  // this thread's share of a stage: element e = tid + 256 * i of a
+  // (rows x kBK) stage is row e / kBK, column e % kBK, so 16 neighbouring
+  // threads read 16 neighbouring floats of one row
+  const int ld_col = tid % kBK;
+  const int ld_row = tid / kBK;
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  float rq[kQLoads], rx[kXLoads];
+  auto load_stage = [&](int k0) {
+    const int col = k0 + ld_col;
+#pragma unroll
+    for (int i = 0; i < kQLoads; ++i) {
+      const int qi = q0 + ld_row + i * (kL2Threads / kBK);
+      rq[i] = (qi < nq && col < d) ? __ldg(q + (long long)qi * d + col)
+                                   : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kXLoads; ++i) {
+      const int xi = t0 + ld_row + i * (kL2Threads / kBK);
+      rx[i] = (xi < n_end && col < d) ? __ldg(x + (long long)xi * d + col)
+                                      : 0.f;
+    }
+  };
+  load_stage(0);
+  for (int k0 = 0; k0 < d; k0 += kBK) {
+    __syncthreads();                 // the last stage's readers are done
+#pragma unroll
+    for (int i = 0; i < kQLoads; ++i)
+      s_q[ld_col * kQS + ld_row + i * (kL2Threads / kBK)] = rq[i];
+#pragma unroll
+    for (int i = 0; i < kXLoads; ++i)
+      s_x[ld_col * kNS + ld_row + i * (kL2Threads / kBK)] = rx[i];
+    __syncthreads();
+    if (k0 + kBK < d) load_stage(k0 + kBK);   // in flight while we compute
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(s_q + kk * kQS + ty * kTM);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(s_x + kk * kNS + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(s_x + kk * kNS + 64 + tx * 4);
+      const float av[kTM] = {a.x, a.y, a.z, a.w};
+      const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w,
+                             b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j)
+          acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+    }
+  }
+
+  // distances into the shared tile (its previous readers finished before
+  // the stage barriers above)
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    const int col = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
+    const int xi = t0 + col;
+    const float xnj = xi < n_end ? __ldg(xn + xi) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      float dist = __fsub_rn(__fadd_rn(qn_r[i], xnj),
+                             __fmul_rn(2.f, acc[i][j]));
+      dist = __fadd_rn(fmaxf(dist, 0.f), 0.f);    // clamp; -0.0 -> +0.0
+      s_tile[(ty * kTM + i) * kNS + col] = dist;
+    }
+  }
+  __syncthreads();
+}
+
+// The packed key of column c of row r of the distance tile (kEmptyKey
+// past the split's last row).
+__device__ __forceinline__ unsigned long long tile_key(const float* s_tile,
+                                                       int r, int c, int cols,
+                                                       int t0) {
+  return c < cols ? ((unsigned long long)__float_as_uint(s_tile[r * kNS + c])
+                     << 32) | (unsigned)(t0 + c)
+                  : kEmptyKey;
+}
+
+// The query's norms for this thread's kTM rows of the query tile.
+__device__ __forceinline__ void tile_query_norms(const float* __restrict__ qn,
+                                                 int nq, int q0,
+                                                 float (&qn_r)[kTM]) {
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int qi = q0 + ty * kTM + i;
+    qn_r[i] = qi < nq ? qn[qi] : 0.f;
+  }
+}
+
 __global__ void __launch_bounds__(kL2Threads, 2)
 l2topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
               const float* __restrict__ qn, const float* __restrict__ xn,
@@ -228,108 +352,24 @@ l2topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kBQ;
   const int n_begin = blockIdx.y * tiles_per_split * kBN;
   const int n_end = min(n, n_begin + tiles_per_split * kBN);
 
   for (int e = tid; e < kBQ * k; e += kL2Threads) s_list[e] = kEmptyKey;
-
   float qn_r[kTM];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int qi = q0 + ty * kTM + i;
-    qn_r[i] = qi < nq ? qn[qi] : 0.f;
-  }
-  // this thread's share of a stage: element e = tid + 256 * i of a
-  // (rows x kBK) stage is row e / kBK, column e % kBK, so 16 neighbouring
-  // threads read 16 neighbouring floats of one row
-  const int ld_col = tid % kBK;
-  const int ld_row = tid / kBK;
+  tile_query_norms(qn, nq, q0, qn_r);
 
   for (int t0 = n_begin; t0 < n_end; t0 += kBN) {
-    float acc[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-    float rq[kQLoads], rx[kXLoads];
-    auto load_stage = [&](int k0) {
-      const int col = k0 + ld_col;
-#pragma unroll
-      for (int i = 0; i < kQLoads; ++i) {
-        const int qi = q0 + ld_row + i * (kL2Threads / kBK);
-        rq[i] = (qi < nq && col < d) ? __ldg(q + (long long)qi * d + col)
-                                     : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kXLoads; ++i) {
-        const int xi = t0 + ld_row + i * (kL2Threads / kBK);
-        rx[i] = (xi < n_end && col < d) ? __ldg(x + (long long)xi * d + col)
-                                        : 0.f;
-      }
-    };
-    load_stage(0);
-    for (int k0 = 0; k0 < d; k0 += kBK) {
-      __syncthreads();                 // the last stage's readers are done
-#pragma unroll
-      for (int i = 0; i < kQLoads; ++i)
-        s_q[ld_col * kQS + ld_row + i * (kL2Threads / kBK)] = rq[i];
-#pragma unroll
-      for (int i = 0; i < kXLoads; ++i)
-        s_x[ld_col * kNS + ld_row + i * (kL2Threads / kBK)] = rx[i];
-      __syncthreads();
-      if (k0 + kBK < d) load_stage(k0 + kBK);   // in flight while we compute
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(s_q + kk * kQS + ty * kTM);
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(s_x + kk * kNS + tx * 4);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(s_x + kk * kNS + 64 + tx * 4);
-        const float av[kTM] = {a.x, a.y, a.z, a.w};
-        const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w,
-                               b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j)
-            acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-      }
-    }
-
-    // distances into the shared tile (the selection of the previous tile
-    // finished before the stage barriers above)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-      const int xi = t0 + col;
-      const float xnj = xi < n_end ? __ldg(xn + xi) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        float dist = __fsub_rn(__fadd_rn(qn_r[i], xnj),
-                               __fmul_rn(2.f, acc[i][j]));
-        dist = __fadd_rn(fmaxf(dist, 0.f), 0.f);    // clamp; -0.0 -> +0.0
-        s_tile[(ty * kTM + i) * kNS + col] = dist;
-      }
-    }
-    __syncthreads();
-
+    tile_distances(q, x, xn, qn_r, nq, n_end, d, q0, t0, s_q, s_x, s_tile);
     // selection: warp w offers rows w, w + 8, ... of the tile
     const int cols = min(kBN, n_end - t0);
     for (int r = warp; r < kBQ; r += kL2Threads / 32) {
       if (q0 + r >= nq) break;
       unsigned long long* list = s_list + r * k;
       unsigned long long thr = list[k - 1];
-      for (int c = lane; c < kBN; c += 32) {
-        unsigned long long key = kEmptyKey;
-        if (c < cols)
-          key = ((unsigned long long)__float_as_uint(s_tile[r * kNS + c])
-                 << 32) | (unsigned)(t0 + c);
-        thr = warp_offer(list, k, key, thr);
-      }
+      for (int c = lane; c < kBN; c += 32)
+        thr = warp_offer(list, k, tile_key(s_tile, r, c, cols, t0), thr);
     }
   }
   __syncthreads();
@@ -347,6 +387,212 @@ l2topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
       }
     }
   }
+}
+
+// ----------------------------------------------------------------- wide
+// k above the tile variant's lists: each query's running list of k sorted
+// keys lives in global memory (lists: (splits, nq, k) keys, one list per
+// query and database split), and the candidates of each distance tile that
+// fall below the list's k-th key wait in a per-query buffer of kWideBuf
+// keys in shared memory. A full buffer (and, at the end, a non-empty one)
+// is sorted and merged into the list by its warp: every buffered key and
+// every list entry moves to its rank in the union, and what falls past k
+// drops out -- the reference's chunked algorithm (running best U chunk ->
+// top-k), with only the candidates below the running k-th key taking part.
+// The distances are the tile variant's (tile_distances), so the keys and
+// the result are the same; keys are unique, so the order in which they are
+// merged cannot change the result.
+constexpr int kWideBuf = 128;
+
+// Ascending bitonic sort of buf[0, kWideBuf) by one warp, after filling
+// buf[n, kWideBuf) with kEmptyKey.
+__device__ __forceinline__ void warp_sort_buf(unsigned long long* buf,
+                                              int n) {
+  const int lane = threadIdx.x & 31;
+  for (int i = n + lane; i < kWideBuf; i += 32) buf[i] = kEmptyKey;
+  __syncwarp();
+  for (int size = 2; size <= kWideBuf; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int p = lane; p < kWideBuf / 2; p += 32) {
+        const int i = 2 * (p & ~(stride - 1)) + (p & (stride - 1));
+        const unsigned long long a = buf[i], b = buf[i + stride];
+        if ((a > b) == ((i & size) == 0)) {
+          buf[i] = b;
+          buf[i + stride] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Entries of the ascending a[0, len) below key.
+__device__ __forceinline__ int rank_below(const unsigned long long* a,
+                                          int len, unsigned long long key) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// list (k ascending keys, global memory) <- the k smallest of list and
+// buf[0, m) (ascending, 1 <= m <= kWideBuf, shared memory), by one warp.
+// A list entry moves up by the number of buffered keys below it; the
+// chunks of 32 go from the top down, each read before any is written, so no
+// entry is overwritten before it is read (destinations rise with the
+// index), and the buffered keys are written last, at their ranks in the
+// old list plus their own index.
+__device__ void warp_merge_list(unsigned long long* list, int k,
+                                const unsigned long long* buf, int m) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long val[kWideBuf / 32];
+  int dst[kWideBuf / 32];
+#pragma unroll
+  for (int e = 0; e < kWideBuf / 32; ++e) {
+    const int i = lane + 32 * e;
+    val[e] = i < m ? buf[i] : kEmptyKey;
+    dst[e] = i < m ? i + rank_below(list, k, val[e]) : k;
+  }
+  const unsigned long long first = buf[0];
+  for (int c0 = (k - 1) & ~31; c0 >= 0; c0 -= 32) {
+    const int j = c0 + lane;
+    const unsigned long long v = j < k ? list[j] : 0ull;
+    const bool stays = j >= k || v < first;
+    if (__all_sync(kFullMask, stays)) break;   // and every lower entry
+    const int to = stays ? j : j + rank_below(buf, m, v);
+    __syncwarp();
+    if (!stays && to < k) list[to] = v;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < kWideBuf / 32; ++e)
+    if (dst[e] < k) list[dst[e]] = val[e];
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kL2Threads, 2)
+l2topk_wide_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                   const float* __restrict__ qn,
+                   const float* __restrict__ xn, int nq, int n, int d, int k,
+                   int tiles_per_split, unsigned long long* __restrict__ lists,
+                   float* __restrict__ out_d, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char l2_smem[];
+  float* s_q = reinterpret_cast<float*>(l2_smem);        // [kBK][kQS]
+  float* s_x = s_q + kBK * kQS;                           // [kBK][kNS]
+  float* s_tile = s_x + kBK * kNS;                        // [kBQ][kNS]
+  unsigned long long* s_buf = reinterpret_cast<unsigned long long*>(
+      s_tile + kBQ * kNS);                                // [kBQ][kWideBuf]
+  unsigned long long* s_thr = s_buf + kBQ * kWideBuf;     // [kBQ]
+  int* s_cnt = reinterpret_cast<int*>(s_thr + kBQ);       // [kBQ]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kBQ;
+  const int n_begin = blockIdx.y * tiles_per_split * kBN;
+  const int n_end = min(n, n_begin + tiles_per_split * kBN);
+  auto list_of = [&](int r) {
+    return lists + ((long long)blockIdx.y * nq + q0 + r) * k;
+  };
+  auto flush = [&](int r, int cnt) {
+    warp_sort_buf(s_buf + r * kWideBuf, cnt);
+    warp_merge_list(list_of(r), k, s_buf + r * kWideBuf, cnt);
+  };
+
+  // warp w owns rows w, w + 8, ...: their lists, buffers and thresholds
+  for (int r = warp; r < kBQ; r += kL2Threads / 32) {
+    if (q0 + r >= nq) break;
+    unsigned long long* list = list_of(r);
+    for (int i = lane; i < k; i += 32) list[i] = kEmptyKey;
+    if (lane == 0) {
+      s_thr[r] = kEmptyKey;
+      s_cnt[r] = 0;
+    }
+  }
+  float qn_r[kTM];
+  tile_query_norms(qn, nq, q0, qn_r);
+
+  for (int t0 = n_begin; t0 < n_end; t0 += kBN) {
+    tile_distances(q, x, xn, qn_r, nq, n_end, d, q0, t0, s_q, s_x, s_tile);
+    const int cols = min(kBN, n_end - t0);
+    for (int r = warp; r < kBQ; r += kL2Threads / 32) {
+      if (q0 + r >= nq) break;
+      unsigned long long* buf = s_buf + r * kWideBuf;
+      unsigned long long thr = s_thr[r];
+      int cnt = s_cnt[r];
+      for (int c = lane; c < kBN; c += 32) {
+        const unsigned long long key = tile_key(s_tile, r, c, cols, t0);
+        unsigned pass = __ballot_sync(kFullMask, key < thr);
+        if (cnt + __popc(pass) > kWideBuf) {      // uniform across the warp
+          flush(r, cnt);
+          cnt = 0;
+          thr = list_of(r)[k - 1];
+          pass = __ballot_sync(kFullMask, key < thr);
+        }
+        if (key < thr)
+          buf[cnt + __popc(pass & ((1u << lane) - 1u))] = key;
+        cnt += __popc(pass);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        s_thr[r] = thr;
+        s_cnt[r] = cnt;
+      }
+      __syncwarp();
+    }
+  }
+
+  for (int r = warp; r < kBQ; r += kL2Threads / 32) {
+    const int qi = q0 + r;
+    if (qi >= nq) break;
+    const int cnt = s_cnt[r];
+    if (cnt > 0) flush(r, cnt);
+    if (gridDim.y == 1) {
+      const unsigned long long* list = list_of(r);
+      for (int i = lane; i < k; i += 32)
+        write_key(list[i], out_d + (long long)qi * k + i,
+                  out_i + (long long)qi * k + i);
+    }
+  }
+}
+
+// The k smallest of the splits' sorted (splits, nq, k) wide lists, per
+// query, by one warp: split 0's list is the running list, and each other
+// split's keys below its k-th key (a prefix, the lists being sorted) are
+// merged into it kWideBuf at a time.
+__global__ void __launch_bounds__(kL2Threads)
+l2topk_wide_merge_kernel(unsigned long long* __restrict__ lists, int splits,
+                         int nq, int k, float* __restrict__ out_d,
+                         int* __restrict__ out_i) {
+  __shared__ unsigned long long bufs[kMergeWarps][kWideBuf];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qi = blockIdx.x * kMergeWarps + warp;
+  if (qi >= nq) return;
+  unsigned long long* buf = bufs[warp];
+  unsigned long long* list = lists + (long long)qi * k;
+  unsigned long long thr = list[k - 1];
+  for (int s = 1; s < splits; ++s) {
+    const unsigned long long* src = lists + ((long long)s * nq + qi) * k;
+    for (int c0 = 0; c0 < k; c0 += kWideBuf) {
+      int m = 0;
+#pragma unroll
+      for (int e = 0; e < kWideBuf / 32; ++e) {
+        const int i = c0 + lane + 32 * e;
+        const unsigned long long v = i < k ? src[i] : kEmptyKey;
+        buf[lane + 32 * e] = v;
+        m += __popc(__ballot_sync(kFullMask, v < thr));
+      }
+      __syncwarp();
+      if (m == 0) break;
+      warp_merge_list(list, k, buf, m);
+      thr = list[k - 1];
+      if (m < kWideBuf) break;        // the rest of this split is above
+    }
+  }
+  for (int i = lane; i < k; i += 32)
+    write_key(list[i], out_d + (long long)qi * k + i,
+              out_i + (long long)qi * k + i);
 }
 
 // The k smallest of the splits' sorted (splits, nq, k) key lists, per query.
@@ -786,6 +1032,21 @@ int l2topk_smem_bytes(int k) {
                (size_t)kBQ * k * sizeof(unsigned long long));
 }
 
+int wide_smem_bytes() {
+  return (int)((kBK * kQS + kBK * kNS + kBQ * kNS) * sizeof(float) +
+               (size_t)kBQ * (kWideBuf + 1) * sizeof(unsigned long long) +
+               (size_t)kBQ * sizeof(int));
+}
+
+// Lets kernel take more than 48 KB of dynamic shared memory when it needs.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
 int tc_smem_bytes(int stages, int k) {
   return 1024 + stages * kTcStageBytes + 2 * stages * 8 +
          kTcM * k * (int)sizeof(unsigned long long);
@@ -866,20 +1127,20 @@ void launch_small(const float* q, const float* x, int nq, int n, int d, int k,
 
 }  // namespace
 
-// Variants (kernels/l2topk/l2topk.py names them): 0 tile, 1 small, 2 tc.
-// queries (nq, d) and database (n, d) f32, contiguous; norms: nq + n floats
-// of scratch (tile, tc); split: 2 (nq + n) dp floats of scratch with dp = d
-// rounded up to 16 (tc); partial: (splits, nq, k) keys of scratch when
-// splits > 1. Launches 1 kernel (small), 2 (splits == 1) or 3; returns the
-// first CUDA error, -1 for arguments the variant does not take.
+// Variants (kernels/l2topk/l2topk.py names them): 0 tile, 1 small, 2 tc,
+// 3 wide. queries (nq, d) and database (n, d) f32, contiguous; norms: nq + n
+// floats of scratch (tile, tc, wide); split: 2 (nq + n) dp floats of
+// scratch with dp = d rounded up to 16 (tc); partial: (splits, nq, k) keys
+// of scratch when splits > 1, and always for wide (its running lists).
+// Launches 1 kernel (small), 2 (splits == 1) or 3; returns the first CUDA
+// error, -1 for arguments the variant does not take.
 extern "C" int l2topk_f32(const void* q, const void* x, void* norms,
                           void* split, void* partial, void* out_d,
                           void* out_i, int nq, int n, int d, int k,
                           int variant, int splits, int tiles_per_split,
                           void* stream) {
   using namespace repro_torch;
-  if (k < 1 || k > kMaxK || k > n || nq < 1 || n < 1 || d < 1 || splits < 1)
-    return -1;
+  if (k < 1 || k > n || nq < 1 || n < 1 || d < 1 || splits < 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const float* qf = (const float*)q;
   const float* xf = (const float*)x;
@@ -893,9 +1154,11 @@ extern "C" int l2topk_f32(const void* q, const void* x, void* norms,
       launch_small<8>(qf, xf, nq, n, d, k, (float*)out_d, (int*)out_i, s);
     return (int)cudaGetLastError();
   }
-  if (variant != 0 && variant != 2) return -1;
-  const bool tc = variant == 2;
+  if (variant < 0 || variant > 3) return -1;
+  const bool tc = variant == 2, wide = variant == 3;
+  if (variant == 0 && k > kMaxK) return -1;
   if (tc && (k > kTcMaxK || split == nullptr)) return -1;
+  if ((wide || splits > 1) && partial == nullptr) return -1;
   const int dp = (d + kTcK - 1) / kTcK * kTcK;
   const int warps = kL2Threads / 32;
   const long long rows = (long long)nq + n;
@@ -907,7 +1170,8 @@ extern "C" int l2topk_f32(const void* q, const void* x, void* norms,
 
   const float* qn = (const float*)norms;
   unsigned long long* part =
-      splits > 1 ? (unsigned long long*)partial : nullptr;
+      splits > 1 || wide ? (unsigned long long*)partial : nullptr;
+  const dim3 grid((unsigned)((nq + kBQ - 1) / kBQ), (unsigned)splits);
   if (tc) {
     CUtensorMap qmap, xmap;
     const float* qs = (const float*)split;
@@ -929,15 +1193,25 @@ extern "C" int l2topk_f32(const void* q, const void* x, void* norms,
                            tiles_per_split, part, (float*)out_d, (int*)out_i,
                            s);
     if (code != 0 || splits == 1) return code;
+  } else if (wide) {
+    const int smem = wide_smem_bytes();
+    err = allow_smem(l2topk_wide_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    l2topk_wide_kernel<<<grid, kL2Threads, smem, s>>>(
+        qf, xf, qn, qn + nq, nq, n, d, k, tiles_per_split, part,
+        (float*)out_d, (int*)out_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return (int)err;
+    l2topk_wide_merge_kernel<<<(unsigned)((nq + kMergeWarps - 1) /
+                                          kMergeWarps),
+                               kL2Threads, 0, s>>>(part, splits, nq, k,
+                                                   (float*)out_d,
+                                                   (int*)out_i);
+    return (int)cudaGetLastError();
   } else {
     const int smem = l2topk_smem_bytes(k);
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(l2topk_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 grid((unsigned)((nq + kBQ - 1) / kBQ), (unsigned)splits);
+    err = allow_smem(l2topk_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
     l2topk_kernel<<<grid, kL2Threads, smem, s>>>(
         qf, xf, qn, qn + nq, nq, n, d, k, tiles_per_split, part,
         (float*)out_d, (int*)out_i);

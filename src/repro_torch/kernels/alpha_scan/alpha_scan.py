@@ -1,17 +1,78 @@
-"""Launch wrapper of the CUDA ``alpha_scan`` kernel (``csrc/alpha_scan.cu``):
-one chunk's whole greedy α-RNG occlusion scan in one launch."""
+"""Launch wrapper of the CUDA ``alpha_scan`` kernels (``csrc/alpha_scan.cu``):
+one chunk's whole greedy α-RNG occlusion scan in one launch.
+
+Two variants compute the same function; ``route`` picks one by shape and
+each counts its own launches in ``alpha_scan_cuda.by_variant``
+(``alpha_scan_cuda.launches`` is their sum):
+
+- ``staged``: one warp per row, each candidate's row loaded while the one
+  before it is tested, the first ``staged_slots`` kept rows in the warp's
+  shared memory (float4 rows of D <= 1024 whose ``staged_slots`` is not
+  0).
+- ``warp``: one warp per row, the candidate and kept rows read through the
+  L2 as each test needs them, for the rest (any D, degree up to
+  ``MAX_DEGREE``).
+"""
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.gather_dist.gather_dist import vec4_ok
 
-# kept ids live in shared memory, one (degree,) list per warp of a block
-# (csrc kScanWarps = 4): 2048 ids keep a block at 32 KB
+# warp: kept ids live in shared memory, one (degree,) list per warp of a
+# block (csrc kScanWarps = 4): 2048 ids keep a block at 32 KB
 MAX_DEGREE = 2048
+VARIANTS = ("warp", "staged")       # the C entry point's variant codes
+# staged: csrc kStagedWarps (rows per block, a warp each) and
+# kStagedWarpsPerSm (the occupancy its kept-row slots are sized for); float4
+# rows of at most 4 * 32 * 8 floats
+STAGED_WARPS, STAGED_WARPS_PER_SM, STAGED_MAX_D = 4, 12, 1024
+
+
+def staged_warp_bytes(degree: int, l: int, d: int, slots: int) -> int:
+    """Shared memory of one warp of a staged block with ``slots`` kept-row
+    slots (csrc ``staged_warp_bytes``): the slots, the live candidates'
+    ids, positions and thresholds, the kept ids and their candidate
+    indices; 16-byte aligned."""
+    bytes_ = slots * d * 4 + 3 * l * 4 + 2 * degree * 4
+    return -(-bytes_ // 16) * 16
+
+
+def staged_slots(degree: int, l: int, d: int, per_sm: int = 233_472,
+                 reserved: int = 1024) -> int:
+    """The staged kernel's kept-row slots per warp (csrc ``staged_slots``):
+    the most, up to ``degree``, that let STAGED_WARPS_PER_SM warps share an
+    SM (``per_sm`` bytes of shared memory, ``reserved`` of them kept back
+    per block: an H100's); 0 if not one fits beside the warp's lists."""
+    per_block = per_sm // (STAGED_WARPS_PER_SM // STAGED_WARPS) - reserved
+    for s in range(degree, 0, -1):
+        if STAGED_WARPS * staged_warp_bytes(degree, l, d, s) <= per_block:
+            return s
+    return 0
+
+
+def route(degree: int, l: int, d: int, aligned: bool = True,
+          variant: Optional[str] = None) -> str:
+    """The variant a scan of ``degree`` kept rows over pools of ``l`` takes
+    on rows of ``d`` floats (``aligned``: 16-byte aligned rows). ``variant``
+    forces one; it must take the shape."""
+    staged = (aligned and d % 4 == 0 and d <= STAGED_MAX_D
+              and staged_slots(degree, l, d) > 0)
+    if variant is None:
+        return "staged" if staged else "warp"
+    if variant not in VARIANTS:
+        raise ValueError(f"alpha_scan_cuda: unknown variant {variant!r}; "
+                         f"expected one of {VARIANTS}")
+    if variant == "staged" and not staged:
+        raise ValueError(
+            f"alpha_scan_cuda: the staged variant takes float4 rows of D <= "
+            f"{STAGED_MAX_D} whose lists leave a kept-row slot per warp at "
+            f"{STAGED_WARPS_PER_SM} warps per SM; got degree={degree}, L={l}, "
+            f"D={d}, aligned={aligned}")
+    return variant
 
 
 def _check_operands(data, node_ids, cand_ids, cand_dists, degree, alpha):
@@ -53,12 +114,17 @@ def _check_operands(data, node_ids, cand_ids, cand_dists, degree, alpha):
 
 def alpha_scan_cuda(data: torch.Tensor, node_ids: torch.Tensor,
                     cand_ids: torch.Tensor, cand_dists: torch.Tensor,
-                    degree: int, alpha: Union[float, torch.Tensor]):
+                    degree: int, alpha: Union[float, torch.Tensor],
+                    variant: Optional[str] = None):
     """data (N, D) f32, node_ids (B,) int32, cand_ids (B, L) int32,
     cand_dists (B, L) f32, alpha a float or a (B,) f32 tensor -> (keep
-    (B, degree) int32, mask (B, L) bool), as ``ref.alpha_scan_ref``."""
+    (B, degree) int32, mask (B, L) bool), as ``ref.alpha_scan_ref``. The
+    variant is ``route``'s unless one is forced."""
     _check_operands(data, node_ids, cand_ids, cand_dists, degree, alpha)
     b, l = cand_ids.shape
+    n, d = data.shape
+    aligned = vec4_ok(d, data)
+    variant = route(degree, l, d, aligned, variant)
     dev = data.device
     keep = torch.empty((b, degree), dtype=torch.int32, device=dev)
     mask = torch.empty((b, l), dtype=torch.bool, device=dev)
@@ -67,15 +133,22 @@ def alpha_scan_cuda(data: torch.Tensor, node_ids: torch.Tensor,
     rows = alpha if isinstance(alpha, torch.Tensor) else None
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    n, d = data.shape
     code = lib.alpha_scan_f32(
         data.data_ptr(), node_ids.data_ptr(), cand_ids.data_ptr(),
         cand_dists.data_ptr(), None if rows is None else rows.data_ptr(),
         0.0 if rows is not None else float(alpha), keep.data_ptr(),
-        mask.data_ptr(), b, l, degree, n, d, int(vec4_ok(d, data)), stream)
-    cuda_lib.check(code, "alpha_scan_f32")
+        mask.data_ptr(), b, l, degree, n, d, int(aligned),
+        VARIANTS.index(variant), stream)
+    cuda_lib.check(code, f"alpha_scan_f32 ({variant})")
     alpha_scan_cuda.launches += 1
+    alpha_scan_cuda.by_variant[variant] += 1
     return keep, mask
 
 
-alpha_scan_cuda.launches = 0
+def reset_launches() -> None:
+    """Zero the total and every variant's launch count."""
+    alpha_scan_cuda.launches = 0
+    alpha_scan_cuda.by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()

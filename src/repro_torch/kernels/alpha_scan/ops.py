@@ -13,9 +13,10 @@ from repro_torch.kernels.alpha_scan.ref import alpha_scan_ref
 def alpha_scan(data: torch.Tensor, node_ids: torch.Tensor,
                cand_ids: torch.Tensor, cand_dists: torch.Tensor,
                degree: int, alpha: Union[float, torch.Tensor],
-               backend: Optional[str] = None):
+               backend: Optional[str] = None, variant: Optional[str] = None):
     """(keep (B, degree) int32, mask (B, L) bool) of the greedy α-RNG scan
-    (see ``ref.alpha_scan_ref``): the CUDA kernel for CUDA tensors, the
+    (see ``ref.alpha_scan_ref``): the CUDA kernel for CUDA tensors (the
+    variant ``alpha_scan.route`` picks, unless ``variant`` forces one), the
     plain version for CPU tensors.
 
     The kernel scans at ``min(degree, L)``: a row keeps at most L ids, so
@@ -30,7 +31,8 @@ def alpha_scan(data: torch.Tensor, node_ids: torch.Tensor,
     keep, mask = alpha_scan_cuda(
         data.contiguous(), node_ids.to(torch.int32).contiguous(),
         cand_ids.to(torch.int32).contiguous(),
-        cand_dists.to(torch.float32).contiguous(), run, alpha)
+        cand_dists.to(torch.float32).contiguous(), run, alpha,
+        variant=variant)
     if run < degree:
         keep = torch.nn.functional.pad(keep, (0, degree - run), value=-1)
     return keep, mask

@@ -1,6 +1,6 @@
 """Launch wrapper of the CUDA ``l2topk`` kernels (``csrc/l2topk.cu``).
 
-Three variants compute the same function; ``route`` picks one by shape,
+Four variants compute the same function; ``route`` picks one by shape,
 explicitly, and each counts its own launches in
 ``l2topk_cuda.by_variant`` (``l2topk_cuda.launches`` is their sum):
 
@@ -9,7 +9,10 @@ explicitly, and each counts its own launches in
 - ``tc``: 3xTF32 products on the tensor cores (wgmma), for many queries
   against a large database (AntiHub, the kNN graph, the ground truth).
 - ``tile``: f32 FMA tiles on the CUDA cores, for the rest (the medoid's one
-  query, the 64-centroid assignments, k > 64).
+  query, the 64-centroid assignments, 64 < k <= 128).
+- ``wide``: the tile variant's distances with each query's running top-k in
+  global memory, for any k <= N (k > 128: ``FlatIndex.search``, the exact
+  kNN table at wide k).
 """
 from __future__ import annotations
 
@@ -21,13 +24,16 @@ import torch
 from repro_torch.kernels import cuda_lib
 
 MAX_K = 128                  # the tile variant's list capacity
+# wide: at most this many scratch keys (splits x Q x k, 8 bytes each) for
+# its per-split running lists; fewer splits above it
+WIDE_SCRATCH_KEYS = 1 << 26
 BLOCK_Q, BLOCK_N = 64, 128   # the tile variant's query and database tiles
 TC_BLOCK_Q, TC_BLOCK_N = 128, 256   # the tc variant's
 TC_K = 16                    # tc: columns per stage; rows padded to it
 TC_MAX_K = 64                # tc: its per-row lists in shared memory
 TC_MIN_Q, TC_MIN_N, TC_MIN_D = 128, 1024, 32
 SMALL_MAX_N, SMALL_MAX_D, SMALL_MAX_K = 256, 8, 16
-VARIANTS = ("tile", "small", "tc")     # the C entry point's variant codes
+VARIANTS = ("tile", "small", "tc", "wide")   # the C entry point's codes
 
 
 class Plan(NamedTuple):
@@ -42,20 +48,25 @@ def _sm_count(device: torch.device) -> int:
 
 
 def split_plan(nq: int, n: int, sm_count: int, block_q: int = BLOCK_Q,
-               block_n: int = BLOCK_N, blocks_per_sm: int = 2):
+               block_n: int = BLOCK_N, blocks_per_sm: int = 2,
+               max_splits: Optional[int] = None):
     """(splits, tiles per split): as many database splits as keep the
     grid within one wave of ``blocks_per_sm`` blocks per SM (a second,
-    part-filled wave would idle most of the card), and no split left
-    empty."""
+    part-filled wave would idle most of the card), at most ``max_splits``,
+    and no split left empty."""
     q_tiles = -(-nq // block_q)
     n_tiles = -(-n // block_n)
     want = min(n_tiles, max(1, blocks_per_sm * sm_count // q_tiles))
+    if max_splits is not None:
+        want = max(1, min(want, max_splits))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
 
 
 def variant_for(nq: int, n: int, d: int, k: int) -> str:
     """The variant a (Q, N, D, k) call takes (k already cut to N)."""
+    if k > MAX_K:
+        return "wide"
     if n <= SMALL_MAX_N and d <= SMALL_MAX_D and k <= SMALL_MAX_K:
         return "small"
     if (k <= TC_MAX_K and nq >= TC_MIN_Q and n >= TC_MIN_N
@@ -82,8 +93,15 @@ def route(nq: int, n: int, d: int, k: int, sm_count: int,
     elif variant == "tc" and k > TC_MAX_K:
         raise ValueError(f"l2topk_cuda: the tc variant takes k <= "
                          f"{TC_MAX_K}; got k={k}")
+    elif variant == "tile" and k > MAX_K:
+        raise ValueError(f"l2topk_cuda: the tile variant takes k <= "
+                         f"{MAX_K}; got k={k}")
     if variant == "small":
         return Plan(variant, 1, 1)
+    if variant == "wide":   # about k rows or more per split's k-key list
+        return Plan(variant, *split_plan(
+            nq, n, sm_count,
+            max_splits=min(n // k, WIDE_SCRATCH_KEYS // (nq * k))))
     if variant == "tc":            # one block per SM (its shared memory)
         return Plan(variant, *split_plan(nq, n, sm_count, TC_BLOCK_Q,
                                          TC_BLOCK_N, blocks_per_sm=1))
@@ -108,9 +126,6 @@ def _check_operands(queries, database, k):
         raise ValueError("l2topk_cuda: operands must be contiguous")
     if k < 1:
         raise ValueError(f"l2topk_cuda: k={k} must be >= 1")
-    if min(k, database.shape[0]) > MAX_K:
-        raise ValueError(f"l2topk_cuda: k={k} exceeds the kernel's "
-                         f"{MAX_K}-entry lists")
 
 
 def l2topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int,
@@ -135,7 +150,7 @@ def l2topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int,
         dp = -(-d // TC_K) * TC_K
         split = torch.empty(2 * (nq + n) * dp, dtype=torch.float32,
                             device=dev)
-    if plan.splits > 1:
+    if plan.splits > 1 or plan.variant == "wide":   # wide: its lists
         partial = torch.empty((plan.splits, nq, k), dtype=torch.int64,
                               device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
@@ -146,8 +161,8 @@ def l2topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int,
         VARIANTS.index(plan.variant), plan.splits, plan.tiles_per_split,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(code, f"l2topk_f32 ({plan.variant})")
-    # the small kernel alone; else the norms pass, the tile or tc kernel,
-    # and the merge when the database is split
+    # the small kernel alone; else the norms pass, the tile, tc or wide
+    # kernel, and the merge when the database is split
     count = 1 if plan.variant == "small" else (3 if plan.splits > 1 else 2)
     l2topk_cuda.launches += count
     l2topk_cuda.by_variant[plan.variant] += count

@@ -460,14 +460,102 @@ def test_l2topk_forced_variant_must_take_the_shape(dev):
 
 @pytest.mark.cuda
 def test_l2topk_kernel_refuses_k_over_128(dev):
+    """Only the wide variant takes k > 128: forcing tile, tc or small
+    there raises, and the route sends such k to wide (no fallback)."""
     from repro_torch.core.distances import l2_topk
     from repro_torch.kernels.l2topk import l2topk_cuda
     x = torch.zeros((500, 8), device=dev)
-    with pytest.raises(ValueError, match="128"):
-        l2topk_cuda(x[:4], x, 129)
-    with pytest.raises(ValueError, match="128"):
-        l2_topk(x[:4], x, 200)          # no fallback to the plain version
+    for variant in ("tile", "tc", "small"):
+        with pytest.raises(ValueError, match=f"{variant} variant"):
+            l2topk_cuda(x[:4], x, 129, variant=variant)
+    before = l2topk_cuda.by_variant["wide"]
+    assert l2_topk(x[:4], x, 200)[1].shape == (4, 200)
+    assert l2topk_cuda.by_variant["wide"] > before
+    # k is cut to N first: 129 over 100 rows is a tile call
+    before = dict(l2topk_cuda.by_variant)
     assert l2topk_cuda(x[:4], x[:100], 129)[1].shape == (4, 100)
+    assert l2topk_cuda.by_variant["tile"] > before["tile"]
+    assert l2topk_cuda.by_variant["wide"] == before["wide"]
+
+
+def _l2topk_wide_agrees(got, want, qs, x, kind):
+    """At wide k a float near-tie inside the list is likely, and the two
+    sums round differently, so on float data the ids are held by what they
+    are: unique per row, each one's own distance (recomputed by the plain
+    formula) within rtol 1e-5 of the distance returned beside it, and the
+    ascending dists within rtol 1e-5 of the plain version's. Integer data:
+    exact, ties included."""
+    from repro_torch.kernels.l2topk.ref import pairwise_sqdist
+    (gd, gi), (wd, wi) = got, want
+    assert gi.shape == wi.shape and gi.dtype == torch.int32
+    if kind == "int":
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+        return
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+    srt = torch.sort(gi, dim=1).values
+    assert bool((srt[:, 1:] != srt[:, :-1]).all())
+    own = pairwise_sqdist(qs[:, None, :], x[gi.long()]).squeeze(1)
+    torch.testing.assert_close(own, gd, rtol=1e-5, atol=1e-5)
+
+
+# (Q, N, D) for the wide variant: N not a multiple of the 128-row tile,
+# one query split over the whole card, a query tile past its last row
+WIDE_SHAPES = [(70, 3001, 64), (1, 20000, 600), (130, 1500, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("q,n,d", WIDE_SHAPES)
+@pytest.mark.parametrize("k", [129, 256, 1000, None])       # None: k = N
+def test_l2topk_wide_variant_equals_the_plain_version(dev, kind, q, n, d,
+                                                      k):
+    """k > 128 routes to wide, one norms pass, the kernel and (split) the
+    merge, all counted under wide; ids and dist bits equal the plain
+    version's on tied integer data, dists to rtol 1e-5 on float data."""
+    from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+    from repro_torch.kernels.l2topk.l2topk import route
+    k = n if k is None else k
+    g = torch.Generator().manual_seed(q + n + d + k)
+    qs, x = _l2topk_inputs(g, q, n, d, kind, dev)
+    before = dict(l2topk_cuda.by_variant)
+    got = l2topk_cuda(qs, x, k)
+    plan = route(q, n, d, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan.variant == "wide"
+    assert {v: c - before[v] for v, c in l2topk_cuda.by_variant.items()} \
+        == {v: (3 if plan.splits > 1 else 2) if v == "wide" else 0
+            for v in before}
+    _l2topk_wide_agrees(got, l2_topk_ref(qs, x, k), qs, x, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("shape", [(5, 3, 16, 3), (77, 1000, 64, 10),
+                                   (300, 5000, 600, 33), (1, 700, 8, 128)])
+def test_l2topk_wide_variant_forced_at_small_k(dev, kind, shape):
+    from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
+    q, n, d, k = shape
+    g = torch.Generator().manual_seed(q * n + d + k)
+    qs, x = _l2topk_inputs(g, q, n, d, kind, dev)
+    before = l2topk_cuda.by_variant["wide"]
+    got = l2topk_cuda(qs, x, k, variant="wide")
+    assert l2topk_cuda.by_variant["wide"] > before
+    _l2topk_wide_agrees(got, l2_topk_ref(qs, x, k), qs, x, kind)
+
+
+@pytest.mark.cuda
+def test_flat_index_search_at_wide_k_on_the_card(dev):
+    from repro_torch.core.flat import FlatIndex
+    from repro_torch.kernels.l2topk import l2topk_cuda
+    g = torch.Generator().manual_seed(21)
+    data = torch.randint(-2, 3, (6000, 48), generator=g).float()
+    q = torch.randint(-2, 3, (40, 48), generator=g).float()
+    before = l2topk_cuda.by_variant["wide"]
+    gd, gi = FlatIndex(data.to(dev)).search(q.to(dev), 200)
+    assert l2topk_cuda.by_variant["wide"] > before
+    wd, wi = FlatIndex(data).search(q, 200)
+    assert gi.shape == (40, 200)
+    assert torch.equal(gi.cpu(), wi) and torch.equal(gd.cpu(), wd)
 
 
 @pytest.mark.cuda
@@ -1115,6 +1203,83 @@ def test_alpha_scan_kernel_operand_checks_and_counts(dev):
     # one launch per chunk through prune_in_chunks
     prune_in_chunks(data, nodes, ids, dists, 8, 128, 1.0)
     assert alpha_scan_cuda.launches == n0 + 1 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("b,l,degree,d,per_row", SCAN_SHAPES[:3],
+                         ids=["prune", "interconnect", "family"])
+@pytest.mark.parametrize("variant", ["warp", "staged"])
+def test_alpha_scan_variants_equal_the_plain_version(dev, variant, b, l,
+                                                     degree, d, per_row,
+                                                     kind):
+    """Each variant, forced, at the three path shapes: keep and mask equal
+    to the plain version's (torch.equal), one launch per call counted under
+    that variant alone; the route gives staged at these shapes."""
+    from repro_torch.kernels.alpha_scan import alpha_scan_cuda, \
+        alpha_scan_ref
+    from repro_torch.kernels.alpha_scan.alpha_scan import route
+    assert route(degree, l, d) == "staged"
+    data, nodes, ids, dists = _scan_inputs(b // 9 if per_row else b, l,
+                                           6000, d, kind, dev, seed=3)
+    if per_row:
+        nodes, ids, dists = nodes.repeat(9), ids.repeat(9, 1), \
+            dists.repeat(9, 1)
+        alpha = torch.linspace(1.0, 1.4, 9, device=dev).repeat_interleave(
+            b // 9)
+    else:
+        alpha = 1.2
+    before = dict(alpha_scan_cuda.by_variant)
+    keep, mask = alpha_scan_cuda(data, nodes, ids, dists, degree, alpha,
+                                 variant=variant)
+    assert {v: c - before[v] for v, c in alpha_scan_cuda.by_variant.items()} \
+        == {v: int(v == variant) for v in before}
+    want_keep, want_mask = alpha_scan_ref(data, nodes, ids, dists, degree,
+                                          alpha)
+    assert torch.equal(keep, want_keep) and torch.equal(mask, want_mask)
+    assert 0 < int(mask.sum()) < int((ids >= 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,l,d", [(1, 8, 4), (3, 40, 8), (63, 200, 300),
+                                        (32, 600, 600), (7, 9, 1024)])
+def test_alpha_scan_staged_variant_at_its_edges(dev, degree, l, d):
+    """The staged kernel on shapes the path does not give it: degree 1,
+    degrees past its kept-row slots (63 over 13 slots at D = 300, 32 over 4
+    with pools of 600), the widest rows it takes."""
+    from repro_torch.kernels.alpha_scan import alpha_scan_cuda, \
+        alpha_scan_ref
+    data, nodes, ids, dists = _scan_inputs(97, l, 3000, d, "float", dev,
+                                           seed=l + d)
+    for alpha in (1.0, 1.3):
+        got = alpha_scan_cuda(data, nodes, ids, dists, degree, alpha,
+                              variant="staged")
+        want = alpha_scan_ref(data, nodes, ids, dists, degree, alpha)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_alpha_scan_route_and_forced_variants_on_the_card(dev):
+    from repro_torch.kernels.alpha_scan import alpha_scan, alpha_scan_cuda, \
+        alpha_scan_ref
+    data, nodes, ids, dists = _scan_inputs(64, 40, 2000, 37, "int", dev)
+    with pytest.raises(ValueError, match="staged variant"):
+        alpha_scan_cuda(data, nodes, ids, dists, 16, 1.0, variant="staged")
+    with pytest.raises(ValueError, match="unknown variant"):
+        alpha_scan_cuda(data, nodes, ids, dists, 16, 1.0, variant="block")
+    before = dict(alpha_scan_cuda.by_variant)
+    keep, mask = alpha_scan(data, nodes, ids, dists, 16, 1.0)   # D = 37
+    assert alpha_scan_cuda.by_variant["warp"] == before["warp"] + 1
+    want = alpha_scan_ref(data, nodes, ids, dists, 16, 1.0)
+    assert torch.equal(keep, want[0]) and torch.equal(mask, want[1])
+    # the dispatch passes a forced variant through
+    data4 = data[:, :36].contiguous()
+    keep, mask = alpha_scan(data4, nodes, ids, dists, 16, 1.0,
+                            variant="warp")
+    assert alpha_scan_cuda.by_variant["warp"] == before["warp"] + 2
+    assert alpha_scan_cuda.by_variant["staged"] == before["staged"]
+    want = alpha_scan_ref(data4, nodes, ids, dists, 16, 1.0)
+    assert torch.equal(keep, want[0]) and torch.equal(mask, want[1])
 
 
 @pytest.mark.cuda

@@ -19,10 +19,13 @@
    oracle's rule; the test pins the Pallas behaviour so the quirk stays
    written down.
 3. Dispatch: a CPU tensor runs the plain version, ``backend="cuda"`` on a
-   CPU tensor raises, and the CUDA wrapper refuses CPU tensors and k > 128.
+   CPU tensor raises, and the CUDA wrapper refuses CPU tensors. Wide k
+   (above the tile variant's 128-entry lists, the card's ``wide`` variant)
+   equals the reference's oracle, ties included.
 4. ``FlatIndex`` and ``recall_at_k`` against the reference's.
 5. The CUDA wrapper's routing (a pure function of the shape): the main
-   path's seven shapes take the variants ``chip_smoke.py`` and PERF.md name,
+   path's seven shapes and FlatIndex's wide k take the variants
+   ``chip_smoke.py`` and PERF.md name,
    forced variants refuse shapes they cannot take, and every split plan
    fills one wave with no empty split.
 6. The tensor-core variant's arithmetic, emulated in plain PyTorch: each
@@ -45,6 +48,7 @@ from repro.core.distances import nearest as jax_nearest
 from repro.core.flat import FlatIndex as JaxFlatIndex
 from repro.core.flat import recall_at_k as jax_recall_at_k
 from repro.kernels.l2topk.l2topk import l2_topk_pallas
+from repro.kernels.l2topk.ref import l2_topk_ref as jax_l2_topk_ref
 from repro_torch.core.distances import l2_topk, nearest
 from repro_torch.core.flat import FlatIndex, recall_at_k
 from repro_torch.kernels.l2topk import l2_topk_ref, l2topk_cuda
@@ -114,6 +118,28 @@ def test_plain_l2_topk_float_data(q, n, d, k, chunk):
     jd, ji = _ref(qs, x, k, chunk=chunk)
     np.testing.assert_allclose(pd, jd, rtol=1e-5, atol=1e-5)
     assert (pi == ji).all(1).mean() >= 0.99
+
+
+@pytest.mark.parametrize("q,n,d,chunk", [(9, 700, 6, 256), (3, 300, 16, 128)])
+@pytest.mark.parametrize("k", [129, 256, None])              # None: k = N
+def test_wide_k_equals_the_reference_oracle_on_integer_ties(q, n, d, chunk,
+                                                            k):
+    """k past the tile variant's 128-entry lists (what the card's wide
+    variant answers): the port's l2_topk on the CPU equals the reference's
+    l2_topk_ref, ids and dists exact on integer data, tied distances in
+    ascending id order, across chunk boundaries."""
+    k = n if k is None else k
+    rng = np.random.default_rng(n + d + k)
+    x, qs = _ints(rng, (n, d), -1, 1), _ints(rng, (q, d), -1, 1)
+    pd, pi = _port(qs, x, k, chunk=chunk)
+    jd, ji = jax_l2_topk_ref(jnp.asarray(qs), jnp.asarray(x), k, chunk=chunk)
+    assert pi.shape == (q, min(k, n))
+    np.testing.assert_array_equal(pi, np.asarray(ji))
+    np.testing.assert_array_equal(pd, np.asarray(jd))
+    tied = np.diff(pd, axis=1) == 0
+    assert tied.any() and (np.diff(pi, axis=1)[tied] > 0).all()
+    if k == n:
+        assert (np.sort(pi, axis=1) == np.arange(n)).all()
 
 
 def test_nearest_equals_reference():
