@@ -93,7 +93,16 @@ Phases, each printing one JSON line:
                 baseline's, less the launches of its per-position α-scan
                 loop (one per candidate position of each chunk: 283 of
                 21,403).
-  9. tune     — the paper's tuner on the same data and queries: an
+  8c. snapshot — run right after phase 8's pq search: save_index
+                writes the exact/host index (its f32 copy) and its
+                pq-quantized self to a temporary directory, load_index
+                reads each back on the card (checksums verified,
+                validate_index run); ids and distance bits over the 1024
+                queries must equal the in-memory index's; snapshot
+                bytes, save and load-and-validate seconds beside the fit's.
+                A stepped directory whose newest step has a flipped byte
+                must load the step before it (a small IVF index).
+ 9. tune     — the paper's tuner on the same data and queries: an
                 AnnObjective (base: the config, graph_degree 32) with a TPE
                 study of 8 trials over default_space's rebuild-free knobs
                 (graph_degree, alpha, ep_clusters, ef_search, hop_backend,
@@ -117,6 +126,25 @@ Phases, each printing one JSON line:
                 bound of each variant (timed in turns), plain_ms and the
                 bound of each first chunk; the variant each shape routes
                 to, which every α-scan launch of the fits must have taken.
+10c. factory — the paper's Fig. 1 through the unified index API
+                (build_index) on the phase-4 data and queries:
+                FACTORY_SPECS (Flat, NSG24,EP1, IVF128,Flat at nprobe 8,
+                PQ16, IVFPQ128x16 at nprobe 8) at 300k x 768 and
+                HNSW16,Flat at ef 64 on the first HNSW_CUT = 5,000 rows
+                ("cut"; its build is a host insert): fit seconds,
+                recall@10, QPS (median of 7 batches of 1024), memory_bytes,
+                device-busy share and each kernel's launches over one
+                search; each family's search must launch its kernel
+                (FAMILY_KERNEL) and reach its FACTORY_RECALL_FLOOR (Flat
+                0.999, the others about a point under their readings); the
+                first gather_dist, lut_dist and l2topk call of the IVF, PQ
+                and IVF-PQ searches (FAMILY_CHECKED: the query chunk's
+                probed ids, the ADC scan's first chunk, the centroid probe)
+                runs again through its wrapper and its plain version on the
+                same operands and must agree (factory_kernel_check); PQ16's
+                ADC top-10, and IVFPQ128x16's with every list probed, must
+                agree with the exact top-10 over the index's own
+                reconstructions (factory_adc_check).
  11. recsys   — the two-tower retrieval model at its full config (a
                 14,010,368 x 256 f32 table, 14.35 GB; no width or vocabulary
                 cut) from --seed: recsys_score_step at B = 512 (median and
@@ -133,6 +161,15 @@ Phases, each printing one JSON line:
                 recall@10 against FlatIndex and QPS.
  13. recsys_cli — python -m repro_torch.launch.serve --arch
                 two-tower-retrieval must exit 0 and print its line.
+13b. serve_cli — python -m repro_torch.launch.serve --arch ann-laion with
+                its defaults (bucketed, micro-batched), with --spec
+                IVF64,Flat --buckets off --snapshot DIR, and with --restore
+                DIR (no build; the same recall), then python -m
+                repro_torch.launch.tune --spec IVF64,Flat; each line parsed,
+                each recall@10 above its SERVE_CLI_RUNS floor (about a point
+                under its reading); a launcher that prints a "resilience:"
+                line (a failed ticket, a failed flush or a retry) fails the
+                phase. new_phases gives 8c, 10c and 13b's wall seconds.
  14. embedding_bag — the kernel against its plain version on small tables
                 (f32 and bf16, D in {8, 18, 256}, both combiners, no, integer
                 and float weights, and a weighted sum on a float32 midpoint:
@@ -168,7 +205,8 @@ Phases, each printing one JSON line:
                 ("launches_by_variant_fits"), and under "variants" each
                 variant's times; "launches_fit_auto"
                 is each kernel's count over phase 8b (topk_merge's also by
-                mode, l2topk's by variant). The one-hop entries
+                mode, l2topk's by variant), "launches_factory" over phase
+                10c (every fit and one search per family). The one-hop entries
                 (beam_hop, beam_hop_lut; "on_main_path": false) must launch
                 no time on the main path: the fused search runs beam_hops.
 
@@ -270,6 +308,53 @@ RECSYS_KERNELS = ("embedding_bag", "gather_dist", "beam_hops", "topk_merge",
 OFF_PATH = ("beam_hop", "beam_hop_lut")
 # the k of the wide l2topk call (FlatIndex.search over the raw base)
 FLAT_WIDE_K = 256
+# the factory phase: the paper's Fig. 1 specs and SearchParams
+# (benchmarks/fig1_index_comparison.py), plus IVF-PQ, built through
+# build_index on the ann-laion data; the kernel each family's search must
+# launch; the graph families' recall floor (the serve phase's)
+FACTORY_SPECS = (("Flat", {}), ("NSG24,EP1", {"ef_search": 64}),
+                 ("IVF128,Flat", {"nprobe": 8}), ("PQ16", {}),
+                 ("IVFPQ128x16", {"nprobe": 8}))
+HNSW_SPEC, HNSW_PARAMS = "HNSW16,Flat", {"ef_search": 64}
+FAMILY_KERNEL = {"Flat": "l2topk", "NSG": "beam_hops", "IVF": "gather_dist",
+                 "PQ": "lut_dist", "IVFPQ": "lut_dist", "HNSW": "beam_hops"}
+# each spec's recall@10 floor: Flat's exactness, else about one point
+# under its reading on an NVIDIA H100 80GB HBM3 at --seed 0 (the same in
+# every run: NSG24,EP1 0.93555, IVF128,Flat 0.98945, PQ16 0.01934,
+# IVFPQ128x16 0.14063, HNSW16,Flat at 5k 0.99756); the graph families
+# never below the serve phase's 0.80
+FACTORY_RECALL_FLOOR = {"Flat": 0.999, "NSG24,EP1": 0.92, "IVF128,Flat": 0.98,
+                        "PQ16": 0.015, "IVFPQ128x16": 0.13,
+                        "HNSW16,Flat": 0.99}
+# the kernels whose first call in a family's search is held against its
+# plain version on the same operands (factory_kernel_check)
+FAMILY_CHECKED = {"IVF": ("l2topk", "gather_dist"), "PQ": ("lut_dist",),
+                  "IVFPQ": ("l2topk", "lut_dist")}
+# HNSW's build is the reference's sequential host insert; it runs on the
+# first HNSW_CUT rows, fixed so that runs compare. A 10k build took 83.7 s
+# on the card's host in one run and the 5k build 30.0-44.3 s in others, so
+# 10k would outgrow a 90 s share of the phase on the slower hosts
+HNSW_CUT = 5_000
+# the PQ families' ADC check: with every list probed, the ADC top-10 must
+# be (nearly) the exact top-10 over the index's own reconstructions; the
+# two sums round differently, so near-ties may swap
+ADC_CHECK_FLOOR = 0.95
+# the stepped-snapshot check's small index
+SNAPSHOT_SMALL = ("IVF16", 4_000)
+SERVE_CLI_TIMEOUT = 300
+# the ANN launchers, each a subprocess, and each one's recall@10 floor:
+# about one point under its reading on an NVIDIA H100 80GB HBM3 (the
+# default spec 0.9141, IVF64,Flat 0.9594, the same in every run), above the
+# reference's floors for the specs (tests/test_index_api.py: PCA specs
+# 0.50, IVF 0.85)
+SERVE_CLI_RUNS = (
+    ("default", ["--arch", "ann-laion"], 0.90),
+    ("ivf_snapshot", ["--arch", "ann-laion", "--spec", "IVF64,Flat",
+                      "--buckets", "off", "--snapshot", "{snap}"], 0.95),
+    ("ivf_restore", ["--arch", "ann-laion", "--buckets", "off",
+                     "--restore", "{snap}"], 0.95))
+TUNE_SPEC_ARGS = ["--spec", "IVF64,Flat", "--n", "2000", "--dim", "32",
+                  "--trials", "6", "--mode", "single"]
 # the l2topk variant each shape must take (PERF.md names them)
 L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
                  "kmeans": "tile", "medoid": "tile", "entry_select": "tile",
@@ -1950,6 +2035,404 @@ def embedding_bag_kernel_phase(torch, table, cfg, gpu: str,
                 shape=head["shape"], by_shape=out)
 
 
+def family_of(spec: str) -> str:
+    """The factory family a spec's head token names."""
+    head = spec.split(",")[0]
+    for fam in ("IVFPQ", "IVF", "PQ", "HNSW", "NSG", "Flat"):
+        if head.startswith(fam):
+            return fam
+    raise ValueError(spec)
+
+
+def serve_family(torch, idx, spec: str, params: dict, queries, true_i,
+                 wrappers: dict, fit_s: float, extra: dict) -> dict:
+    """One factory-built index served: its kernels' launches over one
+    search (each family must launch its own), recall@10, QPS (median of
+    SERVE_RUNS batches), device-busy share and memory. Returns the
+    launches of that search."""
+    from repro_torch.core.index_api import SearchParams
+
+    k = 10
+    sp = SearchParams(**params)
+    idx.search(queries, k, sp)                                   # warm
+    one = per_search(torch, wrappers, lambda: idx.search(queries, k, sp))
+    times = []
+    for _ in range(SERVE_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, i = idx.search(queries, k, sp)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    prof = profile_busy(torch, lambda: idx.search(queries, k, sp))
+    serve_s = statistics.median(times)
+    recall = recall_at_k(i.cpu(), true_i.cpu())
+    busy = prof["device_busy_ms"]
+    fam = family_of(spec)
+    emit("factory", spec=spec, family=fam, params=params,
+         n=idx.ntotal, queries=queries.shape[0], fit_seconds=fit_s,
+         recall_at_10=recall, qps=queries.shape[0] / serve_s,
+         qps_min=queries.shape[0] / max(times),
+         qps_max=queries.shape[0] / min(times), seconds=serve_s,
+         memory_bytes=idx.memory_bytes(), per_search=one,
+         device_busy_share=None if busy is None else busy / (serve_s * 1e3),
+         profile=prof, **extra)
+    if not (torch.isfinite(d).all() and i.shape == (queries.shape[0], k)):
+        raise AssertionError(f"{spec}: non-finite or mis-shaped results")
+    if one["launches"].get(FAMILY_KERNEL[fam], 0) <= 0:
+        raise AssertionError(f"{spec}: its search launched no "
+                             f"{FAMILY_KERNEL[fam]}: {one}")
+    floor = FACTORY_RECALL_FLOOR[spec]
+    if recall < floor:
+        raise AssertionError(f"{spec}: recall@10 {recall} below {floor}")
+    return one["launches"]
+
+
+def adc_check(torch, idx, queries) -> float:
+    """Recall of a PQ or IVF-PQ index's search (every list probed)
+    against the exact top-10 over its reconstructions, sum_m
+    codebooks[m, code[m]] (plus the row's list centroid for IVF-PQ): the
+    ADC distance is the squared distance to that reconstruction, so the
+    two rankings agree but for rounding."""
+    from repro_torch.core.distances import l2_topk
+    from repro_torch.core.index_api import SearchParams
+    from repro_torch.core.quant import pq_decode
+
+    if hasattr(idx, "list_codes"):                         # IVF-PQ
+        rows = torch.empty((idx.ntotal, idx.dim), device="cuda")
+        keep = idx.lists >= 0
+        ids = idx.lists[keep].long()
+        lists = torch.arange(idx.n_lists, device="cuda")[:, None].expand_as(
+            idx.lists)[keep]
+        rows[ids] = idx.centroids[lists] + pq_decode(
+            idx.list_codes[keep].to(torch.uint8), idx.pq.codebooks)
+        params = SearchParams(nprobe=idx.n_lists)
+    else:
+        rows = pq_decode(idx.codes, idx.codebooks)
+        params = None
+    _, want = l2_topk(queries, rows, 10)
+    _, got = idx.search(queries, 10, params)
+    return recall_at_k(got.cpu(), want.cpu())
+
+
+class FirstCalls:
+    """Keeps the operands of the first call of each wrapper in ``names``
+    (gather_dist, lut_dist, l2topk) while ``on``: it stands in for the
+    wrapper in its ``ops`` module, passes every call on (the wrapper
+    launches and counts it) and copies nothing."""
+
+    def __init__(self):
+        from repro_torch.kernels.gather_dist import ops as gather_ops
+        from repro_torch.kernels.l2topk import ops as l2topk_ops
+        from repro_torch.kernels.lut_dist import ops as lut_ops
+        self.calls, self.on = {}, ()
+        self.slots = {"gather_dist": (gather_ops, "gather_dist_cuda"),
+                      "lut_dist": (lut_ops, "lut_dist_cuda"),
+                      "l2topk": (l2topk_ops, "l2topk_cuda")}
+        self.real = {}
+        for name, (mod, attr) in self.slots.items():
+            self.real[name] = getattr(mod, attr)
+            setattr(mod, attr, self._stand_in(name))
+
+    def _stand_in(self, name):
+        def call(*args, **kw):
+            if name in self.on and name not in self.calls:
+                self.calls[name] = (args, kw)
+            return self.real[name](*args, **kw)
+        return call
+
+    def restore(self) -> None:
+        for name, (mod, attr) in self.slots.items():
+            setattr(mod, attr, self.real[name])
+
+
+def in_slices(fn, operands: tuple, rows: int):
+    """``fn(*operands)`` with each operand cut into slices of ``rows``
+    along dim 0 and the results concatenated: the plain versions are
+    row-independent, and whole they would gather (Q, R, D) rows."""
+    import torch
+    return torch.cat([fn(*(t[s:s + rows] for t in operands))
+                      for s in range(0, operands[0].shape[0], rows)])
+
+
+def factory_kernel_check(torch, spec: str, calls: dict, wrappers: dict,
+                         gpu: str) -> None:
+    """Each recorded first call of a family's search (FAMILY_CHECKED)
+    again through its wrapper and through its plain version, on the same
+    operands: gather_dist within rtol = atol = 1e-5 with the same +inf
+    pattern; lut_dist bit-equal (both sum left to right over M); l2topk
+    (the centroid probe) dists within rtol = atol = 1e-5 and ids equal on
+    >= 99% of rows (l2topk_kernel_phase's rule for float data). The
+    wrapper's one-call ms at that shape and its bound are printed beside
+    it. The counts are zeroed before the next fit, so these launches
+    count nowhere."""
+    from repro_torch.kernels.gather_dist import gather_dist_ref
+    from repro_torch.kernels.l2topk import l2_topk_ref
+    from repro_torch.kernels.l2topk.l2topk import variant_for
+    from repro_torch.kernels.lut_dist import lut_dist_ref
+    from repro_torch.kernels.lut_dist.lut_dist import route as lut_route
+
+    for name in FAMILY_CHECKED[family_of(spec)]:
+        if name not in calls:
+            raise AssertionError(f"{spec}: its search made no {name} call")
+        args, kw = calls[name]
+        real = wrappers[name]
+        got = real(*args, **kw)
+        if name == "gather_dist":
+            q, db, ids = args
+            want = in_slices(lambda q_, i_: gather_dist_ref(q_, db, i_),
+                             (q, ids), 16)
+            fin = torch.isfinite(want)
+            if not torch.equal(fin, torch.isfinite(got)):
+                raise AssertionError(f"{spec}: gather_dist's +inf pattern "
+                                     f"differs from its plain version's")
+            err = (got[fin] - want[fin]).abs()
+            ok = bool((err <= 1e-5 + 1e-5 * want[fin].abs()).all())
+            worst = float(err.max()) if err.numel() else 0.0
+            uniq = int(torch.unique(ids[ids >= 0]).numel())
+            moved = uniq * q.shape[1] * 4 + q.numel() * 4 + ids.numel() * 8
+            ops = 3 * int(fin.sum()) * q.shape[1]
+            shape = dict(q=q.shape[0], r=ids.shape[1], d=q.shape[1],
+                         n=db.shape[0], padded=int((ids < 0).sum()))
+        elif name == "lut_dist":
+            lut, codes, ids = args
+            want = in_slices(lambda l_, i_: lut_dist_ref(l_, codes, i_),
+                             (lut, ids), 256)
+            ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            fin = torch.isfinite(want)
+            worst = float((got[fin] - want[fin]).abs().max())
+            m = lut.shape[1]
+            moved = lut.numel() * 4 + ids.numel() * 8 + \
+                int(torch.unique(ids[ids >= 0]).numel()) * m
+            ops = int(fin.sum()) * m
+            shape = dict(q=lut.shape[0], r=ids.shape[1], m=m,
+                         c=lut.shape[2], n=codes.shape[0],
+                         padded=int((ids < 0).sum()),
+                         variant=lut_route(ids.numel(), kw.get("variant")))
+        else:
+            q, x, k = args
+            gd, gi = got
+            wd, wi = l2_topk_ref(q, x, k)
+            err = (gd - wd).abs()
+            rows = float((gi == wi).all(1).float().mean())
+            ok = bool((err <= 1e-5 + 1e-5 * wd.abs()).all()) and rows >= 0.99
+            worst = float(err.max())
+            moved = (q.shape[0] + x.shape[0]) * q.shape[1] * 4 + \
+                q.shape[0] * k * 8
+            ops = 2 * q.shape[0] * x.shape[0] * q.shape[1]
+            shape = dict(q=q.shape[0], n=x.shape[0], d=q.shape[1], k=k,
+                         rows_equal=rows,
+                         variant=variant_for(q.shape[0], x.shape[0],
+                                             q.shape[1], k))
+        ms = time_ms(lambda: real(*args, **kw), 5, 1)
+        bmin, by = bound(moved, ops, gpu)
+        emit("factory_kernel_check", spec=spec, kernel=name, shape=shape,
+             equal=ok, max_abs_err=worst, ms=ms, bound_ms=bmin, bound_by=by)
+        if not ok:
+            raise AssertionError(f"{spec}: {name} differs from its plain "
+                                 f"version on the search's operands")
+
+
+def factory_phase(torch, data, queries, true_i, wrappers: dict,
+                  seed: int, gpu: str) -> dict:
+    """The paper's Fig. 1 on the card: each FACTORY_SPECS spec built with
+    build_index on the ann-laion data (HNSW on its first HNSW_CUT rows)
+    and served; the first call of each FAMILY_CHECKED kernel in a family's
+    search held against its plain version (factory_kernel_check). Returns
+    each kernel's launches over the phase (every fit and one search per
+    family); the counts are zeroed just before each fit and read just
+    after each index's one counted search."""
+    from repro_torch.core.distances import l2_topk
+    from repro_torch.core.index_api import build_index
+
+    total = dict.fromkeys(wrappers, 0)
+
+    def add(counts):
+        for name, c in counts.items():
+            total[name] += c
+
+    def fit(spec, rows):
+        torch.cuda.synchronize()
+        zero_counts(wrappers)
+        t = time.perf_counter()
+        idx = build_index(spec, rows, generator=torch.Generator()
+                          .manual_seed(seed), device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        add({name: w.launches for name, w in wrappers.items()})
+        return idx, fit_s
+
+    t0 = time.perf_counter()
+    first = FirstCalls()
+    try:
+        for spec, params in FACTORY_SPECS:
+            idx, fit_s = fit(spec, data)
+            first.on = FAMILY_CHECKED.get(family_of(spec), ())
+            add(serve_family(torch, idx, spec, params, queries, true_i,
+                             wrappers, fit_s, {}))
+            first.on = ()
+            if first.calls:
+                factory_kernel_check(torch, spec, first.calls, wrappers, gpu)
+                first.calls.clear()
+            if family_of(spec) in ("PQ", "IVFPQ"):
+                agree = adc_check(torch, idx, queries)
+                emit("factory_adc_check", spec=spec,
+                     recall_vs_reconstruction=agree)
+                if agree < ADC_CHECK_FLOOR:
+                    raise AssertionError(f"{spec}: the ADC top-10 agrees with "
+                                         f"the reconstructions' on {agree} "
+                                         f"only")
+            del idx
+            torch.cuda.empty_cache()
+    finally:
+        first.restore()
+    rows = data[:HNSW_CUT]
+    _, cut_true = l2_topk(queries, rows, 10)
+    idx, fit_s = fit(HNSW_SPEC, rows)
+    add(serve_family(torch, idx, HNSW_SPEC, HNSW_PARAMS, queries, cut_true,
+                     wrappers, fit_s,
+                     {"cut": {"n": HNSW_CUT, "of": data.shape[0],
+                              "why": "the host build, fixed so that runs "
+                                     "compare"},
+                      "layers": len(idx.layers)}))
+    del idx
+    torch.cuda.empty_cache()
+    emit("factory_total", seconds=time.perf_counter() - t0, launches=total)
+    return total
+
+
+def snapshot_phase(torch, index, queries, fit_s: float, data) -> None:
+    """save_index / load_index at full size: phase 4's exact/host index
+    and its pq-quantized copy written to a temporary directory and read
+    back on the card (checksums verified, validate_index run); ids and
+    distance bits over the queries must equal the in-memory index's. Then
+    a stepped directory whose newest step has a flipped byte must load
+    the step before it."""
+    import copy
+    import os
+    import tempfile
+    import warnings
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.index_api import build_index
+    from repro_torch.core.persist import load_index, save_index
+    from repro_torch.serve.faults import corrupt_payload
+
+    f32 = copy.copy(index)
+    f32.codec = f32.codes = f32.codec_backend = None
+    k, ef = CONFIG.k, CONFIG.ef_search
+    cases = (("f32", f32, dict(ef=ef)),
+             ("pq", index, dict(ef=ef, rerank=CONFIG.rerank,
+                                dist_backend="pq")))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, idx, kw in cases:
+            d0, i0 = idx.search(queries, k, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = save_index(idx, os.path.join(tmp, label))
+            save_s = time.perf_counter() - t
+            size = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+            t = time.perf_counter()
+            loaded = load_index(path, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            d1, i1 = loaded.search(queries, k, **kw)
+            same = bool(torch.equal(i0, i1) and torch.equal(
+                d0.view(torch.int32), d1.view(torch.int32)))
+            emit("snapshot", index=label, snapshot_bytes=size,
+                 save_seconds=save_s, load_and_validate_seconds=load_s,
+                 fit_seconds=fit_s, queries=queries.shape[0],
+                 bit_identical=same, codec=loaded.codec_backend)
+            if not same:
+                raise AssertionError(f"snapshot {label}: the loaded index "
+                                     f"searches differently")
+            del loaded
+        spec, n = SNAPSHOT_SMALL
+        small = build_index(spec, data[:n], device="cuda")
+        root = os.path.join(tmp, "steps")
+        save_index(small, root, step=1)
+        save_index(small, root, step=2)
+        corrupt_payload(os.path.join(root, "step_00000002"), seed=0,
+                        n_bytes=1)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            back = load_index(root, device="cuda")
+        skipped = [str(w.message) for w in caught
+                   if "step_00000002" in str(w.message)]
+        same = bool(torch.equal(back.search(queries, k)[1],
+                                small.search(queries, k)[1]))
+        emit("snapshot_fallback", spec=spec, n=n, skipped=skipped,
+             equal_to_step_1=same)
+        if not skipped or not same:
+            raise AssertionError("the stepped load did not fall back past "
+                                 "the corrupt newest step")
+
+
+def serve_cli_phase(src: Path) -> None:
+    """The ANN launchers as subprocesses, each line parsed: serve
+    --arch ann-laion with its defaults (bucketed, micro-batched), with
+    --spec IVF64,Flat --buckets off --snapshot, then --restore from that
+    snapshot (which must skip the build and give the same recall), then
+    tune --spec. No fault is injected, so a "resilience:" line (failed
+    tickets, failed flushes, retries) means a search failed."""
+    import os
+    import re
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    recalls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "snap")
+        for name, argv, floor in SERVE_CLI_RUNS:
+            argv = [a.replace("{snap}", snap) for a in argv]
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                env=env, capture_output=True, text=True,
+                timeout=SERVE_CLI_TIMEOUT)
+            out = proc.stdout
+            m = re.search(r"^ann-laion \[([^\]]+)\][^:]*: (\d+) QPS, "
+                          r"recall@10=(\d+\.\d+)", out, re.MULTILINE)
+            recall = float(m.group(3)) if m else None
+            recalls[name] = recall
+            restored = re.search(r"^restored \[", out, re.MULTILINE)
+            resilience = re.search(r"^\s*resilience: .*$", out, re.MULTILINE)
+            emit("serve_cli", run=name, args=argv,
+                 returncode=proc.returncode,
+                 seconds=time.perf_counter() - t,
+                 spec=m.group(1) if m else None,
+                 qps=int(m.group(2)) if m else None, recall_at_10=recall,
+                 restored=bool(restored), output=out.splitlines(),
+                 stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+            if proc.returncode != 0 or recall is None or recall < floor:
+                raise AssertionError(f"serve_cli {name}: failed or recall "
+                                     f"{recall} below {floor}")
+            if resilience:
+                raise AssertionError(f"serve_cli {name}: searches failed or "
+                                     f"were retried: {resilience.group(0)}")
+            if (name == "ivf_restore") != bool(restored) or (
+                    name == "ivf_restore" and "snapshot saved" in out):
+                raise AssertionError(f"serve_cli {name}: restore line "
+                                     f"missing or misplaced")
+    if recalls["ivf_restore"] != recalls["ivf_snapshot"]:
+        raise AssertionError(f"the restored index's recall moved: {recalls}")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.tune", *TUNE_SPEC_ARGS],
+        env=env, capture_output=True, text=True, timeout=SERVE_CLI_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    best = re.search(r"\{'nprobe': (\d+)\}\s+(\d+\.\d+)", proc.stdout)
+    emit("serve_cli", run="tune_spec", args=TUNE_SPEC_ARGS,
+         returncode=proc.returncode, seconds=time.perf_counter() - t,
+         best_nprobe=int(best.group(1)) if best else None,
+         best_recall_at_10=float(best.group(2)) if best else None,
+         output=lines, stderr_tail=proc.stderr[-2000:]
+         if proc.returncode else "")
+    if proc.returncode != 0 or best is None or not any(
+            "6 pure cache hits" in ln for ln in lines):
+        raise AssertionError("tune --spec failed or printed no best trial "
+                             "and build log")
+
+
 def recall_at_k(found, truth) -> float:
     hits = sum(len(set(a) & set(b)) for a, b in zip(found.tolist(),
                                                      truth.tolist()))
@@ -2171,12 +2654,18 @@ def main() -> int:
     # (M = 600) — launch counts of the LUT kernels from these runs
     # (quantize + serve) only, kept per M
     lut_launches = {"lut_dist": {}, "beam_hop_lut": {}, "beam_hops_lut": {}}
+    new_phase_s = {}            # wall seconds of this slice's phases
     lut_by_variant, loop_by_variant, lut_dist_by_variant = {}, {}, {}
     for backend, m in zip(("pq", "int8"), LUT_MS):
         counts = quantized_phase(torch, index, queries, true_i, backend,
                                  wrappers, args.seed)
         serve_compacted_phase(torch, index, queries, true_i, backend,
                               wrappers)
+        if backend == "pq":
+            # 8c. the exact/host index and its pq copy, saved and reloaded
+            t = time.perf_counter()
+            snapshot_phase(torch, index, queries, fit_s, data)
+            new_phase_s["snapshot"] = time.perf_counter() - t
         for name in lut_launches:
             lut_launches[name][m] = counts[name]
         for v, c in counts["l2topk_by_variant"].items():
@@ -2207,6 +2696,12 @@ def main() -> int:
     recorder.calls.clear()          # the fits' pools and bases it held
     torch.cuda.empty_cache()
 
+    # 10c. the paper's Fig. 1 through the factory API on the same data
+    t = time.perf_counter()
+    factory_launches = factory_phase(torch, data, queries, true_i, wrappers,
+                                     args.seed, gpu)
+    new_phase_s["factory"] = time.perf_counter() - t
+
     # 11-12. the two-tower path at full width: its launch counts are zeroed
     # just before recsys and read just after recsys_ann
     from repro_torch.configs.two_tower_retrieval import CONFIG as TWO_TOWER
@@ -2229,8 +2724,13 @@ def main() -> int:
     recsys_topk_by_variant = dict(topk_merge_cuda.by_variant)
     launches["embedding_bag"] = recsys_launches["embedding_bag"]
 
-    # 13-14. the launcher, then the bag kernel over the full table
+    # 13-14. the launchers, then the bag kernel over the full table
     recsys_cli_phase(src)
+    t = time.perf_counter()
+    serve_cli_phase(src)
+    new_phase_s["serve_cli"] = time.perf_counter() - t
+    emit("new_phases", seconds=new_phase_s,
+         total_seconds=sum(new_phase_s.values()))
     kernels["embedding_bag"] = embedding_bag_kernel_phase(
         torch, model.table.detach(), TWO_TOWER, gpu, args.seed)
     emit("embedding_bag", **kernels["embedding_bag"])
@@ -2248,6 +2748,7 @@ def main() -> int:
         entry["launches_tune"] = tune_launches[name]
         entry["launches_fit_auto"] = auto_launches[name]
         entry["launches_recsys"] = recsys_launches[name]
+        entry["launches_factory"] = factory_launches[name]
         if "by_shape" in info:
             entry["by_shape"] = {s_: {k_: v for k_, v in b_.items()
                                       if k_ != "shape"} | b_["shape"]
@@ -2299,6 +2800,10 @@ def main() -> int:
     if launches["beam_hop"] + launches["beam_hop_lut"] != 0:
         raise AssertionError(f"the one-hop kernel ran on the main path: "
                              f"{launches}")
+    if min(factory_launches[FAMILY_KERNEL[family_of(spec)]]
+           for spec, _ in FACTORY_SPECS) <= 0:
+        raise AssertionError(f"a family's kernel never launched in the "
+                             f"factory phase: {factory_launches}")
     if min(recsys_launches[name] for name in RECSYS_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the two-tower path never launched "
                              f"in phases 11-12: {recsys_launches}")

@@ -1,12 +1,12 @@
 """Carry an index or a model across from the reference package.
 
-``index_from_jax_state`` takes the dict that ``repro``'s
-``TunedGraphIndex.state_dict()`` returns — with every array passed through
-``np.asarray`` — and returns the port's index over the same arrays, so
-both packages can search one graph — with its codec (codes, PQ codebooks
-or int8 scale and zero-point) when the reference quantized it. This
-module never imports the reference: it reads the plain
-``{"meta", "arrays"}`` layout.
+``index_from_jax_state`` takes what ``repro``'s ``index_state(index)``
+returns — or, for its ``TunedGraphIndex``, what ``state_dict()`` returns
+(no ``family`` tag) — with every array passed through ``np.asarray``, and
+returns the port's index of the same family over the same arrays
+(``core.persist.index_from_state``), so both packages search one index.
+This module never imports the reference: it reads the plain ``{"family",
+"meta", "arrays"}`` layout.
 
 ``recsys_params_from_jax`` does the same for the two-tower model: it takes
 the reference's params pytree (``{"table", "user_tower": {"layers": [{"w",
@@ -18,17 +18,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.pipeline import TunedGraphIndex
+from repro_torch.core.persist import index_from_state
 from repro_torch.models.layers import MLP
 from repro_torch.models.recsys import TwoTower
 
 
-def index_from_jax_state(state: dict, device=None) -> TunedGraphIndex:
-    """Reference state dict (numpy arrays) -> the port's TunedGraphIndex
-    on ``device`` (default: the card)."""
+def index_from_jax_state(state: dict, device=None):
+    """Reference index state (numpy arrays) -> the port's index of the same
+    family on ``device`` (default: the card); a state without a
+    ``family`` tag is a ``TunedGraphIndex``'s."""
     arrays = {k: np.asarray(v) for k, v in state["arrays"].items()}
-    return TunedGraphIndex.from_state(
-        {"meta": state["meta"], "arrays": arrays}, device=device)
+    return index_from_state({"family": state.get("family",
+                                                 "TunedGraphIndex"),
+                             "meta": state["meta"], "arrays": arrays},
+                            device=device)
 
 
 def recsys_params_from_jax(params: dict, cfg, device=None) -> TwoTower:

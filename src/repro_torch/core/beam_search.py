@@ -142,6 +142,7 @@ def resolve_hop_backend(backend: Optional[str],
 def beam_search(queries: torch.Tensor, db: torch.Tensor,
                 neighbors: torch.Tensor, entry_ids: torch.Tensor, *,
                 ef: int, k: int, max_iters: int = 0, mode: str = "while",
+                layout: str = "batched",
                 gather_backend: Optional[str] = None,
                 dist_backend: str = "f32",
                 codes: Optional[torch.Tensor] = None,
@@ -151,6 +152,10 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
                 eps: float = 0.0,
                 with_stats: bool = False):
     """Batched graph search.
+
+    ``layout`` ("vmap" | "batched") is accepted as the reference's callers
+    pass it; both run this batched layout, which is bit-identical to the
+    reference's vmap layout (see the module docstring).
 
     queries: (Q, D); db: (N, D); neighbors: (N, R) int32 (-1 padded);
     entry_ids: (Q,) int32 per-query entry points. Under
@@ -168,6 +173,8 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
             f"patience must be >= 1 (or None to disable), got {patience}")
     if mode not in ("while", "fori"):
         raise ValueError(f"bad mode {mode!r}")
+    if layout not in ("vmap", "batched"):
+        raise ValueError(f"bad layout {layout!r}")
     check_dist_backend(dist_backend)
     max_iters = max_iters or 4 * ef
     gd, body = _batched_hop_setup(queries, db, neighbors,

@@ -22,3 +22,16 @@ def nearest(queries: torch.Tensor, database: torch.Tensor,
     """argmin-L2 id and distance per query (k=1 fast path)."""
     d, i = l2_topk(queries, database, 1, chunk=chunk)
     return d[:, 0], i[:, 0]
+
+
+def smallest_k(d: torch.Tensor, k: int):
+    """The k smallest entries of each row of ``d`` (all >= 0, +inf allowed)
+    and their int32 positions, ties by lower position: the rule of the
+    reference's ``lax.top_k(-d, k)``, which ``torch.topk`` alone does not
+    promise. It selects on ``pack_keys``' (distance bits, position) keys,
+    which are all distinct, so the order is the same on either device."""
+    k = min(k, d.shape[1])
+    pos = torch.arange(d.shape[1], device=d.device).expand(d.shape[0], -1)
+    keys = torch.topk(pack_keys(d, pos), k, dim=1, largest=False,
+                      sorted=True).values
+    return unpack_keys(keys)

@@ -1,5 +1,5 @@
 """Brute-force (FlatL2) index — the paper's baseline and the recall oracle
-(the reference's ``core/flat.py``).
+(the reference's ``core/flat.py``; a ``core.index_api.Index``).
 
 ``search`` is one ``l2_topk`` pass over the raw vectors: on the card the
 ``l2topk`` kernel, on the CPU its plain version.
@@ -22,9 +22,18 @@ class FlatIndex:
     equivalent; searches run on the device that holds ``data``."""
     data: Optional[torch.Tensor] = None
 
-    def fit(self, data: torch.Tensor):
+    def fit(self, data: torch.Tensor,
+            generator: Optional[torch.Generator] = None):
+        """Keep the vectors (exact search needs nothing else);
+        ``generator`` is accepted for the ``Index`` protocol and unused, as
+        the reference's ``fit`` ignores its key."""
+        del generator
         self.data = data
         return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
 
     @property
     def ntotal(self) -> int:

@@ -28,6 +28,7 @@ from repro_torch.core.beam_search import BeamStats, beam_search, \
 from repro_torch.core.build import build_knn, reprune_nsg, resolve_backend
 from repro_torch.core.build.nn_descent import NNDDraws, nn_descent
 from repro_torch.core.device import resolve_device, synchronize
+from repro_torch.core.distances import smallest_k
 from repro_torch.core.entry_points import EntryPointSelector, fit_entry_points
 from repro_torch.core.nsg import NSGGraph, build_nsg
 from repro_torch.core.pca import PCA, fit_pca
@@ -123,6 +124,7 @@ class TunedGraphIndex:
         self.quantize_seconds: dict = {}              # codec fit / encode
         self.last_search_stats: Optional[BeamStats] = None
         self.last_compaction_shapes: Optional[list] = None
+        self.spec: Optional[str] = None               # factory spec, if any
 
     # -- build ------------------------------------------------------------
     def fit(self, data, generator: Optional[torch.Generator] = None, *,
@@ -295,7 +297,8 @@ class TunedGraphIndex:
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         return self.pca.transform(q) if self.pca is not None else q
 
-    def search(self, queries, k: int, *, ef: Optional[int] = None,
+    def search(self, queries, k: int, params=None, *,
+               ef: Optional[int] = None,
                mode: Optional[str] = None, rerank: Optional[int] = None,
                dist_backend: Optional[str] = None,
                hop_backend: Optional[str] = None,
@@ -303,6 +306,9 @@ class TunedGraphIndex:
                eps: Optional[float] = None,
                compact_every: Optional[int] = None):
         """Returns (dists (Q, k) in projected space, original ids (Q, k)).
+
+        ``params`` is a ``core.index_api.SearchParams``; explicit keywords
+        win over it, both fall back to the fit-time params.
 
         Under ``dist_backend="pq"|"int8"`` the beam traverses the codec's
         uint8 codes (re-quantizing first if the index holds another codec)
@@ -320,6 +326,16 @@ class TunedGraphIndex:
         """
         if self.graph is None:
             raise RuntimeError("fit() first")
+        if params is not None:
+            ef = ef if ef is not None else params.ef_search
+            mode = mode if mode is not None else params.mode
+            rerank = rerank if rerank is not None else params.rerank
+            dist_backend = dist_backend or params.dist_backend
+            hop_backend = hop_backend or params.hop_backend
+            patience = patience if patience is not None else params.patience
+            eps = eps if eps is not None else params.eps
+            compact_every = (compact_every if compact_every is not None
+                             else params.compact_every)
         ef = ef or self.params.ef_search
         mode = mode or "while"
         dist_backend = check_dist_backend(
@@ -385,6 +401,20 @@ class TunedGraphIndex:
     @property
     def ntotal(self) -> int:
         return 0 if self.base is None else self.base.shape[0]
+
+    @property
+    def dim(self) -> int:
+        """Query-time input dimensionality (pre-PCA original space)."""
+        return self.input_dim
+
+    def search_params_space(self):
+        from repro_torch.core.index_api import (
+            ef_search_space, patience_space, rerank_space,
+        )
+        space = ef_search_space()
+        if self.params.dist_backend != "f32" or self.codec is not None:
+            space = rerank_space(space)
+        return patience_space(space)
 
     def memory_bytes(self) -> int:
         """Index footprint: vectors + graph + entry-point structures +
@@ -474,14 +504,13 @@ def _exact_rerank(queries: torch.Tensor, base: torch.Tensor,
     """Exact f32 squared-L2 rescoring of the (Q, R') beam survivors -> top-k.
 
     One gather_dist block over the survivor ids (the kernel on CUDA, its
-    plain diff-square version on the CPU), then a stable ascending sort:
-    among equal distances the lower survivor position comes first, the
-    tie rule of the reference's ``lax.top_k(-d, k)``. Padded ids (-1) carry
-    +inf and sort last.
+    plain diff-square version on the CPU), then ``smallest_k``: among equal
+    distances the lower survivor position comes first, the tie rule of the
+    reference's ``lax.top_k(-d, k)``. Padded ids (-1) carry +inf and sort
+    last.
     """
-    d = gather_dist(queries, base, ids)
-    pos = torch.sort(d + 0.0, dim=1, stable=True).indices[:, :k]
-    return d.gather(1, pos), ids.gather(1, pos)
+    d, pos = smallest_k(gather_dist(queries, base, ids), k)
+    return d, ids.gather(1, pos.long())
 
 
 def build_vanilla_nsg(data, *, degree: int = 32, ef_search: int = 64,

@@ -49,15 +49,26 @@ def default_pq_m(dim: int) -> int:
     return 1
 
 
+# elements of the (rows, M, C, dsub) difference tensor pq_lut makes at once
+LUT_CHUNK_ELEMS = 1 << 28
+
+
 def pq_lut(queries: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """(Q, D) queries x (M, C, dsub) codebooks -> (Q, M, C) sq-dist LUT:
     entry [q, m, c] is the squared L2 between query q's m-th sub-vector and
-    centroid c of sub-space m."""
+    centroid c of sub-space m. Query rows go in chunks that keep the
+    difference tensor under LUT_CHUNK_ELEMS elements (each entry's
+    arithmetic is the same whatever the chunk)."""
     qn = queries.shape[0]
-    m, _, dsub = codebooks.shape
-    qsub = queries.reshape(qn, m, dsub).float()
-    diff = qsub[:, :, None, :] - codebooks[None].float()
-    return (diff * diff).sum(-1)
+    m, c, dsub = codebooks.shape
+    books = codebooks[None].float()
+    step = max(1, LUT_CHUNK_ELEMS // max(m * c * dsub, 1))
+    out = []
+    for s in range(0, max(qn, 1), step):
+        qsub = queries[s:s + step].reshape(-1, m, dsub).float()
+        diff = qsub[:, :, None, :] - books
+        out.append((diff * diff).sum(-1))
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def pq_decode(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:

@@ -286,13 +286,74 @@ class AnnObjective:
 
 
 class SearchParamsObjective:
-    """Index-agnostic runtime tuning over any index family: not ported yet
-    (it needs the unified index API, ROADMAP Queue 1 item 7)."""
+    """Index-agnostic runtime tuning: optimize ``SearchParams`` for ANY
+    ``core.index_api.Index`` conformer, with zero index-specific branches.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SearchParamsObjective is not ported yet: it needs the unified "
-            "index API (ROADMAP Queue 1 item 7)")
+    The search space comes from ``index.search_params_space()`` (each
+    family declares its own knobs — nprobe for IVF, ef_search for graphs);
+    a trial's params become one ``SearchParams``, and the same evaluate
+    path measures recall + QPS whatever is behind the interface. Pass a
+    built index or a factory spec string ("IVF64", "PCA16,HNSW32", ...),
+    which ``build_index`` fits on ``device`` (default: the card) with
+    ``generator``. QPS is timed on the host clock around a device
+    synchronize, as the reference's around ``block_until_ready``.
+    """
+
+    def __init__(self, index, data, queries, k: int = 10,
+                 recall_floor: float = 0.9, qps_repeats: int = 3,
+                 generator: Optional[torch.Generator] = None,
+                 device=None):
+        from repro_torch.core.index_api import build_index
+        if isinstance(index, str):
+            index = build_index(index, data, generator=generator,
+                                device=device)
+        self.index = index
+        dev = getattr(index, "device", None)
+        self.device = dev if dev is not None else resolve_device(device)
+        self.queries = torch.as_tensor(queries, dtype=torch.float32).to(
+            self.device)
+        self.k = k
+        self.recall_floor = recall_floor
+        self.qps_repeats = qps_repeats
+        data = torch.as_tensor(data, dtype=torch.float32).to(self.device)
+        _, self.true_i = FlatIndex(data).search(self.queries, k)
+        self.eval_log: list = []
+
+    @property
+    def space(self) -> SearchSpace:
+        return self.index.search_params_space()
+
+    def evaluate(self, params: Dict) -> EvalResult:
+        from repro_torch.core.index_api import SearchParams
+        sp = SearchParams(**params)
+        self.index.search(self.queries, self.k, sp)          # warmup
+        synchronize(self.device)
+        times = []
+        for _ in range(self.qps_repeats):
+            t1 = time.perf_counter()
+            d, i = self.index.search(self.queries, self.k, sp)
+            synchronize(self.device)
+            times.append(time.perf_counter() - t1)
+        qps = self.queries.shape[0] / float(np.median(times))
+        mem = getattr(self.index, "memory_bytes", None)
+        res = EvalResult(recall=recall_at_k(i, self.true_i), qps=qps,
+                         build_seconds=0.0, mem_bytes=mem() if mem else 0,
+                         cached_build=True)
+        self.eval_log.append((dict(params), res))
+        return res
+
+    def single_objective(self, trial: Trial) -> dict:
+        """maximize QPS  s.t.  Recall@k >= floor."""
+        r = self.evaluate(trial.params)
+        trial.user_attrs["result"] = r
+        return {"values": r.qps,
+                "constraints": [self.recall_floor - r.recall]}
+
+    def multi_objective(self, trial: Trial) -> dict:
+        """maximize (QPS, Recall@k)."""
+        r = self.evaluate(trial.params)
+        trial.user_attrs["result"] = r
+        return {"values": (r.qps, r.recall)}
 
 
 class ShardedRepruneObjective:

@@ -1,13 +1,18 @@
 """Black-box tuning launcher — the paper's §3.2 workflow as a CLI (the
-reference's ``launch/tune.py`` in its paper-pipeline mode).
+reference's ``launch/tune.py``, its paper-pipeline and ``--spec`` modes).
 
-    PYTHONPATH=src python -m repro_torch.launch.tune --n 2000 --dim 64 \\
+    PYTHONPATH=src python -m repro_torch.launch.tune --n 2000 --dim 64 \
         --trials 15 --mode multi
+    PYTHONPATH=src python -m repro_torch.launch.tune --spec "IVF64,Flat" \
+        --n 2000 --dim 32 --trials 6 --mode single
 
-It tunes the paper's full pipeline (``AnnObjective`` over
-``default_space``) with a TPE study and prints the best trial (single) or
-the Pareto front (multi), then the build log: what each trial paid for its
-graph (a structural build, a reprune lookup or a cache hit).
+Without ``--spec`` it tunes the paper's full pipeline (``AnnObjective``
+over ``default_space``); with ``--spec`` it tunes a factory-built index's
+``SearchParams`` (``SearchParamsObjective``, the space from the index's own
+``search_params_space()``). Either way a TPE study runs and the launcher
+prints the best trial (single) or the Pareto front (multi), then the build
+log: what each trial paid for its graph (a structural build, a reprune
+lookup or a cache hit).
 
 The port runs on the card by default; ``--device cpu`` runs every kernel's
 plain PyTorch version on the CPU instead (the counterpart of the
@@ -15,9 +20,10 @@ reference's platform choice). The defaults ``--finish-backend auto`` and,
 at N >= 8192, ``--knn-backend auto`` resolve to the device finishing pass
 and NN-Descent (with table-derived pools), as in the reference.
 ``--patience``, ``--eps`` and ``--compact-every`` set the serving knobs of
-every trial (``--compact-every 8``: the compacted search).
-``--spec`` (ROADMAP Queue 1 item 7) and ``--shards`` (item 9) are not
-ported yet and raise.
+every trial (``--compact-every 8``: the compacted search); with ``--spec``
+they, ``--dist-backend``, ``--rerank`` and ``--hop-backend`` override the
+spec's build, as the reference's do. ``--shards`` (ROADMAP Queue 1 item 9)
+is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ import json
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.index_api import build_index
 from repro_torch.core.pipeline import IndexParams
 from repro_torch.core.tuning import (
-    AnnObjective, Study, TPESampler, default_space,
+    AnnObjective, SearchParamsObjective, Study, TPESampler, default_space,
 )
 from repro_torch.data import clustered_vectors, queries_like
 
@@ -48,8 +55,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="where the port runs: cuda (the kernels) or cpu "
                          "(their plain PyTorch versions)")
     ap.add_argument("--spec", default=None,
-                    help="factory spec (not ported yet: ROADMAP Queue 1 "
-                         "item 7)")
+                    help="factory spec: tune SearchParams for this index "
+                         "instead of the pipeline's build knobs")
     ap.add_argument("--shards", type=int, default=0,
                     help="sharded tuning (not ported yet: ROADMAP Queue 1 "
                          "item 9)")
@@ -100,10 +107,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.spec:
-        raise NotImplementedError(
-            "--spec: factory-built indexes and SearchParamsObjective are not "
-            "ported yet (ROADMAP Queue 1 item 7)")
     if args.shards > 1:
         raise NotImplementedError(
             "--shards: sharded indexes and ShardedRepruneObjective are not "
@@ -113,6 +116,38 @@ def main(argv=None):
                              args.n, args.dim, n_clusters=32)
     queries = queries_like(torch.Generator(device=dev).manual_seed(1), data,
                            args.queries)
+    if args.spec:
+        obj = _spec_objective(args, data, queries, dev)
+        space = obj.space
+    else:
+        obj, space = _pipeline_objective(args, data, queries, dev)
+    _run_study(args, obj, space)
+
+
+def _spec_objective(args, data, queries, dev):
+    """SearchParamsObjective over the spec's index; a serving override
+    builds it through ``build_index`` with the overrides, as the
+    reference's does."""
+    gen = torch.Generator().manual_seed(0)
+    index = args.spec
+    if (args.dist_backend is not None or args.rerank is not None
+            or args.hop_backend is not None
+            or args.patience is not None or args.eps is not None
+            or args.compact_every is not None):
+        index = build_index(args.spec, data, generator=gen, device=dev,
+                            knn_backend=args.knn_backend,
+                            finish_backend=args.finish_backend,
+                            dist_backend=args.dist_backend,
+                            rerank=args.rerank,
+                            hop_backend=args.hop_backend,
+                            patience=args.patience, eps=args.eps,
+                            compact_every=args.compact_every)
+    return SearchParamsObjective(index, data, queries, k=10,
+                                 recall_floor=args.recall_floor,
+                                 qps_repeats=3, generator=gen, device=dev)
+
+
+def _pipeline_objective(args, data, queries, dev):
     quantized = args.dist_backend is not None or args.rerank is not None
     base = IndexParams(pca_dim=args.pca_dim or args.dim,
                        graph_degree=args.max_degree,
@@ -131,7 +166,10 @@ def main(argv=None):
                        device=dev)
     space = default_space(args.dim, args.n, max_degree=args.max_degree,
                           quantized=quantized)
+    return obj, space
 
+
+def _run_study(args, obj, space) -> None:
     if args.mode == "single":
         study = Study(space, TPESampler(seed=0, n_startup=5))
         study.optimize(obj.single_objective, n_trials=args.trials,
@@ -165,8 +203,9 @@ def main(argv=None):
     cached = len(obj.eval_log) - full - repr_
     print(f"{full} structural builds, {repr_} reprune derivations, "
           f"{cached} pure cache hits (the §5.3 rebuild cost fix)")
-    print(f"reprune grid: {obj.family_prunes} family/derivation passes, "
-          f"{obj.grid_hits} pure grid lookups")
+    if hasattr(obj, "grid_hits"):
+        print(f"reprune grid: {obj.family_prunes} family/derivation passes, "
+              f"{obj.grid_hits} pure grid lookups")
     if args.out:
         with open(args.out, "w") as f:
             json.dump([{"params": t.params, "values": t.values}

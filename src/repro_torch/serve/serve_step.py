@@ -1,18 +1,59 @@
-"""Serving steps (the reference's ``serve/serve_step.py``, recsys part).
+"""Serving steps (the reference's ``serve/serve_step.py``: the ANN and
+recsys parts).
 
-``recsys_score_step(cfg)`` scores a batch; ``recsys_retrieval_step(cfg, k)``
-scores one user against C candidates and keeps the top k. Both return a
-plain function of (model, batch[, cand_ids]) and run under
-``torch.inference_mode()``. The ANN serve step and the LM steps are not
-ported (ROADMAP Queue 1 items 8 and 10.6).
+``ann_search_step(index, k)`` serves any ``core.index_api.Index``, with
+optional bucketing and retries. ``recsys_score_step(cfg)`` scores a batch;
+``recsys_retrieval_step(cfg, k)`` scores one user against C candidates and
+keeps the top k. The recsys steps return a plain function of (model,
+batch[, cand_ids]) and run under ``torch.inference_mode()``, the ANN
+step under ``torch.no_grad()`` (an index may keep what a search makes). The
+LM steps are not ported (ROADMAP Queue 1 item 10.6).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models import recsys
+
+
+def ann_search_step(index, k: int = 10, params=None, buckets=None,
+                    retries: int = 0,
+                    deadline_s: Optional[float] = None) -> Callable:
+    """Serve cell for ANY ``core.index_api.Index`` conformer.
+
+    The index and ``params`` (a ``SearchParams``) are fixed when the step is
+    built. ``buckets`` (a sequence of batch sizes, e.g. ``pow2_buckets(64)``)
+    wraps the step in ``serve.batching.BucketedSearch``: ragged request
+    batches are padded to the nearest bucket, so mixed traffic reuses a
+    small, warm set of shapes; call ``.warmup(index.dim)`` on the returned
+    step before taking traffic. ``retries`` > 0 (or a ``deadline_s``) wraps
+    it in ``serve.resilience.ResilientSearch`` — bounded retry with
+    exponential backoff, failing fast on ``PermanentFault`` and past the
+    deadline. The wrappers delegate attribute access, so bucketing and
+    ``search_stats`` pass through.
+    """
+    @torch.no_grad()
+    def step(queries):
+        return index.search(queries, k, params)
+
+    def search_stats():
+        """Traversal stats of the step's most recent search (hops / wasted
+        hops / active_fraction...), when the wrapped index exposes them."""
+        fn = getattr(index, "search_stats", None)
+        return fn() if fn is not None else None
+
+    step.search_stats = search_stats
+    out = step
+    if buckets:
+        from repro_torch.serve.batching import BucketedSearch
+        out = BucketedSearch(out, buckets)
+        out.search_stats = search_stats
+    if retries > 0 or deadline_s is not None:
+        from repro_torch.serve.resilience import ResilientSearch
+        out = ResilientSearch(out, retries=retries, deadline_s=deadline_s)
+    return out
 
 
 def recsys_score_step(cfg, lookup_fn=None) -> Callable:

@@ -1311,3 +1311,122 @@ def test_compacted_search_equals_the_uncompacted_one_on_the_card(dev,
             assert torch.equal(a, b)
         assert (got[2].wasted_hops <= plain[2].wasted_hops).all()
         assert log[0] == 512 and all(a >= b for a, b in zip(log, log[1:]))
+
+
+# ------------------------------------------- the index families on the card
+def _family_data(seed=0, n=1500, d=32, m=8, c=16):
+    """Integer rows: 4 coarse centers (multiples of 128, far beyond the
+    rows' spread) plus, per sub-space, one of c prototypes (in [0, 64)),
+    each row beside its negation in its group. A 4-list or 4-cluster
+    k-means finds the groups, whose means are their centers, so every
+    centroid, residual, codeword and LUT entry is an integer; every |x|^2
+    stays below 2^24, so every distance is exact in either arithmetic
+    (diff-square or norm expansion) on either device."""
+    g = torch.Generator().manual_seed(seed)
+    dsub = d // m
+    protos = torch.stack([torch.randperm(64, generator=g)[:c * dsub]
+                          .reshape(c, dsub) for _ in range(m)])
+    pick = torch.randint(0, c, (n // 2, m), generator=g)
+    half = protos[torch.arange(m)[None, :], pick].reshape(n // 2, d)
+    centers = torch.randint(-4, 5, (4, d), generator=g) * 128
+    group = torch.arange(n // 2).repeat(2) % 4
+    x = torch.cat([half, -half]) + centers[group]
+    q = x[torch.randint(0, n, (64,), generator=g)] + torch.randint(
+        -2, 3, (64, d), generator=g)
+    return x.float(), q.float()
+
+
+FAMILY_SPECS = ["Flat", "IVF4", "IVF4,PQ8", "IVFPQ4x8", "PQ8", "HNSW8",
+                "HNSW8,EP4", "NSG12,EP4", "PCA16,IVF4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", FAMILY_SPECS)
+def test_family_search_on_the_card_equals_the_cpu(dev, spec):
+    """The same index (built on the CPU, carried by its state) searched on
+    the card through the kernels and on the CPU through their plain
+    versions: ids equal exactly on integer data, dists too (PCA: floats,
+    to rtol 1e-5)."""
+    from repro_torch.core.index_api import SearchParams, build_index
+    from repro_torch.core.persist import index_from_state, index_state
+    x, q = _family_data()
+    cpu = build_index(spec, x, device="cpu")
+    card = index_from_state(index_state(cpu), device=dev)
+    for p in (None, SearchParams(ef_search=32, nprobe=2)):
+        dc, ic = cpu.search(q, 10, p)
+        dg, ig = card.search(q.to(dev), 10, p)
+        if spec.startswith("PCA"):
+            assert (ig.cpu() == ic).all(1).float().mean() >= 0.99
+            torch.testing.assert_close(dg.cpu(), dc, rtol=1e-5, atol=1e-4)
+        else:
+            assert torch.equal(ig.cpu(), ic), spec
+            assert torch.equal(dg.cpu(), dc), spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["IVF4", "PQ8", "IVFPQ4x8", "HNSW8"])
+def test_family_fit_on_the_card_equals_the_cpu(dev, spec):
+    """A fit on the card (k-means through l2topk) equals the CPU fit from
+    the same generator seed on integer data, array for array."""
+    from repro_torch.core.index_api import build_index
+    from repro_torch.core.persist import index_state
+    x, _ = _family_data(1)
+    states = [index_state(build_index(
+        spec, x, generator=torch.Generator().manual_seed(0), device=d))
+        for d in ("cpu", dev)]
+    assert states[0]["meta"] == states[1]["meta"]
+    for k, v in states[0]["arrays"].items():
+        assert (v == states[1]["arrays"][k]).all(), (spec, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [64, 5000, 1 << 24])
+def test_chunked_adc_scan_equals_one_lut_dist_call(dev, pairs, monkeypatch):
+    """The PQ family's chunked scan (running top-k) equals one unchunked
+    lut_dist call over every row, then one selection; ties included."""
+    import repro_torch.core.pq as pq_mod
+    from repro_torch.core.distances import smallest_k
+    from repro_torch.kernels.lut_dist import lut_dist
+    g = torch.Generator().manual_seed(3)
+    n, m, nq = 7000, 8, 33
+    lut = torch.randint(0, 4, (nq, m, 256), generator=g).float().to(dev)
+    codes = torch.randint(0, 256, (n, m), generator=g,
+                          dtype=torch.uint8).to(dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev).expand(
+        nq, -1).contiguous()
+    whole = lut_dist(lut, codes, ids)
+    wd, wp = smallest_k(whole, 20)
+    monkeypatch.setattr(pq_mod, "SCAN_PAIRS", pairs)
+    gd, gi = pq_mod.adc_scan(lut, codes, 20)
+    assert torch.equal(gi, wp) and torch.equal(gd, wd)
+
+
+@pytest.mark.cuda
+def test_smallest_k_keeps_the_tie_rule_on_the_card(dev):
+    from repro_torch.core.distances import smallest_k
+    g = torch.Generator().manual_seed(4)
+    d = torch.randint(0, 5, (300, 4000), generator=g).float()
+    d[0, 100:] = float("inf")
+    for k in (1, 10, 257):
+        cv, cp = smallest_k(d, k)
+        gv, gp = smallest_k(d.to(dev), k)
+        assert torch.equal(gp.cpu(), cp) and torch.equal(gv.cpu(), cv)
+        # lower position first among equal values
+        same = cv[:, 1:] == cv[:, :-1]
+        assert bool((cp[:, 1:][same] > cp[:, :-1][same]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["IVF4", "IVFPQ4x8", "HNSW8,EP4",
+                                  "NSG12,EP4"])
+def test_card_snapshot_loads_on_the_cpu(dev, spec, tmp_path):
+    from repro_torch.core.index_api import build_index
+    from repro_torch.core.persist import load_index, save_index
+    x, q = _family_data(2)
+    card = build_index(spec, x, device=dev)
+    save_index(card, str(tmp_path / "snap"))
+    cpu = load_index(str(tmp_path / "snap"), device="cpu")
+    assert cpu.spec == spec and type(cpu) is type(card)
+    dg, ig = card.search(q.to(dev), 10)
+    dc, ic = cpu.search(q, 10)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)

@@ -200,9 +200,9 @@ def test_serve_launcher_on_the_cpu_prints_the_reference_line():
     assert re.fullmatch(
         r"two-tower-retrieval: scored batch 8 \(mean -?\d+\.\d{4}\); "
         r"retrieval top5 ids \[ *\d+( +\d+){4}\]\n", out.stdout), out.stdout
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         from repro_torch.launch.serve import main
-        main(["--arch", "ann-laion", "--device", "cpu"])
+        main(["--arch", "ann-laion", "--device", "cpu", "--shards", "2"])
 
 
 def test_retrieval_through_the_tuned_index(models):

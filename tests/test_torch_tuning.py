@@ -380,7 +380,7 @@ def test_tune_cli_unported_paths_raise(capsys):
             "--trials", "1"]
     tune_cli.main(tiny)              # auto -> the device finish: now runs
     assert "-- build log (1 evals) --" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tune_cli.main(tiny + ["--spec", "IVF64,Flat"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tune_cli.main(tiny + ["--spec", "IVF64,Flat", "--shards", "4"])
     with pytest.raises(NotImplementedError, match="item 9"):
         tune_cli.main(tiny + ["--shards", "4"])
