@@ -145,6 +145,30 @@ Phases, each printing one JSON line:
                 ADC top-10, and IVFPQ128x16's with every list probed, must
                 agree with the exact top-10 over the index's own
                 reconstructions (factory_adc_check).
+10d. sharded — ROADMAP item 9 on the phase-4 data: ShardedIndex over a
+                mesh naming cuda:0 four times and StreamedShardedIndex, 4
+                shards of 75k, each fit with IndexParams.from_config(CONFIG)
+                from one seed (the mesh pads its shards to the most kept
+                rows, the streamed tier to ceil(N / 4)); their graphs, their
+                1024-query searches (k = 10, ef = 64) and their
+                reprune(alpha=1.2, degree=24) must be equal bit for bit
+                (a refit that differs fails the phase); recall@10 against
+                the exact top-10 in the raw space, fit seconds per shard,
+                QPS (median of 7), launches per search (4 beam_hops and 4
+                host syncs) and per reprune (one alpha_scan per 1024-row
+                block of each shard); shard 0's search for 256 queries
+                again on the CPU; make_sharded_l2_topk equal to FlatIndex;
+                PQ16 row-sharded on the first 40k rows (lut_dist); and a
+                Flat ShardedFactoryIndex with shard 0 dead under
+                on_shard_error="skip", equal to the exact top-10 over
+                shards 1-3. Every kernel of SHARDED_KERNELS must launch.
+10e. streamed — StreamedShardedIndex at 1.2M x 768 (4 shards of the
+                config's 300k): vectors generated on the card, the exact
+                top-10 taken there, moved to host memory before the fit;
+                fit seconds, QPS, recall@10, the store's pinned bytes, the
+                search's peak device memory (at most two shards' blocks plus
+                the batch's own tensors, and below the store: asserted), one
+                shard's host-to-device copy beside one shard's search.
  11. recsys   — the two-tower retrieval model at its full config (a
                 14,010,368 x 256 f32 table, 14.35 GB; no width or vocabulary
                 cut) from --seed: recsys_score_step at B = 512 (median and
@@ -169,7 +193,14 @@ Phases, each printing one JSON line:
                 each recall@10 above its SERVE_CLI_RUNS floor (about a point
                 under its reading); a launcher that prints a "resilience:"
                 line (a failed ticket, a failed flush or a retry) fails the
-                phase. new_phases gives 8c, 10c and 13b's wall seconds.
+                phase.
+13c. sharded_cli — the launchers' --shards (SHARDED_CLI_RUNS): tune
+                --shards 4 at N = 20k x 768 (one card: the streamed tier),
+                tune --spec NSG16 --shards 4, and serve --arch ann-laion
+                --shards 4 --on-shard-error skip; each must exit 0 above its
+                floor, the tune runs print "OK — one per shard", the serve
+                run no resilience: and no degraded: line. new_phases gives
+                the wall seconds of 8c, 10c-10e, 13b and 13c.
  14. embedding_bag — the kernel against its plain version on small tables
                 (f32 and bf16, D in {8, 18, 256}, both combiners, no, integer
                 and float weights, and a weighted sum on a float32 midpoint:
@@ -206,7 +237,8 @@ Phases, each printing one JSON line:
                 variant's times; "launches_fit_auto"
                 is each kernel's count over phase 8b (topk_merge's also by
                 mode, l2topk's by variant), "launches_factory" over phase
-                10c (every fit and one search per family). The one-hop entries
+                10c (every fit and one search per family), "launches_sharded"
+                and "launches_streamed" over phases 10d and 10e. The one-hop entries
                 (beam_hop, beam_hop_lut; "on_main_path": false) must launch
                 no time on the main path: the fused search runs beam_hops.
 
@@ -355,6 +387,43 @@ SERVE_CLI_RUNS = (
                      "--restore", "{snap}"], 0.95))
 TUNE_SPEC_ARGS = ["--spec", "IVF64,Flat", "--n", "2000", "--dim", "32",
                   "--trials", "6", "--mode", "single"]
+# the sharded phases (ROADMAP item 9): 4 shards, the mesh naming cuda:0
+# four times; the reprune every tier derives; the row block of
+# derive_local's alpha_scan launches (build/shardlocal.py's _BLK)
+SHARDS = 4
+REPRUNE = (1.2, 24)
+SHARDLOCAL_BLOCK = 1024
+# PQ16 row-sharded on the first PQ_CUT rows (its per-shard codebook fit
+# is the slow part), so that the LUT kernel runs on the sharded path
+PQ_CUT = 40_000
+# the streamed phase: 4 shards of the config's own 300k rows
+STREAMED_N = 1_200_000
+STREAMED_QUERIES = 1024
+# recall@10 floors of the sharded phases, about one point under their
+# first readings on an NVIDIA H100 80GB HBM3 at --seed 0 (PERF.md, run A:
+# the two tiers 0.96113, after reprune(1.2, 24) 0.81807, sharded PQ16 at
+# 40k 0.04590, the streamed 1.2M 0.92979)
+SHARDED_RECALL_FLOOR = 0.95
+SHARDED_REPRUNE_FLOOR = 0.80
+PQ_SHARDED_FLOOR = 0.035
+STREAMED_RECALL_FLOOR = 0.91
+# the kernels the sharded path must launch (lut_dist through sharded PQ16)
+SHARDED_KERNELS = ("beam_hops", "gather_dist", "l2topk", "alpha_scan",
+                   "topk_merge", "lut_dist")
+# the launchers' --shards runs and each one's recall@10 floor, about a
+# point under its reading (PERF.md, run A): the best trial of tune's 4
+# startup trials 0.9977; tune --spec's 12 trials reach 1.0, but past the
+# 5 startup trials TPE follows the measured QPS, so the floor sits under
+# its startup trial 04's 0.9516; serve 0.9141
+SHARDED_CLI_RUNS = (
+    ("tune_streamed", "repro_torch.launch.tune",
+     ["--shards", "4", "--n", "20000", "--dim", "768", "--trials", "4"],
+     0.98),
+    ("tune_spec", "repro_torch.launch.tune",
+     ["--spec", "NSG16", "--shards", "4"], 0.94),
+    ("serve", "repro_torch.launch.serve",
+     ["--arch", "ann-laion", "--shards", "4", "--on-shard-error", "skip"],
+     0.90))
 # the l2topk variant each shape must take (PERF.md names them)
 L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
                  "kmeans": "tile", "medoid": "tile", "entry_select": "tile",
@@ -2433,6 +2502,388 @@ def serve_cli_phase(src: Path) -> None:
                              "and build log")
 
 
+def timed_search(torch, idx, queries, k: int, ef: int):
+    """One warm search, then the median host time of SERVE_RUNS (each to
+    the device's completion); returns (dists, ids, seconds, all times)."""
+    idx.search(queries, k, ef=ef)                               # warm
+    times = []
+    for _ in range(SERVE_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, i = idx.search(queries, k, ef=ef)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return d, i, statistics.median(times), times
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same shape and the same bits (float views as int32)."""
+    if a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    return bool(torch.equal(a, b))
+
+
+def shard_neighbors(spmd, streamed, derived=None):
+    """Each shard's graph, valid rows only, from both tiers (which pad to
+    different row counts): [(mesh block, streamed block), ...]."""
+    a = (derived or spmd).arrays.neighbors.blocks
+    out = []
+    for s in range(spmd.n_shards):
+        n_s = int((spmd.arrays.global_ids.blocks[s] >= 0).sum())
+        out.append((a[s][:n_s].cpu(),
+                    streamed.store.peek_host(s)["neighbors"][:n_s]))
+    return out
+
+
+def sharded_phase(torch, data, queries, true_i, wrappers: dict, seed: int,
+                  gpu: str) -> dict:
+    """ROADMAP item 9 at full width: ShardedIndex over a 4 x cuda:0 mesh
+    and StreamedShardedIndex (4 shards of 75k), each fit with the
+    ann-laion config's IndexParams as fit_auto uses them, must give the
+    same searches and reprunes bit for bit; recall@10, fit seconds per
+    shard, QPS (median of SERVE_RUNS), each kernel's launches per search
+    and per reprune; one shard's search again on the CPU; the sharded
+    brute force against FlatIndex; PQ16 row-sharded (the LUT kernel);
+    the degraded Flat search with shard 0 dead. Returns the kernels'
+    launches over the phase."""
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.distributed import (
+        ShardedFactoryIndex, ShardedIndex, StreamedShardedIndex,
+        _local_beam, make_sharded_l2_topk, shard_bounds,
+    )
+    from repro_torch.core.flat import FlatIndex
+    from repro_torch.core.pipeline import IndexParams, structural_build_count
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.faults import FaultInjector
+
+    k, ef, s = CONFIG.k, CONFIG.ef_search, SHARDS
+    n, nq = data.shape[0], queries.shape[0]
+    params = IndexParams.from_config(CONFIG)
+    mesh = make_host_mesh(model=s, devices=["cuda:0"] * s)
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    builds = structural_build_count()
+    t = time.perf_counter()
+    spmd = ShardedIndex(params, mesh).fit(
+        data, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    spmd_fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    streamed = StreamedShardedIndex(params, s, device="cuda").fit(
+        data, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    streamed_fit_s = time.perf_counter() - t
+    fit_launches = {name: w.launches for name, w in wrappers.items()}
+    refit_equal = all(torch.equal(a, b)
+                      for a, b in shard_neighbors(spmd, streamed))
+
+    d_a, i_a, s_a, t_a = timed_search(torch, spmd, queries, k, ef)
+    d_b, i_b, s_b, t_b = timed_search(torch, streamed, queries, k, ef)
+    search_equal = bits_equal(torch, d_a, d_b) and bits_equal(torch, i_a,
+                                                               i_b)
+    one_a = per_search(torch, wrappers, lambda: spmd.search(queries, k,
+                                                            ef=ef))
+    one_b = per_search(torch, wrappers, lambda: streamed.search(queries, k,
+                                                           ef=ef))
+    der = {}
+    rep = {}
+    for name, idx in (("mesh", spmd), ("streamed", streamed)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        box = {}
+        rep[name] = per_search(torch, wrappers, lambda: box.setdefault(
+            "d", idx.reprune(alpha=REPRUNE[0], degree=REPRUNE[1])))
+        rep[name]["seconds"] = time.perf_counter() - t
+        der[name] = box["d"]
+    pairs_r = shard_neighbors(spmd, der["streamed"], der["mesh"])
+    reprune_equal = all(torch.equal(a, b) for a, b in pairs_r)
+    dr_a, ir_a, sr_a, _ = timed_search(torch, der["mesh"], queries, k, ef)
+    dr_b, ir_b, sr_b, _ = timed_search(torch, der["streamed"], queries, k,
+                                       ef)
+    reprune_search_equal = bits_equal(torch, dr_a, dr_b) and bits_equal(
+        torch, ir_a, ir_b)
+    if structural_build_count() - builds != 2 * s:
+        raise AssertionError("a reprune rebuilt a shard")
+    recall = recall_at_k(i_a.cpu(), true_i.cpu())
+    recall_r = recall_at_k(ir_a.cpu(), true_i.cpu())
+
+    # one shard's search again on the CPU, where the plain versions run
+    nr = min(REF_QUERIES, nq)
+    q_proj = (queries[:nr] - spmd.arrays.pca_mean) @ spmd.arrays.pca_comp
+    fields_ = ("base", "neighbors", "global_ids", "centroids", "members")
+    blocks = [getattr(spmd.arrays, f).blocks[0] for f in fields_]
+    d_g, i_g = _local_beam(q_proj, *blocks, ef=ef, k=k, max_iters=0,
+                           mode="while")
+    d_c, i_c = _local_beam(q_proj.cpu(), *(b.cpu() for b in blocks), ef=ef,
+                           k=k, max_iters=0, mode="while")
+    # the CPU's hop scores by the dot formula (the reference's default),
+    # the card's fused hop by gather_dist's diff-square form: they differ
+    # by rounding relative to |q|^2 + |x|^2, the scale of the atol
+    scale = float((q_proj * q_proj).sum(1).max()
+                  + (blocks[0] * blocks[0]).sum(1).max())
+    cpu_rows = float((i_c == i_g.cpu()).all(1).float().mean())
+    cpu_close = torch.allclose(d_c, d_g.cpu(), rtol=1e-5,
+                               atol=1e-6 * scale)
+
+    # the sharded brute force against FlatIndex over the whole base
+    bounds = shard_bounds(n, s)
+    brute = make_sharded_l2_topk(mesh, k)
+    bd, bi = brute(queries, data, bounds[:-1])
+    fd, fi = FlatIndex(data).search(queries, k)
+    brute_equal = bits_equal(torch, bd, fd) and bits_equal(torch, bi, fi)
+
+    # PQ16 row-sharded on the first PQ_CUT rows: the LUT kernel
+    pq_rows = data[:PQ_CUT]
+    _, pq_true = FlatIndex(pq_rows).search(queries, k)
+    before = {name: w.launches for name, w in wrappers.items()}
+    t = time.perf_counter()
+    pq = ShardedFactoryIndex("PQ16", s, device="cuda").fit(
+        pq_rows, generator=torch.Generator().manual_seed(seed))
+    _, pq_i = pq.search(queries, k)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t
+    pq_launches = {name: w.launches - before[name]
+                   for name, w in wrappers.items()
+                   if w.launches != before[name]}
+    pq_recall = recall_at_k(pq_i.cpu(), pq_true.cpu())
+    del pq
+
+    # the degraded search: Flat over 4 shards, shard 0 permanently dead
+    flat = ShardedFactoryIndex("Flat", s, on_shard_error="skip",
+                               device="cuda").fit(data)
+    flat.subs[0] = FaultInjector(permanent_rate=1.0).wrap_index(
+        flat.subs[0])
+    sd, si = flat.search(queries, k)
+    off = int(bounds[1])
+    ed, ei = FlatIndex(data[off:]).search(queries, k)
+    skip_equal = bits_equal(torch, sd, ed) and bits_equal(
+        torch, si, ei + off)
+    degraded = flat.degraded_shards
+    del flat
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    stats = spmd.shard_stats
+    m_a, m_b = spmd._m, streamed._m
+    scans = {"mesh": s * -(-m_a // SHARDLOCAL_BLOCK),
+             "streamed": s * -(-m_b // SHARDLOCAL_BLOCK)}
+    emit("sharded", n=n, shards=s, queries=nq, k=k, ef=ef,
+         mesh_devices=[str(d) for d in mesh.devices.flat],
+         padded_rows={"mesh": m_a, "streamed": m_b},
+         n_kept=spmd.ntotal, fit_seconds={"mesh": spmd_fit_s,
+                                          "streamed": streamed_fit_s},
+         fit_seconds_per_shard=[st["build_seconds"] for st in stats],
+         fit_stage_seconds_per_shard=stats,
+         refit_bitwise_equal=refit_equal,
+         search_bitwise_equal=search_equal,
+         reprune=dict(alpha=REPRUNE[0], degree=REPRUNE[1]),
+         reprune_bitwise_equal=reprune_equal,
+         reprune_search_bitwise_equal=reprune_search_equal,
+         recall_at_10=recall, recall_at_10_reprune=recall_r,
+         qps={"mesh": nq / s_a, "streamed": nq / s_b,
+              "mesh_reprune": nq / sr_a, "streamed_reprune": nq / sr_b},
+         qps_min={"mesh": nq / max(t_a), "streamed": nq / max(t_b)},
+         qps_max={"mesh": nq / min(t_a), "streamed": nq / min(t_b)},
+         per_search={"mesh": one_a, "streamed": one_b},
+         per_reprune=rep, alpha_scan_chunks_expected=scans,
+         memory_bytes={"mesh": spmd.memory_bytes(),
+                       "streamed": streamed.memory_bytes(),
+                       "mesh_reprune": der["mesh"].memory_bytes(),
+                       "streamed_reprune": der["streamed"].memory_bytes()},
+         cpu_shard0={"queries": nr, "ids_equal_rows": cpu_rows,
+                     "dists_close": cpu_close, "norm_scale": scale,
+                     "max_abs_err": float((d_c - d_g.cpu()).abs().max())},
+         brute_force_equal_to_flat=brute_equal,
+         pq16={"n": PQ_CUT, "seconds": pq_s, "recall_at_10": pq_recall,
+               "launches": pq_launches},
+         skip={"degraded_shards": degraded, "equal_to_survivors": skip_equal},
+         fit_launches=fit_launches, launches=launches,
+         seconds=time.perf_counter() - t0)
+    failed = []
+    if not refit_equal:
+        failed.append("a shard's refit in the other tier gave another "
+                      "graph: the fit is not bitwise reproducible")
+    if not search_equal:
+        failed.append("the two tiers' searches differ")
+    if not (reprune_equal and reprune_search_equal):
+        failed.append("the two tiers' reprunes differ")
+    for name, one in (("mesh", one_a), ("streamed", one_b)):
+        if one["launches"].get("beam_hops") != s or one["host_syncs"] != s:
+            failed.append(f"a {name} search took {one}, not {s} beam_hops "
+                          f"launches and {s} host syncs")
+    for name in rep:
+        if rep[name]["launches"].get("alpha_scan") != scans[name]:
+            failed.append(f"the {name} reprune launched alpha_scan "
+                          f"{rep[name]['launches']}, not {scans[name]}")
+    if recall < SHARDED_RECALL_FLOOR or recall_r < SHARDED_REPRUNE_FLOOR:
+        failed.append(f"recall@10 {recall} / {recall_r} below "
+                      f"{SHARDED_RECALL_FLOOR} / {SHARDED_REPRUNE_FLOOR}")
+    if cpu_rows < 0.99 or not cpu_close:
+        failed.append("shard 0's search differs on the CPU")
+    if not brute_equal:
+        failed.append("the sharded brute force differs from FlatIndex")
+    if pq_launches.get("lut_dist", 0) <= 0 or pq_recall < PQ_SHARDED_FLOOR:
+        failed.append(f"sharded PQ16: {pq_launches}, recall {pq_recall}")
+    if degraded != 1 or not skip_equal:
+        failed.append("the degraded search is not the survivors' top-k")
+    if min(launches[name] for name in SHARDED_KERNELS) <= 0:
+        failed.append(f"a kernel of the sharded path never launched: "
+                      f"{launches}")
+    if failed:
+        raise AssertionError("sharded: " + "; ".join(failed))
+    return launches
+
+
+def streamed_phase(torch, wrappers: dict, seed: int) -> dict:
+    """The out-of-core tier at STREAMED_N = 4 shards x 300k (each the
+    config's own size): the raw vectors are generated on the card, the
+    exact top-10 taken there, then moved to host memory before the fit.
+    Fit seconds, QPS, recall@10; the peak device memory of a search next
+    to the store's bytes (asserted at most two shards' blocks plus the
+    batch's own tensors, and below the store); one shard's host-to-device
+    copy next to one shard's search. Returns the kernels' launches."""
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.distances import l2_topk
+    from repro_torch.core.distributed import StreamedShardedIndex, _local_beam
+    from repro_torch.core.pipeline import IndexParams
+    from repro_torch.data import clustered_vectors, queries_like
+
+    k, ef, s = CONFIG.k, CONFIG.ef_search, SHARDS
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    raw = clustered_vectors(gen, STREAMED_N, CONFIG.dim)
+    queries = queries_like(gen, raw, STREAMED_QUERIES)
+    _, true_i = l2_topk(queries, raw, k)
+    host = raw.cpu()
+    true_i = true_i.cpu()
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gen_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    idx = StreamedShardedIndex(IndexParams.from_config(CONFIG), s,
+                               device="cuda").fit(
+        host, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    store = idx.store
+    shard_bytes = [sum(x.numel() * x.element_size()
+                       for x in store.peek_host(i).values())
+                   for i in range(s)]
+    pinned = all(x.is_pinned() for i in range(s)
+                 for x in store.peek_host(i).values())
+    d, i, serve_s, times = timed_search(torch, idx, queries, k, ef)
+    recall = recall_at_k(i.cpu(), true_i)
+    nq = queries.shape[0]
+
+    # one shard's copy (no prefetch: a plain fetch) and one shard's search
+    q_proj = (queries - idx.pca_mean) @ idx.pca_comp
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    tree = store.fetch(1)
+    ev[1].record()
+    _local_beam(q_proj, tree["base"], tree["neighbors"], tree["global_ids"],
+                tree["centroids"], tree["members"], ef=ef, k=k, max_iters=0,
+                mode="while")
+    ev[2].record()
+    torch.cuda.synchronize()
+    copy_ms, search_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    # the batch's own tensors: one search over that resident shard
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _local_beam(q_proj, tree["base"], tree["neighbors"], tree["global_ids"],
+                tree["centroids"], tree["members"], ef=ef, k=k, max_iters=0,
+                mode="while")
+    torch.cuda.synchronize()
+    batch_bytes = torch.cuda.max_memory_allocated() - base
+    del tree
+    torch.cuda.synchronize()
+    # the streamed search's peak: at most two shards' blocks on the card
+    merge_bytes = s * nq * k * 8 * 4 + q_proj.numel() * 4 * 2
+    del q_proj
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    idx.search(queries, k, ef=ef)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    allowed = 2 * max(shard_bytes) + batch_bytes + merge_bytes
+    launches = {name: w.launches for name, w in wrappers.items()}
+    emit("streamed", n=STREAMED_N, shards=s, dim=CONFIG.dim,
+         pca_dim=CONFIG.pca_dim, queries=nq, k=k, ef=ef,
+         generate_and_truth_seconds=gen_s, fit_seconds=fit_s,
+         fit_seconds_per_shard=[st["build_seconds"]
+                                for st in idx.shard_stats],
+         n_kept=idx.ntotal, recall_at_10=recall, qps=nq / serve_s,
+         qps_min=nq / max(times), qps_max=nq / min(times),
+         search_seconds=serve_s,
+         store_bytes=store.nbytes(), shard_bytes=shard_bytes,
+         store_pinned=pinned, memory_bytes=idx.memory_bytes(),
+         search_peak_device_bytes=peak, batch_bytes=batch_bytes,
+         merge_bytes=merge_bytes, peak_allowed_bytes=allowed,
+         one_shard={"h2d_copy_ms": copy_ms, "search_ms": search_ms},
+         copies_if_serial_ms=s * copy_ms, searches_ms=s * search_ms,
+         launches=launches, seconds=time.perf_counter() - t0)
+    failed = []
+    if not pinned:
+        failed.append("the store's host buffers are not pinned")
+    if peak > allowed or peak >= store.nbytes():
+        failed.append(f"search peak {peak} B over {allowed} B (two shards "
+                      f"plus the batch) or the store's {store.nbytes()} B")
+    if recall < STREAMED_RECALL_FLOOR:
+        failed.append(f"recall@10 {recall} below {STREAMED_RECALL_FLOOR}")
+    if not (torch.isfinite(d).all() and i.shape == (nq, k)):
+        failed.append("non-finite or mis-shaped results")
+    if failed:
+        raise AssertionError("streamed: " + "; ".join(failed))
+    del idx, store, host
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_cli_phase(src: Path) -> None:
+    """The launchers' --shards as subprocesses: tune's streamed pipeline
+    path at N = 20k x 768, tune --spec NSG16, serve --arch ann-laion with
+    --on-shard-error skip. Each must exit 0 and reach its floor; the tune
+    runs must print "OK — one per shard", the serve run no resilience:
+    and no degraded: line."""
+    import os
+    import re
+
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    for name, module, argv, floor in SHARDED_CLI_RUNS:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module, *argv], env=env,
+                              capture_output=True, text=True,
+                              timeout=SERVE_CLI_TIMEOUT)
+        out = proc.stdout
+        if module.endswith("tune"):
+            found = [float(x) for x in re.findall(
+                r"^trial \d+ \S+ +build=.* recall=(\d+\.\d+)", out,
+                re.MULTILINE)]
+            recall = max(found) if found else None
+            ok_line = "OK — one per shard" in out
+        else:
+            m = re.search(r"recall@10=(\d+\.\d+)", out)
+            recall = float(m.group(1)) if m else None
+            ok_line = not re.search(r"^\s*(resilience|degraded): ", out,
+                                    re.MULTILINE)
+        emit("sharded_cli", run=name, args=argv, returncode=proc.returncode,
+             seconds=time.perf_counter() - t, recall_at_10=recall,
+             ok_line=ok_line, output=out.splitlines()[-12:],
+             stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+        if proc.returncode != 0 or recall is None or recall < floor \
+                or not ok_line:
+            raise AssertionError(f"sharded_cli {name}: rc "
+                                 f"{proc.returncode}, recall {recall} "
+                                 f"(floor {floor}), line ok {ok_line}")
+
+
 def recall_at_k(found, truth) -> float:
     hits = sum(len(set(a) & set(b)) for a, b in zip(found.tolist(),
                                                      truth.tolist()))
@@ -2702,6 +3153,16 @@ def main() -> int:
                                      args.seed, gpu)
     new_phase_s["factory"] = time.perf_counter() - t
 
+    # 10d-10e. the sharded and out-of-core tier on the same data, then the
+    # streamed tier at four times the config's N
+    t = time.perf_counter()
+    sharded_launches = sharded_phase(torch, data, queries, true_i, wrappers,
+                                     args.seed, gpu)
+    new_phase_s["sharded"] = time.perf_counter() - t
+    t = time.perf_counter()
+    streamed_launches = streamed_phase(torch, wrappers, args.seed)
+    new_phase_s["streamed"] = time.perf_counter() - t
+
     # 11-12. the two-tower path at full width: its launch counts are zeroed
     # just before recsys and read just after recsys_ann
     from repro_torch.configs.two_tower_retrieval import CONFIG as TWO_TOWER
@@ -2729,6 +3190,9 @@ def main() -> int:
     t = time.perf_counter()
     serve_cli_phase(src)
     new_phase_s["serve_cli"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sharded_cli_phase(src)
+    new_phase_s["sharded_cli"] = time.perf_counter() - t
     emit("new_phases", seconds=new_phase_s,
          total_seconds=sum(new_phase_s.values()))
     kernels["embedding_bag"] = embedding_bag_kernel_phase(
@@ -2749,6 +3213,8 @@ def main() -> int:
         entry["launches_fit_auto"] = auto_launches[name]
         entry["launches_recsys"] = recsys_launches[name]
         entry["launches_factory"] = factory_launches[name]
+        entry["launches_sharded"] = sharded_launches[name]
+        entry["launches_streamed"] = streamed_launches[name]
         if "by_shape" in info:
             entry["by_shape"] = {s_: {k_: v for k_, v in b_.items()
                                       if k_ != "shape"} | b_["shape"]

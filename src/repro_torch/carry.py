@@ -8,11 +8,20 @@ returns the port's index of the same family over the same arrays
 This module never imports the reference: it reads the plain ``{"family",
 "meta", "arrays"}`` layout.
 
+``sharded_index_from_jax`` and ``streamed_sharded_index_from_jax`` carry
+the sharded tier: a reference ``ShardedIndex``'s fitted mesh arrays onto a
+port mesh (one block per shard), and a reference ``StreamedShardedIndex``'s
+host-offload store (its host trees) into the port's store. The factory
+wrapper ``ShardedFactoryIndex`` goes through ``index_from_jax_state`` like
+every other family (its shards under ``sub<i>/`` keys).
+
 ``recsys_params_from_jax`` does the same for the two-tower model: it takes
 the reference's params pytree (``{"table", "user_tower": {"layers": [{"w",
 "b"}, ...]}, "item_tower"}``) and returns the port's ``TwoTower``.
 """
 from __future__ import annotations
+
+from dataclasses import asdict
 
 import numpy as np
 import torch
@@ -32,6 +41,68 @@ def index_from_jax_state(state: dict, device=None):
                                                  "TunedGraphIndex"),
                              "meta": state["meta"], "arrays": arrays},
                             device=device)
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(a)))
+
+
+def sharded_index_from_jax(ref, mesh):
+    """A fitted reference ``ShardedIndex`` -> the port's over ``mesh``
+    (whose ``model`` axis must have the reference mesh's shard count):
+    its arrays, structural neighbors, kNN table, medoids, padded row count
+    and params; the per-shard sub-indexes are not carried (nothing on the
+    serving or reprune path reads them)."""
+    from repro_torch.core.distributed import ShardedIndex, ShardedIndexArrays
+    from repro_torch.core.pipeline import IndexParams
+    from repro_torch.distributed.sharding import put_row_sharded
+
+    idx = ShardedIndex(IndexParams(**asdict(ref.params)), mesh)
+    a = ref.arrays
+
+    def rows(x, dtype):
+        return put_row_sharded(mesh, _tensor(x).to(dtype))
+
+    nbrs = rows(a.neighbors, torch.int32)
+    idx.arrays = ShardedIndexArrays(
+        base=rows(a.base, torch.float32), neighbors=nbrs,
+        global_ids=rows(a.global_ids, torch.int32),
+        centroids=rows(a.centroids, torch.float32),
+        members=rows(a.members, torch.int32),
+        pca_mean=_tensor(a.pca_mean).float().to(idx.device),
+        pca_comp=_tensor(a.pca_comp).float().to(idx.device),
+        base_norms=None if a.base_norms is None
+        else rows(a.base_norms, torch.float32))
+    idx.struct_neighbors = nbrs if ref.struct_neighbors is a.neighbors \
+        else rows(ref.struct_neighbors, torch.int32)
+    idx.knn_ids = rows(ref.knn_ids, torch.int32)
+    idx.medoids = rows(ref.medoids, torch.int32)
+    idx._m = int(ref._m)
+    idx.n_structural_builds = int(ref.n_structural_builds)
+    return idx
+
+
+def streamed_sharded_index_from_jax(ref, device=None):
+    """A fitted reference ``StreamedShardedIndex`` -> the port's on
+    ``device`` (default: the card): every shard's host tree copied into
+    the port's store (pinned on CUDA), the global projection, the padded
+    row count and the build counters."""
+    from repro_torch.core.distributed import StreamedShardedIndex
+    from repro_torch.core.pipeline import IndexParams
+
+    idx = StreamedShardedIndex(IndexParams(**asdict(ref.params)),
+                               n_shards=ref.n_shards, device=device)
+    for key in ref.store.keys():
+        idx.store.offload(key, {k: _tensor(v) for k, v in
+                                ref.store.peek_host(key).items()})
+    idx._structural = idx.store
+    idx.pca_mean = _tensor(ref.pca_mean).float().to(idx.device)
+    idx.pca_comp = _tensor(ref.pca_comp).float().to(idx.device)
+    idx._m = int(ref._m)
+    idx.input_dim = int(ref.input_dim)
+    idx.n_structural_builds = int(ref.n_structural_builds)
+    idx.shard_stats = list(ref.shard_stats)
+    return idx
 
 
 def recsys_params_from_jax(params: dict, cfg, device=None) -> TwoTower:

@@ -31,6 +31,8 @@ SPEC = ArchSpec(
     config=CONFIG,
     shapes=ANN_SHAPES,
     source="[SISAP23 Task A / arXiv:2309.00472; paper]",
-    notes="The paper's pipeline (TunedGraphIndex); the sharded search "
-          "serve step is not ported (ROADMAP Queue 1 item 9).",
+    notes="The paper's pipeline (TunedGraphIndex); search_10m and "
+          "search_30m exceed one card's memory at 768-d and are served "
+          "row-sharded (core.distributed: ShardedIndex over a mesh, "
+          "StreamedShardedIndex from pinned host memory on one card).",
 )

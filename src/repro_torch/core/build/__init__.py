@@ -1,8 +1,10 @@
 """Graph-build subsystem: the kNN-table dispatch (``build_knn``: the exact
 pass or NN-Descent, ``build/nn_descent.py``), the table-derived NSG pools
 (``build/pools.py``), the α-RNG pruning primitive and the rebuild-free
-``reprune`` family (``build/prune.py``) and the NSG finishing pass with its
-host and device backends (``build/finish.py``).
+``reprune`` family (``build/prune.py``), the NSG finishing pass with its
+host and device backends (``build/finish.py``), and the out-of-core tier's
+pieces: chunk streaming and the host-offload store (``build/stream.py``)
+and the shard-local derivation (``build/shardlocal.py``).
 """
 from __future__ import annotations
 
@@ -24,14 +26,20 @@ from repro_torch.core.build.prune import (
     reprune_family, reprune_nsg, rows_sqdist_in_chunks,
     sorted_adjacency_chunk,
 )
+from repro_torch.core.build.shardlocal import derive_local, repair_local
+from repro_torch.core.build.stream import (
+    DEFAULT_CHUNK, HostOffloadStore, chunk_spans,
+)
 
 __all__ = [
-    "AUTO_NND_MIN_N", "BuildStats", "FINISH_BACKENDS", "FinishStats",
-    "NNDDraws", "RepruneFamily", "alpha_prune", "alpha_prune_mask",
-    "build_knn", "finish_nsg", "knn_graph_recall", "mark_dups",
+    "AUTO_NND_MIN_N", "BuildStats", "DEFAULT_CHUNK", "FINISH_BACKENDS",
+    "FinishStats", "HostOffloadStore", "NNDDraws", "RepruneFamily",
+    "alpha_prune", "alpha_prune_mask", "build_knn", "chunk_spans",
+    "derive_local", "finish_nsg", "knn_graph_recall", "mark_dups",
     "nn_descent", "nnd_candidate_pools", "nsg_from_neighbors",
     "pairwise_rows_sqdist", "prune_in_chunks", "reachable_mask", "repair",
-    "repair_connectivity_device", "reprune", "reprune_family", "reprune_nsg",
+    "repair_connectivity_device", "repair_local", "reprune",
+    "reprune_family", "reprune_nsg",
     "resolve_backend", "resolve_finish_backend", "rows_sqdist_in_chunks",
     "sorted_adjacency_chunk",
 ]

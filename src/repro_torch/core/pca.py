@@ -20,6 +20,9 @@ class PCA:
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         return (x - self.mean) @ self.components
 
+    def inverse_transform(self, z: torch.Tensor) -> torch.Tensor:
+        return z @ self.components.T + self.mean
+
 
 def fit_pca(x: torch.Tensor, dim: int) -> PCA:
     if not 1 <= dim <= x.shape[1]:

@@ -22,7 +22,8 @@ invariant's name.
 directory; ``load_index`` on such a directory walks the committed steps
 newest-first and falls back past any snapshot that fails verification.
 ``PreprocessedIndex`` nests its inner index's arrays under ``inner/``
-keys. The sharded family waits for ROADMAP Queue 1 item 9.
+keys, ``ShardedFactoryIndex`` each shard's under ``sub<i>/`` — one flat
+npz per snapshot whatever the nesting depth.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ _FORMAT = 1
 def _family_classes() -> Dict[str, type]:
     # late imports: persist sits below the family modules, which import
     # index_api (and would cycle at module scope)
+    from repro_torch.core.distributed import ShardedFactoryIndex
     from repro_torch.core.flat import FlatIndex
     from repro_torch.core.hnsw import HNSWIndex
     from repro_torch.core.index_api import PreprocessedIndex
@@ -53,7 +55,7 @@ def _family_classes() -> Dict[str, type]:
     from repro_torch.core.pq import PQIndex
     return {c.__name__: c for c in (
         FlatIndex, IVFIndex, IVFPQIndex, PQIndex, HNSWIndex,
-        TunedGraphIndex, PreprocessedIndex)}
+        TunedGraphIndex, PreprocessedIndex, ShardedFactoryIndex)}
 
 
 def _host(v):

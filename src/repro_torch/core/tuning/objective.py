@@ -357,10 +357,105 @@ class SearchParamsObjective:
 
 
 class ShardedRepruneObjective:
-    """(graph_degree, alpha, ef_search) sweeps on a sharded index: not
-    ported yet (ROADMAP Queue 1 item 9, multi-device)."""
+    """(graph_degree, alpha, ef_search) sweeps on a *sharded* index with
+    exactly one structural build per shard.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedRepruneObjective is not ported yet: sharded indexes "
-            "come with ROADMAP Queue 1 item 9")
+    ``index`` is a fitted ``ShardedIndex`` / ``StreamedShardedIndex`` /
+    ``ShardedFactoryIndex`` (any conformer exposing ``reprune(alpha=,
+    degree=)``) built at the structural maximum; every trial derives its
+    serving graphs per shard from the cached max-degree graphs — the
+    "prune, don't rebuild" property at cluster scale. Derived indexes are
+    cached per snapped (degree, alpha), so a sweep is one reprune per
+    distinct grid point and zero rebuilds (``grid_hits`` and the pipeline's
+    structural-build counter make that assertable). QPS is timed on the
+    host clock around a device synchronize.
+    """
+
+    def __init__(self, index, data, queries, k: int = 10,
+                 recall_floor: float = 0.9, qps_repeats: int = 3,
+                 alpha_grid: Optional[Tuple[float, ...]] = None):
+        if not hasattr(index, "reprune"):
+            raise TypeError(
+                f"{type(index).__name__} has no reprune(); sharded "
+                "degree/alpha sweeps need a graph family (NSG specs)")
+        self.index = index
+        self.device = index.device
+        self.queries = torch.as_tensor(queries, dtype=torch.float32).to(
+            self.device)
+        self.k = k
+        self.recall_floor = recall_floor
+        self.qps_repeats = qps_repeats
+        # the structural ceiling: the degree the shards were built at
+        # (the sharded indexes carry params themselves; the factory
+        # wrapper's live on its per-shard sub-indexes)
+        p = getattr(index, "params", None)
+        if p is None and getattr(index, "subs", None):
+            p = getattr(index.subs[0], "params", None)
+        self.max_degree = p.graph_degree if p is not None else None
+        self.alpha_grid = tuple(sorted(
+            alpha_grid if alpha_grid is not None else DEFAULT_ALPHA_GRID))
+        data = torch.as_tensor(data, dtype=torch.float32).to(self.device)
+        _, self.true_i = FlatIndex(data).search(self.queries, k)
+        self._cache: Dict[tuple, object] = {}
+        self.grid_hits = 0
+        self.reprunes = 0
+        self.eval_log: list = []
+
+    @property
+    def space(self) -> SearchSpace:
+        from repro_torch.core.index_api import ef_search_space
+        md = self.max_degree or 32
+        return (ef_search_space()
+                .add("graph_degree", Int(max(4, md // 4), md))
+                .add("alpha", Float(self.alpha_grid[0],
+                                    self.alpha_grid[-1])))
+
+    def _derived(self, degree: int, alpha: float):
+        _, a = snap_alpha(self.alpha_grid, alpha)
+        if self.max_degree is not None:
+            degree = min(degree, self.max_degree)
+            if degree == self.max_degree and a == 1.0:
+                return self.index, a       # the cached structural maximum
+        key = (degree, a)
+        if key not in self._cache:
+            self._cache[key] = self.index.reprune(alpha=a, degree=degree)
+            self.reprunes += 1
+        else:
+            self.grid_hits += 1
+        return self._cache[key], a
+
+    def evaluate(self, params: Dict) -> EvalResult:
+        from repro_torch.core.index_api import SearchParams
+        params = dict(params)
+        idx, a = self._derived(int(params.get("graph_degree",
+                                              self.max_degree or 32)),
+                               float(params.get("alpha", 1.0)))
+        params["alpha"] = a
+        sp = SearchParams(ef_search=max(
+            int(params.get("ef_search", 64)), self.k))
+        idx.search(self.queries, self.k, sp)                 # warmup
+        synchronize(self.device)
+        times = []
+        for _ in range(self.qps_repeats):
+            t1 = time.perf_counter()
+            d, i = idx.search(self.queries, self.k, sp)
+            synchronize(self.device)
+            times.append(time.perf_counter() - t1)
+        qps = self.queries.shape[0] / float(np.median(times))
+        mem = getattr(idx, "memory_bytes", None)
+        res = EvalResult(recall=recall_at_k(i, self.true_i), qps=qps,
+                         build_seconds=0.0, mem_bytes=mem() if mem else 0,
+                         cached_build=True, repruned=True)
+        self.eval_log.append((params, res))
+        return res
+
+    def single_objective(self, trial: Trial) -> dict:
+        r = self.evaluate(trial.params)
+        trial.user_attrs["result"] = r
+        return {"values": r.qps,
+                "constraints": [self.recall_floor - r.recall]}
+
+    def multi_objective(self, trial: Trial) -> dict:
+        r = self.evaluate(trial.params)
+        trial.user_attrs["result"] = r
+        return {"values": (r.qps, r.recall)}

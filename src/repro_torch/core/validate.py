@@ -9,8 +9,8 @@ reachability spot-check on graph indexes. A violation raises
 ``IndexIntegrityError`` naming the invariant; ``core.persist.load_index``
 runs it after checksum verification. The checks run where the arrays live
 (on the card for a card-resident index), and the reachability check's
-frontier propagation costs O(rounds * N * R) on the device. The sharded
-family's check waits for the sharded index (ROADMAP Queue 1 item 9).
+frontier propagation costs O(rounds * N * R) on the device. A sharded
+index is checked shard by shard, plus its hoisted PCA.
 """
 from __future__ import annotations
 
@@ -227,6 +227,15 @@ def _validate_preprocessed(idx, **kw) -> None:
     validate_index(idx.inner, **kw)
 
 
+def _validate_sharded_factory(idx, **kw) -> None:
+    if not idx.subs:
+        _fail("fitted", "ShardedFactoryIndex has no shards (not fitted)")
+    if idx.pca is not None:
+        _check_finite("PCA components", idx.pca.components)
+    for s in idx.subs:
+        validate_index(s, **kw)
+
+
 _VALIDATORS: Dict[str, Callable] = {
     "FlatIndex": _validate_flat,
     "IVFIndex": _validate_ivf,
@@ -235,6 +244,7 @@ _VALIDATORS: Dict[str, Callable] = {
     "HNSWIndex": _validate_hnsw,
     "TunedGraphIndex": _validate_tuned_graph,
     "PreprocessedIndex": _validate_preprocessed,
+    "ShardedFactoryIndex": _validate_sharded_factory,
 }
 
 
@@ -250,7 +260,8 @@ def validate_index(index, *, sample: int = 64, seed: int = 0) -> None:
     fn = _VALIDATORS.get(fam)
     if fn is None:
         _fail("family", f"no validator for index family {fam!r}")
-    if fam in ("TunedGraphIndex", "PreprocessedIndex"):
+    if fam in ("TunedGraphIndex", "PreprocessedIndex",
+               "ShardedFactoryIndex"):
         fn(index, sample=sample, seed=seed)
     else:
         fn(index)

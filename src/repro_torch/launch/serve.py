@@ -14,10 +14,11 @@ with an optional "PCA<d>," prefix) — over 4,000 x 48 clustered vectors:
 bucketed and micro-batched by default (``--buckets auto``), or one batch
 (``--buckets off``); ``--snapshot DIR`` saves the built index,
 ``--restore DIR`` loads it instead of building (checksums verified,
-invariants validated). Both print the reference's lines. The port runs on
-the card by default; ``--device cpu`` runs the plain PyTorch versions of
-the kernels instead. ``--shards`` is not ported yet (ROADMAP Queue 1 item
-9) and raises.
+invariants validated). ``--shards S`` row-shards the spec over S
+sub-indexes (``ShardedFactoryIndex``) and ``--on-shard-error skip`` serves
+past a failed shard, with a ``degraded:`` line when one was masked. Both
+print the reference's lines. The port runs on the card by default;
+``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 """
 from __future__ import annotations
 
@@ -93,8 +94,8 @@ def _parser() -> argparse.ArgumentParser:
                          "building (checksums verified + invariants "
                          "validated on load; ann family only)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="sharded serving (not ported yet: ROADMAP Queue 1 "
-                         "item 9)")
+                    help="row-shard the spec over this many sub-indexes "
+                         "(ShardedFactoryIndex; ann family only)")
     ap.add_argument("--on-shard-error", default="raise",
                     choices=["raise", "skip"],
                     help="sharded degraded-search policy (with --shards)")
@@ -124,10 +125,6 @@ def serve_ann(args, dev: torch.device) -> None:
     from repro_torch.serve.batching import MicroBatchQueue, pow2_buckets
     from repro_torch.serve.serve_step import ann_search_step
 
-    if args.shards > 0:
-        raise NotImplementedError(
-            "--shards: sharded indexes are not ported yet (ROADMAP Queue 1 "
-            "item 9)")
     data = clustered_vectors(torch.Generator(device=dev).manual_seed(0),
                              4000, 48, n_clusters=16)
     queries = queries_like(torch.Generator(device=dev).manual_seed(1), data,
@@ -138,6 +135,21 @@ def serve_ann(args, dev: torch.device) -> None:
         print(f"restored [{getattr(idx, 'spec', None) or args.spec}] from "
               f"{args.restore} in {time.perf_counter() - t_load:.2f}s "
               f"(checksums verified, invariants validated)")
+        if hasattr(idx, "on_shard_error"):
+            idx.on_shard_error = args.on_shard_error
+    elif args.shards > 0:
+        from repro_torch.core.distributed import ShardedFactoryIndex
+        idx = ShardedFactoryIndex(args.spec, n_shards=args.shards,
+                                  knn_backend=args.knn_backend,
+                                  finish_backend=args.finish_backend,
+                                  dist_backend=args.dist_backend,
+                                  rerank=args.rerank,
+                                  hop_backend=args.hop_backend,
+                                  patience=args.patience, eps=args.eps,
+                                  compact_every=args.compact_every,
+                                  on_shard_error=args.on_shard_error,
+                                  device=dev)
+        idx.fit(data, generator=torch.Generator().manual_seed(0))
     else:
         idx = build_index(args.spec, data,
                           generator=torch.Generator().manual_seed(0),
@@ -232,6 +244,10 @@ def serve_ann(args, dev: torch.device) -> None:
               f"{lat['errors']} error answers, {lat['retries']} flush "
               f"retries, {lat['shed']} shed "
               f"(every ticket answered: result or typed failure)")
+    degraded = getattr(idx, "degraded_shards", 0)
+    if degraded:
+        print(f"  degraded: {degraded} shard(s) masked on the last "
+              f"search (on_shard_error=skip)")
 
 
 def main(argv=None):

@@ -22,23 +22,65 @@ and NN-Descent (with table-derived pools), as in the reference.
 ``--patience``, ``--eps`` and ``--compact-every`` set the serving knobs of
 every trial (``--compact-every 8``: the compacted search); with ``--spec``
 they, ``--dist-backend``, ``--rerank`` and ``--hop-backend`` override the
-spec's build, as the reference's do. ``--shards`` (ROADMAP Queue 1 item 9)
-is not ported yet and raises.
+spec's build, as the reference's do.
+
+``--shards`` with a graph-family ``--spec`` tunes a sharded deployment's
+(graph_degree, alpha, ef_search): every shard builds once at the
+structural maximum (``ShardedFactoryIndex``) and every degree/alpha trial
+is a per-shard reprune — zero rebuilds, checked by the structural-build
+counter in the last line. ``--shards`` without ``--spec`` shards the
+paper's pipeline itself: a ``ShardedIndex`` over a mesh of the visible
+devices when there are at least as many as shards, the host-offload
+``StreamedShardedIndex`` otherwise (or with ``--offload``: shards stream
+through the card one at a time, so N is bounded by host memory).
+``--bench-build-out FILE`` merges the per-stage build timings (summed over
+shards) into a ``BENCH_build.json``-style file as a
+``stage="sharded_build"`` point:
+
+    PYTHONPATH=src python -m repro_torch.launch.tune --spec NSG16 --shards 4
+    PYTHONPATH=src python -m repro_torch.launch.tune --n 20000 --dim 768 \
+        --shards 4 --trials 4
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import time
 
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.index_api import build_index
 from repro_torch.core.pipeline import IndexParams
+from repro_torch.core.pipeline import structural_build_count
 from repro_torch.core.tuning import (
-    AnnObjective, SearchParamsObjective, Study, TPESampler, default_space,
+    AnnObjective, SearchParamsObjective, ShardedRepruneObjective, Study,
+    TPESampler, default_space,
 )
 from repro_torch.data import clustered_vectors, queries_like
+
+
+def merge_bench_point(path: str, point: dict, backend: str = "cuda") -> None:
+    """Append one point to a ``BENCH_build.json``-style file in place.
+
+    A point with the same (stage, n, shards, path) is replaced, so a re-run
+    updates its own row; a missing or unreadable file starts a fresh
+    document.
+    """
+    doc = {"backend": backend, "points": []}
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            pass
+    keyof = lambda p: (p.get("stage"), p.get("n"), p.get("shards"),
+                       p.get("path"))
+    doc["points"] = [p for p in doc.get("points", [])
+                     if keyof(p) != keyof(point)] + [point]
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, default=str)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -58,8 +100,19 @@ def _parser() -> argparse.ArgumentParser:
                     help="factory spec: tune SearchParams for this index "
                          "instead of the pipeline's build knobs")
     ap.add_argument("--shards", type=int, default=0,
-                    help="sharded tuning (not ported yet: ROADMAP Queue 1 "
-                         "item 9)")
+                    help="with --spec on a graph family: shard the spec "
+                         "and sweep (graph_degree, alpha, ef_search) via "
+                         "per-shard reprune; without --spec: shard the "
+                         "paper's pipeline (one structural build per shard, "
+                         "everything else derived)")
+    ap.add_argument("--offload", action="store_true",
+                    help="with --shards (no --spec): force the host-offload "
+                         "streamed tier even when there are enough devices "
+                         "for the mesh")
+    ap.add_argument("--bench-build-out", default=None,
+                    help="with --shards (no --spec): merge a "
+                         "stage='sharded_build' per-stage timing point "
+                         "into this BENCH_build.json-style file")
     ap.add_argument("--knn-backend", default="auto",
                     choices=["exact", "nndescent", "auto"],
                     help="build-time kNN-graph backend (core.build): exact "
@@ -107,21 +160,95 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.shards > 1:
-        raise NotImplementedError(
-            "--shards: sharded indexes and ShardedRepruneObjective are not "
-            "ported yet (ROADMAP Queue 1 item 9)")
     dev = resolve_device(args.device)
     data = clustered_vectors(torch.Generator(device=dev).manual_seed(0),
                              args.n, args.dim, n_clusters=32)
     queries = queries_like(torch.Generator(device=dev).manual_seed(1), data,
                            args.queries)
-    if args.spec:
+    b0 = structural_build_count()
+    if args.spec and args.shards > 1:
+        obj = _sharded_spec_objective(args, data, queries, dev)
+    elif args.spec:
         obj = _spec_objective(args, data, queries, dev)
-        space = obj.space
+    elif args.shards > 1:
+        obj = _sharded_pipeline_objective(args, data, queries, dev)
     else:
         obj, space = _pipeline_objective(args, data, queries, dev)
-    _run_study(args, obj, space)
+        _run_study(args, obj, space)
+        return
+    _run_study(args, obj, obj.space)
+    if args.shards > 1:
+        built = structural_build_count() - b0
+        print(f"sharded sweep: {built} structural builds for "
+              f"{args.shards} shards "
+              f"({'OK — one per shard' if built == args.shards else 'REBUILD LEAK'})")
+
+
+def _sharded_spec_objective(args, data, queries, dev):
+    """The spec row-sharded (``ShardedFactoryIndex``), swept by per-shard
+    reprune (``ShardedRepruneObjective``)."""
+    from repro_torch.core.distributed import ShardedFactoryIndex
+    idx = ShardedFactoryIndex(args.spec, n_shards=args.shards,
+                              knn_backend=args.knn_backend,
+                              finish_backend=args.finish_backend,
+                              dist_backend=args.dist_backend,
+                              rerank=args.rerank,
+                              hop_backend=args.hop_backend,
+                              patience=args.patience, eps=args.eps,
+                              compact_every=args.compact_every,
+                              device=dev).fit(
+        data, generator=torch.Generator().manual_seed(0))
+    return ShardedRepruneObjective(idx, data, queries, k=10,
+                                   recall_floor=args.recall_floor,
+                                   qps_repeats=3)
+
+
+def _sharded_pipeline_objective(args, data, queries, dev):
+    """The paper's pipeline sharded: a mesh ``ShardedIndex`` when the
+    device type has at least ``--shards`` devices (and no ``--offload``),
+    the host-offload ``StreamedShardedIndex`` otherwise; one structural
+    build per shard, reprune-derived trials."""
+    from repro_torch.core.distributed import (
+        ShardedIndex, StreamedShardedIndex,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    p = IndexParams(pca_dim=args.pca_dim or args.dim,
+                    graph_degree=args.max_degree,
+                    build_knn_k=args.max_degree,
+                    build_candidates=2 * args.max_degree, ef_search=64,
+                    knn_backend=args.knn_backend,
+                    finish_backend=args.finish_backend)
+    n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    if not args.offload and n_devices >= args.shards:
+        mesh = make_host_mesh(model=args.shards)
+        idx = ShardedIndex(p, mesh).fit(data, generator=gen)
+        path_name = "spmd"
+    else:
+        idx = StreamedShardedIndex(p, n_shards=args.shards,
+                                   device=dev).fit(data, generator=gen)
+        path_name = "streamed"
+    synchronize(dev)
+    build_seconds = time.perf_counter() - t0
+    stats = idx.shard_stats
+    agg = {f: round(sum(s[f] for s in stats), 3)
+           for f in ("knn_seconds", "pools_seconds", "prune_seconds",
+                     "finish_seconds")}
+    print(f"sharded build ({path_name}): {args.shards} shards, "
+          f"{build_seconds:.1f}s total "
+          + " ".join(f"{k_}={v}" for k_, v in agg.items()))
+    if args.bench_build_out:
+        merge_bench_point(args.bench_build_out, {
+            "n": args.n, "dim": args.dim, "stage": "sharded_build",
+            "shards": args.shards, "path": path_name,
+            "degree": args.max_degree, "knn_backend": args.knn_backend,
+            "seconds": round(build_seconds, 3), **agg,
+        }, backend=dev.type)
+        print(f"merged sharded_build point into {args.bench_build_out}")
+    return ShardedRepruneObjective(idx, data, queries, k=10,
+                                   recall_floor=args.recall_floor,
+                                   qps_repeats=3)
 
 
 def _spec_objective(args, data, queries, dev):
@@ -204,7 +331,8 @@ def _run_study(args, obj, space) -> None:
     print(f"{full} structural builds, {repr_} reprune derivations, "
           f"{cached} pure cache hits (the §5.3 rebuild cost fix)")
     if hasattr(obj, "grid_hits"):
-        print(f"reprune grid: {obj.family_prunes} family/derivation passes, "
+        fam = getattr(obj, "family_prunes", getattr(obj, "reprunes", 0))
+        print(f"reprune grid: {fam} family/derivation passes, "
               f"{obj.grid_hits} pure grid lookups")
     if args.out:
         with open(args.out, "w") as f:

@@ -12,7 +12,7 @@ sequence, same faults — a flaky resilience test is worse than none):
     still exposes ``max_batch`` / ``dispatched`` / ``warmup``);
   * ``FaultInjector.wrap_index(index)`` — the same proxy at the ``Index``
     granularity (fit/search delegate; ``search`` faults), for killing one
-    shard of a sharded index (ROADMAP Queue 1 item 9);
+    shard of a ``ShardedFactoryIndex``;
   * ``corrupt_payload(dir)`` — deterministic byte-flips inside a committed
     snapshot's ``arrays.npz``, the input for checksum-detection tests.
 

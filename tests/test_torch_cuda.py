@@ -1430,3 +1430,139 @@ def test_card_snapshot_loads_on_the_cpu(dev, spec, tmp_path):
     dg, ig = card.search(q.to(dev), 10)
     dc, ic = cpu.search(q, 10)
     assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
+
+
+# ------------------------------------ the sharded and out-of-core tier
+_SHARDED_PARAMS = dict(pca_dim=32, antihub_keep=1.0, ep_clusters=4,
+                       ef_search=32, graph_degree=12, build_knn_k=12,
+                       build_candidates=24, knn_backend="exact",
+                       finish_backend="host")
+
+
+def _sharded_cpu():
+    """A 2-shard ShardedIndex fit on a CPU mesh over the integer family
+    data (PCA off), with its queries."""
+    from repro_torch.core.distributed import ShardedIndex
+    from repro_torch.core.pipeline import IndexParams
+    from repro_torch.launch.mesh import make_host_mesh
+    x, q = _family_data(5)
+    mesh = make_host_mesh(model=2, devices=["cpu"] * 2)
+    return ShardedIndex(IndexParams(**_SHARDED_PARAMS), mesh).fit(x), q
+
+
+def _blocks(idx, s):
+    a = idx.arrays
+    return {"base": a.base.blocks[s], "neighbors": idx.struct_neighbors
+            .blocks[s], "global_ids": a.global_ids.blocks[s],
+            "centroids": a.centroids.blocks[s],
+            "members": a.members.blocks[s],
+            "base_norms": a.base_norms.blocks[s],
+            "knn_ids": idx.knn_ids.blocks[s], "medoid": idx.medoids.blocks[s]}
+
+
+@pytest.mark.cuda
+def test_sharded_index_on_the_card_equals_the_cpu(dev):
+    """The CPU fit's blocks placed on a mesh naming the card twice: search
+    (beam_hops per shard) and reprune (derive_local: alpha_scan per block)
+    equal the CPU's exactly on integer data."""
+    import copy
+    from dataclasses import replace
+    from repro_torch.distributed.sharding import RowSharded
+    from repro_torch.launch.mesh import make_host_mesh
+    cpu, q = _sharded_cpu()
+    mesh = make_host_mesh(model=2, devices=[dev] * 2)
+    card = copy.copy(cpu)
+    card.mesh, card._step = mesh, None
+
+    def move(rs):
+        return RowSharded(mesh, rs.blocks)
+
+    a = cpu.arrays
+    card.arrays = replace(a, **{f: move(getattr(a, f)) for f in (
+        "base", "neighbors", "global_ids", "centroids", "members",
+        "base_norms")}, pca_mean=a.pca_mean.to(dev),
+        pca_comp=a.pca_comp.to(dev))
+    card.struct_neighbors = card.arrays.neighbors
+    card.knn_ids, card.medoids = move(cpu.knn_ids), move(cpu.medoids)
+    dc, ic = cpu.search(q, 10)
+    dg, ig = card.search(q.to(dev), 10)
+    assert ig.is_cuda and torch.equal(ig.cpu(), ic)
+    assert torch.equal(dg.cpu(), dc)
+    rc, rg = cpu.reprune(alpha=1.2, degree=8), card.reprune(alpha=1.2,
+                                                            degree=8)
+    for bc, bg in zip(rc.arrays.neighbors.blocks, rg.arrays.neighbors.blocks):
+        assert bg.is_cuda and torch.equal(bg.cpu(), bc)
+    dc, ic = rc.search(q, 10)
+    dg, ig = rg.search(q.to(dev), 10)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
+
+
+@pytest.mark.cuda
+def test_streamed_index_on_the_card_equals_the_cpu(dev):
+    """The same blocks through the card's pinned host-offload store
+    (prefetch on a side stream, fetch waits on its event): search and
+    reprune equal the CPU mesh index's; derived stores share every host
+    buffer but the neighbors."""
+    from repro_torch.core.distributed import StreamedShardedIndex
+    cpu, q = _sharded_cpu()
+    card = StreamedShardedIndex(cpu.params, 2, device=dev)
+    for s in range(2):
+        card.store.offload(s, _blocks(cpu, s))
+    card._structural = card.store
+    card.pca_mean = cpu.arrays.pca_mean.to(dev)
+    card.pca_comp = cpu.arrays.pca_comp.to(dev)
+    card._m, card.input_dim = cpu._m, cpu.dim
+    assert all(t.is_pinned() for s in range(2)
+               for t in card.store.peek_host(s).values())
+    dc, ic = cpu.search(q, 10)
+    dg, ig = card.search(q.to(dev), 10)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
+    rc, rg = cpu.reprune(alpha=1.2, degree=8), card.reprune(alpha=1.2,
+                                                            degree=8)
+    for s in range(2):
+        host = rg.store.peek_host(s)
+        assert host["neighbors"].is_pinned()
+        assert torch.equal(host["neighbors"], rc.arrays.neighbors.blocks[s])
+        assert host["base"] is card.store.peek_host(s)["base"]
+    dc, ic = rc.search(q, 10)
+    dg, ig = rg.search(q.to(dev), 10)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha,degree", [(1.0, 12), (1.2, 6)])
+def test_derive_local_on_the_card_equals_the_cpu(dev, alpha, degree):
+    from repro_torch.core.build import derive_local
+    cpu, _ = _sharded_cpu()
+    b = _blocks(cpu, 1)
+    args = (b["base"], b["neighbors"], b["knn_ids"], int(b["medoid"][0]),
+            b["global_ids"] >= 0)
+    want = derive_local(*args, alpha=alpha, degree=degree, blk=64)
+    got = derive_local(*(a.to(dev) if torch.is_tensor(a) else a
+                         for a in args), alpha=alpha, degree=degree, blk=64)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["Flat", "IVF4", "NSG12,EP4"])
+def test_sharded_factory_on_the_card_equals_the_cpu(dev, spec):
+    """ShardedFactoryIndex fit on the CPU, carried by its state to the card:
+    searches equal exactly on integer data, a dead shard skipped alike."""
+    from repro_torch.core.distributed import ShardedFactoryIndex
+    from repro_torch.core.persist import index_from_state, index_state
+    from repro_torch.serve.faults import FaultInjector
+    x, q = _family_data(6)
+    cpu = ShardedFactoryIndex(spec, 3, on_shard_error="skip",
+                              device="cpu").fit(x)
+    card = index_from_state(index_state(cpu), device=dev)
+    assert card.device.type == "cuda"
+    dc, ic = cpu.search(q, 10)
+    dg, ig = card.search(q.to(dev), 10)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
+    for idx in (cpu, card):
+        idx.subs[1] = FaultInjector(permanent_rate=1.0).wrap_index(
+            idx.subs[1])
+    dc, ic = cpu.search(q, 10)
+    dg, ig = card.search(q.to(dev), 10)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
+    assert card.degraded_shards == cpu.degraded_shards == 1

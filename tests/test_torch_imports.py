@@ -33,6 +33,12 @@ INDEX_API_MODULES = {
     "repro_torch.serve.batching", "repro_torch.serve.serve_step",
     "repro_torch.launch.serve", "repro_torch.launch.tune"}
 
+# the modules of the sharded and out-of-core slice
+SHARDED_MODULES = {
+    "repro_torch.flags", "repro_torch.launch.mesh",
+    "repro_torch.distributed.sharding", "repro_torch.core.build.stream",
+    "repro_torch.core.build.shardlocal", "repro_torch.core.distributed"}
+
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.MULTILINE)
 
@@ -47,6 +53,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert bad == "none", bad
     assert INDEX_API_MODULES <= set(names.split(",")), \
         INDEX_API_MODULES - set(names.split(","))
+    assert SHARDED_MODULES <= set(names.split(",")), \
+        SHARDED_MODULES - set(names.split(","))
 
 
 def test_no_file_of_the_port_imports_jax_or_the_reference():

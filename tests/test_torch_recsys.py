@@ -191,7 +191,7 @@ def test_other_families_raise_naming_their_item():
         recsys.family_of(din)
 
 
-def test_serve_launcher_on_the_cpu_prints_the_reference_line():
+def test_serve_launcher_on_the_cpu_prints_the_reference_line(capsys):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "two-tower-retrieval", "--batch", "8", "--device", "cpu"],
@@ -200,9 +200,12 @@ def test_serve_launcher_on_the_cpu_prints_the_reference_line():
     assert re.fullmatch(
         r"two-tower-retrieval: scored batch 8 \(mean -?\d+\.\d{4}\); "
         r"retrieval top5 ids \[ *\d+( +\d+){4}\]\n", out.stdout), out.stdout
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        from repro_torch.launch.serve import main
-        main(["--arch", "ann-laion", "--device", "cpu", "--shards", "2"])
+    # the ANN family's --shards (ROADMAP Queue 1 item 9) serves now
+    from repro_torch.launch.serve import main
+    main(["--arch", "ann-laion", "--device", "cpu", "--shards", "2",
+          "--spec", "Flat", "--buckets", "off"])
+    assert re.fullmatch(r"ann-laion \[Flat\]: \d+ QPS, recall@10=1\.0000\n",
+                        capsys.readouterr().out)
 
 
 def test_retrieval_through_the_tuned_index(models):

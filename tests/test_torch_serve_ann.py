@@ -1,7 +1,7 @@
 """The port's ANN serving layer: the contracts of the reference's
-``test_serve_batching.py`` and ``test_resilience.py`` (the sharded tests
-wait for ROADMAP Queue 1 item 9), ``ann_search_step``, and both launchers
-on the CPU.
+``test_serve_batching.py`` and ``test_resilience.py`` (the sharded
+degraded search is held in ``test_torch_distributed.py``),
+``ann_search_step``, and both launchers on the CPU.
 
 * Bucketing is invisible in results: a padded, sliced batch equals the
   unbatched search; the shapes sent to the index stay the warmed buckets.
@@ -432,10 +432,19 @@ def test_serve_cli_fault_injection_answers_every_ticket():
     assert m and float(m.group(1)) >= 0.999, out
 
 
-def test_serve_cli_shards_still_raise():
+def test_serve_cli_shards_still_raise(capsys):
+    """--shards raised until the sharded tier was ported (ROADMAP Queue 1
+    item 9); it serves now, and a bad --on-shard-error is still refused."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        main(["--arch", "ann-laion", "--device", "cpu", "--shards", "2"])
+    main(["--arch", "ann-laion", "--device", "cpu", "--shards", "2",
+          "--spec", "Flat", "--on-shard-error", "skip"])
+    out = capsys.readouterr().out
+    m = re.search(rf"recall@10={_FLOAT}", out)
+    assert m and float(m.group(1)) >= 0.999, out
+    assert "degraded:" not in out
+    with pytest.raises(SystemExit):
+        main(["--arch", "ann-laion", "--device", "cpu", "--shards", "2",
+              "--on-shard-error", "ignore"])
 
 
 def test_tune_cli_spec_mode():

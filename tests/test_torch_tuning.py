@@ -380,7 +380,17 @@ def test_tune_cli_unported_paths_raise(capsys):
             "--trials", "1"]
     tune_cli.main(tiny)              # auto -> the device finish: now runs
     assert "-- build log (1 evals) --" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tune_cli.main(tiny + ["--spec", "IVF64,Flat", "--shards", "4"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tune_cli.main(tiny + ["--shards", "4"])
+    # --shards runs since ROADMAP Queue 1 item 9; what stays unported
+    # raises: a non-graph spec has no reprune (as in the reference), and
+    # the bf16-row / prenorm toggles name item 9b
+    with pytest.raises(TypeError, match="reprune"):
+        tune_cli.main(tiny + ["--spec", "IVF8,Flat", "--shards", "4"])
+    tune_cli.main(tiny + ["--shards", "4"])
+    assert "(OK — one per shard)" in capsys.readouterr().out
+    from repro_torch import flags
+    flags.ANN_PRENORM = True
+    try:
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tune_cli.main(tiny + ["--shards", "4"])
+    finally:
+        flags.ANN_PRENORM = False
