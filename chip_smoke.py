@@ -37,7 +37,11 @@ Phases, each printing one JSON line:
                 field and counter; a LUT shape route sends to per_query
                 (M = 2048) must too. gather_dist, topk_merge, lut_dist and
                 the hops also give device_ms (queued behind a device
-                sleep, no host launch).
+                sleep, no host launch). Then gather_dist and beam_hops in
+                the sharded tier's modes (bf16 rows, prenorm, both) at the
+                hop-loop shape: bit-equal to their plain versions on normal
+                data (the plain versions sum in the kernels' lane order),
+                each mode's device ms beside its bound.
   4. fit      — builds TunedGraphIndex with the ann-laion config
                 (knn_backend="exact", finish_backend="host") on
                 clustered_vectors(300000, 768) from --seed (the config's
@@ -168,7 +172,18 @@ Phases, each printing one JSON line:
                 fit seconds, QPS, recall@10, the store's pinned bytes, the
                 search's peak device memory (at most two shards' blocks plus
                 the batch's own tensors, and below the store: asserted), one
-                shard's host-to-device copy beside one shard's search.
+                shard's host-to-device copy beside one shard's search; then
+                the same 1.2M fit once more under ANN_BF16_BASE: the store's
+                bytes (its base exactly half of f32's: asserted), one
+                shard's copy beside its search, QPS and recall@10.
+10f. sharded_toggles — the 4 x 75k mesh and streamed tiers of 10d with
+                each mode of the ANN toggles: bf16 rows (both tiers fit
+                again under ANN_BF16_BASE), prenorm (the f32 tiers of 10d
+                searched under ANN_PRENORM), and both: the tiers bit-equal
+                (asserted), recall@10 over its floor, QPS (median of 7), the
+                launches of gather_dist and beam_hops under the mode
+                (by_mode, each above zero: asserted), the bf16 base's bytes
+                half of f32's, and the bf16 tiers' reprunes bit-equal.
  11. recsys   — the two-tower retrieval model at its full config (a
                 14,010,368 x 256 f32 table, 14.35 GB; no width or vocabulary
                 cut) from --seed: recsys_score_step at B = 512 (median and
@@ -184,7 +199,8 @@ Phases, each printing one JSON line:
                 entry points, exact kNN, host finish): fit seconds,
                 recall@10 against FlatIndex and QPS.
  13. recsys_cli — python -m repro_torch.launch.serve --arch
-                two-tower-retrieval must exit 0 and print its line.
+                two-tower-retrieval, sasrec, din and dlrm-mlperf (four
+                processes at once) must each exit 0 and print its line.
 13b. serve_cli — python -m repro_torch.launch.serve --arch ann-laion with
                 its defaults (bucketed, micro-batched), with --spec
                 IVF64,Flat --buckets off --snapshot DIR, and with --restore
@@ -196,11 +212,12 @@ Phases, each printing one JSON line:
                 phase.
 13c. sharded_cli — the launchers' --shards (SHARDED_CLI_RUNS): tune
                 --shards 4 at N = 20k x 768 (one card: the streamed tier),
-                tune --spec NSG16 --shards 4, and serve --arch ann-laion
-                --shards 4 --on-shard-error skip; each must exit 0 above its
-                floor, the tune runs print "OK — one per shard", the serve
-                run no resilience: and no degraded: line. new_phases gives
-                the wall seconds of 8c, 10c-10e, 13b and 13c.
+                the same under REPRO_ANN_BF16=1, tune --spec NSG16 --shards
+                4, and serve --arch ann-laion --shards 4 --on-shard-error
+                skip; each must exit 0 above its floor, the tune runs print
+                "OK — one per shard", the serve run no resilience: and no
+                degraded: line. new_phases gives the wall seconds of 8c,
+                10c-10f, 13b, 13c and 14b.
  14. embedding_bag — the kernel against its plain version on small tables
                 (f32 and bf16, D in {8, 18, 256}, both combiners, no, integer
                 and float weights, and a weighted sum on a float32 midpoint:
@@ -211,6 +228,18 @@ Phases, each printing one JSON line:
                 16 calls queued back to back behind a device sleep, cycling
                 the 8 id sets; device_ms_l2_warm: the same on one id set,
                 whose rows stay in L2 at the small shapes).
+14b. recsys_models — SASRec (a 1,000,448 x 50 table), DIN (1,010,176 x 18)
+                and DLRM (CRITEO_VOCABS each capped at DLRM_ROW_CAP = 2^24
+                rows: 87,950,080 padded rows x 128 f32, 45.0 GB; its lookup
+                row-sharded over a mesh naming cuda:0 four times, held equal
+                to a plain take) at their full configs from --seed: score
+                ms at B = 512 (median and p99 of 100), bulk queries/s at B =
+                262,144, 1 x 1,000,000 retrieval ms (DIN and DLRM over
+                candidate chunks), table and peak bytes, and the card's
+                scores for RECSYS_CPU_ROWS requests against the same model
+                on the CPU (DLRM's rows fetched from the card's table).
+                No kernel of the port lies on these paths (as none of the
+                reference's Pallas kernels does on its own).
  15. the kernels line: launches on the main path (fit + serve for the f32
                 kernels and l2topk, quantize + serve for the LUT kernels,
                 recsys + recsys_ann for embedding_bag), errors, times and
@@ -238,7 +267,10 @@ Phases, each printing one JSON line:
                 is each kernel's count over phase 8b (topk_merge's also by
                 mode, l2topk's by variant), "launches_factory" over phase
                 10c (every fit and one search per family), "launches_sharded"
-                and "launches_streamed" over phases 10d and 10e. The one-hop entries
+                and "launches_streamed" over phases 10d and 10e,
+                "launches_sharded_toggles" over 10f; gather_dist's and
+                beam_hops' "by_mode" give each toggle mode's times and
+                bound (phase 3) and launches (10f). The one-hop entries
                 (beam_hop, beam_hop_lut; "on_main_path": false) must launch
                 no time on the main path: the fused search runs beam_hops.
 
@@ -410,6 +442,21 @@ STREAMED_RECALL_FLOOR = 0.91
 # the kernels the sharded path must launch (lut_dist through sharded PQ16)
 SHARDED_KERNELS = ("beam_hops", "gather_dist", "l2topk", "alpha_scan",
                    "topk_merge", "lut_dist")
+# the ANN toggles' modes of gather_dist and beam_hops (bf16 rows, the
+# prenorm distance, both), and each mode's sharded recall@10 floor, a point
+# under its first reading (PERF.md, PR 24: 0.95723, 0.96113, 0.94863), and
+# the streamed 1.2M's under bf16 (0.92588)
+MODE_NAMES = ("bf16", "prenorm", "bf16+prenorm")
+TOGGLE_RECALL_FLOOR = {"bf16": 0.947, "prenorm": 0.951, "bf16+prenorm": 0.938}
+STREAMED_BF16_RECALL_FLOOR = 0.915
+# the three recsys models' phase: DLRM's tables capped at 2^24 rows each
+# (87,950,072 rows x 128 f32 = 45.0 GB; all 187,767,399 would take
+# 96.1 GB, over the card's 80 GB), its lookup row-sharded over a mesh
+# naming cuda:0 four times; the card's scores against the CPU's
+DLRM_ROW_CAP = 1 << 24
+RECSYS_MODELS = ("sasrec", "din", "dlrm-mlperf")
+RECSYS_CPU_ROWS = 64
+RECSYS_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
 # the launchers' --shards runs and each one's recall@10 floor, about a
 # point under its reading (PERF.md, run A): the best trial of tune's 4
 # startup trials 0.9977; tune --spec's 12 trials reach 1.0, but past the
@@ -418,12 +465,15 @@ SHARDED_KERNELS = ("beam_hops", "gather_dist", "l2topk", "alpha_scan",
 SHARDED_CLI_RUNS = (
     ("tune_streamed", "repro_torch.launch.tune",
      ["--shards", "4", "--n", "20000", "--dim", "768", "--trials", "4"],
-     0.98),
+     0.98, {}),
+    ("tune_streamed_bf16", "repro_torch.launch.tune",
+     ["--shards", "4", "--n", "20000", "--dim", "768", "--trials", "4"],
+     0.98, {"REPRO_ANN_BF16": "1"}),
     ("tune_spec", "repro_torch.launch.tune",
-     ["--spec", "NSG16", "--shards", "4"], 0.94),
+     ["--spec", "NSG16", "--shards", "4"], 0.94, {}),
     ("serve", "repro_torch.launch.serve",
      ["--arch", "ann-laion", "--shards", "4", "--on-shard-error", "skip"],
-     0.90))
+     0.90, {}))
 # the l2topk variant each shape must take (PERF.md names them)
 L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
                  "kmeans": "tile", "medoid": "tile", "entry_select": "tile",
@@ -466,7 +516,8 @@ def zero_counts(wrappers: dict) -> None:
         if hasattr(w, "by_variant"):
             w.by_variant = dict.fromkeys(w.by_variant, 0)
         if hasattr(w, "by_mode"):
-            w.by_mode = {m: dict.fromkeys(c, 0) for m, c in w.by_mode.items()}
+            w.by_mode = {m: dict.fromkeys(c, 0) if isinstance(c, dict) else 0
+                         for m, c in w.by_mode.items()}
 
 
 def bound(bytes_moved: float, ops: float, name: str, ops_rate=None):
@@ -1063,6 +1114,121 @@ def per_query_route_check(torch, seed: int) -> dict:
                              f"the host loop or beam_hops_ref")
     return dict(m=m, c=LUT_C, q=nq, n=n, plan=plan._asdict(),
                 hops=int(want[3].sum()), equal=True)
+
+
+def mode_kernel_phase(torch, n: int, d: int, gpu: str, seed: int) -> dict:
+    """gather_dist and beam_hops in the sharded tier's modes (MODE_NAMES:
+    bf16 rows, the prenorm distance, both) at the hop-loop check shape
+    (HOP_SHAPE, D = d, a random graph over n rows of normal data, norms of
+    the f32 rows). Each must equal its plain version on the card bit for
+    bit: the plain versions sum in the kernels' lane order
+    (kernels/gather_dist/ref.py). gather_dist at B = 1024, R = 32 over 8
+    id sets; the loop over one whole 1024-query search from a pool seeded
+    by gather_dist in the mode, against the host loop over the plain hop
+    (beam_hop_ref in the mode), which marks each row it scores. The bound
+    counts what the call must read: each distinct row at the mode's bytes
+    (bf16: 2 B an element) and, under prenorm, its 4 B norm; the queries;
+    for the loop the expanded graph rows and the state in and out. Returns
+    {"gather_dist": {mode: entry}, "beam_hops": {mode: entry}}."""
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.beam_search import _run_hop_slices, _run_hops, \
+        _seed_batched
+    from repro_torch.kernels.beam_hop import beam_hop_ref, beam_hops_cuda, \
+        beam_hops_ref, select_frontier
+    from repro_torch.kernels.gather_dist import gather_dist_cuda, \
+        gather_dist_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 909)
+    nq, ef, r = HOP_SHAPE["q"], HOP_SHAPE["ef"], HOP_SHAPE["r"]
+    max_iters, k = 4 * ef, CONFIG.k
+    base = torch.randn((n, d), generator=g, device=dev)
+    all_norms = (base * base).sum(-1)
+    rows16 = base.bfloat16()
+    q = torch.randn((nq, d), generator=g, device=dev)
+    nbrs = torch.randint(-1, n, (n, r), generator=g, device=dev,
+                         dtype=torch.int32)
+    entry = torch.randint(0, n, (nq,), generator=g, device=dev,
+                          dtype=torch.int32)
+    sets = Cycle([torch.randint(-1, n, (nq, r), generator=g, device=dev,
+                                dtype=torch.int32) for _ in range(8)])
+    uniq = sum(int(torch.unique(x[x >= 0]).numel()) for x in sets.items) / 8
+    out = {"gather_dist": {}, "beam_hops": {}}
+    for mode in MODE_NAMES:
+        db = rows16 if mode.startswith("bf16") else base
+        norms = all_norms if mode.endswith("prenorm") else None
+        row_bytes = d * db.element_size() + (4 if norms is not None else 0)
+        flops = (2 if norms is not None else 3) * d     # per scored row
+        # gather_dist
+        for x in sets.items:
+            if not bits_equal(torch, gather_dist_cuda(q, db, x, norms),
+                              gather_dist_ref(q, db, x, norms)):
+                raise AssertionError(f"gather_dist ({mode}) differs from "
+                                     f"its plain version")
+        ms = time_ms(lambda: gather_dist_cuda(q, db, sets.next(), norms))
+        dev_ms = queued_ms(torch, lambda: gather_dist_cuda(
+            q, db, sets.next(), norms))
+        plain = time_ms(lambda: gather_dist_ref(q, db, sets.next(), norms),
+                        reps=5, warmup=1)
+        bmin, by = bound(uniq * row_bytes + nq * d * 4 + nq * r * 8,
+                         nq * r * flops, gpu)
+        out["gather_dist"][mode] = dict(
+            max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain,
+            bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
+            library_ms=None, distinct_rows=uniq)
+
+        # beam_hops over one search
+        gd = lambda q_, db_, ids: gather_dist_cuda(q_, db_, ids, norms)
+        state = _seed_batched(q, db, nbrs, entry, ef, gd)
+        scored = torch.zeros(n, dtype=torch.bool, device=dev)
+        expanded = torch.zeros(n, dtype=torch.bool, device=dev)
+
+        def body(s):
+            pool_i, pool_d, pool_v, hops, gath, dup = s
+            pool_v, node, active = select_frontier(pool_i, pool_d, pool_v)
+            lanes = (active & (hops < max_iters)).nonzero()[:, 0]
+            expanded[node[lanes].long()] = True
+            rows = nbrs[node[lanes].long()]
+            new = (rows >= 0) & ~(rows[:, :, None]
+                                  == pool_i[lanes][:, None, :]).any(-1)
+            scored[rows[new].long()] = True
+            sel = torch.where(active, node, -1).to(torch.int32)
+            pool_i, pool_d, pool_v, st = beam_hop_ref(
+                sel, nbrs, pool_i, pool_d, pool_v, q, db, "f32", norms)
+            return (pool_i, pool_d, pool_v, hops + active.to(torch.int32),
+                    gath + st[:, 0], dup + st[:, 1])
+
+        kw = dict(k=k, max_iters=max_iters, mode="while", patience=None,
+                  eps=0.0)
+        want = _run_hops(state, body, **kw)
+        got = _run_hop_slices(state, q, db, nbrs, "f32", max_steps=max_iters,
+                              norms=norms, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"beam_hops ({mode}) differs from the host "
+                                 f"loop over the plain hop")
+        call = lambda: beam_hops_cuda(
+            nbrs, *state[:6], state[7], q, db, k=k, max_iters=max_iters,
+            max_steps=max_iters, norms=norms)
+        plain_call = lambda: beam_hops_ref(
+            nbrs, *state[:6], state[7], q, db, k=k, max_iters=max_iters,
+            max_steps=max_iters, norms=norms)
+        ms = time_ms(call, reps=9, warmup=2)
+        dev_ms = queued_ms(torch, call)
+        plain = time_ms(plain_call, reps=1, warmup=0)
+        hops, gath, dup = (int(t.sum()) for t in want[3:6])
+        n_scored = int(scored.sum())
+        moved = (n_scored * row_bytes + nq * d * 4
+                 + int(expanded.sum()) * r * 4
+                 + 2 * nq * ef * 9 + nq * (4 + 6) * 4)
+        bmin, by = bound(moved, (gath - dup) * flops, gpu)
+        out["beam_hops"][mode] = dict(
+            max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain,
+            bound_ms=bmin, bound_by=by, share_of_bound=bmin / dev_ms,
+            library_ms=None, hops=hops, gathered=gath, dup_gathered=dup,
+            rows_scored_distinct=n_scored,
+            loop_iterations=int((want[3] + want[6]).max()))
+        del state, want, got, scored, expanded
+    return out
 
 
 def l2topk_shapes() -> dict:
@@ -1961,25 +2127,36 @@ def recsys_ann_phase(torch, model, cfg, seed: int) -> None:
 
 
 def recsys_cli_phase(src: Path) -> None:
-    """``python -m repro_torch.launch.serve --arch two-tower-retrieval``
-    as a subprocess: it must exit 0 and print the reference's line."""
+    """``python -m repro_torch.launch.serve --arch <a>`` for each recsys
+    arch, as four subprocesses at once: each must exit 0 and print the
+    reference's line."""
     import os
     import re
     t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "two-tower-retrieval"], env={**os.environ, "PYTHONPATH": str(src)},
-        capture_output=True, text=True, timeout=RECSYS_CLI_TIMEOUT)
-    line = proc.stdout.strip()
-    ok = proc.returncode == 0 and re.fullmatch(
-        r"two-tower-retrieval: scored batch 8 \(mean -?\d+\.\d{4}\); "
-        r"retrieval top5 ids \[ *\d+( +\d+){4}\]", line) is not None
-    emit("recsys_cli", returncode=proc.returncode, output=line,
-         seconds=time.perf_counter() - t,
-         stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
-    if not ok:
-        raise AssertionError("recsys_cli: the serve launcher failed or "
-                             "printed another line")
+    archs = ("two-tower-retrieval",) + RECSYS_MODELS
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", a],
+        env={**os.environ, "PYTHONPATH": str(src)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for a in archs}
+    failed = []
+    for arch, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=RECSYS_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        line = out.strip()
+        ok = proc.returncode == 0 and re.fullmatch(
+            re.escape(arch) + r": scored batch 8 \(mean -?\d+\.\d{4}\); "
+            r"retrieval top5 ids \[ *\d+( +\d+){4}\]", line) is not None
+        emit("recsys_cli", arch=arch, returncode=proc.returncode,
+             output=line, seconds=time.perf_counter() - t,
+             stderr_tail=err[-2000:] if proc.returncode else "")
+        if not ok:
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"recsys_cli: the serve launcher failed or "
+                             f"printed another line for {failed}")
 
 
 def queued_ms(torch, fn, calls: int = 16) -> float:
@@ -2102,6 +2279,179 @@ def embedding_bag_kernel_phase(torch, table, cfg, gpu: str,
                 max_abs_err=worst,
                 **{k_: v for k_, v in head.items() if k_ != "shape"},
                 shape=head["shape"], by_shape=out)
+
+
+def cpu_twin(torch, model):
+    """The model's weights copied to the CPU, all but its table: a (0, D)
+    stand-in there, whose rows a lookup_fn fetches from the card's table
+    (a gather, exact). So the CPU runs the model's arithmetic on the same
+    weights without a copy of a 45 GB table."""
+    import copy
+    from torch import nn
+    table = model.table
+    model.table = None
+    try:
+        twin = copy.deepcopy(model).cpu()
+    finally:
+        model.table = table
+    twin.table = nn.Parameter(torch.empty((0, table.shape[1])),
+                              requires_grad=False)
+    return twin, lambda _, ids: table[ids.to(table.device)].cpu()
+
+
+def rows_of(batch, n: int):
+    return {k: [x[:n] for x in v] if isinstance(v, list) else v[:n]
+            for k, v in batch.items()}
+
+
+def recsys_models_phase(torch, seed: int) -> dict:
+    """SASRec, DIN and DLRM at their full configs (DLRM's tables capped at
+    DLRM_ROW_CAP rows, its lookup row-sharded over a mesh naming cuda:0
+    SHARDS times and held equal to a plain take), each from --seed: score
+    ms at B = 512 (median and p99 of P99_BATCHES), bulk queries/s at B =
+    262,144 (median of BULK_BATCHES), 1 x 1,000,000 retrieval ms (median
+    of RETRIEVAL_REQUESTS), table and peak bytes, and the card's scores of
+    RECSYS_CPU_ROWS requests and of one user's first 4,096 candidates
+    against the same weights on the CPU (cpu_twin), to RECSYS_CPU_TOL.
+    Returns each model's summary."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import recsys_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys
+    from repro_torch.models.recsys_common import globalize_ids, \
+        make_sharded_lookup, table_offsets
+    from repro_torch.serve.serve_step import chunk_rows, \
+        recsys_retrieval_step, recsys_score_step
+
+    k, n_check = 10, 4096
+    b = RECSYS_SHAPES["serve_p99"].batch
+    bb = RECSYS_SHAPES["serve_bulk"].batch
+    n_cand = RECSYS_SHAPES["retrieval_cand"].n_candidates
+    out = {}
+    for arch in RECSYS_MODELS:
+        cfg = get_arch(arch).config
+        cut = None
+        if arch == "dlrm-mlperf":
+            full = sum(cfg.table_vocabs)
+            cfg = replace(cfg, table_vocabs=tuple(
+                min(v, DLRM_ROW_CAP) for v in cfg.table_vocabs))
+            cut = (f"each Criteo table capped at {DLRM_ROW_CAP:,} rows: "
+                   f"{sum(cfg.table_vocabs):,} of {full:,} rows (the full "
+                   f"tables' {full * cfg.embed_dim * 4 / 1e9:.1f} GB exceed "
+                   f"the card's 80 GB)")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = recsys.INIT[arch](torch.Generator(device="cuda").manual_seed(
+            seed), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        lookup, lookup_equal = None, None
+        if arch == "dlrm-mlperf":
+            mesh = make_host_mesh(model=SHARDS, devices=["cuda:0"] * SHARDS)
+            lookup = make_sharded_lookup(mesh, model.table.shape[0])
+        score = recsys_score_step(cfg, lookup)
+        retrieve = recsys_retrieval_step(cfg, k=k, lookup_fn=lookup)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 505)
+        batches = [recsys_batch(gen, b, cfg) for _ in range(P99_BATCHES)]
+        if lookup is not None:
+            ids = globalize_ids(batches[0]["sparse_ids"],
+                                table_offsets(cfg.table_vocabs)).reshape(-1)
+            lookup_equal = bool(torch.equal(lookup(model.table, ids),
+                                            model.table[ids]))
+        p99 = sorted(host_times(torch, lambda i: score(model, batches[i]),
+                                P99_BATCHES))
+        s0 = score(model, batches[0])
+        ok = s0.shape == (b,) and bool(torch.isfinite(s0).all())
+
+        # the card against the CPU on the same weights
+        twin, cpu_lookup = cpu_twin(torch, model)
+        reqs = rows_of(batches[0], RECSYS_CPU_ROWS)
+        got = score(model, reqs).cpu()
+        cpu_score = recsys_score_step(cfg, cpu_lookup)
+        want = cpu_score(twin, {k_: [x.cpu() for x in v]
+                                if isinstance(v, list) else v.cpu()
+                                for k_, v in reqs.items()})
+        user = recsys_batch(gen, 1, cfg)
+        cands = torch.arange(n_cand, dtype=torch.int32, device="cuda")
+        full_k = recsys_retrieval_step(cfg, k=n_check, lookup_fn=lookup)
+        ct, ci = full_k(model, user, cands[:n_check])
+        pt, pi = recsys_retrieval_step(cfg, k=n_check, lookup_fn=cpu_lookup)(
+            twin, {k_: [x.cpu() for x in v] if isinstance(v, list)
+                   else v.cpu() for k_, v in user.items()},
+            cands[:n_check].cpu())
+        card_by_id = torch.empty(n_check).index_put_((ci.long().cpu(),),
+                                                     ct.cpu())
+        cpu_by_id = torch.empty(n_check).index_put_((pi.long(),), pt)
+        cpu_close = bool(torch.allclose(got, want, **RECSYS_CPU_TOL)
+                         and torch.allclose(card_by_id, cpu_by_id,
+                                            **RECSYS_CPU_TOL))
+        cpu_err = max(float((got - want).abs().max()),
+                      float((card_by_id - cpu_by_id).abs().max()))
+        del twin, batches
+
+        bulk = [recsys_batch(gen, bb, cfg) for _ in range(BULK_BATCHES)]
+        bulk_times = host_times(torch, lambda i: score(model, bulk[i]),
+                                BULK_BATCHES, warmup=1)
+        sb = score(model, bulk[0])
+        ok &= sb.shape == (bb,) and bool(torch.isfinite(sb).all())
+        del bulk, sb
+
+        users = [recsys_batch(gen, 1, cfg) for _ in range(RETRIEVAL_REQUESTS)]
+        ret_times = host_times(torch, lambda i: retrieve(model, users[i],
+                                                         cands),
+                               RETRIEVAL_REQUESTS, warmup=1)
+        top, ids_top = retrieve(model, users[0], cands)
+        ok &= (int(torch.unique(ids_top).numel()) == k
+               and bool(torch.isfinite(top).all()))
+        torch.cuda.synchronize()
+        table = model.table
+        out[arch] = dict(
+            config=cfg.name, cut=cut, table_shape=list(table.shape),
+            table_bytes=table.numel() * table.element_size(),
+            dense_params=sum(p.numel() for n_, p in model.named_parameters()
+                             if n_ != "table"),
+            init_seconds=init_s,
+            lookup="row-sharded over cuda:0 x 4" if lookup else "plain take",
+            sharded_lookup_equal_to_take=lookup_equal,
+            chunk_rows=chunk_rows(cfg),
+            serve_p99=dict(batch=b, runs=P99_BATCHES,
+                           median_ms=statistics.median(p99) * 1e3,
+                           p99_ms=p99[math.ceil(0.99 * P99_BATCHES) - 1]
+                           * 1e3, max_ms=p99[-1] * 1e3),
+            serve_bulk=dict(batch=bb, runs=BULK_BATCHES,
+                            seconds=statistics.median(bulk_times),
+                            qps=bb / statistics.median(bulk_times),
+                            qps_min=bb / max(bulk_times)),
+            retrieval=dict(candidates=n_cand, k=k, runs=RETRIEVAL_REQUESTS,
+                           median_ms=statistics.median(ret_times) * 1e3,
+                           max_ms=max(ret_times) * 1e3,
+                           top_ids=ids_top.tolist()),
+            cpu_check=dict(requests=RECSYS_CPU_ROWS, candidates=n_check,
+                           close=cpu_close, max_abs_err=cpu_err,
+                           sample_card=got[:4].tolist(),
+                           sample_cpu=want[:4].tolist(), **RECSYS_CPU_TOL),
+            resident_bytes_before=resident,
+            peak_device_bytes=torch.cuda.max_memory_allocated() - resident)
+        emit("recsys_models", arch=arch, **out[arch])
+        del model, table, users, cands, score, retrieve, lookup
+        torch.cuda.empty_cache()
+        failed = []
+        if not ok:
+            failed.append("non-finite or mis-shaped scores, or repeated "
+                          "retrieval ids")
+        if lookup_equal is False:
+            failed.append("the row-sharded lookup differs from a plain take")
+        if not cpu_close:
+            failed.append(f"the card's scores differ from the CPU's "
+                          f"(max abs err {cpu_err})")
+        if failed:
+            raise AssertionError(f"recsys_models {arch}: "
+                                 + "; ".join(failed))
+    return out
 
 
 def family_of(spec: str) -> str:
@@ -2247,7 +2597,7 @@ def factory_kernel_check(torch, spec: str, calls: dict, wrappers: dict,
         real = wrappers[name]
         got = real(*args, **kw)
         if name == "gather_dist":
-            q, db, ids = args
+            q, db, ids = args[:3]           # then norms (None: f32 mode)
             want = in_slices(lambda q_, i_: gather_dist_ref(q_, db, i_),
                              (q, ids), 16)
             fin = torch.isfinite(want)
@@ -2547,7 +2897,8 @@ def sharded_phase(torch, data, queries, true_i, wrappers: dict, seed: int,
     and per reprune; one shard's search again on the CPU; the sharded
     brute force against FlatIndex; PQ16 row-sharded (the LUT kernel);
     the degraded Flat search with shard 0 dead. Returns the kernels'
-    launches over the phase."""
+    launches over the phase, and the two tiers (sharded_toggles searches
+    them again)."""
     from repro_torch.configs.ann_laion import CONFIG
     from repro_torch.core.distributed import (
         ShardedFactoryIndex, ShardedIndex, StreamedShardedIndex,
@@ -2733,7 +3084,109 @@ def sharded_phase(torch, data, queries, true_i, wrappers: dict, seed: int,
                       f"{launches}")
     if failed:
         raise AssertionError("sharded: " + "; ".join(failed))
-    return launches
+    return launches, spmd, streamed
+
+
+def sharded_toggles_phase(torch, data, queries, true_i, wrappers: dict,
+                          seed: int, spmd, streamed) -> dict:
+    """The tiers of the sharded phase under each mode of the ANN toggles
+    (MODE_NAMES). bf16: both tiers fit again under ANN_BF16_BASE (the same
+    seed, so the same graphs, rows stored in bf16, norms of the f32 rows);
+    prenorm: the f32 tiers searched under ANN_PRENORM; bf16+prenorm: the
+    bf16 tiers under ANN_PRENORM. Per mode: the two tiers' searches
+    bit-equal, recall@10 against the exact top-10, QPS (median of
+    SERVE_RUNS), one search's launches and host syncs, and the launches of
+    gather_dist and beam_hops under the mode (by_mode), each above zero.
+    Then the bf16 base's bytes (half of f32's) and the bf16 tiers'
+    reprunes (bit-equal). Returns the phase's launches and by_mode
+    counts."""
+    from repro_torch import flags
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.distributed import ShardedIndex, \
+        StreamedShardedIndex
+    from repro_torch.core.pipeline import IndexParams
+
+    k, ef, s = CONFIG.k, CONFIG.ef_search, SHARDS
+    nq = queries.shape[0]
+    params = IndexParams.from_config(CONFIG)
+    counted = ("gather_dist", "beam_hops")
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    flags.ANN_BF16_BASE = True
+    try:
+        t = time.perf_counter()
+        mesh16 = ShardedIndex(params, spmd.mesh).fit(
+            data, torch.Generator().manual_seed(seed))
+        streamed16 = StreamedShardedIndex(params, s, device="cuda").fit(
+            data, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    finally:
+        flags.ANN_BF16_BASE = False
+    tiers = {"bf16": (mesh16, streamed16, False),
+             "prenorm": (spmd, streamed, True),
+             "bf16+prenorm": (mesh16, streamed16, True)}
+    res, failed = {}, []
+    for mode, (a, b, prenorm) in tiers.items():
+        flags.ANN_PRENORM = prenorm
+        try:
+            before = {w: wrappers[w].by_mode[mode] for w in counted}
+            d_a, i_a, s_a, t_a = timed_search(torch, a, queries, k, ef)
+            d_b, i_b, s_b, t_b = timed_search(torch, b, queries, k, ef)
+            by_mode = {w: wrappers[w].by_mode[mode] - before[w]
+                       for w in counted}
+            one = per_search(torch, wrappers, lambda: a.search(queries, k,
+                                                               ef=ef))
+        finally:
+            flags.ANN_PRENORM = False
+        equal = bits_equal(torch, d_a, d_b) and bits_equal(torch, i_a, i_b)
+        recall = recall_at_k(i_a.cpu(), true_i.cpu())
+        res[mode] = dict(
+            bitwise_equal=equal, recall_at_10=recall,
+            qps={"mesh": nq / s_a, "streamed": nq / s_b},
+            qps_min={"mesh": nq / max(t_a), "streamed": nq / max(t_b)},
+            qps_max={"mesh": nq / min(t_a), "streamed": nq / min(t_b)},
+            launches_by_mode=by_mode, per_search=one)
+        if not equal:
+            failed.append(f"{mode}: the two tiers' searches differ")
+        if recall < TOGGLE_RECALL_FLOOR[mode]:
+            failed.append(f"{mode}: recall@10 {recall} below "
+                          f"{TOGGLE_RECALL_FLOOR[mode]}")
+        if min(by_mode.values()) <= 0:
+            failed.append(f"{mode}: a kernel never launched in the mode: "
+                          f"{by_mode}")
+        if one["launches"].get("beam_hops") != s or one["host_syncs"] != s:
+            failed.append(f"{mode}: a search took {one}")
+    base32, base16 = spmd.arrays.base.nbytes, mesh16.arrays.base.nbytes
+    if 2 * base16 != base32:
+        failed.append(f"the bf16 base holds {base16} B, not half of "
+                      f"{base32} B")
+    # the bf16 tiers' reprunes: derive_local widens the rows to f32
+    der_a = mesh16.reprune(alpha=REPRUNE[0], degree=REPRUNE[1])
+    der_b = streamed16.reprune(alpha=REPRUNE[0], degree=REPRUNE[1])
+    reprune_equal = all(torch.equal(x, y) for x, y in
+                        shard_neighbors(mesh16, der_b, der_a))
+    if not reprune_equal:
+        failed.append("the bf16 tiers' reprunes differ")
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    by_mode_all = {w: dict(wrappers[w].by_mode) for w in counted}
+    emit("sharded_toggles", shards=s, queries=nq, k=k, ef=ef,
+         fit_seconds_bf16=fit_s, modes=res,
+         base_bytes={"f32": base32, "bf16": base16},
+         memory_bytes={"mesh_f32": spmd.memory_bytes(),
+                       "mesh_bf16": mesh16.memory_bytes(),
+                       "streamed_f32": streamed.memory_bytes(),
+                       "streamed_bf16": streamed16.memory_bytes()},
+         reprune_bf16_bitwise_equal=reprune_equal,
+         launches=launches, launches_by_mode=by_mode_all,
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError("sharded_toggles: " + "; ".join(failed))
+    del mesh16, streamed16, der_a, der_b
+    torch.cuda.empty_cache()
+    return dict(launches, by_mode=by_mode_all)
 
 
 def streamed_phase(torch, wrappers: dict, seed: int) -> dict:
@@ -2743,7 +3196,10 @@ def streamed_phase(torch, wrappers: dict, seed: int) -> dict:
     Fit seconds, QPS, recall@10; the peak device memory of a search next
     to the store's bytes (asserted at most two shards' blocks plus the
     batch's own tensors, and below the store); one shard's host-to-device
-    copy next to one shard's search. Returns the kernels' launches."""
+    copy next to one shard's search. Then the same fit once more under
+    ANN_BF16_BASE: the store's bytes (its base leaves exactly half of
+    f32's), one shard's copy beside its search, QPS and recall@10. Returns
+    the kernels' launches."""
     from repro_torch.configs.ann_laion import CONFIG
     from repro_torch.core.distances import l2_topk
     from repro_torch.core.distributed import StreamedShardedIndex, _local_beam
@@ -2841,9 +3297,76 @@ def streamed_phase(torch, wrappers: dict, seed: int) -> dict:
         failed.append("non-finite or mis-shaped results")
     if failed:
         raise AssertionError("streamed: " + "; ".join(failed))
+    bf16 = streamed_bf16(torch, host, queries, true_i, store, seed)
+    emit("streamed_bf16", n=STREAMED_N, shards=s, queries=nq, **bf16)
+    launches = {name: w.launches for name, w in wrappers.items()}
     del idx, store, host
     torch.cuda.empty_cache()
     return launches
+
+
+def streamed_bf16(torch, host, queries, true_i, store32, seed: int) -> dict:
+    """The streamed phase's 1.2M fit again under ANN_BF16_BASE: store
+    bytes beside the f32 store's (each shard's base leaf exactly half:
+    asserted), fit seconds, QPS (median of SERVE_RUNS), recall@10 (above
+    STREAMED_BF16_RECALL_FLOOR), one shard's copy beside its search."""
+    from repro_torch import flags
+    from repro_torch.configs.ann_laion import CONFIG
+    from repro_torch.core.distributed import StreamedShardedIndex, _local_beam
+    from repro_torch.core.pipeline import IndexParams
+
+    k, ef, s = CONFIG.k, CONFIG.ef_search, SHARDS
+    nq = queries.shape[0]
+    flags.ANN_BF16_BASE = True
+    try:
+        t = time.perf_counter()
+        idx = StreamedShardedIndex(IndexParams.from_config(CONFIG), s,
+                                   device="cuda").fit(
+            host, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    finally:
+        flags.ANN_BF16_BASE = False
+    store = idx.store
+    base = [store.peek_host(i)["base"] for i in range(s)]
+    base32 = [store32.peek_host(i)["base"] for i in range(s)]
+    half = all(b.dtype == torch.bfloat16 and 2 * b.numel() * 2
+               == c.numel() * c.element_size() for b, c in zip(base, base32))
+    d, i, serve_s, times = timed_search(torch, idx, queries, k, ef)
+    recall = recall_at_k(i.cpu(), true_i)
+    q_proj = (queries - idx.pca_mean) @ idx.pca_comp
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    tree = store.fetch(1)
+    ev[1].record()
+    _local_beam(q_proj, tree["base"], tree["neighbors"], tree["global_ids"],
+                tree["centroids"], tree["members"], ef=ef, k=k, max_iters=0,
+                mode="while")
+    ev[2].record()
+    torch.cuda.synchronize()
+    res = dict(fit_seconds=fit_s, recall_at_10=recall, qps=nq / serve_s,
+               qps_min=nq / max(times), qps_max=nq / min(times),
+               store_bytes=store.nbytes(), store_bytes_f32=store32.nbytes(),
+               base_bytes=sum(b.numel() * 2 for b in base),
+               base_bytes_f32=sum(b.numel() * 4 for b in base32),
+               base_half_of_f32=half,
+               one_shard={"h2d_copy_ms": ev[0].elapsed_time(ev[1]),
+                          "search_ms": ev[1].elapsed_time(ev[2]),
+                          "bytes": sum(x.numel() * x.element_size()
+                                       for x in tree.values())})
+    del tree, idx, store
+    torch.cuda.empty_cache()
+    failed = []
+    if not half:
+        failed.append("a shard's bf16 base is not half of its f32 base")
+    if recall < STREAMED_BF16_RECALL_FLOOR:
+        failed.append(f"recall@10 {recall} below {STREAMED_BF16_RECALL_FLOOR}")
+    if not (torch.isfinite(d).all() and i.shape == (nq, k)):
+        failed.append("non-finite or mis-shaped results")
+    if failed:
+        raise AssertionError("streamed_bf16: " + "; ".join(failed))
+    return res
 
 
 def sharded_cli_phase(src: Path) -> None:
@@ -2856,11 +3379,11 @@ def sharded_cli_phase(src: Path) -> None:
     import re
 
     env = {**os.environ, "PYTHONPATH": str(src)}
-    for name, module, argv, floor in SHARDED_CLI_RUNS:
+    for name, module, argv, floor, extra in SHARDED_CLI_RUNS:
         t = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", module, *argv], env=env,
-                              capture_output=True, text=True,
-                              timeout=SERVE_CLI_TIMEOUT)
+        proc = subprocess.run([sys.executable, "-m", module, *argv],
+                              env={**env, **extra}, capture_output=True,
+                              text=True, timeout=SERVE_CLI_TIMEOUT)
         out = proc.stdout
         if module.endswith("tune"):
             found = [float(x) for x in re.findall(
@@ -2873,7 +3396,8 @@ def sharded_cli_phase(src: Path) -> None:
             recall = float(m.group(1)) if m else None
             ok_line = not re.search(r"^\s*(resilience|degraded): ", out,
                                     re.MULTILINE)
-        emit("sharded_cli", run=name, args=argv, returncode=proc.returncode,
+        emit("sharded_cli", run=name, args=argv, env=extra,
+             returncode=proc.returncode,
              seconds=time.perf_counter() - t, recall_at_10=recall,
              ok_line=ok_line, output=out.splitlines()[-12:],
              stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
@@ -2940,6 +3464,9 @@ def main() -> int:
     kernels = kernel_phase(torch, n_kept, CONFIG.pca_dim, gpu, args.seed)
     kernels.update(hop_loop_phase(torch, n_kept, CONFIG.pca_dim, gpu,
                                   args.seed))
+    for name, by_mode in mode_kernel_phase(torch, n_kept, CONFIG.pca_dim,
+                                           gpu, args.seed).items():
+        kernels[name]["by_mode"] = by_mode
     kernels["l2topk"] = l2topk_kernel_phase(torch, gpu, args.seed)
     torch.cuda.synchronize()
     emit("kernels", seconds=time.perf_counter() - t, kernels=kernels)
@@ -3156,9 +3683,17 @@ def main() -> int:
     # 10d-10e. the sharded and out-of-core tier on the same data, then the
     # streamed tier at four times the config's N
     t = time.perf_counter()
-    sharded_launches = sharded_phase(torch, data, queries, true_i, wrappers,
-                                     args.seed, gpu)
+    sharded_launches, spmd, streamed = sharded_phase(
+        torch, data, queries, true_i, wrappers, args.seed, gpu)
     new_phase_s["sharded"] = time.perf_counter() - t
+    # 10f. the same tiers under each mode of the ANN toggles
+    t = time.perf_counter()
+    toggle_launches = sharded_toggles_phase(torch, data, queries, true_i,
+                                            wrappers, args.seed, spmd,
+                                            streamed)
+    new_phase_s["sharded_toggles"] = time.perf_counter() - t
+    del spmd, streamed
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     streamed_launches = streamed_phase(torch, wrappers, args.seed)
     new_phase_s["streamed"] = time.perf_counter() - t
@@ -3193,13 +3728,26 @@ def main() -> int:
     t = time.perf_counter()
     sharded_cli_phase(src)
     new_phase_s["sharded_cli"] = time.perf_counter() - t
-    emit("new_phases", seconds=new_phase_s,
-         total_seconds=sum(new_phase_s.values()))
     kernels["embedding_bag"] = embedding_bag_kernel_phase(
         torch, model.table.detach(), TWO_TOWER, gpu, args.seed)
     emit("embedding_bag", **kernels["embedding_bag"])
     del model
     torch.cuda.empty_cache()
+
+    # 14b. SASRec, DIN and DLRM at full width: no kernel of the port lies
+    # on their paths; each wrapper's count must stay where it was
+    before = {name: w.launches for name, w in wrappers.items()}
+    t = time.perf_counter()
+    recsys_models_phase(torch, args.seed)
+    new_phase_s["recsys_models"] = time.perf_counter() - t
+    models_launches = {name: w.launches - before[name]
+                       for name, w in wrappers.items()}
+    emit("new_phases", seconds=new_phase_s,
+         total_seconds=sum(new_phase_s.values()),
+         recsys_models_launches=models_launches)
+    if any(models_launches.values()):
+        raise AssertionError(f"a kernel launched on the SASRec, DIN or DLRM "
+                             f"path, which has none: {models_launches}")
 
     # 15. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
     # times at the top, its total launches over both backends, and each
@@ -3215,6 +3763,12 @@ def main() -> int:
         entry["launches_factory"] = factory_launches[name]
         entry["launches_sharded"] = sharded_launches[name]
         entry["launches_streamed"] = streamed_launches[name]
+        entry["launches_sharded_toggles"] = toggle_launches[name]
+        if "by_mode" in info:
+            entry["by_mode"] = {
+                m: {**info["by_mode"][m],
+                    "launches": toggle_launches["by_mode"][name][m]}
+                for m in MODE_NAMES}
         if "by_shape" in info:
             entry["by_shape"] = {s_: {k_: v for k_, v in b_.items()
                                       if k_ != "shape"} | b_["shape"]

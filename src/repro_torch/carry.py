@@ -15,9 +15,12 @@ host-offload store (its host trees) into the port's store. The factory
 wrapper ``ShardedFactoryIndex`` goes through ``index_from_jax_state`` like
 every other family (its shards under ``sub<i>/`` keys).
 
-``recsys_params_from_jax`` does the same for the two-tower model: it takes
-the reference's params pytree (``{"table", "user_tower": {"layers": [{"w",
-"b"}, ...]}, "item_tower"}``) and returns the port's ``TwoTower``.
+``recsys_params_from_jax`` does the same for the recsys models: it takes
+the reference's params pytree of the config's family (two-tower ``{"table",
+"user_tower": {"layers": [{"w", "b"}, ...]}, "item_tower"}``, DLRM
+``{"table", "bot", "top"}``, DIN ``{"table", "attn", "top"}``, SASRec
+``{"table", "pos", "blocks": [{"ln1", "ln2", "wq", ...}], "final_ln"}``)
+and returns the port's module over the same weights.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.persist import index_from_state
+from repro_torch.models import recsys
 from repro_torch.models.layers import MLP
-from repro_torch.models.recsys import TwoTower
 
 
 def index_from_jax_state(state: dict, device=None):
@@ -44,15 +47,20 @@ def index_from_jax_state(state: dict, device=None):
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(np.asarray(a)))
+    """A numpy-readable array as a tensor of its dtype; a bfloat16 one
+    (an ml_dtypes array) through its 16-bit view, bit for bit."""
+    a = np.array(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def sharded_index_from_jax(ref, mesh):
     """A fitted reference ``ShardedIndex`` -> the port's over ``mesh``
     (whose ``model`` axis must have the reference mesh's shard count):
-    its arrays, structural neighbors, kNN table, medoids, padded row count
-    and params; the per-shard sub-indexes are not carried (nothing on the
-    serving or reprune path reads them)."""
+    its arrays (a bf16 base stays bf16), structural neighbors, kNN table,
+    medoids, padded row count and params; the per-shard sub-indexes are
+    not carried (nothing on the serving or reprune path reads them)."""
     from repro_torch.core.distributed import ShardedIndex, ShardedIndexArrays
     from repro_torch.core.pipeline import IndexParams
     from repro_torch.distributed.sharding import put_row_sharded
@@ -60,12 +68,13 @@ def sharded_index_from_jax(ref, mesh):
     idx = ShardedIndex(IndexParams(**asdict(ref.params)), mesh)
     a = ref.arrays
 
-    def rows(x, dtype):
-        return put_row_sharded(mesh, _tensor(x).to(dtype))
+    def rows(x, dtype=None):
+        t = _tensor(x)
+        return put_row_sharded(mesh, t if dtype is None else t.to(dtype))
 
     nbrs = rows(a.neighbors, torch.int32)
     idx.arrays = ShardedIndexArrays(
-        base=rows(a.base, torch.float32), neighbors=nbrs,
+        base=rows(a.base), neighbors=nbrs,
         global_ids=rows(a.global_ids, torch.int32),
         centroids=rows(a.centroids, torch.float32),
         members=rows(a.members, torch.int32),
@@ -105,17 +114,30 @@ def streamed_sharded_index_from_jax(ref, device=None):
     return idx
 
 
-def recsys_params_from_jax(params: dict, cfg, device=None) -> TwoTower:
-    """Reference two-tower params (any array type numpy reads) -> the
-    port's ``TwoTower`` on ``device`` (default: the card)."""
+def recsys_params_from_jax(params: dict, cfg, device=None):
+    """Reference recsys params (any array type numpy reads) -> the port's
+    model of ``cfg``'s family on ``device`` (default: the card)."""
     dev = resolve_device(device)
 
     def t(a):
-        return torch.from_numpy(np.array(np.asarray(a))).to(dev)
+        return _tensor(a).to(dev)
 
     def mlp(p):
         return MLP([t(lyr["w"]) for lyr in p["layers"]],
                    [t(lyr["b"]) for lyr in p["layers"]])
 
-    return TwoTower(cfg, t(params["table"]), mlp(params["user_tower"]),
-                    mlp(params["item_tower"]))
+    fam = recsys.family_of(cfg)
+    table = t(params["table"])
+    if fam == "two-tower-retrieval":
+        return recsys.TwoTower(cfg, table, mlp(params["user_tower"]),
+                               mlp(params["item_tower"]))
+    if fam == "dlrm-mlperf":
+        return recsys.DLRM(cfg, table, mlp(params["bot"]),
+                           mlp(params["top"]))
+    if fam == "din":
+        return recsys.DIN(cfg, table, mlp(params["attn"]),
+                          mlp(params["top"]))
+    return recsys.SASRec(cfg, table, t(params["pos"]),
+                         [{k: t(v) for k, v in blk.items()}
+                          for blk in params["blocks"]],
+                         t(params["final_ln"]))

@@ -1,20 +1,24 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
-It lists what the port runs: the paper's ANN workload and the two-tower
-retrieval model. Every other id of the reference's registry raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+It lists what the port runs: the paper's ANN workload and the four recsys
+models (DLRM, two-tower retrieval, SASRec, DIN). The reference's LM and
+GNN ids raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import ann_laion, two_tower_retrieval
+from repro_torch.configs import ann_laion, din, dlrm_mlperf, sasrec, \
+    two_tower_retrieval
 from repro_torch.configs.base import (  # noqa: F401
     ANNConfig, ArchSpec, RecsysConfig, ShapeConfig, RECSYS_SHAPES,
 )
 
 _REGISTRY: Dict[str, ArchSpec] = {
-    spec.arch_id: spec for spec in [two_tower_retrieval.SPEC, ann_laion.SPEC]
+    spec.arch_id: spec for spec in [
+        dlrm_mlperf.SPEC, two_tower_retrieval.SPEC, sasrec.SPEC, din.SPEC,
+        ann_laion.SPEC]
 }
 
 _LM_GNN = "ROADMAP Queue 1 item 10.6 (LM and GNN models)"
@@ -25,10 +29,6 @@ NOT_PORTED: Dict[str, str] = {
     "deepseek-v2-236b": _LM_GNN,
     "deepseek-moe-16b": _LM_GNN,
     "dimenet": _LM_GNN,
-    "sasrec": "ROADMAP Queue 1 item 10.2 (SASRec serving)",
-    "din": "ROADMAP Queue 1 item 10.3 (DIN serving)",
-    "dlrm-mlperf": "ROADMAP Queue 1 item 10.4 (DLRM, with item 9's "
-                   "row-sharded lookup)",
 }
 
 

@@ -35,12 +35,21 @@ rule bit for bit. ``beam_search_compacted`` runs the fused loop in slices
 of ``compact_every`` hops and between slices gathers the live lanes into a
 smaller power-of-two batch, with the same results.
 
+The sharded tier's two modes (the reference's ``ANN_BF16_BASE`` and
+``ANN_PRENORM``) reach the hops through ``db`` and ``norms``: a bf16 ``db``
+is read as bf16 rows, widened exactly, and ``norms`` (N,) f32 (|x|^2 kept
+at build time) selects the distance ``max(|q|^2 + norms[id] - 2 q.x, 0)``.
+Both run in the f32 hop loop kernel and in ``gather_dist`` on the card; on
+the CPU the staged hop scores a bf16 ``db`` by the dot formula over the
+widened rows, as the reference does, and the prenorm distance through
+``gather_dist``'s plain version.
+
 The reference's vmap layout is bit-identical to this layout with the
 dot-formula gather, so the port has only this one.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -99,14 +108,15 @@ def _expand_batch(state, queries, db, neighbors, gather_dist_b):
             n_gath + valid.sum(1, dtype=torch.int32), n_dup + dup)
 
 
-def _expand_fused(state, q_or_lut, table, neighbors, dist_backend):
+def _expand_fused(state, q_or_lut, table, neighbors, dist_backend,
+                  norms=None):
     """One ``kernels/beam_hop`` launch: gather + distance + merge fused."""
     pool_i, pool_d, pool_v, n_hops, n_gath, n_dup = state
     pool_v, node, active = _select_frontier(pool_i, pool_d, pool_v)
     sel = torch.where(active, node, -1).to(torch.int32)
     pool_i, pool_d, pool_v, stats = _kernel_beam_hop(
         sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
-        dist_backend)
+        dist_backend, norms=norms)
     return (pool_i, pool_d, pool_v, n_hops + active.to(torch.int32),
             n_gath + stats[:, 0], n_dup + stats[:, 1])
 
@@ -150,7 +160,8 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
                 hop_backend: Optional[str] = None,
                 patience: Optional[int] = None,
                 eps: float = 0.0,
-                with_stats: bool = False):
+                with_stats: bool = False,
+                norms: Optional[torch.Tensor] = None):
     """Batched graph search.
 
     ``layout`` ("vmap" | "batched") is accepted as the reference's callers
@@ -161,7 +172,9 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
     entry_ids: (Q,) int32 per-query entry points. Under
     ``dist_backend="pq"|"int8"`` the hops score ``codes`` (N, M) uint8
     with ``lut`` (Q, M, C) f32 instead of the f32 rows (the returned
-    distances are then the LUT's approximations). ``patience``/``eps``
+    distances are then the LUT's approximations). ``db`` may hold bf16
+    rows, and ``norms`` (N,) f32 selects the prenorm distance (the module
+    docstring). ``patience``/``eps``
     enable adaptive early termination (see the module docstring). Returns
     (dists (Q, k) f32 ascending, ids (Q, k) int32, hops (Q,) int32); with
     ``with_stats=True`` the third element is a full ``BeamStats``.
@@ -181,7 +194,7 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
                                   gather_backend=gather_backend,
                                   hop_backend=hop_backend,
                                   dist_backend=dist_backend, codes=codes,
-                                  lut=lut)
+                                  lut=lut, norms=norms)
     state = _seed_batched(queries, db, neighbors, entry_ids, ef, gd)
     loop_kw = dict(k=k, max_iters=max_iters, mode=mode, patience=patience,
                    eps=eps)
@@ -190,7 +203,8 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
     if resolve_hop_backend(hop_backend, db.device) == "fused" \
             and table.is_cuda:
         state = _run_hop_slices(state, q_or_lut, table, neighbors,
-                                dist_backend, max_steps=max_iters, **loop_kw)
+                                dist_backend, max_steps=max_iters,
+                                norms=norms, **loop_kw)
     else:
         state = _run_hops(state, body, **loop_kw)
     pool_i, pool_d, _, hops, gath, dup, wasted, _ = state
@@ -202,23 +216,28 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
 
 def _batched_hop_setup(queries, db, neighbors, *, gather_backend,
                        hop_backend, dist_backend="f32", codes=None,
-                       lut=None):
+                       lut=None, norms=None):
     """Resolve the hop backend + distance callable; returns ``(gd, body)``
     where ``gd`` seeds the pool's entry distances and ``body`` is one hop
     over the 6-tuple core state. Under a quantized ``dist_backend`` ``gd``
-    is the LUT distance (``queries`` and ``db`` only fill its signature)."""
+    is the LUT distance (``queries`` and ``db`` only fill its signature);
+    with ``norms`` it is ``gather_dist``'s prenorm distance."""
     hop = resolve_hop_backend(hop_backend, db.device)
     if dist_backend != "f32":
         if codes is None or lut is None:
             raise ValueError(
                 f"dist_backend={dist_backend!r} needs codes and lut "
                 f"(encode the db with a core.quant codec first)")
+        if norms is not None:
+            raise ValueError(f"norms (the prenorm distance) need "
+                             f"dist_backend='f32', got {dist_backend!r}")
         gd = lambda q, db_, ids: _kernel_lut_dist(lut, codes, ids)
-    elif hop == "fused":
-        # the fused hop's in-kernel arithmetic is gather_dist's: seed the
-        # pool from the same family so the entry distances carry the bits
-        # the hops will reproduce
-        gd = _kernel_gather_dist
+    elif hop == "fused" or norms is not None:
+        # the fused hop's in-kernel arithmetic is gather_dist's, in the
+        # same mode: seed the pool from the same family so the entry
+        # distances carry the bits the hops will reproduce
+        gd = lambda q, db_, ids: _kernel_gather_dist(q, db_, ids,
+                                                     norms=norms)
     elif resolve_gather_backend(gather_backend, db.device) is None:
         gd = _default_gather_dist
     else:
@@ -228,7 +247,7 @@ def _batched_hop_setup(queries, db, neighbors, *, gather_backend,
         q_or_lut, table = (queries, db) if dist_backend == "f32" else \
             (lut, codes)
         body = lambda s: _expand_fused(s, q_or_lut, table, neighbors,
-                                       dist_backend)
+                                       dist_backend, norms)
     else:
         body = lambda s: _expand_batch(s, queries, db, neighbors, gd)
     return gd, body
@@ -298,7 +317,8 @@ def _run_hops(state, body, *, k, max_iters, mode, patience, eps):
 
 
 def _hop_slice(state, q_or_lut, table, neighbors, dist_backend="f32", *,
-               k, max_iters, patience, eps, max_steps, mode="while"):
+               k, max_iters, patience, eps, max_steps, mode="while",
+               norms=None):
     """Advance the 8-tuple state by one slice: up to ``max_steps`` guarded
     hops per lane in one ``kernels/beam_hop`` ``beam_hops`` call (one
     launch on CUDA; the plain loop on the CPU). Returns ``(state, live)``,
@@ -315,14 +335,15 @@ def _hop_slice(state, q_or_lut, table, neighbors, dist_backend="f32", *,
         _kernel_beam_hops(neighbors, pool_i, pool_d, pool_v, hops, gath,
                           dup, stale, q_or_lut, table, dist_backend, k=k,
                           max_iters=max_iters, max_steps=max_steps,
-                          patience=patience, eps=eps)
+                          patience=patience, eps=eps, norms=norms)
     ran = iters.max() if mode == "while" else max_steps
     return (pool_i, pool_d, pool_v, hops, gath, dup, wasted + (ran - iters),
             stale), live
 
 
 def _run_hop_slices(state, q_or_lut, table, neighbors, dist_backend="f32",
-                    *, k, max_iters, mode, patience, eps, max_steps):
+                    *, k, max_iters, mode, patience, eps, max_steps,
+                    norms=None):
     """``_run_hops`` with the loop on the device: ``_hop_slice`` after
     ``_hop_slice`` of up to ``max_steps`` hops each.
 
@@ -340,7 +361,7 @@ def _run_hop_slices(state, q_or_lut, table, neighbors, dist_backend="f32",
         state, live = _hop_slice(state, q_or_lut, table, neighbors,
                                  dist_backend, k=k, max_iters=max_iters,
                                  patience=patience, eps=eps,
-                                 max_steps=steps, mode=mode)
+                                 max_steps=steps, mode=mode, norms=norms)
         if mode == "fori":
             left -= steps
             continue
@@ -351,14 +372,15 @@ def _run_hop_slices(state, q_or_lut, table, neighbors, dist_backend="f32",
 
 
 def _compact_seed(queries, db, neighbors, entry_ids, *, ef,
-                  dist_backend="f32", codes=None, lut=None):
+                  dist_backend="f32", codes=None, lut=None, norms=None):
     """Pool seeding for the compacted search: the fused hop's entry
-    distances (``gather_dist``, or ``lut_dist`` under a quantized
-    backend), so the seed carries the bits its hops reproduce."""
+    distances (``gather_dist`` in the hop's mode, or ``lut_dist`` under a
+    quantized backend), so the seed carries the bits its hops
+    reproduce."""
     gd, _ = _batched_hop_setup(queries, db, neighbors, gather_backend=None,
                                hop_backend="fused",
                                dist_backend=dist_backend, codes=codes,
-                               lut=lut)
+                               lut=lut, norms=norms)
     return _seed_batched(queries, db, neighbors, entry_ids, ef, gd)
 
 
@@ -381,7 +403,9 @@ def beam_search_compacted(queries: torch.Tensor, db: torch.Tensor,
                           patience: Optional[int] = None,
                           eps: float = 0.0,
                           with_stats: bool = False,
-                          shape_log: Optional[list] = None):
+                          buckets: Optional[Sequence[int]] = None,
+                          shape_log: Optional[list] = None,
+                          norms: Optional[torch.Tensor] = None):
     """``beam_search`` with active-query compaction.
 
     A host loop over ``_hop_slice``: each slice runs up to
@@ -392,16 +416,19 @@ def beam_search_compacted(queries: torch.Tensor, db: torch.Tensor,
     their original slots on the device (``index_copy_``); the survivors are
     gathered on the device (one ``index_select`` per state tensor) into the
     smallest power-of-two bucket that holds them
-    (``serve/batching.pow2_buckets``), the bucket's spare lanes filled with
-    the first survivor and made inert. Batch cost then tracks the
-    distribution of per-query hop counts instead of the max.
+    (``serve/batching.pow2_buckets``, or the sizes ``buckets`` gives: a
+    serving layer's own pre-warmed set, which must hold one size >= Q), the
+    bucket's spare lanes filled with the first survivor and made inert.
+    Batch cost then tracks the distribution of per-query hop counts
+    instead of the max.
 
     Lanes never interact, so ids, dists, hops, gathered and dup_gathered
     equal the uncompacted fused search's bit for bit; ``wasted_hops`` is
     what shrinks: a lane stops riding at its first slice boundary after its
     termination. The hop is always the fused one (the staged hop equals it
-    bit for bit on the card). ``shape_log``, when given, gets each slice's
-    batch size appended.
+    bit for bit on the card); ``db`` and ``norms`` take the modes of
+    ``beam_search``. ``shape_log``, when given, gets each slice's batch
+    size appended.
 
     Only while mode exists here (fori's fixed trip count is the straggler
     cost compaction removes), and the stats are flushed per lane, so
@@ -422,7 +449,8 @@ def beam_search_compacted(queries: torch.Tensor, db: torch.Tensor,
     nq = queries.shape[0]
     dev = db.device
     max_iters = max_iters or 4 * ef
-    buckets = pow2_buckets(nq)
+    buckets = tuple(sorted(pow2_buckets(nq) if buckets is None
+                           else set(int(b) for b in buckets)))
     quantized = dist_backend != "f32"
     if quantized and (codes is None or lut is None):
         raise ValueError(
@@ -443,7 +471,7 @@ def beam_search_compacted(queries: torch.Tensor, db: torch.Tensor,
     state = _compact_seed(q_cur, db, neighbors,
                           pad(entry_ids.to(device=dev, dtype=torch.int32)),
                           ef=ef, dist_backend=dist_backend, codes=codes,
-                          lut=lut_cur)
+                          lut=lut_cur, norms=norms)
     state = _mask_lanes_dead(state, nq)
     # q_or_lut carries the lanes: the queries (f32) or their LUTs
     q_or_lut, table = (q_cur, db) if not quantized else (lut_cur, codes)
@@ -469,7 +497,7 @@ def beam_search_compacted(queries: torch.Tensor, db: torch.Tensor,
         state, live = _hop_slice(state, q_or_lut, table, neighbors,
                                  dist_backend, k=k, max_iters=max_iters,
                                  patience=patience, eps=eps,
-                                 max_steps=compact_every)
+                                 max_steps=compact_every, norms=norms)
         if shape_log is not None:
             shape_log.append(int(q_or_lut.shape[0]))
         live_np = live.cpu().numpy()

@@ -25,6 +25,11 @@ The single-controller design is the reference's: one process drives every
 shard (a mesh may name one device several times), the per-shard searches
 run one after the other, each one ``beam_hops`` launch and one host sync
 on the card.
+
+The ANN toggles (``flags``) hold on both graph tiers: ``ANN_BF16_BASE``
+stores each shard's rows in bf16, ``ANN_PRENORM`` scores by the distance
+over the ``|x|^2`` kept at build time (``base_norms``, of the f32 rows),
+and ``ANN_TIGHT_BUDGET`` halves the hop budget.
 """
 from __future__ import annotations
 
@@ -166,21 +171,19 @@ class ShardedIndexArrays:
     base_norms: Optional[RowSharded] = None  # (S*m,) |x|^2
 
 
-def _local_beam(q, base, nbrs, gids, cents, members, *, ef: int, k: int,
-                max_iters: int, mode: str, prenorm: bool = False):
+def _local_beam(q, base, nbrs, gids, cents, members, norms=None, *,
+                ef: int, k: int, max_iters: int, mode: str,
+                prenorm: bool = False):
     """One shard's search: nearest-centroid entry -> beam -> global ids.
 
     The body shared by ``ShardedIndex`` (under ``shard_map``) and the
-    streamed tier, so entry-point semantics and padding rules cannot
-    diverge. The beam is ``core.beam_search``: on the card the fused hop
-    loop, one ``beam_hops`` launch and one host sync. ``prenorm`` (the
-    reference's ``ANN_PRENORM`` distance) has no kernel mode yet and
-    raises.
+    streamed tier, so entry-point semantics, prenorm distances and padding
+    rules cannot diverge. The beam is ``core.beam_search``: on the card the
+    fused hop loop, one ``beam_hops`` launch and one host sync. ``base``
+    may hold bf16 rows; ``prenorm`` scores by the distance over ``norms``
+    (the rows' |x|^2, computed here from ``base`` when None, as the
+    reference's step does).
     """
-    if prenorm:
-        raise NotImplementedError(
-            "prenorm: the beam_hops kernel has no prenorm mode yet "
-            "(ROADMAP Queue 1 item 9b)")
     qd = q.float()
     cd = ((qd * qd).sum(-1, keepdim=True) + (cents * cents).sum(-1)[None, :]
           - 2.0 * qd @ cents.T)
@@ -189,35 +192,54 @@ def _local_beam(q, base, nbrs, gids, cents, members, *, ef: int, k: int,
     # route the query into row 0 of the wrong shard — mask them out
     cd = torch.where((members >= 0)[None, :], cd, INF)
     entry = members[torch.argmin(cd, 1)].clamp_min(0)
+    if prenorm and norms is None:
+        norms = row_norms(base)
     d, i, _ = beam_search(q, base, nbrs, entry, ef=ef, k=k,
-                          max_iters=max_iters or 4 * ef, mode=mode)
+                          max_iters=max_iters or 4 * ef, mode=mode,
+                          norms=norms if prenorm else None)
     gi = torch.where(i >= 0, gids[i.clamp_min(0).long()], -1)
     d = torch.where(gi >= 0, d, INF)
     return d, gi
+
+
+def row_norms(base: torch.Tensor) -> torch.Tensor:
+    """(N,) |x|^2 of each row of ``base``, summed in f32."""
+    b = base.float()
+    return (b * b).sum(-1)
 
 
 def make_search_step(mesh, *, ef: int, k: int, max_iters: int = 0,
                      mode: str = "fori"):
     """The sharded serve step: fn(queries (Q, D0), arrays) -> (dists (Q, k),
     global ids (Q, k)). ``ANN_TIGHT_BUDGET`` sets ``max_iters = 2 * ef``
-    when none is given."""
-    flags.check_ann_toggles()
+    when none is given; ``ANN_PRENORM`` (read here) scores by the prenorm
+    distance over ``arrays.base_norms``, or over norms derived from the
+    base on each shard when the arrays carry none."""
     if not max_iters and flags.ANN_TIGHT_BUDGET:
         max_iters = 2 * ef
+    prenorm = flags.ANN_PRENORM
 
-    def local(q, base, nbrs, gids, cents, members):
-        return _local_beam(q, base, nbrs, gids, cents, members, ef=ef, k=k,
-                           max_iters=max_iters, mode=mode)
+    def local(q, base, nbrs, gids, cents, members, norms=None):
+        return _local_beam(q, base, nbrs, gids, cents, members, norms,
+                           ef=ef, k=k, max_iters=max_iters, mode=mode,
+                           prenorm=prenorm)
 
     def step(queries, arrays: ShardedIndexArrays):
         q = (torch.as_tensor(queries, dtype=torch.float32).to(
             arrays.pca_mean.device) - arrays.pca_mean) @ arrays.pca_comp
+        norms = (arrays.base_norms,) if prenorm and \
+            arrays.base_norms is not None else ()
         d, i = shard_map(local, mesh, arrays.base, arrays.neighbors,
                          arrays.global_ids, arrays.centroids, arrays.members,
-                         batch=q, out="batch")
+                         *norms, batch=q, out="batch")
         return _merge(d, i, k)
 
     return step
+
+
+def _base_dtype() -> torch.dtype:
+    """The sharded tiers' row type: bf16 under ``ANN_BF16_BASE``."""
+    return torch.bfloat16 if flags.ANN_BF16_BASE else torch.float32
 
 
 def _global_projection(sub: TunedGraphIndex, d0: int, device):
@@ -230,14 +252,15 @@ def _global_projection(sub: TunedGraphIndex, d0: int, device):
 
 
 def _shard_blocks(sub: TunedGraphIndex, *, m: int, c: int, offset: int,
-                  mean, comp) -> dict:
+                  mean, comp, base_dt: torch.dtype = torch.float32) -> dict:
     """One fitted shard -> equal-shape blocks (padded to m rows), on the
     shard's device.
 
     Re-projects the shard's base with the GLOBAL (shard-0) PCA, pads rows
-    and centroid slots, and derives the |x|^2 row. ``members`` pads with
-    -1 (the search masks those entry slots to +inf, ``_local_beam``),
-    ``global_ids`` with -1 (those rows are inert).
+    and centroid slots, and derives the |x|^2 row from the f32 rows before
+    the base is cast to ``base_dt`` (bf16 under ``ANN_BF16_BASE``).
+    ``members`` pads with -1 (the search masks those entry slots to +inf,
+    ``_local_beam``), ``global_ids`` with -1 (those rows are inert).
     """
     dev = sub.base.device
     mean, comp = mean.to(dev), comp.to(dev)
@@ -246,14 +269,14 @@ def _shard_blocks(sub: TunedGraphIndex, *, m: int, c: int, offset: int,
         b = (sub.pca.inverse_transform(b) - mean) @ comp
     b = _pad_rows(b.float(), m).contiguous()
     return dict(
-        base=b,
+        base=b.to(base_dt),
         neighbors=_pad_rows(sub.graph.neighbors.to(torch.int32), m, -1)
         .contiguous(),
         global_ids=_pad_rows(sub.kept_idx.to(torch.int32) + int(offset), m,
                              -1),
         centroids=_pad_rows(sub.eps.centroids.float(), c),
         members=_pad_rows(sub.eps.member_ids.to(torch.int32), c, -1),
-        base_norms=(b * b).sum(-1),
+        base_norms=row_norms(b),
         knn_ids=_pad_rows(sub.knn_ids.to(torch.int32), m, -1),
         medoid=sub.graph.medoid.to(torch.int32).reshape(1),
     )
@@ -294,7 +317,6 @@ class ShardedIndex:
         return self.mesh.devices.flat[0]
 
     def fit(self, data, generator: Optional[torch.Generator] = None):
-        flags.check_ann_toggles()
         p = self.params
         n, d0 = data.shape
         s = self.n_shards
@@ -314,7 +336,8 @@ class ShardedIndex:
         # shard's base is re-projected on its device
         mean, comp = _global_projection(subs[0], d0, owners[0])
         blocks = [_shard_blocks(sub, m=m, c=p.ep_clusters,
-                                offset=int(bounds[i]), mean=mean, comp=comp)
+                                offset=int(bounds[i]), mean=mean, comp=comp,
+                                base_dt=_base_dtype())
                   for i, sub in enumerate(subs)]
 
         def rows(field):
@@ -364,7 +387,9 @@ class ShardedIndex:
         if params is not None:
             ef = ef if ef is not None else params.ef_search
             mode = mode if mode is not None else params.mode
-        skey = (ef or self.params.ef_search, k, mode or "while")
+        # the toggles the step reads when it is built are part of its key
+        skey = (ef or self.params.ef_search, k, mode or "while",
+                flags.ANN_PRENORM, flags.ANN_TIGHT_BUDGET)
         if self._step is None or self._step[0] != skey:
             self._step = (skey, make_search_step(
                 self.mesh, ef=skey[0], k=k, mode=skey[2]))
@@ -444,7 +469,6 @@ class StreamedShardedIndex:
         self.shard_stats: list = []
 
     def fit(self, data, generator: Optional[torch.Generator] = None):
-        flags.check_ann_toggles()
         p = self.params
         n, d0 = data.shape
         self.input_dim = d0
@@ -463,7 +487,8 @@ class StreamedShardedIndex:
                     sub, d0, self.device)
             self.store.offload(i, _shard_blocks(
                 sub, m=m, c=p.ep_clusters, offset=int(bounds[i]),
-                mean=self.pca_mean, comp=self.pca_comp))
+                mean=self.pca_mean, comp=self.pca_comp,
+                base_dt=_base_dtype()))
             self.shard_stats.append(_sub_stage_stats(sub))
             del sub             # drop device references -> frees memory
         self._structural = self.store
@@ -496,7 +521,6 @@ class StreamedShardedIndex:
 
     def search(self, queries, k: int, params=None, *,
                ef: Optional[int] = None, mode: Optional[str] = None):
-        flags.check_ann_toggles()
         if params is not None:
             ef = ef if ef is not None else params.ef_search
             mode = mode if mode is not None else params.mode
@@ -515,8 +539,9 @@ class StreamedShardedIndex:
             t = self.store.fetch(i)
             d, gi = _local_beam(q, t["base"], t["neighbors"],
                                 t["global_ids"], t["centroids"],
-                                t["members"], ef=ef, k=k,
-                                max_iters=max_iters, mode=mode)
+                                t["members"], t.get("base_norms"), ef=ef,
+                                k=k, max_iters=max_iters, mode=mode,
+                                prenorm=flags.ANN_PRENORM)
             del t               # at most two shards on the card
             dists.append(d)
             ids.append(gi)

@@ -20,9 +20,20 @@
 // pool in the order of a stable argsort by distance, and keep the first ef
 // entries; count [valid candidates, duplicate candidates].
 //
+// The f32 loop (beam_hops_f32) has the sharded tier's two modes, either or
+// both (the reference's ANN_BF16_BASE and ANN_PRENORM,
+// src/repro/core/distributed.py _local_beam): bf16 rows, widened to f32 on
+// load (exact), and the prenorm distance max((|q|^2 + norms[id]) - 2 q.x,
+// 0) over (N,) norms kept at build time, |q|^2 summed once per query. Both
+// go through common.cuh's reductions (row_chunk, kDot), as gather_dist's
+// modes do, so a pool seeded by gather_dist in a mode carries the bits the
+// loop reproduces. The one-hop entries, the LUT loop and its persistent
+// variant have no such modes (nor has the reference's LUT path).
+//
 // Bound on an H100: the bytes of the gathered rows. f32 mode: at Q=1024,
 // R=32, D=600 one hop reads at most 1024*32*600*4 B = 78.6 MB of rows,
-// about 23 us at 3.35 TB/s. LUT mode: Q*R*M code bytes plus at most 4 B of
+// about 23 us at 3.35 TB/s; bf16 rows half of that, prenorm 4 B more per
+// row. LUT mode: Q*R*M code bytes plus at most 4 B of
 // LUT per lookup, ~49 MB (~15 us) at M=300; each lookup touches a 32 B
 // sector, so the traffic the card moves is several times that. The pool
 // state (Q*ef*9 B in and out) and the graph rows (Q*R*4 B) add under 2 MB.
@@ -394,12 +405,16 @@ __device__ __forceinline__ void score_lut_persistent(
 // must be in shared memory and visible to every thread before the call;
 // the call ends with a barrier. ctl[kValid..kListed] are 0 on entry and on
 // return.
-template <bool kLut, int kK, bool kPersistent = false>
+//
+// f32 mode: T is the row type (float, or uint16_t for bf16 rows); kNorm
+// scores by prenorm_dist from norms and the query's qn.
+template <bool kLut, int kK, bool kPersistent = false, class T = float,
+          bool kNorm = false>
 __device__ __forceinline__ void hop_body(
     const HopShared& sh, int cur, int sel, const int* __restrict__ nbrs,
     const float* __restrict__ q_or_lut, const void* __restrict__ table,
-    int n, int r, int d, int c, int ef, bool vec4, int& n_valid,
-    int& n_dup) {
+    const float* __restrict__ norms, float qn, int n, int r, int d, int c,
+    int ef, bool vec4, int& n_valid, int& n_dup) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -451,35 +466,43 @@ __device__ __forceinline__ void hop_body(
       sh.keys[ef + j] = sort_key(dist, ef + j);
     }
   } else if constexpr (kK == 0) {
-    const float* db = static_cast<const float*>(table);
+    const T* db = static_cast<const T*>(table);
     for (int t = warp; t < listed; t += kHopWarps) {
       const int j = sh.list[t];
-      const float dist = row_sqdist(
-          q_or_lut, db + (long long)min(sh.cand_i[j], n - 1) * d, d, vec4);
+      const int id = min(sh.cand_i[j], n - 1);
+      float dist = row_sqdist<kNorm>(q_or_lut, db + (long long)id * d, d,
+                                     vec4);
+      if constexpr (kNorm) dist = prenorm_dist(qn, __ldg(norms + id), dist);
       if (lane == 0) {
         sh.cand_d[j] = dist;
         sh.keys[ef + j] = sort_key(dist, ef + j);
       }
     }
   } else {
-    const float* db = static_cast<const float*>(table);
+    const T* db = static_cast<const T*>(table);
     const float4* q4 = reinterpret_cast<const float4*>(sh.query);
     const int n_chunks = d >> 2;
     for (int t0 = warp * kHopGroup; t0 < listed;
          t0 += kHopWarps * kHopGroup) {
       const int cnt = min(kHopGroup, listed - t0);
-      const float* rows[kHopGroup];
-      int js[kHopGroup];
+      const T* rows[kHopGroup];
+      int js[kHopGroup], ids[kHopGroup];
 #pragma unroll
       for (int g = 0; g < kHopGroup; ++g) {
         js[g] = g < cnt ? sh.list[t0 + g] : 0;
-        rows[g] = g < cnt ? db + (long long)min(sh.cand_i[js[g]], n - 1) * d
-                          : db;
+        ids[g] = g < cnt ? min(sh.cand_i[js[g]], n - 1) : 0;
+        rows[g] = db + (long long)ids[g] * d;
       }
       float dist[kHopGroup];
-      rows_sqdist_vec4<kK, kHopGroup>(
+      rows_sqdist_vec4<kK, kHopGroup, kNorm>(
           [&](int k) { return q4[lane + 32 * k]; }, rows, cnt, n_chunks,
           dist);
+      if constexpr (kNorm) {
+#pragma unroll
+        for (int g = 0; g < kHopGroup; ++g)
+          if (g < cnt)
+            dist[g] = prenorm_dist(qn, __ldg(norms + ids[g]), dist[g]);
+      }
       if (lane == 0) {
 #pragma unroll
         for (int g = 0; g < kHopGroup; ++g) {
@@ -598,8 +621,8 @@ beam_hop_kernel(const int* __restrict__ sel, const int* __restrict__ nbrs,
   const int qi = blockIdx.x;
   int n_valid, n_dup;
   hop_body<kLut, kK>(sh, 0, sel[qi], nbrs,
-                     lane_operand<kLut>(q_or_lut, qi, d, c), table, n, r, d,
-                     c, ef, vec4, n_valid, n_dup);
+                     lane_operand<kLut>(q_or_lut, qi, d, c), table, nullptr,
+                     0.f, n, r, d, c, ef, vec4, n_valid, n_dup);
   const long long off = (long long)qi * ef;
   for (int e = threadIdx.x; e < ef; e += blockDim.x) {
     out_i[off + e] = sh.pool_i(1)[e];
@@ -623,12 +646,17 @@ beam_hop_kernel(const int* __restrict__ sel, const int* __restrict__ nbrs,
 // back with iters (the hops this launch ran for the lane) and live (the
 // live test at exit).
 //
+// T and kNorm (f32 mode only): the row type and the prenorm distance over
+// norms, as in hop_body; the query's qn is summed once per lane, by each
+// warp (the same bits in every warp).
+//
 // kPersistent (LUT mode only): the grid walks the lanes, block b taking
 // lanes b, b + gridDim.x, ... one after another, each with the first
 // `resident` sub-tables of its LUT copied into shared memory (lut_vec4: the
 // LUT's rows start 16-byte aligned); else lane blockIdx.x, resident and
 // lut_vec4 unused.
-template <bool kLut, int kK, bool kPersistent = false>
+template <bool kLut, int kK, bool kPersistent = false, class T = float,
+          bool kNorm = false>
 __global__ void __launch_bounds__(kPersistent ? kPersistentThreads
                                               : kHopThreads)
 beam_hops_kernel(const int* __restrict__ nbrs, const int* __restrict__ pool_i,
@@ -639,7 +667,8 @@ beam_hops_kernel(const int* __restrict__ nbrs, const int* __restrict__ pool_i,
                  const int* __restrict__ dup_in,
                  const int* __restrict__ stale_in,
                  const float* __restrict__ q_or_lut,
-                 const void* __restrict__ table, int* __restrict__ out_i,
+                 const void* __restrict__ table,
+                 const float* __restrict__ norms, int* __restrict__ out_i,
                  float* __restrict__ out_d, uint8_t* __restrict__ out_v,
                  int* __restrict__ hops_out, int* __restrict__ gath_out,
                  int* __restrict__ dup_out, int* __restrict__ stale_out,
@@ -654,6 +683,19 @@ beam_hops_kernel(const int* __restrict__ nbrs, const int* __restrict__ pool_i,
   // lane qi from its loaded pool to its outputs
   const auto run = [&](const HopShared& sh, int qi) {
     const float* operand = lane_operand<kLut>(q_or_lut, qi, d, c);
+    float qn = 0.f;
+    if constexpr (!kLut && kNorm) {
+      if constexpr (kK == 0) {
+        qn = row_sqdist<true>(operand, operand, d, vec4);
+      } else {
+        const float4* q4 = reinterpret_cast<const float4*>(sh.query);
+        float self[1];
+        sqdist_chunks<kK, 1, true>(
+            [&](int kc) { return q4[lane + 32 * kc]; },
+            [&](int, int kc) { return q4[lane + 32 * kc]; }, d >> 2, self);
+        qn = self[0];
+      }
+    }
     // warp 0's copies of the counters (the same in each of its lanes)
     int hops = hops_in[qi], gath = gath_in[qi], dup = dup_in[qi];
     int stale = stale_in[qi], iters = 0;
@@ -695,8 +737,9 @@ beam_hops_kernel(const int* __restrict__ nbrs, const int* __restrict__ pool_i,
       if (!sh.ctl[kGo]) break;
       const int sel = sh.ctl[kSel];
       int n_valid, n_dup;
-      hop_body<kLut, kK, kPersistent>(sh, cur, sel, nbrs, operand, table, n,
-                                      r, d, c, ef, vec4, n_valid, n_dup);
+      hop_body<kLut, kK, kPersistent, T, kNorm>(sh, cur, sel, nbrs, operand,
+                                                table, norms, qn, n, r, d, c,
+                                                ef, vec4, n_valid, n_dup);
       if (lead) {
         hops += sel >= 0;
         gath += n_valid;
@@ -795,18 +838,20 @@ int launch_hop(const void* sel, const void* nbrs, const void* pool_i,
   });
 }
 
+// f32 mode: bf16 != 0 reads bf16 rows, norms != null scores by the prenorm
+// distance (LUT mode: both unused).
 template <bool kLut>
 int launch_hops(void* const* in, void* const* out, const void* q_or_lut,
-                const void* table, int nq, int n, int r, int d, int c, int ef,
-                int k, int max_iters, int max_steps, int patience, float eps,
-                int vec4, int grid, int resident, int lut_vec4,
-                void* stream) {
+                const void* table, const void* norms, int bf16, int nq,
+                int n, int r, int d, int c, int ef, int k, int max_iters,
+                int max_steps, int patience, float eps, int vec4, int grid,
+                int resident, int lut_vec4, void* stream) {
   const auto launch = [&](auto kernel, int blocks, int threads, int smem) {
     kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         (const int*)in[0], (const int*)in[1], (const float*)in[2],
         (const uint8_t*)in[3], (const int*)in[4], (const int*)in[5],
         (const int*)in[6], (const int*)in[7], (const float*)q_or_lut, table,
-        (int*)out[0], (float*)out[1], (uint8_t*)out[2], (int*)out[3],
+        (const float*)norms, (int*)out[0], (float*)out[1], (uint8_t*)out[2], (int*)out[3],
         (int*)out[4], (int*)out[5], (int*)out[6], (int*)out[7],
         (uint8_t*)out[8], nq, n, r, d, c, ef, k, max_iters, max_steps,
         patience, eps, vec4 != 0, resident, lut_vec4 != 0);
@@ -825,15 +870,28 @@ int launch_hops(void* const* in, void* const* out, const void* q_or_lut,
     return (int)cudaGetLastError();
   }
   const int kk = kLut ? 0 : f32_lane_chunks(d, vec4);
-  return by_lane_chunks(kk, [&](auto kc) {
-    constexpr int kK = kLut ? 0 : decltype(kc)::value;
-    const auto kernel = beam_hops_kernel<kLut, kK>;
-    const int smem = hop_smem_bytes(ef, r, staged_query_floats(d, kK));
-    const int err = prepare(kernel, smem);
-    if (err) return err;
-    if (nq > 0) launch(kernel, nq, kHopThreads, smem);
-    return (int)cudaGetLastError();
-  });
+  const auto by_mode = [&](auto row, auto norm) {
+    using T = decltype(row);
+    constexpr bool kNorm = decltype(norm)::value;
+    return by_lane_chunks(kk, [&](auto kc) {
+      constexpr int kK = kLut ? 0 : decltype(kc)::value;
+      const auto kernel = beam_hops_kernel<kLut, kK, false, T, kNorm>;
+      const int smem = hop_smem_bytes(ef, r, staged_query_floats(d, kK));
+      const int err = prepare(kernel, smem);
+      if (err) return err;
+      if (nq > 0) launch(kernel, nq, kHopThreads, smem);
+      return (int)cudaGetLastError();
+    });
+  };
+  if constexpr (kLut) {
+    return by_mode(0.f, std::false_type{});
+  } else {
+    if (bf16)
+      return norms ? by_mode(uint16_t{}, std::true_type{})
+                   : by_mode(uint16_t{}, std::false_type{});
+    return norms ? by_mode(0.f, std::true_type{})
+                 : by_mode(0.f, std::false_type{});
+  }
 }
 
 }  // namespace
@@ -862,14 +920,17 @@ extern "C" int beam_hop_lut(const void* sel, const void* nbrs, const void* pool_
 
 // in: neighbors, pool_i, pool_d, pool_v, hops, gathered, dup_gathered,
 // stale; out: pool_i, pool_d, pool_v, hops, gathered, dup_gathered, stale,
-// iters, live (each out array distinct from every in array).
+// iters, live (each out array distinct from every in array). db: f32 rows,
+// or bf16 rows (bf16 != 0; their bits); norms: the (N,) |x|^2 of the
+// prenorm distance, or null for the diff-square form.
 extern "C" int beam_hops_f32(void* const* in, void* const* out, const void* q,
-                             const void* db, int nq, int n, int r, int d,
-                             int ef, int k, int max_iters, int max_steps,
-                             int patience, float eps, int vec4,
-                             void* stream) {
-  return launch_hops<false>(in, out, q, db, nq, n, r, d, 0, ef, k, max_iters,
-                            max_steps, patience, eps, vec4, 0, 0, 0, stream);
+                             const void* db, const void* norms, int nq, int n,
+                             int r, int d, int ef, int k, int max_iters,
+                             int max_steps, int patience, float eps, int vec4,
+                             int bf16, void* stream) {
+  return launch_hops<false>(in, out, q, db, norms, bf16, nq, n, r, d, 0, ef,
+                            k, max_iters, max_steps, patience, eps, vec4, 0,
+                            0, 0, stream);
 }
 
 // grid 0: the per_query variant (one block per lane); grid > 0: the
@@ -882,9 +943,9 @@ extern "C" int beam_hops_lut(void* const* in, void* const* out,
                              int max_iters, int max_steps, int patience,
                              float eps, int vec4, int grid, int resident,
                              int lut_vec4, void* stream) {
-  return launch_hops<true>(in, out, lut, codes, nq, n, r, m, c, ef, k,
-                           max_iters, max_steps, patience, eps, vec4, grid,
-                           resident, lut_vec4, stream);
+  return launch_hops<true>(in, out, lut, codes, nullptr, 0, nq, n, r, m, c,
+                           ef, k, max_iters, max_steps, patience, eps, vec4,
+                           grid, resident, lut_vec4, stream);
 }
 
 // Shared memory of one persistent-loop block.

@@ -11,6 +11,14 @@
 // sort helpers give the kernels that merge pools (beam_hop, topk_merge) an
 // exact stable order: every key is unique because its low bits hold the
 // element's position.
+//
+// The row reductions take two options, for the sharded tier's modes:
+// rows of bf16 (T = uint16_t, the bf16 bits), widened to f32 on load, which
+// is exact; and kDot, which sums q[e] * x[e] instead of (q[e] - x[e])^2 in
+// the same lane-chunk order and xor tree, for the prenorm distance
+// max(|q|^2 + |x|^2 - 2 q.x, 0) (prenorm_dist). The plain versions
+// (kernels/gather_dist/ref.py, lanes_reduce) follow that order step by
+// step, so kernel and plain version agree bit for bit in every mode.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,47 +30,111 @@ namespace repro_torch {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Sum over e < d of (q[e] - x[e])^2, reduced by one warp; every lane
-// returns the same bits.
+// One element of a row as f32: a float as is, a bf16 (its bits in a
+// uint16_t) widened exactly.
+__device__ __forceinline__ float row_elem(const float* __restrict__ x,
+                                          int e) {
+  return __ldg(x + e);
+}
+
+__device__ __forceinline__ float row_elem(const uint16_t* __restrict__ x,
+                                          int e) {
+  return __uint_as_float((uint32_t)__ldg(x + e) << 16);
+}
+
+// Chunk c (elements 4c .. 4c + 3) of a row as it is stored: one 16-byte
+// float4 of f32, one 8-byte uint2 of bf16 (RawChunk<T>); widen() makes
+// the float4 of either (bf16: exactly). row_chunk does both. The row must
+// be aligned to the chunk's size (16 or 8 bytes).
+template <class T> struct RawChunk;
+template <> struct RawChunk<float> { using type = float4; };
+template <> struct RawChunk<uint16_t> { using type = uint2; };
+
+__device__ __forceinline__ float4 load_chunk_raw(const float* __restrict__ x,
+                                                 int c) {
+  return __ldg(reinterpret_cast<const float4*>(x) + c);
+}
+
+__device__ __forceinline__ uint2 load_chunk_raw(
+    const uint16_t* __restrict__ x, int c) {
+  return __ldg(reinterpret_cast<const uint2*>(x) + c);
+}
+
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+
+__device__ __forceinline__ float4 widen(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+template <class T>
+__device__ __forceinline__ float4 row_chunk(const T* __restrict__ x, int c) {
+  return widen(load_chunk_raw(x, c));
+}
+
+// acc + (a - b)^2 (kDot: acc + a * b), the subtract and the fused
+// multiply-add each rounded to nearest.
+template <bool kDot>
+__device__ __forceinline__ float lane_step(float acc, float a, float b) {
+  if constexpr (kDot) {
+    return __fmaf_rn(a, b, acc);
+  } else {
+    const float t = __fsub_rn(a, b);
+    return __fmaf_rn(t, t, acc);
+  }
+}
+
+template <bool kDot>
+__device__ __forceinline__ float lane_step4(float acc, float4 a, float4 b) {
+  acc = lane_step<kDot>(acc, a.x, b.x);
+  acc = lane_step<kDot>(acc, a.y, b.y);
+  acc = lane_step<kDot>(acc, a.z, b.z);
+  return lane_step<kDot>(acc, a.w, b.w);
+}
+
+// Sum over e < d of (q[e] - x[e])^2 (kDot: of q[e] * x[e]), reduced by one
+// warp; every lane returns the same bits.
 //
 // Lane l takes the 4-element chunks c = l, l + 32, l + 64, ... in order and
-// accumulates (q - x)^2 with explicit round-to-nearest subtract and fused
-// multiply-add, so the compiler cannot reassociate or contract differently
-// in different kernels. The lanes are then combined by a fixed xor-shuffle
-// tree. With vec4 (d % 4 == 0 and both rows 16-byte aligned) a chunk is one
-// float4 load; otherwise it is read element by element, in the same order,
-// so the result does not depend on alignment.
+// accumulates with explicit round-to-nearest subtract and fused
+// multiply-add (lane_step), so the compiler cannot reassociate or contract
+// differently in different kernels. The lanes are then combined by a fixed
+// xor-shuffle tree. With vec4 (d % 4 == 0 and both rows aligned to their
+// chunks) a chunk is one load; otherwise it is read element by element, in
+// the same order, so the result does not depend on alignment. x holds f32
+// or bf16 (T = uint16_t) elements.
+template <bool kDot = false, class T>
 __device__ __forceinline__ float row_sqdist(const float* __restrict__ q,
-                                            const float* __restrict__ x,
+                                            const T* __restrict__ x,
                                             int d, bool vec4) {
   const int lane = threadIdx.x & 31;
   const int n_chunks = (d + 3) >> 2;
   float acc = 0.f;
   if (vec4) {
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (int c = lane; c < n_chunks; c += 32) {
-      const float4 a = __ldg(q4 + c);
-      const float4 b = __ldg(x4 + c);
-      float t;
-      t = __fsub_rn(a.x, b.x); acc = __fmaf_rn(t, t, acc);
-      t = __fsub_rn(a.y, b.y); acc = __fmaf_rn(t, t, acc);
-      t = __fsub_rn(a.z, b.z); acc = __fmaf_rn(t, t, acc);
-      t = __fsub_rn(a.w, b.w); acc = __fmaf_rn(t, t, acc);
-    }
+    for (int c = lane; c < n_chunks; c += 32)
+      acc = lane_step4<kDot>(acc, row_chunk(q, c), row_chunk(x, c));
   } else {
     for (int c = lane; c < n_chunks; c += 32) {
       const int end = min(4 * c + 4, d);
-      for (int e = 4 * c; e < end; ++e) {
-        const float t = __fsub_rn(__ldg(q + e), __ldg(x + e));
-        acc = __fmaf_rn(t, t, acc);
-      }
+      for (int e = 4 * c; e < end; ++e)
+        acc = lane_step<kDot>(acc, __ldg(q + e), row_elem(x, e));
     }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(kFullMask, acc, off));
   return acc;
+}
+
+// The prenorm distance of a row from its dot with the query, the query's
+// |q|^2 (qn: row_sqdist<true> of q with itself) and the row's |x|^2 kept
+// at build time: max((qn + norm) - 2 * dot, 0), as the reference writes it
+// (2 * dot is exact).
+__device__ __forceinline__ float prenorm_dist(float qn, float norm,
+                                              float dot) {
+  return fmaxf(__fsub_rn(__fadd_rn(qn, norm), __fmul_rn(2.f, dot)), 0.f);
 }
 
 // Largest per-lane chunk count rows_sqdist_vec4 is instantiated for: rows
@@ -83,7 +155,7 @@ __host__ __device__ __forceinline__ int lane_chunks(int d) {
 // the query's chunk lane + 32 k and xchunk(g, k) row g's (from registers or
 // shared memory, as the caller keeps them); neither is called for a chunk
 // at or past n_chunks. kK is the caller's lane_chunks(d) or more.
-template <int kK, int kG, class QChunk, class XChunk>
+template <int kK, int kG, bool kDot = false, class QChunk, class XChunk>
 __device__ __forceinline__ void sqdist_chunks(QChunk qchunk, XChunk xchunk,
                                               int n_chunks,
                                               float (&out)[kG]) {
@@ -96,14 +168,8 @@ __device__ __forceinline__ void sqdist_chunks(QChunk qchunk, XChunk xchunk,
     if (lane + 32 * k < n_chunks) {
       const float4 a = qchunk(k);
 #pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        const float4 b = xchunk(g, k);
-        float t;
-        t = __fsub_rn(a.x, b.x); acc[g] = __fmaf_rn(t, t, acc[g]);
-        t = __fsub_rn(a.y, b.y); acc[g] = __fmaf_rn(t, t, acc[g]);
-        t = __fsub_rn(a.z, b.z); acc[g] = __fmaf_rn(t, t, acc[g]);
-        t = __fsub_rn(a.w, b.w); acc[g] = __fmaf_rn(t, t, acc[g]);
-      }
+      for (int g = 0; g < kG; ++g)
+        acc[g] = lane_step4<kDot>(acc[g], a, xchunk(g, k));
     }
   }
 #pragma unroll
@@ -116,35 +182,38 @@ __device__ __forceinline__ void sqdist_chunks(QChunk qchunk, XChunk xchunk,
   for (int g = 0; g < kG; ++g) out[g] = acc[g];
 }
 
-// row_sqdist over up to kG rows of one query at once, by one warp, float4
-// rows only (d % 4 == 0, 16-byte aligned). All cnt rows' loads are issued
-// before any row is reduced, kG * kK float4 per lane in flight instead of
-// row_sqdist's one; then sqdist_chunks reduces them. So out[g] has
-// row_sqdist's bits, and every kernel that scores rows through either
-// function agrees with every other.
+// row_sqdist over up to kG rows of one query at once, by one warp, chunked
+// rows only (d % 4 == 0, each row aligned to its chunks). All cnt rows'
+// loads are issued before any row is reduced, kG * kK chunks per lane in
+// flight instead of row_sqdist's one; then sqdist_chunks reduces them. So
+// out[g] has row_sqdist's bits, and every kernel that scores rows through
+// either function agrees with every other. Rows are f32 or bf16 (T =
+// uint16_t: held as loaded, 8 bytes a chunk, and widened as each chunk is
+// reduced); kDot as in row_sqdist.
 //
 // kK is the caller's lane_chunks(d) or more; qchunk(k) returns the query's
 // chunk lane + 32 k (from registers or shared memory, as the caller keeps
 // it). Rows g >= cnt are not read and out[g] is then meaningless.
-template <int kK, int kG, class QChunk>
+template <int kK, int kG, bool kDot = false, class QChunk, class T>
 __device__ __forceinline__ void rows_sqdist_vec4(QChunk qchunk,
-                                                 const float* const (&rows)[kG],
+                                                 const T* const (&rows)[kG],
                                                  int cnt, int n_chunks,
                                                  float (&out)[kG]) {
   const int lane = threadIdx.x & 31;
-  float4 x[kG][kK];
+  // the chunks as stored (bf16: half the registers), widened as reduced
+  using Raw = typename RawChunk<T>::type;
+  Raw x[kG][kK];
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
-    const float4* r4 = reinterpret_cast<const float4*>(rows[g]);
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
       const int c = lane + 32 * k;
-      x[g][k] = (g < cnt && c < n_chunks) ? __ldg(r4 + c)
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[g][k] = (g < cnt && c < n_chunks) ? load_chunk_raw(rows[g], c)
+                                          : Raw{};
     }
   }
-  sqdist_chunks<kK, kG>(qchunk, [&](int g, int k) { return x[g][k]; },
-                        n_chunks, out);
+  sqdist_chunks<kK, kG, kDot>(
+      qchunk, [&](int g, int k) { return widen(x[g][k]); }, n_chunks, out);
 }
 
 // Calls fn(std::integral_constant<int, kK>) with kK = kk for 1 <= kk <=

@@ -42,20 +42,29 @@ def queries_like(generator: torch.Generator, data: torch.Tensor,
 
 
 def recsys_batch(generator: torch.Generator, batch: int, cfg) -> dict:
-    """Categorical ids per table (+ dense features), with the reference's
-    distributions: uniform int32 ids per table with the config's
-    ``multi_hot`` bag sizes, standard-normal dense features, and
-    Bernoulli(0.3) labels. The behaviour sequences of SASRec and DIN come
-    with those models (ROADMAP Queue 1 items 10.2 and 10.3)."""
+    """Categorical ids per table (+ dense features / behaviour sequences),
+    with the reference's distributions: uniform int32 ids per table with
+    the config's ``multi_hot`` bag sizes, standard-normal dense features,
+    for SASRec and DIN (``self-attn-seq`` / ``target-attn``) a (B, S)
+    ``history`` of uniform item ids, a ``history_len`` uniform in [1, S]
+    and a uniform ``target`` item, and Bernoulli(0.3) labels."""
     dev = generator.device
     multi_hot = cfg.multi_hot or (1,) * cfg.n_sparse
-    out = {"sparse_ids": [
-        torch.randint(0, vocab, (batch, bag), generator=generator,
-                      device=dev, dtype=torch.int32)
-        for vocab, bag in zip(cfg.table_vocabs, multi_hot)]}
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=generator, device=dev,
+                             dtype=torch.int32)
+
+    out = {"sparse_ids": [ints(0, vocab, (batch, bag))
+                          for vocab, bag in zip(cfg.table_vocabs,
+                                                multi_hot)]}
     if cfg.n_dense:
         out["dense"] = torch.randn((batch, cfg.n_dense), generator=generator,
                                    device=dev)
+    if cfg.seq_len and cfg.interaction in ("self-attn-seq", "target-attn"):
+        out["history"] = ints(0, cfg.table_vocabs[0], (batch, cfg.seq_len))
+        out["history_len"] = ints(1, cfg.seq_len + 1, (batch,))
+        out["target"] = ints(0, cfg.table_vocabs[0], (batch,))
     out["label"] = (torch.rand((batch,), generator=generator, device=dev)
                     < 0.3).float()
     return out

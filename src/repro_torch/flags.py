@@ -7,14 +7,16 @@ and is read at call time (``flags.ANN_TIGHT_BUDGET``), so a test can flip
 it on the module.
 
   * ``ANN_TIGHT_BUDGET`` (``REPRO_ANN_TIGHT``): the sharded searches'
-    beam budget is ``2 * ef`` hops instead of ``4 * ef``; honoured.
-  * ``ANN_BF16_BASE`` (``REPRO_ANN_BF16``): bf16 database rows in the
-    sharded search, and ``ANN_PRENORM`` (``REPRO_ANN_PRENORM``): the
-    ``|q|^2 + |x|^2 - 2 x.q`` distance over norms kept at build time.
-    Both change what the hop kernel reads and how it sums; the port's
-    ``beam_hops`` has neither mode yet, so the sharded entry points raise
-    ``NotImplementedError`` while either is on (``check_ann_toggles``)
-    rather than serve them through a path without the kernel.
+    beam budget is ``2 * ef`` hops instead of ``4 * ef``.
+  * ``ANN_BF16_BASE`` (``REPRO_ANN_BF16``): the sharded tiers keep their
+    database rows in bf16 (half the bytes on the card and in the host
+    store); the hops widen each row to f32 as they read it.
+  * ``ANN_PRENORM`` (``REPRO_ANN_PRENORM``): the sharded searches score
+    by ``max(|q|^2 + |x|^2 - 2 x.q, 0)`` over the ``|x|^2`` kept at build
+    time (of the f32 rows, before any bf16 cast).
+
+All three are honoured by ``core.distributed``'s sharded tiers, alone or
+together, as in the reference; the unsharded index has none of them.
 """
 from __future__ import annotations
 
@@ -37,13 +39,3 @@ ANN_TIGHT_BUDGET = _env("REPRO_ANN_TIGHT", False)
 # P8: |x|^2 per database row precomputed at build time
 ANN_PRENORM = _env("REPRO_ANN_PRENORM", False)
 
-
-def check_ann_toggles() -> None:
-    """Raise if a toggle the port's hop kernel cannot serve is on."""
-    on = [name for name in ("ANN_BF16_BASE", "ANN_PRENORM")
-          if globals()[name]]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: the beam_hops kernel has no bf16-row or "
-            f"prenorm mode yet (ROADMAP Queue 1 item 9b); unset "
-            f"REPRO_ANN_BF16 / REPRO_ANN_PRENORM")

@@ -3,6 +3,10 @@
 mode, ``beam_hop_lut_cuda`` and ``beam_hops_lut_cuda`` in LUT mode (the pq
 and int8 backends). Each counts its own launches.
 
+The f32 loop takes the sharded tier's modes as ``gather_dist`` does: bf16
+rows, and the prenorm distance over ``norms``; ``beam_hops_cuda.by_mode``
+counts each mode's launches (``gather_dist.MODES``).
+
 The LUT loop has two variants, which compute the same function; ``route``
 picks one by shape before the launch, and ``beam_hops_lut_cuda.by_variant``
 counts each one's launches:
@@ -31,7 +35,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.gather_dist.gather_dist import vec4_ok
+from repro_torch.kernels.gather_dist.gather_dist import MODES, check_rows, \
+    mode_of, rows_vec4_ok, vec4_ok
 from repro_torch.kernels.lut_dist.lut_dist import MAX_C, codes_vec4_ok
 
 MAX_ENTRIES = 2048       # ef + R: the merge ranks every entry against all
@@ -112,7 +117,7 @@ def _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut,
              "pool_d": (pool_d, torch.float32),
              "pool_v": (pool_v, torch.bool),
              "q_or_lut": (q_or_lut, torch.float32),
-             "table": (table, table_dtype)}
+             "table": (table, table_dtype or table.dtype)}
     named.update({k: (t, torch.int32) for k, t in extra.items()})
     for arg, (t, dt) in named.items():
         if not t.is_cuda or t.device != table.device:
@@ -196,9 +201,10 @@ def beam_hop_lut_cuda(sel, neighbors, pool_i, pool_d, pool_v, lut, codes):
 
 def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
           stale, q_or_lut, table, k, max_iters, max_steps, patience, eps,
-          plan=None):
-    """Launch the loop kernel (LUT mode: on ``plan``, else on ``route``'s);
-    returns the 9 outputs of ``beam_hops_ref`` and the plan."""
+          plan=None, norms=None):
+    """Launch the loop kernel (LUT mode: on ``plan``, else on ``route``'s;
+    f32 mode: f32 or bf16 rows, prenorm with ``norms``); returns the 9
+    outputs of ``beam_hops_ref`` and the plan."""
     for arg, v in (("k", k), ("max_iters", max_iters),
                    ("max_steps", max_steps)):
         if not 0 <= v < 2 ** 31:
@@ -206,8 +212,10 @@ def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
     lut = q_or_lut.dim() == 3
     if lut:
         _check_lut(name, q_or_lut)
+    else:
+        check_rows(name, table, norms)
     _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
-                    torch.uint8 if lut else torch.float32, hops=hops,
+                    torch.uint8 if lut else None, hops=hops,
                     gathered=gathered, dup=dup, stale=stale)
     nq, ef = pool_i.shape
     n, d = table.shape
@@ -240,8 +248,11 @@ def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
                                  else 0, plan.resident, int(lut_vec4),
                                  _stream(table))
     else:
+        head = head[:4] + (None if norms is None else norms.data_ptr(),) \
+            + head[4:]
         code = lib.beam_hops_f32(*head, *tail,
-                                 int(vec4_ok(d, q_or_lut, table)),
+                                 int(rows_vec4_ok(d, q_or_lut, table)),
+                                 int(table.dtype == torch.bfloat16),
                                  _stream(table))
     cuda_lib.check(code, "beam_hops_lut" if lut else "beam_hops_f32")
     return out, plan
@@ -250,15 +261,17 @@ def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
 def beam_hops_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
                    stale, queries, db, *, k: int, max_iters: int,
                    max_steps: int, patience: Optional[int] = None,
-                   eps: float = 0.0):
-    """The f32 hop loop, up to ``max_steps`` hops per lane in one launch;
+                   eps: float = 0.0, norms: Optional[torch.Tensor] = None):
+    """The f32 hop loop, up to ``max_steps`` hops per lane in one launch:
+    ``db`` f32 or bf16 rows, ``norms`` (N,) f32 for the prenorm distance;
     see ``ref.beam_hops_ref``."""
     if queries.dim() != 2:
         raise ValueError("beam_hops_cuda: queries must be (Q, D)")
     out, _ = _hops("beam_hops_cuda", neighbors, pool_i, pool_d, pool_v,
                    hops, gathered, dup, stale, queries, db, k, max_iters,
-                   max_steps, patience, eps)
+                   max_steps, patience, eps, norms=norms)
     beam_hops_cuda.launches += 1
+    beam_hops_cuda.by_mode[mode_of(db, norms)] += 1
     return out
 
 
@@ -280,5 +293,6 @@ def beam_hops_lut_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered,
 beam_hop_cuda.launches = 0
 beam_hop_lut_cuda.launches = 0
 beam_hops_cuda.launches = 0
+beam_hops_cuda.by_mode = dict.fromkeys(MODES, 0)
 beam_hops_lut_cuda.launches = 0
 beam_hops_lut_cuda.by_variant = dict.fromkeys(LUT_VARIANTS, 0)

@@ -43,13 +43,14 @@ def merge_one(pool_i, pool_d, pool_v, cand_i, cand_d):
 
 
 def beam_hop_ref(sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
-                 dist_backend: str = "f32"):
+                 dist_backend: str = "f32", norms=None):
     """One hop: neighbor gather -> distances -> pool merge.
 
     sel (Q,) int32 selected nodes (-1 = lane inactive this hop);
     neighbors (N, R) int32 (-1 padded); pool_* (Q, ef) with the frontier
     slot already marked visited. ``dist_backend="f32"``: q_or_lut is the
-    (Q, D) f32 queries and table the (N, D) f32 db; ``"pq"``/``"int8"``:
+    (Q, D) f32 queries and table the (N, D) f32 or bf16 db (``norms``:
+    the prenorm distance, as ``gather_dist_ref``); ``"pq"``/``"int8"``:
     q_or_lut is the (Q, M, C) f32 LUT and table the (N, M) uint8 codes.
     Returns (pool_i, pool_d, pool_v, stats) with stats (Q, 2) int32 =
     [neighbor rows gathered, duplicate gathers] per query.
@@ -59,7 +60,7 @@ def beam_hop_ref(sel, neighbors, pool_i, pool_d, pool_v, q_or_lut, table,
     valid = (nbr >= 0) & active[:, None]
     safe = torch.where(valid, nbr, 0)
     if dist_backend == "f32":
-        nd = gather_dist_ref(q_or_lut, table, safe)
+        nd = gather_dist_ref(q_or_lut, table, safe, norms)
     else:
         nd = lut_dist_ref(q_or_lut, table, safe)
     nd = torch.where(valid, nd, INF)
@@ -98,7 +99,8 @@ def lane_live(pool_i, pool_v, hops, stale, *, max_iters, patience):
 
 def beam_hops_ref(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
                   stale, q_or_lut, table, *, k: int, max_iters: int,
-                  max_steps: int, patience=None, eps: float = 0.0):
+                  max_steps: int, patience=None, eps: float = 0.0,
+                  norms=None):
     """Up to ``max_steps`` guarded hops per lane: the reference's
     ``_run_hops`` step, each lane until it stops being live.
 
@@ -108,7 +110,8 @@ def beam_hops_ref(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
     ``patience``, stale = 0 when any of the first k distances fell by more
     than ``eps`` (f32), else stale + 1. A lane that is not live keeps its
     state, and never becomes live again. ``q_or_lut``/``table`` are the f32
-    queries and base, or a (Q, M, C) LUT and uint8 codes.
+    queries and the f32 or bf16 base (``norms``: the prenorm distance), or a
+    (Q, M, C) LUT and uint8 codes.
 
     Returns (pool_i, pool_d, pool_v, hops, gathered, dup_gathered, stale,
     iters, live): ``iters`` (Q,) int32 the hops each lane ran here, ``live``
@@ -127,7 +130,8 @@ def beam_hops_ref(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
         p_v, node, active = select_frontier(p_i, p_d, p_v)
         sel = torch.where(active, node, -1).to(torch.int32)
         n_i, n_d, n_v, stats = beam_hop_ref(sel, neighbors, p_i, p_d, p_v,
-                                            q_or_lut, table, dist_backend)
+                                            q_or_lut, table, dist_backend,
+                                            norms)
         if patience is not None:
             progress = ((p_d[:, :k] - n_d[:, :k]) > eps).any(1)
             st = torch.where(progress, torch.zeros_like(st), st + 1)

@@ -31,10 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "alpha_scan_f32": [_P] * 5 + [_F, _P, _P] + [_I] * 7 + [_P],
-    "gather_dist_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gather_dist_rows": [_P] * 5 + [_I] * 6 + [_P],
     "beam_hop_f32": [_P] * 11 + [_I] * 6 + [_P],
     "beam_hop_lut": [_P] * 11 + [_I] * 7 + [_P],
-    "beam_hops_f32": [_P] * 4 + [_I] * 9 + [_F, _I, _P],
+    "beam_hops_f32": [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
     "beam_hops_lut": [_P] * 4 + [_I] * 10 + [_F] + [_I] * 4 + [_P],
     "beam_hops_lut_smem_bytes": [_I] * 5,
     "lut_dist_f32": [_P] * 4 + [_I] * 7 + [_P],

@@ -11,11 +11,13 @@ from repro_torch.kernels.gather_dist.ref import gather_dist_ref
 
 
 def gather_dist(queries: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
-                backend: Optional[str] = None) -> torch.Tensor:
+                backend: Optional[str] = None,
+                norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, D), (N, D), (B, R) int32 -> (B, R) f32 squared L2 (+inf for
     ids < 0): the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors. ``db`` may hold bf16 rows; ``norms`` (N,) f32 selects the
+    prenorm distance ``max(|q|^2 + norms[id] - 2 q.x, 0)``."""
     if use_kernel(db, backend, "gather_dist"):
         return gather_dist_cuda(queries.contiguous(), db,
-                                ids.to(torch.int32).contiguous())
-    return gather_dist_ref(queries, db, ids)
+                                ids.to(torch.int32).contiguous(), norms)
+    return gather_dist_ref(queries, db, ids, norms)

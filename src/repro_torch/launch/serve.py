@@ -2,7 +2,8 @@
 ``launch/serve.py``, its recsys and ANN branches).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch two-tower-retrieval [--batch 8] [--device cpu]
+        --arch two-tower-retrieval|sasrec|din|dlrm-mlperf [--batch 8] \\
+        [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ann-laion \\
         --spec "PCA32,NSG16,EP16" --ef 48 [--device cpu]
 

@@ -1,18 +1,20 @@
-"""Recsys models of the port (the reference's ``models/recsys.py``): the
-two-tower retrieval model so far.
+"""Recsys models of the port (the reference's ``models/recsys.py``): DLRM,
+the two-tower retrieval model, SASRec and DIN, as ``nn.Module``s.
 
-    model = INIT["two-tower-retrieval"](generator, cfg)
-    SCORE["two-tower-retrieval"](model, cfg, batch)     # (B,) scores
-    model.retrieval(batch, cand_items, cand_cates)      # (C,) scores
+    model = INIT[family](generator, cfg)
+    SCORE[family](model, cfg, batch)                    # (B,) scores
+    model.retrieval(batch, cand_items[, cand_cates])    # (C,) scores
 
 A batch is the reference's dict: ``batch["sparse_ids"]`` holds one (B, L_t)
-int32 tensor per table. The user's history bag goes through
-``recsys_common.bag_lookup`` and so through the ``embedding_bag`` kernel on
-the card; the reference builds the same function from a take and a masked
-sum (``_bag``). The row-sharded lookup hook (``lookup_fn``) is not ported:
-a non-None one raises. Serving only: the bag kernel has no backward yet, so
-training waits for ROADMAP Queue 1 item 10.5; call under
-``torch.inference_mode()``.
+int32 tensor per table, with ``dense`` (DLRM) and ``history`` /
+``history_len`` / ``target`` (SASRec, DIN) beside it. Every single-hot
+table access goes through ``_lk`` and its ``lookup_fn`` hook: a plain take
+by default, ``recsys_common.make_sharded_lookup``'s row-sharded take on a
+mesh. The two-tower user history goes through ``recsys_common.bag_lookup``
+and so through the ``embedding_bag`` kernel on the card; the reference
+builds the same function from a take and a masked sum (``_bag``). Serving
+only: the bag kernel has no backward yet, so training waits for ROADMAP
+Queue 1 item 10.5; call under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -22,14 +24,8 @@ from torch import nn
 from repro_torch.configs import NOT_PORTED
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models import recsys_common as C
-from repro_torch.models.layers import MLP, mlp_init
-
-
-def _no_lookup_fn(fn):
-    if fn is not None:
-        raise NotImplementedError(
-            "lookup_fn: the row-sharded lookup is not ported yet (ROADMAP "
-            "Queue 1 item 9)")
+from repro_torch.models.layers import MLP, dense_init, mlp_init, rms_norm, \
+    sdpa
 
 
 def _tables(generator, cfg):
@@ -41,17 +37,25 @@ def _offsets(cfg):
 
 
 def _lk(fn, table, ids):
-    """Every single-hot table access goes through here. ids may be any
+    """Every single-hot table access goes through here: ``fn`` is the
+    row-sharded lookup at scale, a plain take otherwise. ids may be any
     shape; returns ids.shape + (D,)."""
-    _no_lookup_fn(fn)
-    rows = table[ids.reshape(-1)]
+    flat = ids.reshape(-1)
+    rows = table[flat] if fn is None else fn(table, flat)
     return rows.reshape(*ids.shape, table.shape[1])
 
 
 def _bag(fn, table, ids, combiner="mean"):
-    """Multi-hot (-1 padded) bag: the ``embedding_bag`` op."""
-    _no_lookup_fn(fn)
-    return C.bag_lookup(table, ids, combiner)
+    """Multi-hot (-1 padded) bag: the ``embedding_bag`` op over the plain
+    table, or the reference's take-and-masked-mean through ``fn``."""
+    if fn is None:
+        return C.bag_lookup(table, ids, combiner)
+    rows = _lk(fn, table, ids.clamp_min(0))
+    w = (ids >= 0).to(rows.dtype)[..., None]
+    out = (rows * w).sum(-2)
+    if combiner == "mean":
+        out = out / w.sum(-2).clamp_min(1e-9)
+    return out
 
 
 def _l2norm(x):
@@ -114,8 +118,189 @@ def two_tower_score(params: TwoTower, cfg, batch, lookup_fn=None):
     return params.score(batch, lookup_fn)
 
 
-INIT = {"two-tower-retrieval": two_tower_init}
-SCORE = {"two-tower-retrieval": two_tower_score}
+# ===========================================================================
+# DLRM
+# ===========================================================================
+
+class DLRM(nn.Module):
+    """Bottom MLP over the dense features, one embedding per sparse
+    feature, the pairwise dot interaction of the 27 vectors, top MLP."""
+
+    def __init__(self, cfg: RecsysConfig, table: torch.Tensor, bot: MLP,
+                 top: MLP):
+        super().__init__()
+        self.cfg = cfg
+        self.table = nn.Parameter(table, requires_grad=False)
+        self.bot = bot
+        self.top = top
+
+    def forward(self, batch, lookup_fn=None) -> torch.Tensor:
+        ids = C.globalize_ids(batch["sparse_ids"], _offsets(self.cfg))
+        emb = _lk(lookup_fn, self.table, ids)               # (B, 26, D)
+        bot = self.bot(batch["dense"], final_act=True)
+        vecs = torch.cat([bot[:, None, :], emb], dim=1)     # (B, 27, D)
+        z = C.dot_interaction(vecs)
+        return self.top(torch.cat([bot, z], dim=1))[:, 0]
+
+
+def dlrm_init(generator: torch.Generator, cfg: RecsysConfig) -> DLRM:
+    n_f = cfg.n_sparse + 1
+    n_int = n_f * (n_f - 1) // 2
+    return DLRM(cfg, _tables(generator, cfg),
+                mlp_init(generator, (cfg.n_dense,) + tuple(cfg.bot_mlp)),
+                mlp_init(generator, (n_int + cfg.bot_mlp[-1],)
+                         + tuple(cfg.top_mlp)))
+
+
+# ===========================================================================
+# SASRec
+# ===========================================================================
+
+BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+class SASRec(nn.Module):
+    """Causal self-attention blocks (pre-RMSNorm, one head group per head)
+    over the item sequence; the last state scores items by a dot."""
+
+    def __init__(self, cfg: RecsysConfig, table: torch.Tensor,
+                 pos: torch.Tensor, blocks, final_ln: torch.Tensor):
+        super().__init__()
+        self.cfg = cfg
+        self.table = nn.Parameter(table, requires_grad=False)
+        self.pos = nn.Parameter(pos, requires_grad=False)
+        self.blocks = nn.ModuleList(
+            nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                              for k, v in blk.items()}) for blk in blocks)
+        self.final_ln = nn.Parameter(final_ln, requires_grad=False)
+
+    def hidden(self, history, lookup_fn=None) -> torch.Tensor:
+        """history (B, S) item ids (-1 pads) -> (B, S, D) causal states;
+        a pad's input is zeroed after the positional add."""
+        b, s = history.shape
+        h = _lk(lookup_fn, self.table, history.clamp_min(0)) \
+            + self.pos[None, :s]
+        h = h * (history >= 0)[..., None]
+        nh = self.cfg.n_heads
+        hd = self.cfg.embed_dim // nh
+        for blk in self.blocks:
+            x = rms_norm(h, blk["ln1"])
+            q = (x @ blk["wq"]).reshape(b, s, nh, hd)
+            k = (x @ blk["wk"]).reshape(b, s, nh, hd)
+            v = (x @ blk["wv"]).reshape(b, s, nh, hd)
+            o = sdpa(q, k, v, causal=True).reshape(b, s, -1)
+            h = h + o @ blk["wo"]
+            x = rms_norm(h, blk["ln2"])
+            h = h + torch.relu(x @ blk["w1"]) @ blk["w2"]
+        return rms_norm(h, self.final_ln)
+
+    def score(self, batch, lookup_fn=None) -> torch.Tensor:
+        """CTR-style: the target item against the last sequence state."""
+        h = self.hidden(batch["history"], lookup_fn)[:, -1]
+        t = _lk(lookup_fn, self.table, batch["target"])
+        return (h * t).sum(-1)
+
+    def retrieval(self, batch, cand_items, lookup_fn=None) -> torch.Tensor:
+        h = self.hidden(batch["history"], lookup_fn)[:, -1]
+        v = _lk(lookup_fn, self.table, cand_items)                # (C, D)
+        return (h @ v.T)[0]
+
+
+def sasrec_init(generator: torch.Generator, cfg: RecsysConfig) -> SASRec:
+    d = cfg.embed_dim
+    dev = generator.device
+    table = _tables(generator, cfg)
+    pos = torch.randn((cfg.seq_len, d), generator=generator,
+                      device=dev) * 0.02
+    blocks = []
+    for _ in range(cfg.n_blocks):
+        blk = {"ln1": torch.ones(d, device=dev),
+               "ln2": torch.ones(d, device=dev)}
+        blk.update({w: dense_init(generator, d, d) for w in BLOCK_WEIGHTS})
+        blocks.append(blk)
+    return SASRec(cfg, table, pos, blocks, torch.ones(d, device=dev))
+
+
+# ===========================================================================
+# DIN
+# ===========================================================================
+# tables: (goods_id, category_id); an item's embedding is [goods ; cate]
+
+class DIN(nn.Module):
+    """Target attention: an MLP scores each history item against the
+    target (the local activation unit), the softmax of the scores pools
+    the history, and a top MLP scores [pooled, target, pooled * target]."""
+
+    def __init__(self, cfg: RecsysConfig, table: torch.Tensor, attn: MLP,
+                 top: MLP):
+        super().__init__()
+        self.cfg = cfg
+        self.table = nn.Parameter(table, requires_grad=False)
+        self.attn = attn
+        self.top = top
+
+    def item_emb(self, goods_ids, lookup_fn=None) -> torch.Tensor:
+        """[goods ; category] rows; an item's category is goods % V_cate;
+        -1 pads read item 0 (the caller masks them)."""
+        off = _offsets(self.cfg)
+        goods = goods_ids.clamp_min(0)
+        cate = goods % self.cfg.table_vocabs[1]
+        g = _lk(lookup_fn, self.table, goods + int(off[0]))
+        c = _lk(lookup_fn, self.table, cate + int(off[1]))
+        return torch.cat([g, c], dim=-1)
+
+    def pooled(self, history, hist_len, target_e,
+               lookup_fn=None) -> torch.Tensor:
+        """Local activation unit -> softmax-weighted sum of the history's
+        first hist_len valid items."""
+        h_e = self.item_emb(history, lookup_fn)               # (B, S, 2d)
+        t_e = target_e[:, None, :].expand_as(h_e)
+        feat = torch.cat([t_e, h_e, t_e - h_e, t_e * h_e], dim=-1)
+        a = self.attn(feat)[..., 0]                           # (B, S)
+        s = history.shape[1]
+        mask = (torch.arange(s, device=history.device)[None, :]
+                < hist_len[:, None])
+        a = torch.where(mask & (history >= 0), a, -1e30)
+        w = torch.softmax(a, dim=1)
+        return torch.einsum("bs,bsd->bd", w, h_e)
+
+    def _head(self, pooled, t_e):
+        x = torch.cat([pooled, t_e, pooled * t_e], dim=-1)
+        return self.top(x)[:, 0]
+
+    def forward(self, batch, lookup_fn=None) -> torch.Tensor:
+        t_e = self.item_emb(batch["target"], lookup_fn)
+        pooled = self.pooled(batch["history"], batch["history_len"], t_e,
+                             lookup_fn)
+        return self._head(pooled, t_e)
+
+    def retrieval(self, batch, cand_items, lookup_fn=None) -> torch.Tensor:
+        """1 user x C candidate targets: each candidate re-attends the
+        user's history."""
+        c = cand_items.shape[0]
+        t_e = self.item_emb(cand_items, lookup_fn)            # (C, 2d)
+        hist = batch["history"][0][None].expand(c, -1)
+        hl = batch["history_len"][0].expand(c)
+        return self._head(self.pooled(hist, hl, t_e, lookup_fn), t_e)
+
+
+def din_init(generator: torch.Generator, cfg: RecsysConfig) -> DIN:
+    d2 = 2 * cfg.embed_dim
+    return DIN(cfg, _tables(generator, cfg),
+               mlp_init(generator, (4 * d2,) + tuple(cfg.attn_mlp) + (1,)),
+               mlp_init(generator, (3 * d2,) + tuple(cfg.top_mlp) + (1,)))
+
+
+# ===========================================================================
+# dispatch
+# ===========================================================================
+
+INIT = {"dlrm-mlperf": dlrm_init, "two-tower-retrieval": two_tower_init,
+        "sasrec": sasrec_init, "din": din_init}
+SCORE = {"dlrm-mlperf": lambda p, c, b, f=None: p(b, f),
+         "two-tower-retrieval": two_tower_score,
+         "sasrec": lambda p, c, b, f=None: p.score(b, f),
+         "din": lambda p, c, b, f=None: p(b, f)}
 
 
 def family_of(cfg: RecsysConfig) -> str:

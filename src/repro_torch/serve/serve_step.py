@@ -8,6 +8,13 @@ keeps the top k. The recsys steps return a plain function of (model,
 batch[, cand_ids]) and run under ``torch.inference_mode()``, the ANN
 step under ``torch.no_grad()`` (an index may keep what a search makes). The
 LM steps are not ported (ROADMAP Queue 1 item 10.6).
+
+DIN and DLRM build a wide intermediate per scored row: DIN a (S, 8 d)
+feature block per candidate ((1M, 100, 144) f32 is 57.6 GB at the full
+config), DLRM 27 vectors per row and a 1024-wide top MLP. So the recsys
+steps score in chunks of rows (``chunk_rows``: the rows whose
+intermediates fit ``CHUNK_BYTES``), which changes no result: rows never
+interact.
 """
 from __future__ import annotations
 
@@ -56,12 +63,56 @@ def ann_search_step(index, k: int = 10, params=None, buckets=None,
     return out
 
 
-def recsys_score_step(cfg, lookup_fn=None) -> Callable:
+CHUNK_BYTES = 1 << 30        # one chunk's widest intermediates
+
+
+def row_bytes(cfg) -> Optional[int]:
+    """Bytes of the intermediates one scored row builds at once, for the
+    families whose rows are wide (DIN, DLRM); None for the others."""
     fam = recsys.family_of(cfg)
+    if fam == "din":
+        d2 = 2 * cfg.embed_dim
+        return 4 * cfg.seq_len * (6 * d2 + sum(cfg.attn_mlp))
+    if fam == "dlrm-mlperf":
+        return 4 * (3 * (cfg.n_sparse + 1) * cfg.embed_dim
+                    + max(cfg.top_mlp + cfg.bot_mlp))
+    return None
+
+
+def chunk_rows(cfg) -> Optional[int]:
+    """Rows per chunk: CHUNK_BYTES over ``row_bytes`` (None: no
+    chunking)."""
+    rb = row_bytes(cfg)
+    return None if rb is None else max(1, CHUNK_BYTES // rb)
+
+
+def _rows(batch, lo: int, hi: int):
+    """Rows [lo, hi) of every per-row tensor of a batch."""
+    if isinstance(batch, dict):
+        return {k: _rows(v, lo, hi) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return [_rows(v, lo, hi) for v in batch]
+    return batch[lo:hi]
+
+
+def _chunked(fn, n: int, chunk: Optional[int]) -> torch.Tensor:
+    """fn(lo, hi) over [0, n) in chunks of ``chunk`` rows, concatenated."""
+    if chunk is None or n <= chunk:
+        return fn(0, n)
+    return torch.cat([fn(lo, min(lo + chunk, n))
+                      for lo in range(0, n, chunk)])
+
+
+def recsys_score_step(cfg, lookup_fn=None) -> Callable:
+    """Scores of a batch, ``chunk_rows(cfg)`` rows at a time."""
+    fam = recsys.family_of(cfg)
+    rows = chunk_rows(cfg)
 
     @torch.inference_mode()
     def step(params, batch):
-        return recsys.SCORE[fam](params, cfg, batch, lookup_fn)
+        n = batch["sparse_ids"][0].shape[0]
+        return _chunked(lambda lo, hi: recsys.SCORE[fam](
+            params, cfg, _rows(batch, lo, hi), lookup_fn), n, rows)
     return step
 
 
@@ -73,14 +124,39 @@ def top_k(scores: torch.Tensor, k: int):
 
 
 def recsys_retrieval_step(cfg, k: int = 10, lookup_fn=None) -> Callable:
-    """1 query x n_candidates scoring + top-k (the ANN-adjacent cell);
-    ``family_of`` admits only two-tower so far."""
-    recsys.family_of(cfg)
+    """1 query x n_candidates scoring + top-k (the ANN-adjacent cell), per
+    family as the reference's step: two-tower and SASRec score the user's
+    vector against the candidates' embeddings, DIN lets every candidate
+    attend the history, and DLRM scores the user's context with its first
+    sparse feature set to each candidate. DIN and DLRM run over chunks of
+    ``chunk_rows(cfg)`` candidates."""
+    fam = recsys.family_of(cfg)
+    rows = chunk_rows(cfg)
+
+    def dlrm_scores(params, batch, cand_ids):
+        c = cand_ids.shape[0]
+        bb = {key: ([x[:1].expand((c,) + tuple(x.shape[1:])) for x in v]
+                    if isinstance(v, list)
+                    else v[:1].expand((c,) + tuple(v.shape[1:])))
+              for key, v in batch.items()}
+        sparse = list(bb["sparse_ids"])
+        sparse[0] = (cand_ids[:, None] % cfg.table_vocabs[0]).to(
+            torch.int32)
+        return params(dict(bb, sparse_ids=sparse), lookup_fn)
 
     @torch.inference_mode()
     def step(params, batch, cand_ids):
-        cates = cand_ids % cfg.table_vocabs[3]
-        scores = params.retrieval(batch, cand_ids, cates, lookup_fn)
+        if fam == "two-tower-retrieval":
+            cates = cand_ids % cfg.table_vocabs[3]
+            scores = params.retrieval(batch, cand_ids, cates, lookup_fn)
+        elif fam == "sasrec":
+            scores = params.retrieval(batch, cand_ids, lookup_fn)
+        elif fam == "din":
+            scores = _chunked(lambda lo, hi: params.retrieval(
+                batch, cand_ids[lo:hi], lookup_fn), cand_ids.shape[0], rows)
+        else:
+            scores = _chunked(lambda lo, hi: dlrm_scores(
+                params, batch, cand_ids[lo:hi]), cand_ids.shape[0], rows)
         top, idx = top_k(scores, k)
         return top, cand_ids[idx]
     return step

@@ -1566,3 +1566,134 @@ def test_sharded_factory_on_the_card_equals_the_cpu(dev, spec):
     dg, ig = card.search(q.to(dev), 10)
     assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
     assert card.degraded_shards == cpu.degraded_shards == 1
+
+
+# -- the sharded tier's modes (bf16 rows, prenorm) of gather_dist and the
+# f32 hop loop: the plain versions follow the kernels' lane order, so float
+# data must match bit for bit
+
+MODE_CASES = [("bf16", False), ("f32", True), ("bf16", True)]
+MODE_IDS = ["bf16", "prenorm", "bf16+prenorm"]
+
+
+def _mode_operands(db, mode):
+    rows, prenorm = mode
+    norms = (db * db).sum(-1) if prenorm else None      # of the f32 rows
+    return (db.bfloat16() if rows == "bf16" else db), norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODE_CASES, ids=MODE_IDS)
+@pytest.mark.parametrize("d", [600, 37, 1100, 8])
+def test_gather_dist_modes(dev, mode, d):
+    """Each mode on float data, chunked rows (D = 600, 8), scalar rows (D =
+    37) and rows past the grouped path (D = 1100), aligned and misaligned
+    bases, pads and ids past N: the plain version's bits; each launch
+    counted under its mode."""
+    g = torch.Generator().manual_seed(d + 17)
+    n = 3000
+    q = torch.randn((200, d), generator=g).to(dev)
+    raw = torch.randn((n + 1, d), generator=g).to(dev)
+    ids = torch.randint(-1, n + 20, (200, 32), generator=g,
+                        dtype=torch.int32).to(dev)
+    name = mode_of_case(mode)
+    rows, prenorm = mode
+    for offset in (0, 1):             # aligned rows, then one element off
+        flat = raw.view(-1)
+        rows32 = flat[offset:offset + n * d].view(n, d)
+        norms = (rows32 * rows32).sum(-1) if prenorm else None
+        buf = flat.bfloat16() if rows == "bf16" else flat
+        db = buf[offset:offset + n * d].view(n, d)
+        before = gather_dist_cuda.by_mode[name]
+        got = gather_dist_cuda(q, db, ids, norms)
+        assert gather_dist_cuda.by_mode[name] == before + 1
+        assert torch.equal(got, gather_dist_ref(q, db, ids.clamp_max(n - 1),
+                                                norms))
+        assert bool(torch.isinf(got[ids < 0]).all())
+
+
+def mode_of_case(mode):
+    rows, prenorm = mode
+    return {("bf16", False): "bf16", ("f32", True): "prenorm",
+            ("bf16", True): "bf16+prenorm"}[(rows, prenorm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODE_CASES, ids=MODE_IDS)
+@pytest.mark.parametrize("d", [40, 37])
+def test_hop_loop_modes_equal_their_plain_version(dev, mode, d):
+    """The f32 loop in each mode against beam_hops_ref on float data, every
+    output, from a pool seeded by gather_dist in the same mode, with and
+    without patience; launches counted under the mode."""
+    from repro_torch.core.beam_search import _seed_batched
+    from repro_torch.kernels.beam_hop import beam_hops, beam_hops_cuda, \
+        beam_hops_ref
+    from repro_torch.kernels.gather_dist import gather_dist
+    g = torch.Generator().manual_seed(d)
+    n, nq, r, ef = 2000, 96, 12, 16
+    data = torch.randn((n, d), generator=g).to(dev)
+    q = torch.randn((nq, d), generator=g).to(dev)
+    _, nbrs = knn_graph(data, r)
+    nbrs[::7, r - 3:] = -1
+    entry = torch.randint(0, n, (nq,), generator=g, dtype=torch.int32).to(dev)
+    db, norms = _mode_operands(data, mode)
+    state = _seed_batched(q, db, nbrs, entry, ef,
+                          lambda q_, db_, ids: gather_dist(q_, db_, ids,
+                                                           norms=norms))
+    args = (nbrs, *state[:6], state[7], q, db)
+    name = mode_of_case(mode)
+    for patience in (None, 3):
+        kw = dict(k=10, max_iters=40, max_steps=40, patience=patience,
+                  eps=0.0)
+        before = beam_hops_cuda.by_mode[name]
+        got = beam_hops(*args, backend="cuda", norms=norms, **kw)
+        assert beam_hops_cuda.by_mode[name] == before + 1
+        want = beam_hops_ref(*args, norms=norms, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODE_CASES, ids=MODE_IDS)
+def test_sharded_search_in_each_mode_equals_the_cpu(dev, mode):
+    """beam_search with a bf16 base and/or norms: the fused loop on the
+    card (one beam_hops launch) equals the plain fused loop on the CPU, ids
+    and distances, on float data."""
+    from repro_torch.kernels.beam_hop import beam_hops_cuda
+    g = torch.Generator().manual_seed(3)
+    data = torch.randn((3000, 48), generator=g)
+    q = torch.randn((64, 48), generator=g)
+    _, nbrs = knn_graph(data, 12)
+    entry = torch.randint(0, 3000, (64,), generator=g, dtype=torch.int32)
+    db, norms = _mode_operands(data, mode)
+    kw = dict(ef=24, k=10, hop_backend="fused", norms=norms)
+    n0 = beam_hops_cuda.launches
+    d, i, _ = beam_search(q.to(dev), db.to(dev), nbrs.to(dev),
+                          entry.to(dev), **dict(kw, norms=None if norms is
+                                                None else norms.to(dev)))
+    assert beam_hops_cuda.launches == n0 + 1
+    dc, ic, _ = beam_search(q, db, nbrs, entry, **kw)
+    assert torch.equal(i.cpu(), ic) and torch.equal(d.cpu(), dc)
+
+
+@pytest.mark.cuda
+def test_modes_the_kernels_cannot_take_raise(dev):
+    """A row type other than f32 / bf16, norms of the wrong shape or type,
+    and the one-hop kernel asked for a mode: each raises, nothing falls
+    back to a plain version."""
+    from repro_torch.kernels.beam_hop import beam_hop
+    q = torch.randn((4, 16), device=dev)
+    db = torch.randn((50, 16), device=dev)
+    ids = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gather_dist_cuda(q, db.half(), ids)
+    with pytest.raises(ValueError, match="norms"):
+        gather_dist_cuda(q, db, ids, torch.ones(49, device=dev))
+    with pytest.raises(TypeError, match="norms"):
+        gather_dist_cuda(q, db, ids, torch.ones(50, device=dev).double())
+    pool_i = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="one-hop kernel"):
+        beam_hop(ids[:, 0], ids.new_zeros((50, 3)), pool_i,
+                 torch.zeros((4, 8), device=dev), pool_i.bool(), q,
+                 db.bfloat16())

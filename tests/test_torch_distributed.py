@@ -381,19 +381,28 @@ def test_tight_budget_is_honoured(ref_streamed, ints, monkeypatch):
 
 
 @pytest.mark.parametrize("toggle", ["ANN_BF16_BASE", "ANN_PRENORM"])
-def test_unported_toggles_raise(ints, monkeypatch, toggle):
-    """The bf16-row and prenorm hop modes are not in beam_hops yet: the
-    sharded entry points raise naming Queue 1 item 9b on the CPU too."""
+def test_unported_toggles_raise(ints, monkeypatch, capsys, toggle):
+    """The bf16-row and prenorm toggles, which the sharded entry points
+    refused before the hop loop had those modes, now serve: with either
+    on, the port's two tiers fit the integer data (which bf16 holds
+    exactly) and search it bit for bit alike, the base is stored in the
+    toggle's type, and the tune CLI's --shards runs
+    (tests/test_torch_ann_toggles.py holds them to the reference)."""
     data, queries = ints
     monkeypatch.setattr(flags, toggle, True)
     p = IndexParams(pca_dim=D, **PARAMS)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        StreamedShardedIndex(p, 2, device="cpu").fit(data)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ShardedIndex(p, _mesh(2)).fit(data)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tune_cli.main(["--device", "cpu", "--n", "200", "--dim", "8",
-                       "--queries", "8", "--trials", "1", "--shards", "2"])
+    streamed = StreamedShardedIndex(p, 2, device="cpu").fit(data)
+    mesh = ShardedIndex(p, _mesh(2)).fit(data)
+    want = torch.bfloat16 if toggle == "ANN_BF16_BASE" else torch.float32
+    assert streamed.store.peek_host(0)["base"].dtype == want
+    assert mesh.arrays.base.dtype == want
+    q = torch.from_numpy(queries)
+    ds, is_ = streamed.search(q, K)
+    dm, im = mesh.search(q, K)
+    assert torch.equal(is_, im) and torch.equal(ds, dm)
+    tune_cli.main(["--device", "cpu", "--n", "200", "--dim", "8",
+                   "--queries", "8", "--trials", "1", "--shards", "2"])
+    assert "(OK — one per shard)" in capsys.readouterr().out
 
 
 # -- the port's own fits: the two tiers agree --------------------------------
@@ -457,7 +466,7 @@ def test_sharded_l2_topk_matches_the_reference(ints):
 def test_padded_entry_point_slots_masked():
     """A padded (all-zero) centroid slot never wins the entry argmin: row 0
     is edge-less, so entering there would strand the beam. The port's and
-    the reference's local step agree; prenorm raises in the port."""
+    the reference's local step agree, with the prenorm distance too."""
     base = np.array([[100.0, 100.0], [5.0, 5.0], [5.5, 5.0], [5.0, 5.5]],
                     np.float32)
     nbrs = np.array([[-1, -1], [2, 3], [1, 3], [1, 2]], np.int32)
@@ -474,9 +483,15 @@ def test_padded_entry_point_slots_masked():
     assert set(gi[0].tolist()) == {1, 2, 3}
     np.testing.assert_array_equal(gi.numpy(), _np(jgi))
     np.testing.assert_array_equal(d.numpy(), _np(jd))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        _local_beam(*args, ef=4, k=3, max_iters=16, mode="while",
-                    prenorm=True)
+    norms = (base * base).sum(-1)
+    d, gi = _local_beam(*args, torch.from_numpy(norms), ef=4, k=3,
+                        max_iters=16, mode="while", prenorm=True)
+    jd, jgi = jax_stream_local(*(jnp.asarray(a) for a in (
+        q, base, nbrs, gids, cents, members, norms)), ef=4, k=3,
+        max_iters=16, mode="while", prenorm=True)
+    assert set(gi[0].tolist()) == {1, 2, 3}
+    np.testing.assert_array_equal(gi.numpy(), _np(jgi))
+    np.testing.assert_array_equal(d.numpy(), _np(jd))
 
 
 # -- the factory wrapper -----------------------------------------------------

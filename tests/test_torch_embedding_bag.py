@@ -174,6 +174,13 @@ def test_bag_equals_the_reference_models_bag(v, d, b, l, combiner):
 
 
 def test_lookup_fn_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        recsys._bag(lambda t, i: t[i], torch.zeros(3, 2),
-                    torch.zeros(1, 1, dtype=torch.int32))
+    """The lookup hook, refused before the row-sharded lookup was ported,
+    now serves the bag: through a lookup_fn it takes the reference's form
+    (a take and a masked mean), equal to the embedding_bag op's result on
+    integer rows, pads and an all-pad bag included."""
+    table = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    ids = torch.tensor([[0, 5, -1], [-1, -1, -1], [2, 2, 3]],
+                       dtype=torch.int32)
+    for combiner in ("sum", "mean"):
+        got = recsys._bag(lambda t, i: t[i], table, ids, combiner)
+        assert torch.equal(got, recsys._bag(None, table, ids, combiner))

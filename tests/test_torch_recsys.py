@@ -82,14 +82,15 @@ def _close(got, want):
 
 
 def test_registry_lists_what_the_port_runs():
-    assert list_archs() == ["ann-laion", "two-tower-retrieval"]
+    assert list_archs() == ["ann-laion", "din", "dlrm-mlperf", "sasrec",
+                            "two-tower-retrieval"]
     assert get_arch("two-tower-retrieval").config == CONFIG
     ref = jax_get_arch("two-tower-retrieval")
     assert (CONFIG.table_vocabs, CONFIG.embed_dim, CONFIG.tower_mlp,
             CONFIG.multi_hot) == (ref.config.table_vocabs,
                                   ref.config.embed_dim, ref.config.tower_mlp,
                                   ref.config.multi_hot)
-    for arch, item in [("din", "10.3"), ("dlrm-mlperf", "10.4"),
+    for arch, item in [("qwen2-1.5b", "10.6"), ("dimenet", "10.6"),
                        ("qwen3-32b", "10.6")]:
         with pytest.raises(NotImplementedError, match=re.escape(item)):
             get_arch(arch)
@@ -186,9 +187,12 @@ def test_recsys_batch_shapes_dtypes_ranges():
 
 
 def test_other_families_raise_naming_their_item():
-    din = jax_get_arch("din").smoke_config
-    with pytest.raises(NotImplementedError, match="10.3"):
-        recsys.family_of(din)
+    """A config of a family the port does not run (an LM's, a GNN's) is
+    refused by family_of, naming the ROADMAP item that brings it."""
+    for arch in ("qwen3-32b", "dimenet"):
+        cfg = jax_get_arch(arch).smoke_config
+        with pytest.raises(NotImplementedError, match="10.6"):
+            recsys.family_of(cfg)
 
 
 def test_serve_launcher_on_the_cpu_prints_the_reference_line(capsys):

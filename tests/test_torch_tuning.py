@@ -380,9 +380,8 @@ def test_tune_cli_unported_paths_raise(capsys):
             "--trials", "1"]
     tune_cli.main(tiny)              # auto -> the device finish: now runs
     assert "-- build log (1 evals) --" in capsys.readouterr().out
-    # --shards runs since ROADMAP Queue 1 item 9; what stays unported
-    # raises: a non-graph spec has no reprune (as in the reference), and
-    # the bf16-row / prenorm toggles name item 9b
+    # --shards runs, with the prenorm toggle too; a non-graph spec has no
+    # reprune (as in the reference)
     with pytest.raises(TypeError, match="reprune"):
         tune_cli.main(tiny + ["--spec", "IVF8,Flat", "--shards", "4"])
     tune_cli.main(tiny + ["--shards", "4"])
@@ -390,7 +389,7 @@ def test_tune_cli_unported_paths_raise(capsys):
     from repro_torch import flags
     flags.ANN_PRENORM = True
     try:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tune_cli.main(tiny + ["--shards", "4"])
+        tune_cli.main(tiny + ["--shards", "4"])
     finally:
         flags.ANN_PRENORM = False
+    assert "(OK — one per shard)" in capsys.readouterr().out
