@@ -228,6 +228,29 @@ Phases, each printing one JSON line:
                 16 calls queued back to back behind a device sleep, cycling
                 the 8 id sets; device_ms_l2_warm: the same on one id set,
                 whose rows stay in L2 at the small shapes).
+14a. train   — recsys training. The two-tower model of phase 11 (the
+                full 14.35 GB table) takes TRAIN_STEPS steps of
+                make_train_step with mixed_optimizer(1e-3) (launch.train's
+                optimizer) at B = 65,536 (RECSYS_SHAPES["train_batch"]):
+                per step the loss, ms, peak device bytes and launches, one
+                of embedding_bag's forward and one of its backward kernel
+                each (asserted), and one more step under torch.profiler
+                (device-busy share, top kernels); finite losses and every
+                parameter moved (asserted). The backward kernel then reruns
+                on the first step's operands (g, the history ids, mean)
+                into a zero (V, D) gradient and must equal its plain
+                version on the card bit for bit; it is timed beside the
+                plain version, the (V, D) zero fill and torch's
+                embedding_bag backward.
+                Then SASRec and DIN at full config and DLRM with each table
+                capped at DLRM_TRAIN_ROW_CAP = 2^23 rows (23.6 GB; a plain
+                take), TRAIN_STEPS steps each at B = 65,536, launching no
+                kernel (asserted); the Trainer with checkpoints on SASRec
+                at full config (B = 4,096): 6 steps against 4, a restore and
+                2 more, within TRAINER_TOL; and python -m
+                repro_torch.launch.train for TRAIN_CLI_RUNS (two-tower's
+                smoke config, SASRec's full config at B = 4,096), each
+                exiting 0 with the reference's line.
 14b. recsys_models — SASRec (a 1,000,448 x 50 table), DIN (1,010,176 x 18)
                 and DLRM (CRITEO_VOCABS each capped at DLRM_ROW_CAP = 2^24
                 rows: 87,950,080 padded rows x 128 f32, 45.0 GB; its lookup
@@ -242,9 +265,11 @@ Phases, each printing one JSON line:
                 reference's Pallas kernels does on its own).
  15. the kernels line: launches on the main path (fit + serve for the f32
                 kernels and l2topk, quantize + serve for the LUT kernels,
-                recsys + recsys_ann for embedding_bag), errors, times and
-                bounds; every kernel must have launched. "launches_recsys"
-                is each kernel's count over phases 11-12, which must be > 0
+                recsys + recsys_ann for embedding_bag, the two-tower
+                training steps of 14a for embedding_bag_backward), errors,
+                times and bounds; every kernel must have launched.
+                "launches_train" is each kernel's count over those steps,
+                "launches_recsys" over phases 11-12, which must be > 0
                 for every kernel of the two-tower path (RECSYS_KERNELS).
                 A LUT kernel's entry holds its M = 300 times with its
                 launches over both backends, and under "by_m" each M's
@@ -457,6 +482,22 @@ DLRM_ROW_CAP = 1 << 24
 RECSYS_MODELS = ("sasrec", "din", "dlrm-mlperf")
 RECSYS_CPU_ROWS = 64
 RECSYS_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+# the training phases: steps per model at RECSYS_SHAPES["train_batch"]
+# (65,536), DLRM's tables capped at 2^23 rows each (46,007,032 rows x 128
+# f32 = 23.6 GB: its table and its dense gradient fit one card, the
+# serving cap's 45.0 GB and its gradient would not); the Trainer's resume
+# on SASRec at full config (TRAINER_STEPS: the whole run and where it is
+# interrupted, at TRAINER_BATCH) and the train launcher's runs
+TRAIN_STEPS = 3
+TRAIN_MODELS = ("sasrec", "din", "dlrm-mlperf")
+DLRM_TRAIN_ROW_CAP = 1 << 23
+TRAINER_STEPS = (6, 4)
+TRAINER_BATCH = 4096
+TRAINER_TOL = dict(rtol=1e-5, atol=1e-6)
+TRAIN_CLI_RUNS = (
+    ("two-tower-retrieval", ["--steps", "4"]),
+    ("sasrec", ["--full-config", "--steps", "4", "--batch", "4096"]))
+TRAIN_CLI_TIMEOUT = 300
 # the launchers' --shards runs and each one's recall@10 floor, about a
 # point under its reading (PERF.md, run A): the best trial of tune's 4
 # startup trials 0.9977; tune --spec's 12 trials reach 1.0, but past the
@@ -2281,6 +2322,340 @@ def embedding_bag_kernel_phase(torch, table, cfg, gpu: str,
                 shape=head["shape"], by_shape=out)
 
 
+class BagGradRecorder:
+    """Stands in for embedding_bag_backward_cuda inside the embedding_bag
+    op while installed, passing every call through and keeping a copy of
+    the first call's operands (the check below reruns the kernel and its
+    plain version on them)."""
+
+    def __init__(self, ops):
+        self.ops, self.real, self.first = ops, \
+            ops.embedding_bag_backward_cuda, None
+        ops.embedding_bag_backward_cuda = self
+
+    def __call__(self, grad_out, ids, weights, combiner, out):
+        if self.first is None:
+            self.first = (grad_out.clone(), ids.clone(),
+                          None if weights is None else weights.clone(),
+                          combiner)
+        return self.real(grad_out, ids, weights, combiner, out)
+
+    def close(self):
+        self.ops.embedding_bag_backward_cuda = self.real
+
+
+def table_checksum(torch, model) -> float:
+    """The table's sum in float64: it moves if any row moves."""
+    return float(model.table.detach().sum(dtype=torch.float64))
+
+
+def train_run(torch, model, cfg, batch: int, seed: int,
+              wrappers: dict) -> dict:
+    """TRAIN_STEPS steps of make_train_step(loss_fn_for("recsys", cfg),
+    mixed_optimizer(1e-3)) (launch.train's optimizer; a plain take for the
+    lookups) at ``batch`` rows, each batch from recsys_batch: per step the
+    loss, ms (host clock around the step, synchronized), peak device bytes
+    and each wrapper's launches; then one more step under torch.profiler
+    (device-busy ms and share, the kernels that took the most time);
+    whether every parameter moved."""
+    from repro_torch.data import recsys_batch
+    from repro_torch.optim import mixed_optimizer
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+
+    opt = mixed_optimizer(1e-3)
+    step = make_train_step(loss_fn_for("recsys", cfg), opt)
+    state = opt.init(model)
+    dense0 = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n != "table"}
+    sum0 = table_checksum(torch, model)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    losses, ms, peak, per_step = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        b = recsys_batch(gen, batch, cfg)
+        before = {n: w.launches for n, w in wrappers.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model, state, m = step(model, state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        peak.append(torch.cuda.max_memory_allocated())
+        losses.append(float(m["loss"]))
+        per_step.append({n: w.launches - before[n]
+                         for n, w in wrappers.items()
+                         if w.launches != before[n]})
+        del b, m
+    b = recsys_batch(gen, batch, cfg)             # one more, profiled
+    prof = profile_busy(torch, lambda: step(model, state, b))
+    del b
+    moved = {n: not torch.equal(p.detach(), dense0[n])
+             for n, p in model.named_parameters() if n != "table"}
+    moved["table"] = table_checksum(torch, model) != sum0
+    del state, dense0
+    torch.cuda.empty_cache()
+    return dict(batch=batch, steps=TRAIN_STEPS, losses=losses, step_ms=ms,
+                median_step_ms=statistics.median(ms),
+                peak_device_bytes=peak, launches_per_step=per_step,
+                profiled_step=prof, device_busy_share=None
+                if prof["device_busy_ms"] is None
+                else prof["device_busy_ms"] / prof["profiled_wall_ms"],
+                params_moved=all(moved.values()),
+                not_moved=[n for n, v in moved.items() if not v])
+
+
+def check_train_run(name: str, run: dict) -> None:
+    bad = []
+    if not all(math.isfinite(x) for x in run["losses"]):
+        bad.append(f"non-finite loss {run['losses']}")
+    if not run["params_moved"]:
+        bad.append(f"parameters that did not move: {run['not_moved']}")
+    if bad:
+        raise AssertionError(f"train {name}: " + "; ".join(bad))
+
+
+def train_phase(torch, model, cfg, gpu: str, seed: int, wrappers: dict):
+    """The two-tower model at its full config (``model``: the serving
+    phases' 14.35 GB table) trained for TRAIN_STEPS steps at B =
+    RECSYS_SHAPES["train_batch"], each step through embedding_bag's
+    forward and backward kernels (one launch of each, asserted), and one
+    profiled step; its launch counts are zeroed just before the steps and
+    read just after (TRAIN_STEPS + 1 of each).
+    Then the backward kernel on the first step's operands (g, the
+    history ids, mean) into a zero (V, D) gradient, bit-equal to its plain
+    version on the card, and timed beside it and torch's embedding_bag
+    backward (its own dense gradient included). Returns (launches, the
+    kernel's entry)."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda, \
+        embedding_bag_backward_ref, ops as bag_ops
+
+    batch = RECSYS_SHAPES["train_batch"].batch
+    recorder = BagGradRecorder(bag_ops)
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    try:
+        run = train_run(torch, model, cfg, batch, seed + 606, wrappers)
+    finally:
+        recorder.close()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    emit("train", arch="two-tower-retrieval", config=cfg.name,
+         table_shape=list(model.table.shape), **run)
+    check_train_run("two-tower-retrieval", run)
+    one_each = all(s.get("embedding_bag") == 1
+                   and s.get("embedding_bag_backward") == 1
+                   for s in run["launches_per_step"])
+    if not one_each:
+        raise AssertionError(f"train: a step did not launch each bag kernel "
+                             f"once: {run['launches_per_step']}")
+
+    g, ids, w, comb = recorder.first
+    table = model.table.detach()
+    v, d = table.shape
+    rows = torch.unique(ids)
+    out = torch.zeros_like(table)
+    embedding_bag_backward_cuda(g, ids, w, comb, out)
+    want = embedding_bag_backward_ref(g, ids, w, comb, v)
+    equal = torch.equal(out, want)
+    err = float((out[rows] - want[rows]).abs().max())
+    del want
+    lib_t = table.detach().requires_grad_(True)
+    lib_out = torch.nn.functional.embedding_bag(ids.long(), lib_t,
+                                                mode=comb)
+    (lib_grad,) = torch.autograd.grad(lib_out, lib_t, g, retain_graph=True)
+    lib_err = float((lib_grad[rows] - out[rows]).abs().max())
+    del lib_grad
+    ms = time_ms(lambda: embedding_bag_backward_cuda(g, ids, w, comb, out),
+                 10, 2)
+    dev_ms = queued_ms(torch, lambda: embedding_bag_backward_cuda(
+        g, ids, w, comb, out), calls=8)
+    zero_ms = time_ms(lambda: out.zero_(), 5, 1)
+    del out
+    torch.cuda.empty_cache()
+    plain = time_ms(lambda: embedding_bag_backward_ref(g, ids, w, comb, v),
+                    3, 1)
+    library = time_ms(lambda: torch.autograd.grad(lib_out, lib_t, g,
+                                                  retain_graph=True), 5, 1)
+    del lib_out, lib_t
+    torch.cuda.empty_cache()
+    uniq = int(rows.numel())
+    bmin, by = bound(uniq * d * 4 + g.numel() * 4 + ids.numel() * 4,
+                     2 * ids.numel() * d, gpu)
+    entry = dict(route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+                 replaces="none: src/repro/models/recsys.py:44 (_bag, a take "
+                          "and a masked sum; XLA's scatter-add transpose)",
+                 max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                 bound_ms=bmin, bound_by=by, library_ms=library,
+                 library_max_abs_err=lib_err,
+                 library_call="torch.autograd.grad of F.embedding_bag "
+                              "(mode=mean), its dense (V, D) gradient "
+                              "included",
+                 zero_fill_ms=zero_ms, unique_rows=uniq,
+                 rows_read=ids.numel(), bit_equal_to_plain=equal,
+                 shape=dict(b=ids.shape[0], l=ids.shape[1], d=d, v=v))
+    emit("embedding_bag_backward", **entry)
+    if not equal:
+        raise AssertionError(f"embedding_bag's backward kernel differs from "
+                             f"its plain version on the first step's "
+                             f"operands (max abs err {err})")
+    return launches, entry
+
+
+def train_models_phase(torch, seed: int, wrappers: dict) -> dict:
+    """SASRec and DIN at their full configs and DLRM with each table
+    capped at DLRM_TRAIN_ROW_CAP rows, each from --seed, trained for
+    TRAIN_STEPS steps at B = RECSYS_SHAPES["train_batch"] (train_run). No
+    kernel of the port lies on their paths: every wrapper's count must
+    stay where it was."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.models import recsys
+
+    batch = RECSYS_SHAPES["train_batch"].batch
+    out = {}
+    for arch in TRAIN_MODELS:
+        cfg, cut = get_arch(arch).config, None
+        if arch == "dlrm-mlperf":
+            full = sum(cfg.table_vocabs)
+            cfg = replace(cfg, table_vocabs=tuple(
+                min(v, DLRM_TRAIN_ROW_CAP) for v in cfg.table_vocabs))
+            cut = (f"each Criteo table capped at {DLRM_TRAIN_ROW_CAP:,} rows: "
+                   f"{sum(cfg.table_vocabs):,} of {full:,} rows (the table "
+                   f"and its dense gradient must fit one 80 GB card)")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        model = recsys.INIT[arch](torch.Generator(device="cuda").manual_seed(
+            seed), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        before = {n: w.launches for n, w in wrappers.items()}
+        run = train_run(torch, model, cfg, batch, seed + 707, wrappers)
+        launched = {n: w.launches - before[n] for n, w in wrappers.items()
+                    if w.launches != before[n]}
+        out[arch] = dict(config=cfg.name, cut=cut,
+                         table_shape=list(model.table.shape),
+                         table_bytes=model.table.numel() * 4,
+                         init_seconds=init_s, lookup="plain take", **run)
+        emit("train", arch=arch, **out[arch])
+        del model
+        torch.cuda.empty_cache()
+        check_train_run(arch, run)
+        if launched:
+            raise AssertionError(f"train {arch}: a kernel launched on a path "
+                                 f"that has none: {launched}")
+    return out
+
+
+def trainer_phase(torch, seed: int) -> dict:
+    """The Trainer with checkpoints on SASRec at full config (TRAINER_BATCH
+    rows a step, a checkpoint every 2 steps): TRAINER_STEPS[0] steps in one
+    run against TRAINER_STEPS[1] steps, a restore from the newest
+    checkpoint into a fresh model and the remaining steps; the final
+    parameters and the table's accumulator within TRAINER_TOL (the
+    lookups' index backward need not add in one order on the card)."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys
+    from repro_torch.optim import mixed_optimizer
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("sasrec").config
+    opt = mixed_optimizer(1e-3)
+    step = make_train_step(loss_fn_for("recsys", cfg), opt)
+
+    def step_fn(state, b):
+        model, o = state
+        model, o, m = step(model, o, b)
+        return (model, o), m
+
+    def batch_fn(s):
+        return recsys_batch(torch.Generator(device="cuda").manual_seed(
+            seed + 808 + s), TRAINER_BATCH, cfg)
+
+    def fresh():
+        model = recsys.sasrec_init(torch.Generator(device="cuda").manual_seed(
+            seed), cfg)
+        return model, opt.init(model)
+
+    def trainer(d, total):
+        return Trainer(step_fn, batch_fn, TrainerConfig(
+            total_steps=total, ckpt_every=2, log_every=1, ckpt_dir=d))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        whole = trainer(d1, TRAINER_STEPS[0])
+        final = whole.run(fresh())
+        cut = trainer(d2, TRAINER_STEPS[1])
+        cut.run(fresh())
+        resumed_tr = trainer(d2, TRAINER_STEPS[0])
+        state, start = resumed_tr.restore_or_init(fresh())
+        resumed = resumed_tr.run(state, start_step=start)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d1).rglob("*")
+                         if f.is_file())
+        for tr in (whole, cut, resumed_tr):
+            tr.ckpt.close()
+    pairs = [(n, p.detach(), q.detach()) for (n, p), (_, q) in
+             zip(final[0].named_parameters(), resumed[0].named_parameters())]
+    pairs.append(("table.acc", final[1]["leaves"]["table"]["acc"],
+                  resumed[1]["leaves"]["table"]["acc"]))
+    close = all(torch.allclose(a, b, **TRAINER_TOL) for _, a, b in pairs)
+    bits = all(torch.equal(a, b) for _, a, b in pairs)
+    err = max(float((a - b).abs().max()) for _, a, b in pairs)
+    out = dict(arch="sasrec", config=cfg.name, batch=TRAINER_BATCH,
+               steps=TRAINER_STEPS[0], interrupted_at=TRAINER_STEPS[1],
+               restored_step=start, checkpoint_dir_bytes=ckpt_bytes,
+               loss_whole=[h["loss"] for h in whole.history],
+               loss_resumed=[h["loss"] for h in cut.history]
+               + [h["loss"] for h in resumed_tr.history],
+               step_ms=[x * 1e3 for x in whole.step_times],
+               close=close, bit_equal=bits, max_abs_err=err,
+               seconds=time.perf_counter() - t0, **TRAINER_TOL)
+    emit("trainer", **out)
+    del final, resumed, state
+    torch.cuda.empty_cache()
+    if start != TRAINER_STEPS[1] or not close:
+        raise AssertionError(f"trainer: the resumed run (restored at step "
+                             f"{start}) differs from the whole run (max abs "
+                             f"err {err})")
+    return out
+
+
+def train_cli_phase(src: Path) -> None:
+    """``python -m repro_torch.launch.train`` for each of TRAIN_CLI_RUNS,
+    both processes at once: each must exit 0 and print the reference's
+    line with a finite loss for each logged step."""
+    import os
+    import re
+    t = time.perf_counter()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         *args], env={**os.environ, "PYTHONPATH": str(src)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, args in TRAIN_CLI_RUNS}
+    failed = []
+    for (arch, args), proc in zip(TRAIN_CLI_RUNS, procs.values()):
+        try:
+            out, err = proc.communicate(timeout=TRAIN_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        line = out.strip().splitlines()[-1] if out.strip() else ""
+        ok = proc.returncode == 0 and re.fullmatch(
+            re.escape(arch) + r": trained 4 steps; history=\[-?\d+\.\d+"
+            r"(, -?\d+\.\d+){3}\]", line) is not None
+        emit("train_cli", arch=arch, args=args, returncode=proc.returncode,
+             output=line, seconds=time.perf_counter() - t,
+             stderr_tail=err[-2000:] if proc.returncode else "")
+        if not ok:
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"train_cli: the train launcher failed or "
+                             f"printed another line for {failed}")
+
+
 def cpu_twin(torch, model):
     """The model's weights copied to the CPU, all but its table: a (0, D)
     stand-in there, whose rows a lookup_fn fetches from the card's table
@@ -2360,8 +2735,9 @@ def recsys_models_phase(torch, seed: int) -> dict:
         if lookup is not None:
             ids = globalize_ids(batches[0]["sparse_ids"],
                                 table_offsets(cfg.table_vocabs)).reshape(-1)
-            lookup_equal = bool(torch.equal(lookup(model.table, ids),
-                                            model.table[ids]))
+            with torch.inference_mode():     # a serving check: no graph
+                lookup_equal = bool(torch.equal(lookup(model.table, ids),
+                                                model.table[ids]))
         p99 = sorted(host_times(torch, lambda i: score(model, batches[i]),
                                 P99_BATCHES))
         s0 = score(model, batches[0])
@@ -3486,7 +3862,8 @@ def main() -> int:
     from repro_torch.kernels.alpha_scan import ops as scan_ops
     from repro_torch.kernels.beam_hop import beam_hop_cuda, \
         beam_hop_lut_cuda, beam_hops_cuda, beam_hops_lut_cuda
-    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_backward_cuda
     from repro_torch.kernels.gather_dist import gather_dist_cuda
     from repro_torch.kernels.l2topk import l2topk_cuda
     from repro_torch.kernels.lut_dist import lut_dist_cuda
@@ -3498,6 +3875,7 @@ def main() -> int:
                 "lut_dist": lut_dist_cuda, "beam_hop_lut": beam_hop_lut_cuda,
                 "beam_hops_lut": beam_hops_lut_cuda, "l2topk": l2topk_cuda,
                 "embedding_bag": embedding_bag_cuda,
+                "embedding_bag_backward": embedding_bag_backward_cuda,
                 "alpha_scan": alpha_scan_cuda}
     recorder = ScanRecorder(torch, scan_ops)
 
@@ -3731,8 +4109,24 @@ def main() -> int:
     kernels["embedding_bag"] = embedding_bag_kernel_phase(
         torch, model.table.detach(), TWO_TOWER, gpu, args.seed)
     emit("embedding_bag", **kernels["embedding_bag"])
+
+    # 14a. recsys training: the two-tower model above at full width (its
+    # launch counts zeroed just before its steps and read just after), then
+    # SASRec, DIN and DLRM, the Trainer's resume and the train launcher.
+    # The ANN phases' index and data are done with: freed first.
+    del index, cpu_index, data, queries, true_i
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    train_launches, kernels["embedding_bag_backward"] = train_phase(
+        torch, model, TWO_TOWER, gpu, args.seed, wrappers)
+    launches["embedding_bag_backward"] = \
+        train_launches["embedding_bag_backward"]
     del model
     torch.cuda.empty_cache()
+    train_models_phase(torch, args.seed, wrappers)
+    trainer_phase(torch, args.seed)
+    train_cli_phase(src)
+    new_phase_s["train"] = time.perf_counter() - t
 
     # 14b. SASRec, DIN and DLRM at full width: no kernel of the port lies
     # on their paths; each wrapper's count must stay where it was
@@ -3760,6 +4154,7 @@ def main() -> int:
         entry["launches_tune"] = tune_launches[name]
         entry["launches_fit_auto"] = auto_launches[name]
         entry["launches_recsys"] = recsys_launches[name]
+        entry["launches_train"] = train_launches[name]
         entry["launches_factory"] = factory_launches[name]
         entry["launches_sharded"] = sharded_launches[name]
         entry["launches_streamed"] = streamed_launches[name]

@@ -21,6 +21,15 @@ the reference's params pytree of the config's family (two-tower ``{"table",
 ``{"table", "bot", "top"}``, DIN ``{"table", "attn", "top"}``, SASRec
 ``{"table", "pos", "blocks": [{"ln1", "ln2", "wq", ...}], "final_ln"}``)
 and returns the port's module over the same weights.
+
+``param_name`` names a reference params leaf by the port's parameter name
+(``["user_tower", "layers", 0, "w"]`` is ``user_tower.weights.0``,
+``["blocks", 1, "wq"]`` is ``blocks.1.wq``), ``named_from_jax`` flattens a
+params-shaped tree (params or gradients) into ``{name: tensor}``, and
+``optimizer_state_from_jax`` turns the state of the reference's ``adamw``
+(``{"m", "v", "step"}``) or ``mixed_optimizer`` (``{"leaves": {... {"acc"}
+or {"m", "v"}}, "step"}``) into the port's, so both packages can take the
+next step from one state.
 """
 from __future__ import annotations
 
@@ -141,3 +150,51 @@ def recsys_params_from_jax(params: dict, cfg, device=None):
                          [{k: t(v) for k, v in blk.items()}
                           for blk in params["blocks"]],
                          t(params["final_ln"]))
+
+
+def _path_keys(tree, prefix=()):
+    """(keys, leaf) pairs of a nested dict / list tree of arrays."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _path_keys(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _path_keys(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def param_name(keys) -> str:
+    """A reference params path -> the port's parameter name: an MLP's
+    ``layers/<i>/w`` and ``/b`` are its ``weights.<i>`` and ``biases.<i>``,
+    every other path joins with '.'."""
+    keys = list(keys)
+    if "layers" in keys:
+        i = keys.index("layers")
+        kind = {"w": "weights", "b": "biases"}[keys[i + 2]]
+        keys = keys[:i] + [kind, keys[i + 1]] + keys[i + 3:]
+    return ".".join(str(k) for k in keys)
+
+
+def named_from_jax(tree, device=None) -> dict:
+    """A reference params-shaped tree -> {port name: tensor} on
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    return {param_name(keys): _tensor(a).to(dev)
+            for keys, a in _path_keys(tree)}
+
+
+def optimizer_state_from_jax(state: dict, device=None) -> dict:
+    """The reference's ``adamw`` or ``mixed_optimizer`` state -> the
+    port's, on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                        device=dev)
+    if "leaves" not in state:
+        return {"m": named_from_jax(state["m"], dev),
+                "v": named_from_jax(state["v"], dev), "step": step}
+    leaves = {}
+    for keys, a in _path_keys(state["leaves"]):
+        leaves.setdefault(param_name(keys[:-1]), {})[keys[-1]] = \
+            _tensor(a).to(dev)
+    return {"leaves": leaves, "step": step}

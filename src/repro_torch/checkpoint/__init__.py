@@ -1,2 +1,2 @@
-"""Checksummed payload I/O (the reference's ``checkpoint/checkpointer.py``,
-its payload half)."""
+"""Checksummed payload I/O and the async training checkpointer (the
+reference's ``checkpoint/checkpointer.py``)."""

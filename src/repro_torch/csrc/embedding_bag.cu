@@ -40,6 +40,8 @@
 //   - Blocks of 2 warps while the grid is small (every SM gets several
 //     blocks at B = 512), of 8 at bulk sizes.
 // A bf16 table is widened to f32 on load (exact).
+//
+// embedding_bag_backward, below, is the gradient with respect to the table.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -203,6 +205,157 @@ extern "C" int embedding_bag(const void* table, const void* ids,
         launch_bag<float, 1>(table, ids, weights, out, b, bag_len, v, d,
                              mean != 0, s);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// embedding_bag_backward: out[ids[b, l], :] += (g[b, :] / denom_b) * w[b, l]
+// for every member with ids[b, l] >= 0, where denom_b = max(sum_l w[b, l],
+// 1e-9) under the mean combiner and the division is left out under sum; no
+// weights means unit weights, and the multiply by 1 is left out. Ids >= V
+// add into row V - 1, as the forward reads it.
+//
+// Replaces no TPU kernel: the reference trains through _bag
+// (src/repro/models/recsys.py:44), a take and a masked sum, which XLA
+// differentiates into a scatter-add of those terms in (b, l) order. The
+// kernel is that scatter-add.
+//
+// Design: the wrapper folds ids >= V onto V - 1 and stable-sorts the flat
+// ids (torch.sort(stable=True): the grouping step), so each row's members
+// lie together in ascending (b, l) order, pads (< 0) first. One warp per
+// sorted position; the warp at the head of a run of one id sums the run's
+// terms in that order, lanes across D (VEC = 4 floats per lane per step,
+// D = 256 is two steps), and adds the sum into the row once. No float
+// atomics: two runs give the same bits, and the plain version
+// (kernels/embedding_bag/ref.py) repeats the order: each row gets
+// ((0 + t_0) + t_1) + ... . Every rounding is spelled out (__fdiv_rn,
+// __fmul_rn, __fadd_rn), so nvcc contracts nothing into an fma. The
+// denominators come from a first small kernel, summed in l order as the
+// forward sums them.
+//
+// Bound on an H100: the bytes of the rows it writes. The two-tower
+// training step (B = 65,536 bags of 32 over a 2M-row history table) touches
+// ~1.3M distinct 1 KB rows: 1.33 GB written, ~0.4 ms at 3.35 TB/s, beside
+// 67 MB of g and 8.4 MB of ids. Warps that are not at a run's head leave
+// after two id loads.
+
+namespace repro_torch {
+
+__global__ void bag_denoms_kernel(const int* __restrict__ ids,
+                                  const float* __restrict__ weights,
+                                  float* __restrict__ denom, int b,
+                                  int bag_len) {
+  const long long bag = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (bag >= b) return;
+  float s = 0.f;
+  for (int l = 0; l < bag_len; ++l) {
+    const long long i = bag * bag_len + l;
+    const float w = __ldg(ids + i) < 0
+                        ? 0.f
+                        : (weights == nullptr ? 1.f : __ldg(weights + i));
+    s = __fadd_rn(s, w);
+  }
+  denom[bag] = fmaxf(s, 1e-9f);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* __restrict__ p,
+                                         float (&out)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+    out[0] = __ldg(p);
+  }
+}
+
+// The row of sorted position k: its id, folded onto v - 1 again so that no
+// id can write past the table.
+__device__ __forceinline__ int run_key(const int* __restrict__ sorted_ids,
+                                       long long k, int v) {
+  return min(__ldg(sorted_ids + k), v - 1);
+}
+
+template <int VEC>
+__global__ void bag_grad_rows_kernel(const float* __restrict__ g,
+                                     const int* __restrict__ sorted_ids,
+                                     const long long* __restrict__ perm,
+                                     const float* __restrict__ weights,
+                                     const float* __restrict__ denom,
+                                     float* __restrict__ out, long long n,
+                                     int bag_len, int v, int d) {
+  const long long j =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (j >= n) return;                                 // whole warps only
+  const int key = run_key(sorted_ids, j, v);
+  if (key < 0) return;                                // a pad
+  if (j > 0 && run_key(sorted_ids, j - 1, v) == key) return;  // not a head
+  const int lane = threadIdx.x & 31;
+  float* row = out + (long long)key * d;
+  for (int c = lane * VEC; c < d; c += 32 * VEC) {
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (long long k = j; k < n && run_key(sorted_ids, k, v) == key; ++k) {
+      const long long p = __ldg(perm + k);
+      const long long bag = p / bag_len;
+      float t[VEC];
+      load_f32<VEC>(g + bag * d + c, t);
+      if (denom != nullptr) {
+        const float s = __ldg(denom + bag);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) t[e] = __fdiv_rn(t[e], s);
+      }
+      if (weights != nullptr) {
+        const float w = __ldg(weights + p);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) t[e] = __fmul_rn(t[e], w);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], t[e]);
+    }
+    if constexpr (VEC == 4) {
+      float4* dst = reinterpret_cast<float4*>(row + c);
+      const float4 o = *dst;
+      *dst = make_float4(__fadd_rn(o.x, acc[0]), __fadd_rn(o.y, acc[1]),
+                         __fadd_rn(o.z, acc[2]), __fadd_rn(o.w, acc[3]));
+    } else {
+      row[c] = __fadd_rn(row[c], acc[0]);
+    }
+  }
+}
+
+}  // namespace repro_torch
+
+// g (b, d) f32; ids (b, bag_len) int32; sorted_ids (b * bag_len) int32, the
+// flat ids stably sorted, and perm (b * bag_len) int64 their flat positions;
+// weights (b, bag_len) f32 or null; denom (b) f32 scratch (read only under
+// mean); out (v, d) f32, added into. vec4: d % 4 == 0 and g, out aligned
+// to 16 bytes.
+extern "C" int embedding_bag_backward(const void* g, const void* ids,
+                                      const void* sorted_ids,
+                                      const void* perm, const void* weights,
+                                      void* denom, void* out, int b,
+                                      int bag_len, int v, int d, int mean,
+                                      int vec4, void* stream) {
+  using namespace repro_torch;
+  const long long n = (long long)b * bag_len;
+  if (n > 0 && d > 0 && v > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (mean)
+      bag_denoms_kernel<<<(b + 255) / 256, 256, 0, s>>>(
+          (const int*)ids, (const float*)weights, (float*)denom, b, bag_len);
+    const float* dn = mean ? (const float*)denom : nullptr;
+    const unsigned grid = (unsigned)((n + 7) / 8);     // 8 warps a block
+    if (vec4)
+      bag_grad_rows_kernel<4><<<grid, 256, 0, s>>>(
+          (const float*)g, (const int*)sorted_ids, (const long long*)perm,
+          (const float*)weights, dn, (float*)out, n, bag_len, v, d);
+    else
+      bag_grad_rows_kernel<1><<<grid, 256, 0, s>>>(
+          (const float*)g, (const int*)sorted_ids, (const long long*)perm,
+          (const float*)weights, dn, (float*)out, n, bag_len, v, d);
   }
   return (int)cudaGetLastError();
 }

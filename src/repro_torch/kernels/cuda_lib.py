@@ -42,6 +42,7 @@ _SIGNATURES = {
     "topk_merge_smem_bytes": [_I],
     "l2topk_f32": [_P] * 7 + [_I] * 7 + [_P],
     "embedding_bag": [_P] * 4 + [_I] * 7 + [_P],
+    "embedding_bag_backward": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 

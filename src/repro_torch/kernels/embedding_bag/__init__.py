@@ -1,5 +1,9 @@
-from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.embedding_bag.embedding_bag import \
+    embedding_bag_backward_cuda, embedding_bag_cuda
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import \
+    embedding_bag_backward_ref, embedding_bag_ref
 
-__all__ = ["embedding_bag", "embedding_bag_cuda", "embedding_bag_ref"]
+__all__ = ["embedding_bag", "embedding_bag_backward_cuda",
+           "embedding_bag_backward_ref", "embedding_bag_cuda",
+           "embedding_bag_ref"]

@@ -1,5 +1,6 @@
-"""Launch wrapper of the CUDA ``embedding_bag`` kernel
-(``csrc/embedding_bag.cu``)."""
+"""Launch wrappers of the CUDA ``embedding_bag`` kernels
+(``csrc/embedding_bag.cu``): the bag, and its gradient with respect to the
+table."""
 from __future__ import annotations
 
 from typing import Optional
@@ -63,3 +64,48 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
 
 
 embedding_bag_cuda.launches = 0
+
+
+def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
+                                weights: Optional[torch.Tensor],
+                                combiner: str,
+                                out: torch.Tensor) -> torch.Tensor:
+    """Add the bag's gradient with respect to the table into ``out``:
+    out[ids[b, l]] += (grad_out[b] / denom_b) * weights[b, l] for every
+    ids[b, l] >= 0 (denom_b = max(sum_l weights[b, l], 1e-9) under mean, 1
+    under sum). grad_out (B, D) f32, ids (B, L) int32, weights (B, L) f32
+    or None, out (V, D) f32; returns ``out``. Each row's terms are summed
+    in ascending (b, l) order and added to it once; the grouping is a
+    stable ``torch.sort`` of the flat ids, ids >= V folded onto V - 1
+    first (the forward reads that row for them)."""
+    _check_operands(out, ids, weights, combiner)
+    if out.dtype != torch.float32:
+        raise TypeError(f"embedding_bag_backward_cuda: the gradient must be "
+                        f"float32, got {out.dtype}")
+    b, bag_len = ids.shape
+    v, d = out.shape
+    if grad_out.shape != (b, d) or grad_out.dtype != torch.float32 or \
+            grad_out.device != out.device or not grad_out.is_contiguous():
+        raise ValueError(f"embedding_bag_backward_cuda: grad_out must be a "
+                         f"contiguous float32 ({b}, {d}) tensor on "
+                         f"{out.device}, got {grad_out.dtype} "
+                         f"{tuple(grad_out.shape)} on {grad_out.device}")
+    sorted_ids, perm = torch.sort(ids.reshape(-1).clamp_max(v - 1),
+                                  stable=True)
+    mean = combiner == "mean"
+    denom = torch.empty((b if mean else 0,), dtype=torch.float32,
+                        device=out.device)
+    vec4 = d % 4 == 0 and out.data_ptr() % 16 == 0 and \
+        grad_out.data_ptr() % 16 == 0
+    lib = cuda_lib.library()
+    code = lib.embedding_bag_backward(
+        grad_out.data_ptr(), ids.data_ptr(), sorted_ids.data_ptr(),
+        perm.data_ptr(), None if weights is None else weights.data_ptr(),
+        denom.data_ptr(), out.data_ptr(), b, bag_len, v, d, int(mean),
+        int(vec4), torch.cuda.current_stream(out.device).cuda_stream)
+    cuda_lib.check(code, "embedding_bag_backward")
+    embedding_bag_backward_cuda.launches += 1
+    return out
+
+
+embedding_bag_backward_cuda.launches = 0

@@ -11,6 +11,15 @@ midpoint and ``e`` is not 0: there the exact result lies on ``e``'s side of
 the midpoint, and the rounding goes that way. The mean divides by
 ``max(sum_l w_l, 1e-9)``, summed in l order in float32. One (B, D) slice
 is gathered per step, never a (B, L, D) tensor.
+
+``embedding_bag_backward_ref`` is the plain version of the gradient with
+respect to the table, in the CUDA kernel's order: the terms
+``(g[b] / denom_b) * w[b, l]`` of the members with ids >= 0, stably sorted
+by id, added into a zero (V, D) tensor in ascending (b, l) order per row.
+It adds them rank by rank (the r-th member of every id at once, through
+``index_add_`` over ids that are then all distinct), so no two additions
+into one row race on any device: each row gets ((0 + t_0) + t_1) + ...,
+on the CPU and on the card alike.
 """
 from __future__ import annotations
 
@@ -51,11 +60,56 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     safe = ids.long().clamp(0, table.shape[0] - 1)
     acc = torch.zeros((ids.shape[0], table.shape[1]), dtype=torch.float32,
                       device=table.device)
-    denom = torch.zeros((ids.shape[0], 1), dtype=torch.float32,
-                        device=table.device)
     for l in range(ids.shape[1]):
         acc = _fma32(w[:, l, None], table[safe[:, l]], acc)
-        denom = denom + w[:, l, None]
     if combiner == "mean":
-        acc = acc / denom.clamp_min(1e-9)
+        acc = acc / bag_denoms(ids, w)[:, None]
     return acc
+
+
+def bag_denoms(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B,) max(sum_l w[b, l], 1e-9) over the members with ids >= 0,
+    summed in l order in float32, as the forward sums it."""
+    w = torch.where(ids >= 0, w, torch.zeros_like(w))
+    denom = torch.zeros((ids.shape[0],), dtype=torch.float32,
+                        device=ids.device)
+    for l in range(ids.shape[1]):
+        denom = denom + w[:, l]
+    return denom.clamp_min(1e-9)
+
+
+def embedding_bag_backward_ref(grad_out: torch.Tensor, ids: torch.Tensor,
+                               weights: Optional[torch.Tensor],
+                               combiner: str,
+                               num_rows: int) -> torch.Tensor:
+    """grad_out (B, D), ids (B, L) (-1 pads), weights (B, L) or None ->
+    the (num_rows, D) float32 gradient of ``embedding_bag_ref(table, ids,
+    weights, combiner)`` with respect to ``table``. Ids >= num_rows add
+    into row num_rows - 1, as the forward reads it."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"unknown combiner {combiner!r}")
+    g = grad_out.float()
+    out = torch.zeros((num_rows, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    keys, perm = torch.sort(ids.reshape(-1).long().clamp_max(num_rows - 1),
+                            stable=True)
+    keep = keys >= 0
+    keys, perm = keys[keep], perm[keep]
+    if keys.numel() == 0:
+        return out
+    bag = perm // ids.shape[1]
+    terms = g[bag]
+    if combiner == "mean":
+        w = (torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+             if weights is None else weights.float())
+        terms = terms / bag_denoms(ids, w)[bag, None]
+    if weights is not None:
+        terms = terms * weights.float().reshape(-1)[perm, None]
+    pos = torch.arange(keys.numel(), device=keys.device)
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[1:] = keys[1:] != keys[:-1]
+    rank = pos - torch.where(head, pos, 0).cummax(0).values
+    for r in range(int(rank.max()) + 1):
+        at = rank == r
+        out.index_add_(0, keys[at], terms[at])
+    return out

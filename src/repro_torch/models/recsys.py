@@ -1,20 +1,26 @@
 """Recsys models of the port (the reference's ``models/recsys.py``): DLRM,
-the two-tower retrieval model, SASRec and DIN, as ``nn.Module``s.
+the two-tower retrieval model, SASRec and DIN, as ``nn.Module``s, and
+their training losses.
 
     model = INIT[family](generator, cfg)
     SCORE[family](model, cfg, batch)                    # (B,) scores
     model.retrieval(batch, cand_items[, cand_cates])    # (C,) scores
+    LOSS[family](model, cfg, batch) -> (loss, {"loss": loss})
 
 A batch is the reference's dict: ``batch["sparse_ids"]`` holds one (B, L_t)
-int32 tensor per table, with ``dense`` (DLRM) and ``history`` /
-``history_len`` / ``target`` (SASRec, DIN) beside it. Every single-hot
-table access goes through ``_lk`` and its ``lookup_fn`` hook: a plain take
-by default, ``recsys_common.make_sharded_lookup``'s row-sharded take on a
-mesh. The two-tower user history goes through ``recsys_common.bag_lookup``
-and so through the ``embedding_bag`` kernel on the card; the reference
-builds the same function from a take and a masked sum (``_bag``). Serving
-only: the bag kernel has no backward yet, so training waits for ROADMAP
-Queue 1 item 10.5; call under ``torch.inference_mode()``.
+int32 tensor per table, with ``dense`` (DLRM), ``history`` /
+``history_len`` / ``target`` (SASRec, DIN) and ``label`` (DLRM, DIN)
+beside it. Every single-hot table access goes through ``_lk`` and its
+``lookup_fn`` hook: a plain take by default, ``recsys_common.
+make_sharded_lookup``'s row-sharded take on a mesh. The two-tower user
+history goes through ``recsys_common.bag_lookup`` and so through the
+``embedding_bag`` kernel on the card, forward and backward; the reference
+builds the same function from a take and a masked sum (``_bag``), which
+XLA differentiates into a scatter-add.
+
+Every weight is a trainable parameter, as every leaf of the reference's
+params trains. The serve steps run under ``torch.inference_mode()``, so
+serving builds no autograd graph and allocates no gradient.
 """
 from __future__ import annotations
 
@@ -118,6 +124,19 @@ def two_tower_score(params: TwoTower, cfg, batch, lookup_fn=None):
     return params.score(batch, lookup_fn)
 
 
+def two_tower_loss(params: TwoTower, cfg, batch, lookup_fn=None):
+    """In-batch sampled softmax of each user against the batch's items.
+    Under uniform in-batch sampling the logQ correction is a constant
+    shift: the reference subtracts zeros, which changes no bit, so the
+    port leaves it out; pass propensities to ``sampled_softmax_loss``
+    when the sampler is not uniform."""
+    u = params.user_embed(batch, lookup_fn)
+    ids = batch["sparse_ids"]
+    v = params.item_embed(ids[2][:, 0], ids[3][:, 0], lookup_fn)
+    loss = C.sampled_softmax_loss(u, v)
+    return loss, {"loss": loss}
+
+
 # ===========================================================================
 # DLRM
 # ===========================================================================
@@ -130,7 +149,7 @@ class DLRM(nn.Module):
                  top: MLP):
         super().__init__()
         self.cfg = cfg
-        self.table = nn.Parameter(table, requires_grad=False)
+        self.table = nn.Parameter(table)
         self.bot = bot
         self.top = top
 
@@ -141,6 +160,11 @@ class DLRM(nn.Module):
         vecs = torch.cat([bot[:, None, :], emb], dim=1)     # (B, 27, D)
         z = C.dot_interaction(vecs)
         return self.top(torch.cat([bot, z], dim=1))[:, 0]
+
+
+def dlrm_loss(params: DLRM, cfg, batch, lookup_fn=None):
+    loss = C.bce_loss(params(batch, lookup_fn), batch["label"])
+    return loss, {"loss": loss}
 
 
 def dlrm_init(generator: torch.Generator, cfg: RecsysConfig) -> DLRM:
@@ -167,12 +191,12 @@ class SASRec(nn.Module):
                  pos: torch.Tensor, blocks, final_ln: torch.Tensor):
         super().__init__()
         self.cfg = cfg
-        self.table = nn.Parameter(table, requires_grad=False)
-        self.pos = nn.Parameter(pos, requires_grad=False)
+        self.table = nn.Parameter(table)
+        self.pos = nn.Parameter(pos)
         self.blocks = nn.ModuleList(
-            nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                              for k, v in blk.items()}) for blk in blocks)
-        self.final_ln = nn.Parameter(final_ln, requires_grad=False)
+            nn.ParameterDict({k: nn.Parameter(v) for k, v in blk.items()})
+            for blk in blocks)
+        self.final_ln = nn.Parameter(final_ln)
 
     def hidden(self, history, lookup_fn=None) -> torch.Tensor:
         """history (B, S) item ids (-1 pads) -> (B, S, D) causal states;
@@ -206,6 +230,44 @@ class SASRec(nn.Module):
         return (h @ v.T)[0]
 
 
+N_NEG = 512                   # SASRec's shared sampled negatives
+
+
+def sasrec_negatives(cfg, device, n_neg: int = N_NEG) -> torch.Tensor:
+    """The fixed set of negatives SASRec's loss uses when the batch brings
+    none: ``n_neg`` uniform item ids from a ``torch.Generator`` seeded 0,
+    drawn anew (the same ids) on every call. The reference draws from
+    ``jax.random.PRNGKey(0)`` in the same way; torch cannot give that
+    stream, so the ids differ while the meaning, one fixed set, holds."""
+    g = torch.Generator(device=device).manual_seed(0)
+    return torch.randint(0, cfg.table_vocabs[0], (n_neg,), generator=g,
+                         device=device, dtype=torch.int32)
+
+
+def sasrec_loss(params: SASRec, cfg, batch, lookup_fn=None,
+                n_neg: int = N_NEG, neg_ids=None):
+    """Next-item loss: each position's state scores the next item against
+    shared sampled negatives (``neg_ids``, else ``batch["neg_ids"]``, else
+    ``sasrec_negatives``); the mean over the valid next items of
+    -log softmax([pos, negs])[pos]."""
+    hist = batch["history"]
+    h = params.hidden(hist[:, :-1], lookup_fn)              # predict shifted
+    pos_ids = hist[:, 1:]
+    pos_e = _lk(lookup_fn, params.table, pos_ids.clamp_min(0))
+    pos_logit = (h * pos_e).sum(-1)
+    if neg_ids is None:
+        neg_ids = batch.get("neg_ids")
+    if neg_ids is None:
+        neg_ids = sasrec_negatives(cfg, hist.device, n_neg)
+    neg_e = _lk(lookup_fn, params.table, neg_ids)           # (n_neg, D)
+    neg_logit = torch.einsum("bsd,nd->bsn", h, neg_e)
+    logits = torch.cat([pos_logit[..., None], neg_logit], dim=-1)
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = (pos_ids >= 0).float()
+    loss = -(logp[..., 0] * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss, {"loss": loss}
+
+
 def sasrec_init(generator: torch.Generator, cfg: RecsysConfig) -> SASRec:
     d = cfg.embed_dim
     dev = generator.device
@@ -235,7 +297,7 @@ class DIN(nn.Module):
                  top: MLP):
         super().__init__()
         self.cfg = cfg
-        self.table = nn.Parameter(table, requires_grad=False)
+        self.table = nn.Parameter(table)
         self.attn = attn
         self.top = top
 
@@ -284,6 +346,11 @@ class DIN(nn.Module):
         return self._head(self.pooled(hist, hl, t_e, lookup_fn), t_e)
 
 
+def din_loss(params: DIN, cfg, batch, lookup_fn=None):
+    loss = C.bce_loss(params(batch, lookup_fn), batch["label"])
+    return loss, {"loss": loss}
+
+
 def din_init(generator: torch.Generator, cfg: RecsysConfig) -> DIN:
     d2 = 2 * cfg.embed_dim
     return DIN(cfg, _tables(generator, cfg),
@@ -297,6 +364,8 @@ def din_init(generator: torch.Generator, cfg: RecsysConfig) -> DIN:
 
 INIT = {"dlrm-mlperf": dlrm_init, "two-tower-retrieval": two_tower_init,
         "sasrec": sasrec_init, "din": din_init}
+LOSS = {"dlrm-mlperf": dlrm_loss, "two-tower-retrieval": two_tower_loss,
+        "sasrec": sasrec_loss, "din": din_loss}
 SCORE = {"dlrm-mlperf": lambda p, c, b, f=None: p(b, f),
          "two-tower-retrieval": two_tower_score,
          "sasrec": lambda p, c, b, f=None: p.score(b, f),

@@ -1,17 +1,19 @@
 """Recsys substrate (the reference's ``models/recsys_common.py``): one
 concatenated embedding table with static row offsets, id globalisation,
-single-hot lookups, the multi-hot bag, the row-sharded lookup and DLRM's
-dot interaction.
+single-hot lookups, the multi-hot bag, the row-sharded lookup, DLRM's
+dot interaction and the two training losses (the in-batch sampled softmax
+and binary cross-entropy).
 
 All tables of a model concatenate into ONE (sum_V padded, D) matrix, so a
 mesh can row-shard it evenly whatever the per-table skew
 (``make_sharded_lookup``). The bag goes through the ``embedding_bag`` op:
-the hand-written CUDA kernel on the card, its plain version on the CPU.
-The training losses are not ported (ROADMAP Queue 1 item 10.5).
+the hand-written CUDA kernel on the card, its plain version on the CPU,
+both differentiable with respect to the table (the backward kernel on the
+card), so the same lookups serve and train.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -111,3 +113,40 @@ def dot_interaction(vectors: torch.Tensor) -> torch.Tensor:
     z = torch.einsum("bfd,bgd->bfg", vectors, vectors)
     iu = torch.triu_indices(f, f, 1, device=vectors.device)
     return z[:, iu[0], iu[1]]
+
+
+LOSS_BLOCK_BYTES = 1 << 31   # the in-batch logits a loss block holds
+
+
+def sampled_softmax_loss(user_vecs: torch.Tensor, item_vecs: torch.Tensor,
+                         log_q: Optional[torch.Tensor] = None,
+                         temperature: float = 0.05) -> torch.Tensor:
+    """In-batch softmax with logQ correction (two-tower retrieval): the
+    mean over rows of -log softmax(u @ v.T / temperature - log_q)[i, i].
+
+    Each row's log-softmax is ``F.cross_entropy``'s (the reference's
+    log_softmax and diagonal take), over blocks of rows whose logits take
+    at most LOSS_BLOCK_BYTES: at B = 65,536 the (B, B) logits are 17.2 GB,
+    and autograd keeps each block's log-softmax and frees the rest, so no
+    buffer that size is ever allocated. The division and the logQ shift
+    run in place on each product (neither backward needs its input)."""
+    b = user_vecs.shape[0]
+    rows = max(1, LOSS_BLOCK_BYTES // (4 * max(item_vecs.shape[0], 1)))
+    total = None
+    for i in range(0, b, rows):
+        logits = (user_vecs[i:i + rows] @ item_vecs.T).div_(temperature)
+        if log_q is not None:
+            logits.sub_(log_q[None, :])
+        labels = torch.arange(i, i + logits.shape[0], device=logits.device)
+        part = torch.nn.functional.cross_entropy(logits, labels,
+                                                 reduction="sum")
+        total = part if total is None else total + part
+    return total / b
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy from logits, in the reference's form:
+    max(x, 0) - x * y + log1p(exp(-|x|))."""
+    logits = logits.reshape(labels.shape)
+    return (logits.clamp_min(0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs()))).mean()

@@ -701,6 +701,146 @@ def test_embedding_bag_kernel_launch_geometry_edges(dev, l, d, b,
                                                       combiner))
 
 
+# embedding_bag's backward kernel against its plain version: D = 256
+# (float4 lanes, two steps), 8 (two lanes), 18 and 600 (scalar and several
+# lane steps); pads, an all-pad bag, ids repeated in and across bags and
+# past the table, one id everywhere (a run of b * l members)
+BAG_GRAD_SHAPES = [(5000, 256, 300, 32), (100, 8, 64, 5), (700, 18, 33, 7),
+                   (2000, 600, 40, 3)]
+
+
+def _bag_grad_inputs(g, v, d, b, l, dev):
+    ids = _ids(g, (b, l), v, dev)
+    ids[0] = -1
+    ids[1, : min(l, 3)] = 2
+    ids[-1, -1] = 2
+    ids[2, 0] = v + 5                             # past the table: row v - 1
+    grad = torch.randn((b, d), generator=g).to(dev)
+    return ids, grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weights", ["none", "float"])
+@pytest.mark.parametrize("v,d,b,l", BAG_GRAD_SHAPES)
+def test_embedding_bag_backward_kernel(dev, v, d, b, l, weights, combiner):
+    """Bit-equal to the plain version on the card: both add each row's
+    terms in ascending (b, l) order, every rounding spelled out."""
+    from repro_torch.kernels.embedding_bag import \
+        embedding_bag_backward_cuda, embedding_bag_backward_ref
+    g = torch.Generator().manual_seed(v + d + l + 1)
+    ids, grad = _bag_grad_inputs(g, v, d, b, l, dev)
+    w = None if weights == "none" else torch.rand((b, l), generator=g).to(
+        dev)
+    out = torch.zeros((v, d), device=dev)
+    n0 = embedding_bag_backward_cuda.launches
+    embedding_bag_backward_cuda(grad, ids, w, combiner, out)
+    assert embedding_bag_backward_cuda.launches == n0 + 1
+    want = embedding_bag_backward_ref(grad, ids, w, combiner, v)
+    assert torch.equal(out, want)
+    assert torch.equal(out.cpu(), embedding_bag_backward_ref(
+        grad.cpu(), ids.cpu(), None if w is None else w.cpu(), combiner, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_backward_kernel_edges(dev, combiner):
+    """One id in every slot (one run of b * l members), an all-pad batch,
+    and the kernel adding into a gradient that is not zero."""
+    from repro_torch.kernels.embedding_bag import \
+        embedding_bag_backward_cuda, embedding_bag_backward_ref
+    g = torch.Generator().manual_seed(4)
+    grad = torch.randn((70, 256), generator=g).to(dev)
+    same = torch.full((70, 40), 9, dtype=torch.int32, device=dev)
+    out = torch.zeros((20, 256), device=dev)
+    embedding_bag_backward_cuda(grad, same, None, combiner, out)
+    assert torch.equal(out, embedding_bag_backward_ref(grad, same, None,
+                                                       combiner, 20))
+    pads = torch.full((70, 40), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros((20, 256), device=dev)
+    embedding_bag_backward_cuda(grad, pads, None, combiner, zero)
+    assert not zero.any()
+    base = torch.randn((20, 256), generator=g).to(dev)
+    added = embedding_bag_backward_cuda(grad, same, None, combiner,
+                                        base.clone())
+    assert torch.equal(added, base + out)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_backward_kernel_at_the_two_tower_path_shape(dev):
+    """B = 65,536 bags of 32 over the 2M-row history table at D = 256, the
+    full two-tower training step's operands (mean, no pads), bit-equal."""
+    from repro_torch.kernels.embedding_bag import \
+        embedding_bag_backward_cuda, embedding_bag_backward_ref
+    g = torch.Generator(device=dev).manual_seed(6)
+    ids = torch.randint(0, 2_000_000, (65_536, 32), generator=g, device=dev,
+                        dtype=torch.int32)
+    grad = torch.randn((65_536, 256), generator=g, device=dev)
+    out = torch.zeros((2_000_000, 256), device=dev)
+    embedding_bag_backward_cuda(grad, ids, None, "mean", out)
+    want = embedding_bag_backward_ref(grad, ids, None, "mean", 2_000_000)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_is_differentiable_on_the_card(dev):
+    """The card's bag output carries the same autograd function as the
+    CPU's, and its table gradient equals the CPU's bit for bit."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, \
+        embedding_bag_backward_cuda
+    g = torch.Generator().manual_seed(8)
+    table = torch.randn((300, 32), generator=g)
+    ids = _ids(g, (40, 6), 300, torch.device("cpu"))
+    cot = torch.randn((40, 32), generator=g)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        t = table.to(device).requires_grad_()
+        out = embedding_bag(t, ids.to(device), None, "mean")
+        assert type(out.grad_fn).__name__ == "EmbeddingBagFunctionBackward"
+        n0 = embedding_bag_backward_cuda.launches
+        (gt,) = torch.autograd.grad(out, t, cot.to(device))
+        assert embedding_bag_backward_cuda.launches == \
+            n0 + (device.type == "cuda")
+        grads.append(gt.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_two_tower_train_step_on_the_card_equals_the_cpu(dev):
+    """One step of the two-tower smoke model (mixed optimizer) on the card
+    and on the CPU from the same weights and batch: parameters to rtol
+    1e-5 (the towers' products and the lookups' index backward sum in
+    other orders on the card)."""
+    from repro_torch.configs.two_tower_retrieval import SMOKE
+    from repro_torch.data import recsys_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda
+    from repro_torch.models import recsys
+    from repro_torch.optim import mixed_optimizer
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+    cpu = torch.device("cpu")
+    batch = recsys_batch(torch.Generator().manual_seed(1), 64, SMOKE)
+    batch["sparse_ids"][1][3, 4:] = -1
+    out = []
+    for device in (dev, cpu):
+        model = recsys.two_tower_init(torch.Generator().manual_seed(0),
+                                      SMOKE).to(device)
+        opt = mixed_optimizer(1e-3)
+        step = make_train_step(loss_fn_for("recsys", SMOKE), opt)
+        n0 = embedding_bag_backward_cuda.launches
+        model, _, m = step(model, opt.init(model),
+                           {k: [x.to(device) for x in v]
+                            if isinstance(v, list) else v.to(device)
+                            for k, v in batch.items()})
+        assert embedding_bag_backward_cuda.launches == \
+            n0 + (device.type == "cuda")
+        out.append((float(m["loss"]), {n: p.detach().cpu() for n, p in
+                                       model.named_parameters()}))
+    (lc, pc), (lg, pg) = out[1], out[0]
+    assert abs(lc - lg) <= 1e-5 * abs(lc)
+    for n, p in pc.items():
+        torch.testing.assert_close(pg[n], p, rtol=1e-5, atol=1e-6)
+
+
 # -- the hop loop kernel (beam_hops) against the host loop over the one-hop
 # kernel: the same states, every field and counter, bit for bit
 

@@ -15,16 +15,26 @@ CPU) and ``backend="jnp"`` (its take + einsum oracle).
 - A weighted sum whose float64 sum lands exactly on a float32 midpoint
   while the exact sum lies past it: exactly equal to the Pallas kernel and
   the oracle.
+- The gradient with respect to the table (``embedding_bag_backward_ref``,
+  through the op's autograd function): within rtol 1e-6 of ``jax.grad`` of
+  the reference's ``_bag`` and of its oracle (XLA's scatter-add and the
+  einsum's transpose sum in their own orders), with pads, all-pad bags and
+  ids repeated inside and across bags; and exactly the sum, per row, of
+  the terms (g[b] / denom_b) * w[b, l] in ascending (b, l) order, which is
+  what the CUDA kernel adds.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.embedding_bag import embedding_bag as jax_embedding_bag
+from repro.kernels.embedding_bag.ref import embedding_bag_ref as \
+    jax_embedding_bag_oracle
 from repro.models import recsys as jax_recsys
 from repro_torch.kernels.embedding_bag import embedding_bag, \
-    embedding_bag_ref
+    embedding_bag_backward_ref, embedding_bag_ref
 from repro_torch.models import recsys
 
 SWEEP = [(50, 16, 6, 5), (128, 64, 16, 1), (11, 8, 3, 20)]   # v, d, b, l
@@ -184,3 +194,112 @@ def test_lookup_fn_is_not_ported():
     for combiner in ("sum", "mean"):
         got = recsys._bag(lambda t, i: t[i], table, ids, combiner)
         assert torch.equal(got, recsys._bag(None, table, ids, combiner))
+
+
+# -- the gradient with respect to the table -----------------------------------
+
+def _grad_inputs(v, d, b, l, seed):
+    """Float table, ids with pads, bag 0 all pads, id 3 repeated inside
+    bag 1 and again in bag 2; float weights and a cotangent."""
+    table, ids, w = _inputs(v, d, b, l, seed)
+    ids[0] = -1
+    ids[1, :3] = 3
+    ids[2, -1] = 3
+    g = np.random.default_rng(seed + 1).standard_normal((b, d)).astype(
+        np.float32)
+    return table, ids, w, g
+
+
+def _port_grad(table, ids, w, g, combiner):
+    t = torch.from_numpy(table).requires_grad_()
+    out = embedding_bag(t, torch.from_numpy(ids),
+                        None if w is None else torch.from_numpy(w), combiner)
+    assert type(out.grad_fn).__name__ == "EmbeddingBagFunctionBackward"
+    (grad,) = torch.autograd.grad(out, t, torch.from_numpy(g))
+    return grad.numpy()
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("v,d,b,l", [(50, 16, 6, 5), (11, 8, 5, 20),
+                                     (503, 32, 16, 8)])
+def test_table_gradient_matches_jax_grad_of_the_reference_bag(v, d, b, l,
+                                                              combiner):
+    table, ids, _, g = _grad_inputs(v, d, b, l, seed=v * l)
+    got = _port_grad(table, ids, None, g, combiner)
+    jg, ji = jnp.asarray(g), jnp.asarray(ids)
+    for fn in (lambda t: jax_recsys._bag(None, t, ji, combiner),
+               lambda t: jax_embedding_bag_oracle(t, ji, None, combiner)):
+        want = jax.grad(lambda t: jnp.sum(fn(t) * jg))(jnp.asarray(table))
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6,
+                                   atol=1e-7)
+    untouched = np.setdiff1d(np.arange(v), ids[ids >= 0])
+    assert not got[untouched].any()
+    assert np.abs(got[3]).sum() > 0
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_weighted_table_gradient_matches_jax_grad_of_the_oracle(combiner):
+    table, ids, w, g = _grad_inputs(60, 16, 7, 9, seed=5)
+    got = _port_grad(table, ids, w, g, combiner)
+    jg = jnp.asarray(g)
+    want = jax.grad(lambda t: jnp.sum(jax_embedding_bag_oracle(
+        t, jnp.asarray(ids), jnp.asarray(w), combiner) * jg))(
+            jnp.asarray(table))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_table_gradient_adds_in_ascending_bag_order(combiner, weighted):
+    """Each row is ((0 + t_0) + t_1) + ... over its members in (b, l)
+    order, t = (g[b] / denom_b) * w[b, l]: the CUDA kernel's order."""
+    table, ids, w, g = _grad_inputs(30, 8, 9, 12, seed=9)
+    ids[4, 2] = 40                                # past the table: row 29
+    w = w if weighted else None
+    got = embedding_bag_backward_ref(torch.from_numpy(g),
+                                     torch.from_numpy(ids),
+                                     None if w is None else
+                                     torch.from_numpy(w), combiner, 30)
+    want = torch.zeros((30, 8))
+    gt = torch.from_numpy(g)
+    for b in range(ids.shape[0]):
+        weights = torch.ones(ids.shape[1]) if w is None \
+            else torch.from_numpy(w[b])
+        denom = torch.zeros(())
+        for l in range(ids.shape[1]):
+            if ids[b, l] >= 0:
+                denom = denom + weights[l]
+        for l in range(ids.shape[1]):
+            if ids[b, l] < 0:
+                continue
+            t = gt[b] / denom.clamp_min(1e-9) if combiner == "mean" \
+                else gt[b]
+            if w is not None:
+                t = t * weights[l]
+            row = min(int(ids[b, l]), 29)
+            want[row] = want[row] + t
+    assert torch.equal(got, want)
+
+
+def test_gradient_of_an_all_pad_batch_is_zero():
+    ids = torch.full((3, 4), -1, dtype=torch.int32)
+    grad = embedding_bag_backward_ref(torch.ones(3, 5), ids, None, "mean", 7)
+    assert torch.equal(grad, torch.zeros(7, 5))
+
+
+def test_bf16_table_does_not_train():
+    t = torch.zeros((4, 8), dtype=torch.bfloat16, requires_grad=True)
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(TypeError, match="float32"):
+        embedding_bag(t, ids, None, "mean")
+    with torch.inference_mode():                  # serving a bf16 table
+        assert embedding_bag(t, ids, None, "mean").shape == (2, 8)
+
+
+def test_weights_get_no_gradient():
+    t = torch.randn((6, 4), requires_grad=True)
+    w = torch.rand((2, 3), requires_grad=True)
+    ids = torch.tensor([[0, 1, 5], [2, -1, 2]], dtype=torch.int32)
+    out = embedding_bag(t, ids, w, "sum")
+    gt, gw = torch.autograd.grad(out.sum(), (t, w), allow_unused=True)
+    assert gw is None and gt.shape == t.shape

@@ -39,6 +39,13 @@ SHARDED_MODULES = {
     "repro_torch.distributed.sharding", "repro_torch.core.build.stream",
     "repro_torch.core.build.shardlocal", "repro_torch.core.distributed"}
 
+# the modules of the recsys training slice
+TRAIN_MODULES = {
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.compression", "repro_torch.train",
+    "repro_torch.train.train_step", "repro_torch.train.trainer",
+    "repro_torch.launch.train"}
+
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.MULTILINE)
 
@@ -55,6 +62,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         INDEX_API_MODULES - set(names.split(","))
     assert SHARDED_MODULES <= set(names.split(",")), \
         SHARDED_MODULES - set(names.split(","))
+    assert TRAIN_MODULES <= set(names.split(",")), \
+        TRAIN_MODULES - set(names.split(","))
 
 
 def test_no_file_of_the_port_imports_jax_or_the_reference():
