@@ -263,6 +263,34 @@ Phases, each printing one JSON line:
                 on the CPU (DLRM's rows fetched from the card's table).
                 No kernel of the port lies on these paths (as none of the
                 reference's Pallas kernels does on its own).
+ 16. lm_serve, lm_checks, lm_train, lm_cli — the dense LMs (ROADMAP
+                item 10.6a), after 14b (printed before the kernels line).
+                lm_serve, for qwen2-1.5b, mistral-nemo-12b and qwen3-32b
+                at full width in bf16 from --seed: weight and peak bytes;
+                check 1, prefill of LM_CHECK[0] tokens then LM_CHECK[1]
+                greedy decode steps against forward over the sequence
+                (relative RMS and largest logit difference within
+                LM_BF16_REL / LM_BF16_MAX; ids equal but at ties within
+                the measured difference); the prefill_32k and decode_32k
+                cells at their LM_CUTS (batch, tokens) cuts: ms, tokens/s,
+                peak bytes, bound (bf16 linear FLOP / 989 TFLOP/s plus
+                causal f32 attention FLOP / 67 TFLOP/s; decode: weights
+                and the valid KV read / 3.35 TB/s) and share, one layer's
+                attention beside F.scaled_dot_product_attention at the
+                prefill cell (a yardstick the port never calls), and a
+                profiled decode step (LM_PROFILE_PREFILL's prefill too);
+                long_500k skipped by skip_reason. lm_checks: check 2,
+                attention above CHUNK_THRESHOLD against sdpa in f32 on the
+                card (LM_ATTN_TOL); check 3, a 2-layer qwen2-1.5b at full
+                width and vocabulary in f32 on the card against the CPU
+                (LM_CPU_TOL). lm_train: qwen2-1.5b at full width, train_4k
+                cut to LM_TRAIN (4 x 4,096 in 2 microbatches), 3 steps of
+                adamw(3e-4) and one profiled: step ms, peak bytes, losses;
+                finite losses and every parameter moved but those bf16
+                rounding holds (asserted). lm_cli: launch.serve and
+                launch.train --steps 2 for qwen2-1.5b exit 0 with the
+                reference's lines. No kernel of the port launches in them
+                (asserted).
  15. the kernels line: launches on the main path (fit + serve for the f32
                 kernels and l2topk, quantize + serve for the LUT kernels,
                 recsys + recsys_ann for embedding_bag, the two-tower
@@ -515,6 +543,55 @@ SHARDED_CLI_RUNS = (
     ("serve", "repro_torch.launch.serve",
      ["--arch", "ann-laion", "--shards", "4", "--on-shard-error", "skip"],
      0.90, {}))
+# the dense LM phases (ROADMAP Queue 1 item 10.6a): the three configs at
+# full width in bf16 from --seed. LM_CUTS gives the (batch, tokens) each
+# LM_SHAPES cell runs at: prefill_32k's global batch 32 and decode_32k's 128
+# do not fit one card beside the weights, and the reference's float32
+# attention over every KV block takes ~9 s per 32k qwen2-1.5b prompt (~30
+# s mistral-nemo-12b, ~110 s qwen3-32b), so the larger two prefill 8,192
+# tokens; qwen3-32b's 32k prompt would not fit at all (65.5 GB of weights,
+# its 8.6 GB cache and an 8.6 GB score block). A decode cell's cache is
+# filled with random values instead of a 32k prefill per row: a step's
+# work does not depend on them. long_500k is skipped by skip_reason.
+LM_ARCHS = ("qwen2-1.5b", "mistral-nemo-12b", "qwen3-32b")
+LM_CUTS = {"qwen2-1.5b": {"prefill_32k": (1, 32768),
+                          "decode_32k": (64, 32768)},
+           "mistral-nemo-12b": {"prefill_32k": (1, 8192),
+                                "decode_32k": (8, 32768)},
+           "qwen3-32b": {"prefill_32k": (1, 8192),
+                         "decode_32k": (1, 32768)}}
+LM_DECODE_STEPS = 8                         # timed greedy steps per cell
+# check 1: prefill LM_CHECK[0] tokens, decode LM_CHECK[1] greedily, against
+# forward over the whole sequence, in bf16: the logits' relative RMS
+# difference at most LM_BF16_REL and the largest at most LM_BF16_MAX of the
+# largest |logit| (the two paths multiply at other shapes, so cuBLAS sums
+# in other orders and bf16 rounds at other places). Pinned from the first
+# run on an NVIDIA H100 80GB HBM3 (relative RMS 0.0072 / 0.0161 / 0.0192,
+# largest 0.047 / 0.086 / 0.105 of 3.6 / 5.8 / 4.7 for the three configs),
+# each about 2.6 times the worst reading
+LM_CHECK = (64, 8)
+LM_BF16_REL, LM_BF16_MAX = 0.05, 0.06
+# the prefill cells profiled (one more call under torch.profiler: device
+# busy share and top kernels); every decode cell profiles one more step
+LM_PROFILE_PREFILL = ("mistral-nemo-12b",)
+# check 2: attention above CHUNK_THRESHOLD (chunked_sdpa) against sdpa in
+# float32 at qwen2-1.5b's heads; check 3: a 2-layer qwen2-1.5b at full
+# width and vocabulary in float32, the card against the CPU
+LM_ATTN_CHECK = dict(b=1, s=4096, h=12, kv=2, hd=128)
+LM_ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
+LM_CPU_TOKENS = (2, 16)
+LM_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+# lm_train: qwen2-1.5b at full width, train_4k (global batch 256 x 4,096)
+# cut to 4 sequences in 2 microbatches, adamw(3e-4) as launch.train
+LM_TRAIN = dict(arch="qwen2-1.5b", batch=4, seq=4096, microbatches=2,
+                steps=3, lr=3e-4)
+LM_CLI_RUNS = (("serve", "repro_torch.launch.serve", ["--arch",
+                                                      "qwen2-1.5b"]),
+               ("train", "repro_torch.launch.train",
+                ["--arch", "qwen2-1.5b", "--steps", "2"]))
+LM_CLI_TIMEOUT = 300
+PEAK_BF16 = 989e12                          # dense bf16 tensor cores
+
 # the l2topk variant each shape must take (PERF.md names them)
 L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
                  "kmeans": "tile", "medoid": "tile", "entry_select": "tile",
@@ -3790,6 +3867,386 @@ def recall_at_k(found, truth) -> float:
     return hits / truth.numel()
 
 
+def lm_bytes_read(model, cfg) -> int:
+    """Weight bytes a decode step reads: every layer and the head; an
+    untied embedding gives only its B rows (not counted)."""
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        total -= model.embed.numel() * model.embed.element_size()
+    return total
+
+
+def lm_linear_flops(cfg, tokens: int) -> float:
+    """2 x the non-embedding parameters x tokens: the projections and the
+    FFN (the norms and rope not counted)."""
+    emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return 2.0 * (cfg.param_count() - emb) * tokens
+
+
+def lm_attn_flops(cfg, b: int, pairs: float) -> float:
+    """QK^T and PV over ``pairs`` (query, key) pairs a row needs, every
+    layer and head."""
+    return 4.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * b * pairs
+
+
+def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
+    """One LM at its full config in bf16 from ``seed``: init, check 1
+    (prefill then greedy decode against forward), the prefill_32k and
+    decode_32k cells at LM_CUTS (ms, tokens/s, weight and peak bytes,
+    bound and share), and at the prefill cell one layer's attention
+    beside F.scaled_dot_product_attention (a yardstick the port never
+    calls). Returns the phase's summary."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import attention
+    from repro_torch.serve.serve_step import lm_decode_step, lm_prefill_step
+
+    spec = get_arch(arch)
+    cfg = spec.config
+    dev = torch.device("cuda")
+    bw, _ = peaks(gpu)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    prefill, decode = lm_prefill_step(cfg), lm_decode_step(cfg)
+    out = {"arch": arch, "init_seconds": init_s, "weight_bytes": wbytes,
+           "params": sum(p.numel() for p in model.parameters()),
+           "resident_bytes_before": resident,
+           "skipped": {name: spec.skip_reason(name) for name in LM_SHAPES
+                       if spec.skip_reason(name)}}
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                             device=dev, dtype=torch.int32)
+
+    with torch.no_grad():
+        # check 1: prefill then greedy decode == forward over the sequence
+        s, n = LM_CHECK
+        prompt = tokens(1, s)
+        last, cache = prefill(model, prompt, max_len=s + n)
+        rows, ids = [last[0]], []
+        for i in range(n):
+            ids.append(rows[-1].argmax(-1).to(torch.int32).reshape(1))
+            lg, cache = decode(model, ids[-1], cache, torch.full(
+                (1,), s + i, dtype=torch.int32, device=dev))
+            rows.append(lg[0])
+        seq = torch.cat([prompt, torch.stack(ids, 1)], 1)
+        fwd, _ = T.forward(model, cfg, seq, remat=False)
+        got, want = torch.stack(rows), fwd[0, s - 1:]
+        diff = (got - want).abs()
+        max_diff, scale = float(diff.max()), float(want.abs().max())
+        rel = float((got - want).norm() / want.norm())
+        top2 = want.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 2 * max_diff
+        same = got.argmax(-1) == want.argmax(-1)
+        picked = want.gather(1, got.argmax(-1, keepdim=True))[:, 0]
+        ids_ok = bool((same | tie).all()) and bool(
+            (top2[:, 0] - picked <= 2 * max_diff).all())
+        out["check_decode"] = dict(prompt=s, tokens=n, rel_rms=rel,
+                                   max_abs_diff=max_diff, logit_scale=scale,
+                                   ids_equal=int(same.sum()),
+                                   ties=int(tie.sum()), ids_ok=ids_ok)
+        del cache, fwd, got, want, last, rows
+        if not (rel <= LM_BF16_REL and max_diff <= LM_BF16_MAX * scale
+                and ids_ok):
+            raise AssertionError(f"{arch}: prefill + decode disagrees with "
+                                 f"forward: {out['check_decode']}")
+
+        # prefill_32k at its cut: the last position's logits and the cache
+        b, sp = LM_CUTS[arch]["prefill_32k"]
+        toks = tokens(b, sp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        holder = {}
+        ms = time_ms(lambda: holder.update(r=prefill(model, toks)), reps=1,
+                     warmup=0)
+        last = holder.pop("r")[0]
+        peak = torch.cuda.max_memory_allocated()
+        if not (torch.isfinite(last).all() and last.shape == (
+                b, cfg.vocab_size)):
+            raise AssertionError(f"{arch}: prefill gave non-finite or "
+                                 f"mis-shaped logits")
+        del last
+        t_lin = (lm_linear_flops(cfg, b * sp)
+                 + 2.0 * cfg.d_model * cfg.vocab_size * b) / PEAK_BF16
+        t_attn = lm_attn_flops(cfg, b, sp * (sp + 1) / 2) / PEAK_F32
+        t_ops, t_bytes = (t_lin + t_attn) * 1e3, wbytes / bw * 1e3
+        q = torch.randn((b, sp, cfg.n_heads, cfg.head_dim), generator=g,
+                        device=dev).bfloat16()
+        kv = [torch.randn((b, sp, cfg.n_kv_heads, cfg.head_dim),
+                          generator=g, device=dev).bfloat16()
+              for _ in range(2)]
+        attn_ms = time_ms(lambda: attention(q, *kv, causal=True), reps=1,
+                          warmup=0)
+        groups = cfg.n_heads // cfg.n_kv_heads
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(groups, dim=2).transpose(1, 2)
+                  for x in kv)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=3, warmup=1)
+        del q, kv, qt, kt, vt
+        prof = profile_busy(torch, lambda: prefill(model, toks)) \
+            if arch in LM_PROFILE_PREFILL else None
+        out["prefill_32k"] = dict(
+            batch=b, prompt=sp, cut_from=(LM_SHAPES["prefill_32k"]
+                                          .global_batch,
+                                          LM_SHAPES["prefill_32k"].seq_len),
+            ms=ms, tokens_per_s=b * sp / ms * 1e3, peak_bytes=peak,
+            bound_ms=max(t_ops, t_bytes), bound_by="operations"
+            if t_ops >= t_bytes else "bytes",
+            bound_attention_f32_ms=t_attn * 1e3,
+            bound_linear_bf16_ms=t_lin * 1e3,
+            share=max(t_ops, t_bytes) / ms,
+            attention_one_layer_ms=attn_ms, sdpa_library_ms=sdpa_ms,
+            profile=prof)
+
+        # decode_32k at its cut: a full cache of random values, greedy steps
+        # at its last LM_DECODE_STEPS positions
+        b, ctx = LM_CUTS[arch]["decode_32k"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = T.init_cache(cfg, b, ctx, dev)
+        cache.a.normal_(generator=g)
+        cache.b.normal_(generator=g)
+        tok = tokens(b, 1)[:, 0]
+        pos0 = ctx - LM_DECODE_STEPS
+        lg, cache = decode(model, tok, cache, torch.full(
+            (b,), pos0 - 1, dtype=torch.int32, device=dev))        # warm
+        times = []
+        for i in range(LM_DECODE_STEPS):
+            tok = lg.argmax(-1).to(torch.int32)
+            pos = torch.full((b,), pos0 + i, dtype=torch.int32, device=dev)
+            holder = {}
+            times.append(time_ms(lambda: holder.update(
+                r=decode(model, tok, cache, pos)), reps=1, warmup=0))
+            lg, cache = holder.pop("r")
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_busy(torch, lambda: decode(
+            model, lg.argmax(-1).to(torch.int32), cache, torch.full(
+                (b,), ctx - 1, dtype=torch.int32, device=dev)))
+        if not (torch.isfinite(lg).all() and int(cache.length[0]) == ctx):
+            raise AssertionError(f"{arch}: decode gave non-finite logits "
+                                 f"or lengths {cache.length.tolist()}")
+        kv_valid = ctx - LM_DECODE_STEPS / 2 + 0.5     # mean over the steps
+        kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+                    * b * kv_valid)
+        t_bytes = (lm_bytes_read(model, cfg) + kv_bytes) / bw * 1e3
+        t_ops = (lm_linear_flops(cfg, b) + 2.0 * cfg.d_model
+                 * cfg.vocab_size * b) / PEAK_BF16 * 1e3 + lm_attn_flops(
+                     cfg, b, kv_valid) / PEAK_F32 * 1e3
+        step_ms = statistics.median(times)
+        out["decode_32k"] = dict(
+            batch=b, context=ctx, cut_from=(LM_SHAPES["decode_32k"]
+                                            .global_batch,
+                                            LM_SHAPES["decode_32k"].seq_len),
+            steps=LM_DECODE_STEPS, ms_per_step=step_ms,
+            ms_per_step_min=min(times), ms_per_step_max=max(times),
+            tokens_per_s=b / step_ms * 1e3, cache_bytes=2 * cache.a.numel()
+            * cache.a.element_size(), peak_bytes=peak,
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes"
+            if t_bytes >= t_ops else "operations",
+            share=max(t_bytes, t_ops) / step_ms, profile=prof)
+        del cache, lg
+    del model
+    torch.cuda.empty_cache()
+    emit("lm_serve", **out)
+    return out
+
+
+def lm_checks_phase(torch, seed: int) -> dict:
+    """Check 2: attention above CHUNK_THRESHOLD (chunked_sdpa) against
+    sdpa on the card in float32 at LM_ATTN_CHECK. Check 3: a 2-layer
+    qwen2-1.5b at full width and vocabulary in float32, the same weights
+    and tokens on the card and on the CPU, logits to LM_CPU_TOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import CHUNK_THRESHOLD, attention, sdpa
+
+    dev = torch.device("cuda")
+    c = LM_ATTN_CHECK
+    if c["s"] < CHUNK_THRESHOLD:
+        raise AssertionError("check 2 must run above CHUNK_THRESHOLD")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    q = torch.randn((c["b"], c["s"], c["h"], c["hd"]), generator=g,
+                    device=dev)
+    k, v = (torch.randn((c["b"], c["s"], c["kv"], c["hd"]), generator=g,
+                        device=dev) for _ in range(2))
+    with torch.no_grad():
+        chunked = attention(q, k, v, causal=True)
+        plain = sdpa(q, k, v, causal=True)
+    attn_err = float((chunked - plain).abs().max())
+    attn_ok = torch.allclose(chunked, plain, **LM_ATTN_TOL)
+    del q, k, v, chunked, plain
+
+    cfg = replace(get_arch("qwen2-1.5b").config, n_layers=2,
+                  dtype="float32")
+    cpu_model = T.init_params(torch.Generator().manual_seed(seed), cfg)
+    toks = torch.randint(0, cfg.vocab_size, LM_CPU_TOKENS,
+                         generator=torch.Generator().manual_seed(seed + 3),
+                         dtype=torch.int32)
+    with torch.no_grad():
+        want, _ = T.forward(cpu_model, cfg, toks, remat=False)
+        card_model = cpu_model.to(dev)
+        got, _ = T.forward(card_model, cfg, toks.to(dev), remat=False)
+    got = got.cpu()
+    cpu_err = float((got - want).abs().max())
+    cpu_ok = torch.allclose(got, want, **LM_CPU_TOL)
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    out = dict(attention_vs_sdpa=dict(shape=c, max_abs_err=attn_err,
+                                      tol=LM_ATTN_TOL, ok=attn_ok),
+               card_vs_cpu=dict(layers=2, d_model=cfg.d_model,
+                                vocab=cfg.vocab_size, tokens=LM_CPU_TOKENS,
+                                max_abs_err=cpu_err,
+                                logit_scale=float(want.abs().max()),
+                                tol=LM_CPU_TOL, ok=cpu_ok))
+    emit("lm_checks", **out)
+    if not (attn_ok and cpu_ok):
+        raise AssertionError(f"lm_checks failed: {out}")
+    return out
+
+
+def lm_train_phase(torch, seed: int) -> dict:
+    """qwen2-1.5b at full width trained LM_TRAIN["steps"] steps of
+    make_train_step(loss_fn_for("lm", cfg), adamw(3e-4)) on train_4k's
+    sequences at LM_TRAIN's batch cut, then one more step under
+    torch.profiler: step ms, tokens/s, peak bytes and the losses. Finite
+    losses, and every parameter moved (asserted) but those bf16 rounding
+    holds: the weights are bf16 with no float32 master copy, as the
+    reference's, so an element w keeps its value under a step smaller than
+    half its ulp, at least |w| * 2^-9; an Adam step moves an element by at
+    most ~lr (|m / sqrt(v)| <= 1.001 after bias correction at steps 1-3
+    with b1 0.9, b2 0.95), so a parameter whose every |w| * 2^-9 exceeds
+    2 lr (the unit norm weights) is held."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+
+    c = LM_TRAIN
+    cfg = get_arch(c["arch"]).config
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = adamw(c["lr"])
+    state = opt.init(model)
+    step = make_train_step(loss_fn_for("lm", cfg), opt,
+                           microbatches=c["microbatches"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms = [], [], []
+    for i in range(c["steps"]):
+        batch = lm_batch(torch.Generator(device=dev).manual_seed(seed + i),
+                         c["batch"], c["seq"], cfg.vocab_size)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, state, met = step(model, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    held = {n for n, w in before.items()
+            if float(w.float().abs().min()) * 2.0 ** -9 > 2 * c["lr"]}
+    moved = {n for n, p in model.named_parameters()
+             if not torch.equal(p.detach(), before[n])}
+    n_params = len(before)
+    ms = statistics.median(times)
+    batch = lm_batch(torch.Generator(device=dev).manual_seed(seed + 99),
+                     c["batch"], c["seq"], cfg.vocab_size)
+    prof = profile_busy(torch, lambda: step(model, state, batch))
+    out = dict(arch=c["arch"], batch=c["batch"], seq=c["seq"],
+               microbatches=c["microbatches"],
+               cut_from=(LM_SHAPES["train_4k"].global_batch,
+                         LM_SHAPES["train_4k"].seq_len),
+               step_ms=times, step_ms_median=ms,
+               tokens_per_s=c["batch"] * c["seq"] / ms * 1e3,
+               peak_bytes=peak, losses=losses, grad_norms=norms,
+               params_moved=len(moved), params=n_params,
+               params_held_by_bf16=sorted(held)[:4] + (
+                   ["..."] if len(held) > 4 else []),
+               params_held_count=len(held), profile=prof)
+    must_move = set(before) - held
+    del model, state, before
+    torch.cuda.empty_cache()
+    emit("lm_train", **out)
+    if not all(math.isfinite(x) for x in losses + norms) \
+            or not must_move <= moved:
+        raise AssertionError(f"lm_train: non-finite loss or a parameter "
+                             f"that did not move: {out}")
+    return out
+
+
+def lm_cli_phase(src: Path) -> None:
+    """LM_CLI_RUNS (launch.serve and launch.train for qwen2-1.5b, on the
+    card by default), both processes at once: each must exit 0 and print
+    the reference's line."""
+    import os
+    import re
+    patterns = {"serve": r"qwen2-1\.5b: prefill\(32\) \+ decode\(16\) for "
+                         r"batch 8 in \d+\.\d+s \(\d+\.\d tok/s\)",
+                "train": r"qwen2-1\.5b: trained 2 steps; history=\[\d+\.\d+"
+                         r"(, \d+\.\d+)*\]"}
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", module, *args],
+                              env={**os.environ, "PYTHONPATH": str(src)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for _, module, args in LM_CLI_RUNS]
+    failed = []
+    for (name, module, args), proc in zip(LM_CLI_RUNS, procs):
+        try:
+            out, err = proc.communicate(timeout=LM_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        line = out.strip().splitlines()[-1] if out.strip() else ""
+        ok = proc.returncode == 0 and re.fullmatch(patterns[name],
+                                                   line) is not None
+        emit("lm_cli", run=name, args=[module, *args],
+             returncode=proc.returncode, output=line,
+             seconds=time.perf_counter() - t,
+             stderr_tail=err[-2000:] if proc.returncode else "")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"lm_cli: the LM launchers failed or printed "
+                             f"another line: {failed}")
+
+
+def lm_phases(torch, src: Path, gpu: str, seed: int) -> dict:
+    """lm_serve for each of LM_ARCHS, lm_checks, lm_train and lm_cli."""
+    out = {}
+    for arch in LM_ARCHS:
+        t = time.perf_counter()
+        lm_serve_phase(torch, arch, gpu, seed)
+        out[f"lm_serve_{arch}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm_checks_phase(torch, seed)
+    out["lm_checks"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm_train_phase(torch, seed)
+    out["lm_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm_cli_phase(src)
+    out["lm_cli"] = time.perf_counter() - t
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3812,6 +4269,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
@@ -4136,12 +4594,22 @@ def main() -> int:
     new_phase_s["recsys_models"] = time.perf_counter() - t
     models_launches = {name: w.launches - before[name]
                        for name, w in wrappers.items()}
-    emit("new_phases", seconds=new_phase_s,
-         total_seconds=sum(new_phase_s.values()),
-         recsys_models_launches=models_launches)
     if any(models_launches.values()):
         raise AssertionError(f"a kernel launched on the SASRec, DIN or DLRM "
                              f"path, which has none: {models_launches}")
+
+    # 16. the dense LMs: serving at full width, the checks, qwen2-1.5b's
+    # training and the launchers; no kernel of the port lies on their path
+    before = {name: w.launches for name, w in wrappers.items()}
+    new_phase_s.update(lm_phases(torch, src, gpu, args.seed))
+    lm_launches = {name: w.launches - before[name]
+                   for name, w in wrappers.items()}
+    emit("new_phases", seconds=new_phase_s,
+         total_seconds=sum(new_phase_s.values()),
+         recsys_models_launches=models_launches, lm_launches=lm_launches)
+    if any(lm_launches.values()):
+        raise AssertionError(f"a kernel launched on the LM path, which has "
+                             f"none: {lm_launches}")
 
     # 15. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
     # times at the top, its total launches over both backends, and each

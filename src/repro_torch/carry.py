@@ -22,6 +22,14 @@ the reference's params pytree of the config's family (two-tower ``{"table",
 ``{"table", "pos", "blocks": [{"ln1", "ln2", "wq", ...}], "final_ln"}``)
 and returns the port's module over the same weights.
 
+``lm_params_from_jax`` carries the dense LM: the reference's params
+``{"embed", "final_norm", "dense_layers": [], "layers": {...}, ["lm_head"]}``,
+whose ``layers`` stacks every layer's leaves on axis 0, become the port's
+``TransformerLM`` with one block per slice; ``lm_named_from_jax`` flattens
+an LM params-shaped tree (gradients, AdamW moments) into the port's names
+(``layers/attn/wq`` slice i is ``blocks.i.attn.wq``). bf16 leaves cross
+through their 16-bit view, bit for bit.
+
 ``param_name`` names a reference params leaf by the port's parameter name
 (``["user_tower", "layers", 0, "w"]`` is ``user_tower.weights.0``,
 ``["blocks", 1, "wq"]`` is ``blocks.1.wq``), ``named_from_jax`` flattens a
@@ -37,6 +45,7 @@ from dataclasses import asdict
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.persist import index_from_state
@@ -150,6 +159,49 @@ def recsys_params_from_jax(params: dict, cfg, device=None):
                          [{k: t(v) for k, v in blk.items()}
                           for blk in params["blocks"]],
                          t(params["final_ln"]))
+
+
+def _lm_leaves(tree):
+    """(port name, array) pairs of a reference LM params-shaped tree: the
+    stacked ``layers`` sliced on axis 0 into ``blocks.<i>``."""
+    if tree.get("dense_layers"):
+        raise NotImplementedError("an LM with leading dense layers (MoE) "
+                                  "is not ported yet (ROADMAP Queue 1 item "
+                                  "10.6b)")
+    for keys, a in _path_keys({k: v for k, v in tree.items()
+                               if k not in ("layers", "dense_layers")}):
+        yield ".".join(keys), np.asarray(a)
+    for keys, a in _path_keys(tree["layers"]):
+        a = np.asarray(a)
+        for i in range(a.shape[0]):
+            yield ".".join(("blocks", str(i)) + keys), a[i]
+
+
+def lm_named_from_jax(tree: dict, device=None) -> dict:
+    """A reference LM params-shaped tree -> {port name: tensor} on
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    return {name: _tensor(a).to(dev) for name, a in _lm_leaves(tree)}
+
+
+def lm_params_from_jax(params: dict, cfg, device=None):
+    """Reference dense-LM params -> the port's ``TransformerLM`` of
+    ``cfg`` on ``device`` (default: the card), the same weights bit for
+    bit."""
+    from repro_torch.models.transformer import Block, TransformerLM
+    named = lm_named_from_jax(params, device)
+    blocks = []
+    for i in range(cfg.n_layers):
+        pre = f"blocks.{i}."
+        part = {k[len(pre):]: v for k, v in named.items()
+                if k.startswith(pre)}
+        sub = {grp: nn.ParameterDict({
+            k[len(grp) + 1:]: nn.Parameter(v) for k, v in part.items()
+            if k.startswith(grp + ".")}) for grp in ("attn", "ffn")}
+        blocks.append(Block(part["ln1"], part["ln2"], sub["attn"],
+                            sub["ffn"]))
+    return TransformerLM(cfg, named["embed"], named["final_norm"], blocks,
+                         named.get("lm_head"))
 
 
 def _path_keys(tree, prefix=()):

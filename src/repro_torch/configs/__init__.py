@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
-It lists what the port runs: the paper's ANN workload and the four recsys
-models (DLRM, two-tower retrieval, SASRec, DIN). The reference's LM and
+It lists what the port runs: the paper's ANN workload, the four recsys
+models (DLRM, two-tower retrieval, SASRec, DIN) and the three dense LMs
+(qwen2-1.5b, mistral-nemo-12b, qwen3-32b). The reference's MoE / MLA and
 GNN ids raise ``NotImplementedError`` naming the ROADMAP item that brings
 them.
 """
@@ -9,26 +10,26 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import ann_laion, din, dlrm_mlperf, sasrec, \
-    two_tower_retrieval
+from repro_torch.configs import ann_laion, din, dlrm_mlperf, \
+    mistral_nemo_12b, qwen2_1_5b, qwen3_32b, sasrec, two_tower_retrieval
 from repro_torch.configs.base import (  # noqa: F401
-    ANNConfig, ArchSpec, RecsysConfig, ShapeConfig, RECSYS_SHAPES,
+    ANNConfig, ArchSpec, LMConfig, RecsysConfig, ShapeConfig, LM_SHAPES,
+    RECSYS_SHAPES, reduced_lm,
 )
 
 _REGISTRY: Dict[str, ArchSpec] = {
     spec.arch_id: spec for spec in [
+        qwen3_32b.SPEC, qwen2_1_5b.SPEC, mistral_nemo_12b.SPEC,
         dlrm_mlperf.SPEC, two_tower_retrieval.SPEC, sasrec.SPEC, din.SPEC,
         ann_laion.SPEC]
 }
 
-_LM_GNN = "ROADMAP Queue 1 item 10.6 (LM and GNN models)"
+MOE_MLA = "ROADMAP Queue 1 item 10.6b (MoE and MLA)"
+GNN = "ROADMAP Queue 1 item 10.6c (DimeNet)"
 NOT_PORTED: Dict[str, str] = {
-    "qwen3-32b": _LM_GNN,
-    "qwen2-1.5b": _LM_GNN,
-    "mistral-nemo-12b": _LM_GNN,
-    "deepseek-v2-236b": _LM_GNN,
-    "deepseek-moe-16b": _LM_GNN,
-    "dimenet": _LM_GNN,
+    "deepseek-v2-236b": MOE_MLA,
+    "deepseek-moe-16b": MOE_MLA,
+    "dimenet": GNN,
 }
 
 

@@ -9,7 +9,9 @@ def resolve_device(device=None) -> torch.device:
 
     On CUDA it also pins full-float32 matmuls (process-wide): the exact
     kNN, PCA and every nearest-centroid pass go through ``torch.matmul``,
-    and TF32 would change the graph.
+    and TF32 would change the graph. bf16 products (the LM) keep float32
+    sums throughout, as the reference's do: cuBLAS may not reduce split
+    sums in bf16.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -18,6 +20,8 @@ def resolve_device(device=None) -> torch.device:
                                "card is visible; pass device='cpu' to run "
                                "on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
         torch.set_float32_matmul_precision("highest")
     return dev
 

@@ -1,4 +1,4 @@
-from repro_torch.data.synthetic import clustered_vectors, queries_like, \
-    recsys_batch
+from repro_torch.data.synthetic import clustered_vectors, lm_batch, \
+    queries_like, recsys_batch
 
-__all__ = ["clustered_vectors", "queries_like", "recsys_batch"]
+__all__ = ["clustered_vectors", "lm_batch", "queries_like", "recsys_batch"]

@@ -1,4 +1,4 @@
-"""Synthetic LAION-like vectors and recsys batches (the reference's
+"""Synthetic LAION-like vectors, LM and recsys batches (the reference's
 ``data/synthetic.py`` recipes, drawn from a ``torch.Generator``).
 
 The recipe is the reference's: a Gaussian mixture with Zipf-ish cluster
@@ -39,6 +39,15 @@ def queries_like(generator: torch.Generator, data: torch.Tensor,
     noise = torch.randn((n_queries, data.shape[1]), generator=generator,
                         device=dev, dtype=data.dtype)
     return data[idx.to(data.device)] + jitter * noise.to(data.device)
+
+
+def lm_batch(generator: torch.Generator, batch: int, seq_len: int,
+             vocab: int) -> dict:
+    """Uniform int32 token ids (B, S) and labels rolled by -1 along S (the
+    last label wraps around; ``lm_loss`` masks it)."""
+    tokens = torch.randint(0, vocab, (batch, seq_len), generator=generator,
+                           device=generator.device, dtype=torch.int32)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
 
 
 def recsys_batch(generator: torch.Generator, batch: int, cfg) -> dict:

@@ -1,6 +1,7 @@
-"""Optimization toggles of the ANN serving path (the reference's
-``flags.py``, its three ANN toggles; the LM toggles come with the LM
-family).
+"""Optimization toggles (the reference's ``flags.py``): the three ANN
+toggles and the four of the dense LM. The reference's MoE toggle
+(``REPRO_MOE_SHARD``) comes with the MoE family (ROADMAP Queue 1 item
+10.6b).
 
 Each toggle reads the reference's environment variable, off by default,
 and is read at call time (``flags.ANN_TIGHT_BUDGET``), so a test can flip
@@ -17,6 +18,26 @@ it on the module.
 
 All three are honoured by ``core.distributed``'s sharded tiers, alone or
 together, as in the reference; the unsharded index has none of them.
+
+The LM's:
+
+  * ``SHARDED_CE`` (``REPRO_SHARDED_CE``): ``models.transformer.lm_loss``
+    takes the cross entropy as ``max + log(sum(exp(logits - max)))`` minus
+    the label's logit picked by a one-hot product, instead of
+    ``log_softmax`` and a gather. On a mesh whose ``model`` axis shards
+    the vocabulary this never gathers the (tokens, V) logits; on the
+    port's one-process mesh it changes only the arithmetic (the loss
+    agrees to float32 rounding), which is why it is kept.
+  * ``HEAD_TP_ATTENTION`` (``REPRO_HEAD_TP``): the reference places
+    ``chunked_sdpa``'s q on the mesh's ``model`` axis by heads instead of
+    by sequence, and only when a mesh is active. The port's attention
+    runs in one process on one device, where either placement is the
+    identity: it reads no toggle and computes the same numbers.
+  * ``GRAD_SHARD_CONSTRAINTS`` (``REPRO_GRAD_SHARD``) and ``LM_FSDP``
+    (``REPRO_FSDP``): pin the gradients' and the LM parameters' shardings
+    over the data axes. Only the reference's ``launch/specs.py`` reads
+    them (ROADMAP Queue 1 item 11b); on one device nothing is sharded,
+    and no module of the port reads them.
 """
 from __future__ import annotations
 
@@ -39,3 +60,15 @@ ANN_TIGHT_BUDGET = _env("REPRO_ANN_TIGHT", False)
 # P8: |x|^2 per database row precomputed at build time
 ANN_PRENORM = _env("REPRO_ANN_PRENORM", False)
 
+
+# P2: sharded-vocab-safe cross entropy (never gathers (tokens, V) logits)
+SHARDED_CE = _env("REPRO_SHARDED_CE", False)
+
+# P5: pin the grad accumulator to the params' sharding
+GRAD_SHARD_CONSTRAINTS = _env("REPRO_GRAD_SHARD", False)
+
+# P6: head-TP attention when n_heads divides the model axis
+HEAD_TP_ATTENTION = _env("REPRO_HEAD_TP", False)
+
+# P7: FSDP of the big LM params over the data axes
+LM_FSDP = _env("REPRO_FSDP", False)

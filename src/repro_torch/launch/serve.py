@@ -1,13 +1,20 @@
 """Serving launcher: one batched request cycle per family (the reference's
-``launch/serve.py``, its recsys and ANN branches).
+``launch/serve.py``).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-1.5b|mistral-nemo-12b|qwen3-32b [--batch 8] \\
+        [--tokens 16] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch two-tower-retrieval|sasrec|din|dlrm-mlperf [--batch 8] \\
         [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ann-laion \\
         --spec "PCA32,NSG16,EP16" --ef 48 [--device cpu]
 
-The recsys family builds the arch's smoke config from seed 0, scores one
+The LM family builds the arch's smoke config from seed 0, prefills a
+batch of 32-token prompts and decodes ``--tokens`` greedily, as the
+reference does: its prefill sizes the cache to the prompt, so the decode
+steps' cache writes fall past the end and are dropped (only the lengths
+move). The recsys family builds the arch's smoke config from seed 0, scores one
 batch and retrieves the top 5 of 512 candidates for one user. The ANN
 family is served purely from a factory spec string — any index the
 registry knows ("Flat", "IVF128", "IVFPQ64x16", "HNSW32", "NSG32,EP16",
@@ -31,10 +38,10 @@ import torch
 
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.device import resolve_device
-from repro_torch.data import recsys_batch
-from repro_torch.models import recsys
-from repro_torch.serve.serve_step import recsys_retrieval_step, \
-    recsys_score_step
+from repro_torch.data import lm_batch, recsys_batch
+from repro_torch.models import recsys, transformer
+from repro_torch.serve.serve_step import lm_decode_step, lm_prefill_step, \
+    recsys_retrieval_step, recsys_score_step
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -42,6 +49,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True,
                     help=f"one of {list_archs()}")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="tokens decoded per request (lm family only)")
     ap.add_argument("--device", default="cuda",
                     help="where the port runs: cuda (the kernels) or cpu "
                          "(their plain PyTorch versions)")
@@ -251,6 +260,30 @@ def serve_ann(args, dev: torch.device) -> None:
               f"search (on_shard_error=skip)")
 
 
+def serve_lm(args, cfg, dev: torch.device) -> None:
+    """The reference's LM branch: prefill 32 tokens, decode greedily."""
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    model = transformer.init_params(gen(), cfg)
+    toks = lm_batch(gen(), args.batch, 32, cfg.vocab_size)["tokens"]
+    prefill, decode = lm_prefill_step(cfg), lm_decode_step(cfg)
+    t0 = time.perf_counter()
+    last, cache = prefill(model, toks)
+    out = [last.argmax(-1).to(torch.int32)]
+    pos = torch.full((args.batch,), toks.shape[1], dtype=torch.int32,
+                     device=dev)
+    for _ in range(args.tokens - 1):
+        logits, cache = decode(model, out[-1], cache, pos)
+        out.append(logits.argmax(-1).to(torch.int32))
+        pos = pos + 1
+    out[-1].cpu()                               # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"{args.arch}: prefill(32) + decode({args.tokens}) for "
+          f"batch {args.batch} in {dt:.2f}s "
+          f"({args.batch * args.tokens / dt:.1f} tok/s)")
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     spec = get_arch(args.arch)
@@ -259,6 +292,9 @@ def main(argv=None):
         serve_ann(args, dev)
         return
     cfg = spec.smoke_config
+    if spec.family == "lm":
+        serve_lm(args, cfg, dev)
+        return
 
     def gen():
         return torch.Generator(device=dev).manual_seed(0)

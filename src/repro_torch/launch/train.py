@@ -1,21 +1,26 @@
-"""Training launcher (the reference's ``launch/train.py``, its recsys
-branch): ``--arch <id>`` trains one recsys architecture end to end (data
+"""Training launcher (the reference's ``launch/train.py``, its LM and
+recsys branches): ``--arch <id>`` trains one architecture end to end (data
 stream, loss, optimizer, checkpoints).
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen2-1.5b|mistral-nemo-12b|qwen3-32b --steps 10 \\
+        [--batch 8] [--seq 64] [--full-config] [--ckpt-dir DIR] \\
+        [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch two-tower-retrieval|sasrec|din|dlrm-mlperf --steps 10 \\
         [--batch 8] [--full-config] [--ckpt-dir DIR] [--device cpu]
 
 It builds the arch's smoke config (``--full-config``: the full one) from
 seed 0, draws batch s from a generator seeded s (the stream is a pure
-function of the step, so a resume replays it), trains with
+function of the step, so a resume replays it), trains the LMs on
+``--seq``-token sequences with ``adamw(3e-4)`` and the recsys models with
 ``mixed_optimizer(1e-3)`` (row-wise Adagrad for the table, AdamW for the
 rest), checkpoints every max(2, steps // 2) steps and prints the
 reference's line, ``<arch>: trained <n> steps; history=[...]``: the loss
 every max(1, steps // 4) steps. Without ``--ckpt-dir`` the checkpoints go
 to a temporary directory removed at exit. The ANN id exits as the
-reference does (the tuner is its training); the LM and GNN ids raise as
-``configs.get_arch`` does. The port runs on the card by default;
+reference does (the tuner is its training); the MoE / MLA and GNN ids
+raise as ``configs.get_arch`` does. The port runs on the card by default;
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 """
 from __future__ import annotations
@@ -27,26 +32,30 @@ import torch
 
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.device import resolve_device
-from repro_torch.data import recsys_batch
-from repro_torch.models import recsys
-from repro_torch.optim import mixed_optimizer
+from repro_torch.data import lm_batch, recsys_batch
+from repro_torch.models import recsys, transformer
+from repro_torch.optim import adamw, mixed_optimizer
 from repro_torch.train.train_step import loss_fn_for, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
-def make_parts(spec, cfg, batch_size: int, dev: torch.device):
-    """(init, batch_fn, optimizer) of a recsys arch on ``dev``."""
+def make_parts(spec, cfg, batch_size: int, seq: int, dev: torch.device):
+    """(init, batch_fn, optimizer) of an LM or recsys arch on ``dev``."""
+    def gen(seed: int):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    if spec.family == "lm":
+        return (lambda seed: transformer.init_params(gen(seed), cfg),
+                lambda step: lm_batch(gen(step), batch_size, seq,
+                                      cfg.vocab_size),
+                adamw(3e-4))
+    if spec.family != "recsys":
+        raise SystemExit(f"train not defined for family {spec.family}; "
+                         "use launch/tune.py for the ANN workload")
     fam = recsys.family_of(cfg)
-
-    def init(seed: int):
-        return recsys.INIT[fam](torch.Generator(device=dev).manual_seed(seed),
-                                cfg)
-
-    def batch_fn(step: int):
-        return recsys_batch(torch.Generator(device=dev).manual_seed(step),
-                            batch_size, cfg)
-
-    return init, batch_fn, mixed_optimizer(1e-3)
+    return (lambda seed: recsys.INIT[fam](gen(seed), cfg),
+            lambda step: recsys_batch(gen(step), batch_size, cfg),
+            mixed_optimizer(1e-3))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -54,6 +63,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, help=f"one of {list_archs()}")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens per sequence (lm family only)")
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (hardware-scale) config")
     ap.add_argument("--ckpt-dir", default=None,
@@ -67,12 +78,9 @@ def _parser() -> argparse.ArgumentParser:
 
 def train(args) -> Trainer:
     spec = get_arch(args.arch)
-    if spec.family != "recsys":
-        raise SystemExit(f"train not defined for family {spec.family}; "
-                         "use launch/tune.py for the ANN workload")
     cfg = spec.config if args.full_config else spec.smoke_config
     dev = resolve_device(args.device)
-    init, batch_fn, opt = make_parts(spec, cfg, args.batch, dev)
+    init, batch_fn, opt = make_parts(spec, cfg, args.batch, args.seq, dev)
     step = make_train_step(loss_fn_for(spec.family, cfg), opt)
 
     def step_fn(state, batch):

@@ -1,6 +1,10 @@
-"""Dense building blocks of the recsys models (the reference's
-``models/layers.py``: ``dense_init``, ``mlp_init``/``mlp_apply``,
-``rms_norm`` and ``sdpa``).
+"""Dense building blocks of the recsys models and the dense LM (the
+reference's ``models/layers.py``): ``dense_init``, ``mlp_init`` /
+``mlp_apply``, ``rms_norm``, rotary embeddings (``rope_cache`` /
+``apply_rope``), attention (``sdpa``, ``chunked_sdpa``, ``attention``),
+grouped-query attention with QKV bias and per-head qk-norm (``gqa_*``) and
+the SwiGLU FFN (``swiglu_*``). MLA (the reference's ``mla_*``) is not
+ported (ROADMAP Queue 1 item 10.6b).
 
 The arithmetic is the reference's: weights are stored (in, out), a layer is
 ``x @ w`` and then ``+ b`` as a separate op, with ReLU between layers. Not
@@ -9,13 +13,24 @@ differently, and the (in, out) layout carries the reference's weights
 without a transpose. ``sdpa`` is the reference's einsum attention in plain
 tensor ops (GQA head groups, f32 softmax, the -1e30 mask): it is no Pallas
 kernel there either, and the plain ops keep its arithmetic for the parity
-tests.
+tests. So is ``chunked_sdpa``, the reference's flash-style loop over KV
+blocks with an online softmax; each keeps the reference's own order of
+operations (``sdpa`` divides the scores by sqrt(hd) after the product,
+``chunked_sdpa`` scales q first), and both upcast q, k and v to float32
+as the reference does.
+
+The LM's weights are ``bf16`` in the full configs (float32 in the smoke
+ones); norms, rope and softmax run in float32 and cast back exactly where
+the reference casts. A layer's parameters live in an ``nn.ParameterDict``
+under the reference's names (``wq``, ``bq``, ``q_norm``, ``w_gate``...),
+so ``p["wq"]`` reads as the reference's ``p["wq"]``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 MASKED = -1e30        # the reference's masked score (not -inf: no NaN rows)
@@ -94,3 +109,200 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def lm_dtype(cfg) -> torch.dtype:
+    """The config's parameter type: bfloat16 or float32."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _params(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
+
+
+# -------------------------------------------------------------------- rope
+def rope_cache(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (...,) -> (cos, sin) of shape (..., head_dim/2), float32.
+
+    The frequencies theta^(-i/half) are taken in float64 and rounded once
+    to float32: those are the reference's bits (its power is correctly
+    rounded, torch's float32 one is not), and at positions in the
+    thousands an ulp of frequency moves the angle by ~1e-4."""
+    half = head_dim // 2
+    expo = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freq = torch.pow(theta, expo.double()).float()
+    ang = positions.float()[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd); cos/sin (..., S, hd/2) broadcast over heads:
+    rotate-half (the first and second halves of hd pair up), in float32,
+    cast back to x's type."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].float()
+    s = sin[..., None, :].float()
+    x1f, x2f = x1.float(), x2.float()
+    return torch.cat([x1f * c - x2f * s, x2f * c + x1f * s],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, block_kv: int = 1024) -> torch.Tensor:
+    """Flash-style attention: a loop over KV blocks with an online softmax.
+
+    q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H, hd). It never
+    builds the (Sq, Skv) score matrix; one step holds (B, H, Sq, block_kv)
+    float32. KV heads repeat to H inside each block (head h reads KV head
+    h // (H / KV), as ``sdpa``'s head groups do). As the reference: q is
+    scaled by hd^-0.5 before the product, the tail block is padded with
+    zero rows, masked scores are -1e30, the running max starts at -inf,
+    and every block is computed, fully masked ones too. The reference
+    places the operands on a mesh first (``flags.HEAD_TP_ATTENTION`` picks
+    how); one process on one device has no placement to make."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    dev = q.device
+    nblk = -(-skv // block_kv)
+    qf = (q.float() * (hd ** -0.5)).transpose(1, 2)            # (B,H,Sq,hd)
+    qpos = torch.arange(sq, device=dev)
+    m = torch.full((b, h, sq), -torch.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
+    for i in range(nblk):
+        start = i * block_kv
+        kblk, vblk = k[:, start:start + block_kv], v[:, start:start + block_kv]
+        if kblk.shape[1] < block_kv:                          # the tail
+            pad = (0, 0, 0, 0, 0, block_kv - kblk.shape[1])
+            kblk, vblk = F.pad(kblk, pad), F.pad(vblk, pad)
+        ke = kblk.repeat_interleave(g, dim=2).float()         # (B,bkv,H,hd)
+        ve = vblk.repeat_interleave(g, dim=2).float()
+        s = qf @ ke.permute(0, 2, 3, 1)                       # (B,H,Sq,bkv)
+        kpos = start + torch.arange(block_kv, device=dev)
+        valid = kpos[None, :] < skv
+        if causal:
+            valid = valid & (kpos[None, :] <= qpos[:, None])
+        keep = valid[None, None]
+        if s.requires_grad:               # the max's backward keeps s
+            s = torch.where(keep, s, MASKED)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+        else:
+            # serving: in place, one (B, H, Sq, bkv) block alive at a time
+            # (qwen3-32b's is 8.6 GB at 32k), the same values
+            s.masked_fill_(~keep, MASKED)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = s.sub_(m_new[..., None]).exp_()
+        scale = torch.exp(m - m_new)
+        l = l * scale + p.sum(-1)
+        acc = acc * scale[..., None] + p @ ve.transpose(1, 2)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                    # (B,Sq,H,hd)
+
+
+# attention dispatch: chunk when the quadratic term would dominate memory
+CHUNK_THRESHOLD = 2048
+
+
+def attention(q, k, v, *, causal: bool, block_kv: int = 1024):
+    """``chunked_sdpa`` from CHUNK_THRESHOLD query rows on (where q's and
+    v's head widths agree), ``sdpa`` below."""
+    if q.shape[1] >= CHUNK_THRESHOLD and q.shape[-1] == v.shape[-1]:
+        return chunked_sdpa(q, k, v, causal=causal, block_kv=block_kv)
+    return sdpa(q, k, v, causal=causal)
+
+
+# ------------------------------------------------------------ GQA attention
+def gqa_init(generator: torch.Generator, cfg) -> nn.ParameterDict:
+    """wq (d, H hd), wk / wv (d, KV hd), wo (H hd, d) from ``dense_init``,
+    each cast to the config's type as it is drawn; zero QKV biases and
+    unit q/k norms where the config has them."""
+    dt = lm_dtype(cfg)
+    dev = generator.device
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": dense_init(generator, d, h * hd).to(dt),
+         "wk": dense_init(generator, d, kvh * hd).to(dt),
+         "wv": dense_init(generator, d, kvh * hd).to(dt),
+         "wo": dense_init(generator, h * hd, d).to(dt)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((kvh * hd,), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((kvh * hd,), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+    return _params(p)
+
+
+def gqa_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x (B, S, d), positions (B, S) -> q (B, S, H, hd), k / v (B, S, KV,
+    hd): the projections, the biases, per-head qk-norm, then rope on q and
+    k."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    cos, sin = rope_cache(positions, hd, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def gqa_apply(p, cfg, x, positions, *, causal: bool = True):
+    q, k, v = gqa_qkv(p, cfg, x, positions)
+    o = attention(q, k, v, causal=causal)
+    return o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+
+
+def write_rows(cache: torch.Tensor, pos: torch.Tensor,
+               new: torch.Tensor) -> None:
+    """cache[b, pos[b]] = new[b], in place, for every row b whose position
+    lies in the cache; a negative position counts from the end, and a row
+    still out of range is dropped, as JAX drops an out-of-bounds scatter
+    update (``ck.at[bidx, pos].set``). A dropped row writes back what it
+    read, so there is no host sync and no device-side index assert."""
+    smax = cache.shape[1]
+    p = torch.where(pos < 0, pos + smax, pos)
+    keep = (p >= 0) & (p < smax)
+    p = torch.where(keep, p, torch.zeros_like(p))
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    keep = keep.reshape((-1,) + (1,) * (new.dim() - 1))
+    cache[bidx, p] = torch.where(keep, new.to(cache.dtype), cache[bidx, p])
+
+
+def gqa_decode(p, cfg, x, pos, cache: Tuple[torch.Tensor, torch.Tensor],
+               kv_valid):
+    """x (B, 1, d); cache (k, v) each (B, Smax, KV, hd); pos (B,) absolute.
+    The new k / v are written into the cache in place (``write_rows``),
+    then q attends the first ``kv_valid`` positions of each row."""
+    q, k_new, v_new = gqa_qkv(p, cfg, x, pos[:, None])
+    ck, cv = cache
+    write_rows(ck, pos, k_new[:, 0])
+    write_rows(cv, pos, v_new[:, 0])
+    o = sdpa(q, ck, cv, causal=False, kv_len_valid=kv_valid)
+    return o.reshape(x.shape[0], 1, -1) @ p["wo"], (ck, cv)
+
+
+# ------------------------------------------------------------------- ffn
+def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
+                dtype: torch.dtype) -> nn.ParameterDict:
+    return _params({"w_gate": dense_init(generator, d, d_ff).to(dtype),
+                    "w_up": dense_init(generator, d, d_ff).to(dtype),
+                    "w_down": dense_init(generator, d_ff, d).to(dtype)})
+
+
+def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

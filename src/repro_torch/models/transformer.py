@@ -1,0 +1,246 @@
+"""Decoder-only TransformerLM of the port (the reference's
+``models/transformer.py``, its dense path): qwen2-1.5b, mistral-nemo-12b
+and qwen3-32b. MoE and MLA configs raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 10.6b).
+
+    model = init_params(generator, cfg)        # an nn.Module
+    logits, aux = forward(model, cfg, tokens)  # train / eval, (B, S, V) f32
+    loss, metrics = lm_loss(model, cfg, batch)
+    logits, cache = prefill(model, cfg, tokens, max_len=None)
+    logits, cache = decode_step(model, cfg, token, cache, pos)
+
+The reference stacks its layers into one pytree and scans over it; the
+port holds one block module per layer (``model.blocks[i]``, its ``ln1`` /
+``ln2`` and ``attn`` / ``ffn`` parameter dicts under the reference's
+names) and loops. ``forward(remat=True)`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint`` does; it
+changes no number. Tied embeddings (qwen2-1.5b) use ``embed.T`` as the
+head. Weights are in the config's type (bf16 at full width); norms, rope
+and softmax run in float32 exactly where the reference casts, and the
+logits come out in float32.
+
+The KV cache is written in place. The reference returns new arrays from
+every step, and its ``prefill`` stacks the layers' caches and pads them to
+``max_len``; at full width a copy of the cache is tens of GB (qwen2-1.5b
+at B = 64 x 32k: 60 GB). So ``prefill`` writes each layer's k / v into a
+cache from ``init_cache``, and ``decode_step`` writes into the cache it is
+given and returns that same cache with the new lengths: a caller that
+wants the old cache keeps a clone. A decode write at a position past the
+cache is dropped, as JAX drops an out-of-bounds scatter update (the
+reference decodes at ``pos == S`` after a prefill without ``max_len``).
+Both run under ``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import flags
+from repro_torch.configs.base import LMConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import layers as L
+
+_MOE_MLA = "ROADMAP Queue 1 item 10.6b (MoE and MLA)"
+
+
+def _check(cfg: LMConfig) -> None:
+    if cfg.moe or cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE and MLA layers are not ported yet "
+            f"({_MOE_MLA}); the port runs the dense GQA decoder")
+
+
+class Block(nn.Module):
+    """One pre-norm layer: ``ln1``, GQA ``attn``, ``ln2``, SwiGLU ``ffn``."""
+
+    def __init__(self, ln1: torch.Tensor, ln2: torch.Tensor,
+                 attn: nn.ParameterDict, ffn: nn.ParameterDict):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1)
+        self.ln2 = nn.Parameter(ln2)
+        self.attn = attn
+        self.ffn = ffn
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, cfg: LMConfig, embed: torch.Tensor,
+                 final_norm: torch.Tensor, blocks,
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        _check(cfg)
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed)
+        self.final_norm = nn.Parameter(final_norm)
+        self.blocks = nn.ModuleList(blocks)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
+
+    def head(self) -> torch.Tensor:
+        """(d, V): the LM head, or ``embed.T`` when the embeddings are tied."""
+        return self.embed.T if self.lm_head is None else self.lm_head
+
+
+# ---------------------------------------------------------------- init
+def init_params(generator: torch.Generator, cfg: LMConfig) -> TransformerLM:
+    """The reference's init recipe on the generator's device: embed
+    N(0, 0.02^2), unit norms, ``gqa_init`` and ``swiglu_init`` per layer,
+    an untied head N(0, 1/d). Each tensor is drawn in float32 and cast to
+    the config's type before the next is drawn, so the largest temporary
+    is one float32 tensor (qwen3-32b's embed: 3.1 GB)."""
+    _check(cfg)
+    dt = L.lm_dtype(cfg)
+    dev = generator.device
+    d, v = cfg.d_model, cfg.vocab_size
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=generator, device=dev)
+                * scale).to(dt)
+
+    embed = normal((v, d), 0.02)
+    blocks = [Block(torch.ones((d,), dtype=dt, device=dev),
+                    torch.ones((d,), dtype=dt, device=dev),
+                    L.gqa_init(generator, cfg),
+                    L.swiglu_init(generator, d, cfg.d_ff, dt))
+              for _ in range(cfg.n_layers)]
+    head = None if cfg.tie_embeddings else normal((d, v), d ** -0.5)
+    return TransformerLM(cfg, embed, torch.ones((d,), dtype=dt, device=dev),
+                         blocks, head)
+
+
+# ---------------------------------------------------------------- forward
+def _block(blk: Block, cfg: LMConfig, x, positions):
+    h = L.rms_norm(x, blk.ln1, cfg.rms_eps)
+    x = x + L.gqa_apply(blk.attn, cfg, h, positions)
+    h = L.rms_norm(x, blk.ln2, cfg.rms_eps)
+    return x + L.swiglu_apply(blk.ffn, h)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+def logits_of(model: TransformerLM, x: torch.Tensor) -> torch.Tensor:
+    """Final-normed states (..., d) -> float32 logits (..., V)."""
+    return (x @ model.head()).float()
+
+
+def forward(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
+            remat: bool = True):
+    """tokens (B, S) -> (logits (B, S, V) float32, aux loss: 0 for the
+    dense model). With ``remat`` and autograd on, each block is
+    recomputed in the backward pass."""
+    b, s = tokens.shape
+    x = model.embed[tokens]
+    positions = _positions(b, s, tokens.device)
+    for blk in model.blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block, blk, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _block(blk, cfg, x, positions)
+    x = L.rms_norm(x, model.final_norm, cfg.rms_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return logits_of(model, x), aux
+
+
+def lm_loss(model: TransformerLM, cfg: LMConfig,
+            batch: Dict[str, torch.Tensor], remat: bool = True):
+    """Mean next-token NLL over every position but the last (its label
+    wraps around), plus the router's aux term; metrics loss, aux, ppl.
+    ``flags.SHARDED_CE`` (read now) takes the NLL as max + log-sum-exp
+    minus the label's logit picked by a one-hot product, as the
+    reference's vocab-sharding-safe branch; otherwise log_softmax and a
+    gather."""
+    logits, aux = forward(model, cfg, batch["tokens"], remat=remat)
+    labels = batch["labels"].long()[..., None]
+    if flags.SHARDED_CE:
+        m = logits.amax(-1)
+        lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
+        onehot = torch.zeros_like(logits).scatter_(-1, labels, 1.0)
+        nll = lse - (logits * onehot).sum(-1)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels)[..., 0]
+    mask = torch.ones_like(nll)
+    mask[:, -1] = 0.0
+    loss = (nll * mask).sum() / mask.sum()
+    total = loss + cfg.router_aux_loss * aux
+    return total, {"loss": loss, "aux": aux, "ppl": torch.exp(loss)}
+
+
+# ---------------------------------------------------------------- serving
+class KVCache(NamedTuple):
+    """Stacked per-layer caches: k / v (Lyr, B, Smax, KV, hd) in the
+    config's type, and the (B,) valid lengths."""
+    a: torch.Tensor
+    b: torch.Tensor
+    length: torch.Tensor
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device=None) -> KVCache:
+    """A zero cache on ``device`` (default: the card)."""
+    _check(cfg)
+    dev = resolve_device(device)
+    a = torch.zeros((cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+                     cfg.head_dim), dtype=L.lm_dtype(cfg), device=dev)
+    return KVCache(a=a, b=torch.zeros_like(a),
+                   length=torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev))
+
+
+@torch.no_grad()
+def prefill_states(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
+                   max_len: Optional[int] = None):
+    """One causal pass over tokens (B, S) -> (final-normed states (B, S,
+    d), a cache of ``max_len`` (default S) positions holding each layer's
+    k / v for the S tokens, lengths S)."""
+    b, s = tokens.shape
+    max_len = max_len or s
+    if max_len < s:
+        raise ValueError(f"max_len {max_len} is shorter than the prompt "
+                         f"({s} tokens)")
+    cache = init_cache(cfg, b, max_len, tokens.device)
+    x = model.embed[tokens]
+    positions = _positions(b, s, tokens.device)
+    for i, blk in enumerate(model.blocks):
+        h = L.rms_norm(x, blk.ln1, cfg.rms_eps)
+        q, k, v = L.gqa_qkv(blk.attn, cfg, h, positions)
+        cache.a[i, :, :s] = k
+        cache.b[i, :, :s] = v
+        x = x + L.attention(q, k, v, causal=True).reshape(b, s, -1) \
+            @ blk.attn["wo"]
+        del q, k, v
+        h = L.rms_norm(x, blk.ln2, cfg.rms_eps)
+        x = x + L.swiglu_apply(blk.ffn, h)
+    cache.length.fill_(s)
+    return L.rms_norm(x, model.final_norm, cfg.rms_eps), cache
+
+
+def prefill(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
+            max_len: Optional[int] = None):
+    """tokens (B, S) -> (logits (B, S, V) float32, populated KVCache)."""
+    x, cache = prefill_states(model, cfg, tokens, max_len)
+    with torch.no_grad():
+        return logits_of(model, x), cache
+
+
+@torch.no_grad()
+def decode_step(model: TransformerLM, cfg: LMConfig, token: torch.Tensor,
+                cache: KVCache, pos: torch.Tensor):
+    """token (B,), pos (B,) absolute position -> (logits (B, V) float32,
+    the same cache written at ``pos`` with lengths ``pos + 1``)."""
+    x = model.embed[token][:, None, :]                       # (B, 1, d)
+    kv_valid = pos + 1
+    for i, blk in enumerate(model.blocks):
+        h = L.rms_norm(x, blk.ln1, cfg.rms_eps)
+        h, _ = L.gqa_decode(blk.attn, cfg, h, pos, (cache.a[i], cache.b[i]),
+                            kv_valid)
+        x = x + h
+        h = L.rms_norm(x, blk.ln2, cfg.rms_eps)
+        x = x + L.swiglu_apply(blk.ffn, h)
+    x = L.rms_norm(x, model.final_norm, cfg.rms_eps)
+    return logits_of(model, x[:, 0]), KVCache(a=cache.a, b=cache.b,
+                                              length=kv_valid)

@@ -1,13 +1,14 @@
-"""Serving steps (the reference's ``serve/serve_step.py``: the ANN and
-recsys parts).
+"""Serving steps (the reference's ``serve/serve_step.py``).
 
 ``ann_search_step(index, k)`` serves any ``core.index_api.Index``, with
 optional bucketing and retries. ``recsys_score_step(cfg)`` scores a batch;
 ``recsys_retrieval_step(cfg, k)`` scores one user against C candidates and
-keeps the top k. The recsys steps return a plain function of (model,
-batch[, cand_ids]) and run under ``torch.inference_mode()``, the ANN
-step under ``torch.no_grad()`` (an index may keep what a search makes). The
-LM steps are not ported (ROADMAP Queue 1 item 10.6).
+keeps the top k. ``lm_prefill_step(cfg)`` runs a prompt and returns the
+last position's logits with the cache, ``lm_decode_step(cfg)`` one token
+on that cache (written in place). The recsys steps return a plain function
+of (model, batch[, cand_ids]) and run under ``torch.inference_mode()``,
+the ANN and LM steps under ``torch.no_grad()`` (an index may keep what a
+search makes; the LM's cache outlives the step).
 
 DIN and DLRM build a wide intermediate per scored row: DIN a (S, 8 d)
 feature block per candidate ((1M, 100, 144) f32 is 57.6 GB at the full
@@ -22,7 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
 
 
 def ann_search_step(index, k: int = 10, params=None, buckets=None,
@@ -61,6 +62,27 @@ def ann_search_step(index, k: int = 10, params=None, buckets=None,
         from repro_torch.serve.resilience import ResilientSearch
         out = ResilientSearch(out, retries=retries, deadline_s=deadline_s)
     return out
+
+
+def lm_prefill_step(cfg) -> Callable:
+    """step(model, tokens, max_len=None) -> (logits (B, V) of the last
+    position, cache). The reference takes ``prefill``'s (B, S, V) logits
+    and keeps the last row; rows never interact, so the head is applied to
+    the last position only (at 32k x 151,936 the whole would be 19.9 GB a
+    sequence). Without ``max_len`` the cache holds the prompt exactly, as
+    the reference's step."""
+    @torch.no_grad()
+    def step(model, tokens, max_len=None):
+        x, cache = transformer.prefill_states(model, cfg, tokens, max_len)
+        return transformer.logits_of(model, x[:, -1]), cache
+    return step
+
+
+def lm_decode_step(cfg) -> Callable:
+    """step(model, token, cache, pos) -> (logits (B, V), cache)."""
+    def step(model, token, cache, pos):
+        return transformer.decode_step(model, cfg, token, cache, pos)
+    return step
 
 
 CHUNK_BYTES = 1 << 30        # one chunk's widest intermediates

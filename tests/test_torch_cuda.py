@@ -1837,3 +1837,121 @@ def test_modes_the_kernels_cannot_take_raise(dev):
         beam_hop(ids[:, 0], ids.new_zeros((50, 3)), pool_i,
                  torch.zeros((4, 8), device=dev), pool_i.bool(), q,
                  db.bfloat16())
+
+
+# -- the dense LM (no kernel of the port: plain PyTorch on the card) ---------
+
+def _lm_cfg(arch, layers=2):
+    """The arch's full width and vocabulary at ``layers`` layers."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    return replace(get_arch(arch).config, n_layers=layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mistral-nemo-12b",
+                                  "qwen3-32b"])
+def test_lm_prefill_then_decode_equals_forward_on_the_card(dev, arch):
+    """Full width, 2 layers, bf16: prefill 24 tokens into a 30-slot cache,
+    decode 6 greedily; each step's logits against forward over the 30
+    tokens: relative RMS difference <= 5% and the largest <= 25% of the
+    largest |logit| (bf16 rounds at other places when the products take
+    other shapes), the ids equal wherever forward's top two are further
+    apart than twice the largest difference."""
+    from repro_torch.models import transformer as T
+    cfg = _lm_cfg(arch)
+    model = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=g,
+                           device=dev, dtype=torch.int32)
+    last, cache = T.prefill(model, cfg, prompt, max_len=30)
+    rows, ids = [last[:, -1]], []
+    for i in range(6):
+        ids.append(rows[-1].argmax(-1).to(torch.int32))
+        lg, cache = T.decode_step(model, cfg, ids[-1], cache, torch.full(
+            (2,), 24 + i, dtype=torch.int32, device=dev))
+        rows.append(lg)
+    assert cache.length.tolist() == [30, 30]
+    seq = torch.cat([prompt, torch.stack(ids, 1)], 1)
+    with torch.no_grad():
+        fwd, _ = T.forward(model, cfg, seq)
+    got, want = torch.stack(rows, 1), fwd[:, 23:]
+    err = (got - want).abs()
+    assert float((got - want).norm() / want.norm()) <= 0.05
+    assert float(err.max()) <= 0.25 * float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 2 * float(err.max())
+    assert bool(((got.argmax(-1) == want.argmax(-1)) | tie).all())
+
+
+@pytest.mark.cuda
+def test_lm_decode_drops_the_write_past_the_cache_on_the_card(dev):
+    """A prefill without max_len sizes the cache to the prompt; a decode
+    at pos == S drops its write (JAX's out-of-bounds rule) with no device
+    assert, moves the lengths, and gives the CPU's logits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import lm_decode_step, lm_prefill_step
+    cfg = get_arch("qwen3-32b").smoke_config
+    model = T.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    pos = torch.tensor([12, 5], dtype=torch.int32)      # row 0 past the end
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        m = model.to(d)
+        last, cache = lm_prefill_step(cfg)(m, toks.to(d))
+        before = cache.a.clone()
+        logits, cache = lm_decode_step(cfg)(m, last.argmax(-1).int(),
+                                            cache, pos.to(d))
+        torch.cuda.synchronize()
+        assert cache.length.tolist() == [13, 6]
+        assert torch.equal(cache.a[:, 0], before[:, 0])     # dropped
+        assert not torch.equal(cache.a[:, 1], before[:, 1])
+        out[d.type] = logits.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lm_chunked_attention_equals_sdpa_on_the_card(dev):
+    from repro_torch.models.layers import CHUNK_THRESHOLD, attention, sdpa
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((1, CHUNK_THRESHOLD + 100, 12, 128), generator=g,
+                    device=dev)
+    k, v = (torch.randn((1, CHUNK_THRESHOLD + 100, 2, 128), generator=g,
+                        device=dev) for _ in range(2))
+    with torch.no_grad():
+        torch.testing.assert_close(attention(q, k, v, causal=True),
+                                   sdpa(q, k, v, causal=True), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_the_card_equals_the_cpu(dev):
+    """One adamw(3e-4) step of the smoke config in float32 with two
+    microbatches: the card's loss and gradient norm against the CPU's, and
+    every parameter moved on both (a first Adam step moves an element by
+    about lr * sign(g), so a gradient element near zero may step either
+    way: the parameters are not compared)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+    cfg = get_arch("qwen2-1.5b").smoke_config
+    batch = lm_batch(torch.Generator().manual_seed(1), 4, 32, cfg.vocab_size)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        model = T.init_params(torch.Generator().manual_seed(0), cfg).to(d)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = adamw(3e-4)
+        step = make_train_step(loss_fn_for("lm", cfg), opt, microbatches=2)
+        model, _, met = step(model, opt.init(model),
+                             {k: v.to(d) for k, v in batch.items()})
+        assert all(not torch.equal(p.detach(), before[n])
+                   for n, p in model.named_parameters())
+        out[d.type] = (float(met["loss"]), float(met["grad_norm"]))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b)

@@ -46,6 +46,12 @@ TRAIN_MODULES = {
     "repro_torch.train.train_step", "repro_torch.train.trainer",
     "repro_torch.launch.train"}
 
+# the modules of the dense LM slice
+LM_MODULES = {
+    "repro_torch.models.transformer", "repro_torch.serve.sampling",
+    "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.mistral_nemo_12b",
+    "repro_torch.configs.qwen3_32b"}
+
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.MULTILINE)
 
@@ -64,6 +70,27 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         SHARDED_MODULES - set(names.split(","))
     assert TRAIN_MODULES <= set(names.split(",")), \
         TRAIN_MODULES - set(names.split(","))
+    assert LM_MODULES <= set(names.split(",")), \
+        LM_MODULES - set(names.split(","))
+
+
+_LM_PROBE = """
+import sys
+import repro_torch.models.transformer, repro_torch.serve.sampling
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(",".join(bad) or "none")
+"""
+
+
+def test_the_lm_modules_alone_load_no_jax():
+    """``models.transformer`` and ``serve.sampling``, imported on their own
+    in a fresh process, load neither JAX nor the reference."""
+    out = subprocess.run([sys.executable, "-c", _LM_PROBE],
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "none"
 
 
 def test_no_file_of_the_port_imports_jax_or_the_reference():

@@ -82,16 +82,17 @@ def _close(got, want):
 
 
 def test_registry_lists_what_the_port_runs():
-    assert list_archs() == ["ann-laion", "din", "dlrm-mlperf", "sasrec",
-                            "two-tower-retrieval"]
+    assert list_archs() == ["ann-laion", "din", "dlrm-mlperf",
+                            "mistral-nemo-12b", "qwen2-1.5b", "qwen3-32b",
+                            "sasrec", "two-tower-retrieval"]
     assert get_arch("two-tower-retrieval").config == CONFIG
     ref = jax_get_arch("two-tower-retrieval")
     assert (CONFIG.table_vocabs, CONFIG.embed_dim, CONFIG.tower_mlp,
             CONFIG.multi_hot) == (ref.config.table_vocabs,
                                   ref.config.embed_dim, ref.config.tower_mlp,
                                   ref.config.multi_hot)
-    for arch, item in [("qwen2-1.5b", "10.6"), ("dimenet", "10.6"),
-                       ("qwen3-32b", "10.6")]:
+    for arch, item in [("deepseek-v2-236b", "10.6b"), ("dimenet", "10.6c"),
+                       ("deepseek-moe-16b", "10.6b")]:
         with pytest.raises(NotImplementedError, match=re.escape(item)):
             get_arch(arch)
     with pytest.raises(KeyError):
@@ -187,11 +188,11 @@ def test_recsys_batch_shapes_dtypes_ranges():
 
 
 def test_other_families_raise_naming_their_item():
-    """A config of a family the port does not run (an LM's, a GNN's) is
-    refused by family_of, naming the ROADMAP item that brings it."""
-    for arch in ("qwen3-32b", "dimenet"):
+    """A config of a family the port does not run (an MoE LM's, a GNN's)
+    is refused by family_of, naming the ROADMAP item that brings it."""
+    for arch, item in (("deepseek-v2-236b", "10.6b"), ("dimenet", "10.6c")):
         cfg = jax_get_arch(arch).smoke_config
-        with pytest.raises(NotImplementedError, match="10.6"):
+        with pytest.raises(NotImplementedError, match=re.escape(item)):
             recsys.family_of(cfg)
 
 

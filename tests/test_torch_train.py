@@ -39,7 +39,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_arch
 from repro_torch.data import recsys_batch
 from repro_torch.launch.train import main as train_main
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
 from repro_torch.optim import adamw, init_error_state, mixed_optimizer
 from repro_torch.train.train_step import loss_fn_for, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -219,10 +219,16 @@ def test_sasrec_negatives_are_a_fixed_set():
 
 
 def test_loss_fn_for_refuses_lm_and_gnn():
+    """The GNN's loss is refused naming its item (10.6c); the LM's is
+    ported (tests/test_torch_transformer.py), and its MoE configs are
+    refused when the model is built (10.6b)."""
     cfg = get_arch("din").smoke_config
-    for fam in ("lm", "gnn"):
-        with pytest.raises(NotImplementedError, match="10.6"):
-            loss_fn_for(fam, cfg)
+    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
+        loss_fn_for("gnn", cfg)
+    assert callable(loss_fn_for("lm", get_arch("qwen2-1.5b").smoke_config))
+    moe = jax_get_arch("deepseek-moe-16b").smoke_config
+    with pytest.raises(NotImplementedError, match=re.escape("10.6b")):
+        transformer.init_params(torch.Generator().manual_seed(0), moe)
     with pytest.raises(KeyError):
         loss_fn_for("ann", cfg)
 
@@ -509,6 +515,6 @@ def test_train_launcher_on_the_cpu(arch, capsys, tmp_path):
 def test_train_launcher_refuses_the_other_families():
     with pytest.raises(SystemExit, match="use launch/tune.py"):
         train_main(["--arch", "ann-laion", "--device", "cpu"])
-    for arch in ("dimenet", "qwen2-1.5b"):
-        with pytest.raises(NotImplementedError, match="10.6"):
+    for arch, item in (("dimenet", "10.6c"), ("deepseek-moe-16b", "10.6b")):
+        with pytest.raises(NotImplementedError, match=re.escape(item)):
             train_main(["--arch", arch, "--device", "cpu"])
