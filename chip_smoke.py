@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--lm-only]
+
+``--lm-only`` runs the device phase and the LM phases (16) alone and
+prints no result line.
 
 Phases, each printing one JSON line:
   1. device   — refuses to run without CUDA; prints the card's name and
@@ -284,13 +287,43 @@ Phases, each printing one JSON line:
                 card (LM_ATTN_TOL); check 3, a 2-layer qwen2-1.5b at full
                 width and vocabulary in f32 on the card against the CPU
                 (LM_CPU_TOL). lm_train: qwen2-1.5b at full width, train_4k
-                cut to LM_TRAIN (4 x 4,096 in 2 microbatches), 3 steps of
+                cut to LM_TRAINS (4 x 4,096 in 2 microbatches), 3 steps of
                 adamw(3e-4) and one profiled: step ms, peak bytes, losses;
                 finite losses and every parameter moved but those bf16
                 rounding holds (asserted). lm_cli: launch.serve and
                 launch.train --steps 2 for qwen2-1.5b exit 0 with the
                 reference's lines. No kernel of the port launches in them
                 (asserted).
+                The MoE and MLA LMs (item 10.6b) run in the same phases:
+                lm_serve takes deepseek-moe-16b at its full published size
+                and deepseek-v2-236b cut in depth to LM_LAYERS' 8 of its 60
+                layers (the dense one and 7 MoE: 58.38 GB of weights; the
+                whole is 471.5 GB), both in bf16, the cells at LM_CUTS;
+                check 1 runs there at capacity factor E / k
+                (lm_check_config: no token can drop, so routing does not
+                depend on which tokens share a group), counts the tokens
+                bf16 rounding routed apart in the greedy run, and holds a
+                second run routed to the forward's ids to the dense
+                limits; the cells run at the published 1.25. The timed
+                calls run with the routing log closed; the routing comes
+                from one more untimed call on the same inputs. An MoE prefill
+                reports each layer's per-expert pair counts and its
+                dropped share, and its bound counts the active parameters
+                (the capacity padding reported apart); an MoE decode
+                step's bound reads the weights the step touches (every
+                dense weight, and each routed expert the step's ids name,
+                once) plus the valid cache; MLA's prefill attention FLOP is
+                at the padded 192 width, its absorbed decode's at its
+                latent form. lm_checks adds check 4, a 2-layer
+                deepseek-moe-16b (1 dense + 1 MoE) at full width and
+                vocabulary in f32, the card against the CPU (LM_CPU_TOL),
+                and its MoE layer on integer-valued inputs (exact logits):
+                routed ids and drop set equal; and check 5, the absorbed
+                MLA decode against the rebuilding one at deepseek-v2's
+                head shapes in f32 over LM_MLA_CHECK cached positions.
+                lm_train adds deepseek-moe-16b at full width cut to 4 of
+                its 28 layers (its aux loss beside the loss); lm_cli runs
+                both launchers for both ids.
  15. the kernels line: launches on the main path (fit + serve for the f32
                 kernels and l2topk, quantize + serve for the LUT kernels,
                 recsys + recsys_ann for embedding_bag, the two-tower
@@ -553,13 +586,30 @@ SHARDED_CLI_RUNS = (
 # its 8.6 GB cache and an 8.6 GB score block). A decode cell's cache is
 # filled with random values instead of a 32k prefill per row: a step's
 # work does not depend on them. long_500k is skipped by skip_reason.
-LM_ARCHS = ("qwen2-1.5b", "mistral-nemo-12b", "qwen3-32b")
+#
+# The MoE / MLA configs (item 10.6b): deepseek-moe-16b at full size (32.75
+# GB); deepseek-v2-236b cut in depth to LM_LAYERS (the whole is 471.5 GB:
+# no card holds it), width, experts, heads and vocabulary as published.
+# Both prefill 8,192 tokens as the 12b / 32b; deepseek-moe-16b decodes 4
+# rows at 32k (its MHA cache is 7.52 GB a row: 30.06 GB), deepseek-v2-236b
+# 32 (its latent cache 1,152 B per token and layer: 9.66 GB)
+LM_ARCHS = ("qwen2-1.5b", "mistral-nemo-12b", "qwen3-32b",
+            "deepseek-moe-16b", "deepseek-v2-236b")
+LM_LAYERS = {"deepseek-v2-236b": 8}
 LM_CUTS = {"qwen2-1.5b": {"prefill_32k": (1, 32768),
                           "decode_32k": (64, 32768)},
            "mistral-nemo-12b": {"prefill_32k": (1, 8192),
                                 "decode_32k": (8, 32768)},
            "qwen3-32b": {"prefill_32k": (1, 8192),
-                         "decode_32k": (1, 32768)}}
+                         "decode_32k": (1, 32768)},
+           "deepseek-moe-16b": {"prefill_32k": (1, 8192),
+                                "decode_32k": (4, 32768)},
+           "deepseek-v2-236b": {"prefill_32k": (1, 8192),
+                                "decode_32k": (32, 32768)}}
+# check 1 of an MoE config runs at capacity factor E / k, where a group's
+# every pair fits (cap = group size + 1): capacity drops depend on which
+# tokens share a group, so forward over the sequence and prefill + decode
+# would route apart at the published 1.25 by design (lm_check_config)
 LM_DECODE_STEPS = 8                         # timed greedy steps per cell
 # check 1: prefill LM_CHECK[0] tokens, decode LM_CHECK[1] greedily, against
 # forward over the whole sequence, in bf16: the logits' relative RMS
@@ -568,7 +618,11 @@ LM_DECODE_STEPS = 8                         # timed greedy steps per cell
 # in other orders and bf16 rounds at other places). Pinned from the first
 # run on an NVIDIA H100 80GB HBM3 (relative RMS 0.0072 / 0.0161 / 0.0192,
 # largest 0.047 / 0.086 / 0.105 of 3.6 / 5.8 / 4.7 for the three configs),
-# each about 2.6 times the worst reading
+# each about 2.6 times the worst reading. An MoE config's greedy run can
+# route a near-tie token to another expert on bf16 rounding alone: the
+# phase counts those flips and their positions, then runs prefill + decode
+# again with each MoE call routed to the forward's ids
+# (moe.forced_routing), and holds that run to the same limits
 LM_CHECK = (64, 8)
 LM_BF16_REL, LM_BF16_MAX = 0.05, 0.06
 # the prefill cells profiled (one more call under torch.profiler: device
@@ -581,14 +635,33 @@ LM_ATTN_CHECK = dict(b=1, s=4096, h=12, kv=2, hd=128)
 LM_ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
 LM_CPU_TOKENS = (2, 16)
 LM_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+# check 4's MoE layer on integer-valued inputs: B x S tokens through
+# deepseek-moe-16b's layer (2 groups of 1,024, the published capacity), x a
+# shared integer row in [-4, 4] plus integer noise in [-1, 1] (alike
+# tokens crowd the same experts, so pairs drop) and the router rounded to
+# multiples of 1/64, so every logit is exact on either device; the layer's
+# output to rtol 1e-4 and atol LM_MOE_LAYER_ATOL of its largest magnitude
+# (its expert terms cancel); check 5: the absorbed MLA decode against the
+# rebuilding one at deepseek-v2's head shapes in f32, B rows over S cached
+# positions
+LM_MOE_INT_TOKENS = (1, 2048)
+LM_MOE_LAYER_ATOL = 1e-5
+LM_MLA_CHECK = dict(b=2, s=4096)
+LM_MLA_TOL = dict(rtol=1e-4, atol=1e-4)
 # lm_train: qwen2-1.5b at full width, train_4k (global batch 256 x 4,096)
 # cut to 4 sequences in 2 microbatches, adamw(3e-4) as launch.train
-LM_TRAIN = dict(arch="qwen2-1.5b", batch=4, seq=4096, microbatches=2,
-                steps=3, lr=3e-4)
-LM_CLI_RUNS = (("serve", "repro_torch.launch.serve", ["--arch",
-                                                      "qwen2-1.5b"]),
-               ("train", "repro_torch.launch.train",
-                ["--arch", "qwen2-1.5b", "--steps", "2"]))
+# deepseek-moe-16b at full width cut to 4 of its 28 layers (1 dense + 3
+# MoE: 2.27 B parameters, ~27 GB with gradients and AdamW's f32 moments)
+LM_TRAINS = (dict(arch="qwen2-1.5b", layers=None, batch=4, seq=4096,
+                  microbatches=2, steps=3, lr=3e-4),
+             dict(arch="deepseek-moe-16b", layers=4, batch=4, seq=4096,
+                  microbatches=2, steps=3, lr=3e-4))
+LM_CLI_ARCHS = ("qwen2-1.5b", "deepseek-moe-16b", "deepseek-v2-236b")
+LM_CLI_RUNS = tuple(
+    run for arch in LM_CLI_ARCHS for run in (
+        ("serve", "repro_torch.launch.serve", ["--arch", arch]),
+        ("train", "repro_torch.launch.train",
+         ["--arch", arch, "--steps", "2"])))
 LM_CLI_TIMEOUT = 300
 PEAK_BF16 = 989e12                          # dense bf16 tensor cores
 
@@ -3877,16 +3950,126 @@ def lm_bytes_read(model, cfg) -> int:
 
 
 def lm_linear_flops(cfg, tokens: int) -> float:
-    """2 x the non-embedding parameters x tokens: the projections and the
-    FFN (the norms and rope not counted)."""
+    """2 x the non-embedding parameters a token uses x tokens: the
+    projections and the FFN, an MoE layer's k routed experts, its shared
+    ones and its router (``active_param_count``; all of them for a dense
+    model); the norms and rope not counted."""
     emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    return 2.0 * (cfg.param_count() - emb) * tokens
+    return 2.0 * (cfg.active_param_count() - emb) * tokens
 
 
 def lm_attn_flops(cfg, b: int, pairs: float) -> float:
     """QK^T and PV over ``pairs`` (query, key) pairs a row needs, every
-    layer and head."""
+    layer and head; MLA's at the 192 width its padded v takes too."""
     return 4.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * b * pairs
+
+
+def lm_decode_attn_flops(cfg, b: int, kv: float) -> float:
+    """A decode step's attention over ``kv`` cached positions a row: GQA's
+    QK^T and PV; MLA's absorbed form scores the latent (r) and rope (rd)
+    keys and takes the context in the latent, 2 H (2 r + rd) a position
+    (its q / output absorption is in the linear count, as wkv_b's)."""
+    if cfg.use_mla:
+        return (2.0 * cfg.n_layers * cfg.n_heads * b * kv
+                * (2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim))
+    return lm_attn_flops(cfg, b, kv)
+
+
+def lm_check_config(cfg):
+    """Check 1's config: an MoE config at capacity factor E / k (a
+    group's every pair fits); a dense one as it is."""
+    if not cfg.moe:
+        return cfg
+    return replace(cfg, moe_capacity_factor=cfg.n_routed_experts
+                   / cfg.moe_top_k)
+
+
+def routing_flips(torch, served: list, whole: list) -> dict:
+    """(token, MoE layer) pairs whose expert set differs between a
+    prefill + decode run (``served``: the prefill's log, then each decode
+    step's, layer by layer) and a forward over the whole sequence
+    (``whole``), how many were compared, and the token positions with a
+    flip in any layer."""
+    n_layers = len(whole)
+    differ = total = 0
+    flipped = None
+    for layer, rec in enumerate(whole):
+        mine = rec["ids"].sort(-1).values
+        theirs = torch.cat([r["ids"] for r in served[layer::n_layers]])
+        apart = (mine != theirs.sort(-1).values).any(-1)
+        differ += int(apart.sum())
+        total += mine.shape[0]
+        flipped = apart if flipped is None else flipped | apart
+    return dict(differ=differ, compared=total,
+                positions=flipped.nonzero()[:, 0].tolist())
+
+
+def forward_routing(whole: list, s: int, n: int) -> list:
+    """The forward's routed ids (``whole``: one (S + n, k) entry per MoE
+    layer of a B = 1 sequence) in a prefill of ``s`` tokens then ``n``
+    decode steps' call order: each layer's first ``s`` rows, then layer
+    by layer each step's row."""
+    return ([r["ids"][:s] for r in whole]
+            + [r["ids"][s + i:s + i + 1] for i in range(n) for r in whole])
+
+
+def decode_agreement(got, want) -> dict:
+    """Check 1's reading of served logits ``got`` against the forward's
+    ``want`` (rows, V): relative RMS, largest difference and the logit
+    scale; greedy ids equal up to ties within twice the largest
+    difference."""
+    diff = (got - want).abs()
+    max_diff, scale = float(diff.max()), float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= 2 * max_diff
+    same = got.argmax(-1) == want.argmax(-1)
+    picked = want.gather(1, got.argmax(-1, keepdim=True))[:, 0]
+    ids_ok = bool((same | tie).all()) and bool(
+        (top2[:, 0] - picked <= 2 * max_diff).all())
+    return dict(rel_rms=float((got - want).norm() / want.norm()),
+                max_abs_diff=max_diff, logit_scale=scale,
+                ids_equal=int(same.sum()), ties=int(tie.sum()),
+                ids_ok=ids_ok)
+
+
+def moe_expert_bytes(model) -> tuple:
+    """(bytes of one routed expert's three matrices, bytes of all routed
+    experts) over the model's MoE blocks."""
+    one, total = 0, 0
+    for blk in model.blocks:
+        if blk.moe is not None:
+            ws = (blk.moe.w_gate, blk.moe.w_up, blk.moe.w_down)
+            total += sum(w.numel() * w.element_size() for w in ws)
+            one = sum(w[0].numel() * w.element_size() for w in ws)
+    return one, total
+
+
+def moe_routing_summary(log: list, cfg) -> dict:
+    """Per MoE layer of one call: pairs, kept, dropped share, slots, the
+    distinct experts routed to and the per-expert pair counts (min, max);
+    the totals over the layers."""
+    layers = []
+    for r in log:
+        counts = r["counts"].cpu()
+        kept = int(r["kept"])
+        layers.append(dict(pairs=r["pairs"], kept=kept,
+                           dropped_share=1.0 - kept / r["pairs"],
+                           slots=r["slots"],
+                           distinct_experts=int((counts > 0).sum()),
+                           expert_pairs_min=int(counts.min()),
+                           expert_pairs_max=int(counts.max())))
+    pairs = sum(x["pairs"] for x in layers)
+    kept = sum(x["kept"] for x in layers)
+    slots = sum(x["slots"] for x in layers)
+    per_slot = 6.0 * cfg.d_model * cfg.moe_d_ff      # gate, up, down
+    return dict(layers=len(layers), pairs=pairs, kept=kept,
+                dropped_share=1.0 - kept / pairs if pairs else 0.0,
+                slots=slots, expert_flop_kept=per_slot * kept,
+                expert_flop_computed=per_slot * slots,
+                capacity_padding_share=1.0 - kept / slots if slots else 0.0,
+                distinct_experts=[x["distinct_experts"] for x in layers],
+                first_layer_expert_pairs=log[0]["counts"].cpu().tolist()
+                if log else [], by_layer=layers)
 
 
 def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
@@ -3899,12 +4082,15 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import attention
     from repro_torch.serve.serve_step import lm_decode_step, lm_prefill_step
 
     spec = get_arch(arch)
     cfg = spec.config
+    if arch in LM_LAYERS:
+        cfg = replace(cfg, n_layers=LM_LAYERS[arch])
     dev = torch.device("cuda")
     bw, _ = peaks(gpu)
     torch.cuda.synchronize()
@@ -3920,6 +4106,9 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
     prefill, decode = lm_prefill_step(cfg), lm_decode_step(cfg)
     out = {"arch": arch, "init_seconds": init_s, "weight_bytes": wbytes,
            "params": sum(p.numel() for p in model.parameters()),
+           "layers": cfg.n_layers, "layers_cut_from": spec.config.n_layers,
+           "param_count": cfg.param_count(),
+           "active_param_count": cfg.active_param_count(),
            "resident_bytes_before": resident,
            "skipped": {name: spec.skip_reason(name) for name in LM_SHAPES
                        if spec.skip_reason(name)}}
@@ -3928,38 +4117,54 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
         return torch.randint(0, cfg.vocab_size, (b, s), generator=g,
                              device=dev, dtype=torch.int32)
 
-    with torch.no_grad():
-        # check 1: prefill then greedy decode == forward over the sequence
-        s, n = LM_CHECK
-        prompt = tokens(1, s)
-        last, cache = prefill(model, prompt, max_len=s + n)
+    def served(ccfg, prompt, n, feed=None):
+        """Prefill ``prompt`` (1, s), then ``n`` decode steps, greedy or
+        fed ``feed``'s (1, n) tokens: the n + 1 logit rows, the fed ids."""
+        s = prompt.shape[1]
+        last, cache = lm_prefill_step(ccfg)(model, prompt, max_len=s + n)
         rows, ids = [last[0]], []
         for i in range(n):
-            ids.append(rows[-1].argmax(-1).to(torch.int32).reshape(1))
-            lg, cache = decode(model, ids[-1], cache, torch.full(
-                (1,), s + i, dtype=torch.int32, device=dev))
+            ids.append(rows[-1].argmax(-1).to(torch.int32).reshape(1)
+                       if feed is None else feed[:, i])
+            lg, cache = lm_decode_step(ccfg)(
+                model, ids[-1], cache, torch.full(
+                    (1,), s + i, dtype=torch.int32, device=dev))
             rows.append(lg[0])
+        return torch.stack(rows), ids
+
+    with torch.no_grad():
+        # check 1: prefill then greedy decode == forward over the sequence;
+        # an MoE config's held run has the forward's routing
+        s, n = LM_CHECK
+        ccfg = lm_check_config(cfg)
+        prompt = tokens(1, s)
+        with M.routing_log() as served_log:
+            got, ids = served(ccfg, prompt, n)
         seq = torch.cat([prompt, torch.stack(ids, 1)], 1)
-        fwd, _ = T.forward(model, cfg, seq, remat=False)
-        got, want = torch.stack(rows), fwd[0, s - 1:]
-        diff = (got - want).abs()
-        max_diff, scale = float(diff.max()), float(want.abs().max())
-        rel = float((got - want).norm() / want.norm())
-        top2 = want.topk(2, dim=-1).values
-        tie = (top2[:, 0] - top2[:, 1]) <= 2 * max_diff
-        same = got.argmax(-1) == want.argmax(-1)
-        picked = want.gather(1, got.argmax(-1, keepdim=True))[:, 0]
-        ids_ok = bool((same | tie).all()) and bool(
-            (top2[:, 0] - picked <= 2 * max_diff).all())
-        out["check_decode"] = dict(prompt=s, tokens=n, rel_rms=rel,
-                                   max_abs_diff=max_diff, logit_scale=scale,
-                                   ids_equal=int(same.sum()),
-                                   ties=int(tie.sum()), ids_ok=ids_ok)
-        del cache, fwd, got, want, last, rows
-        if not (rel <= LM_BF16_REL and max_diff <= LM_BF16_MAX * scale
-                and ids_ok):
+        with M.routing_log() as whole:
+            fwd, _ = T.forward(model, ccfg, seq, remat=False)
+        want = fwd[0, s - 1:]
+        held = free = decode_agreement(got, want)
+        check = dict(prompt=s, tokens=n, **held,
+                     limits=(LM_BF16_REL, LM_BF16_MAX))
+        if cfg.moe:
+            forced = forward_routing(whole, s, n)
+            with M.forced_routing(forced), M.routing_log() as log:
+                got, _ = served(ccfg, prompt, n, feed=seq[:, s:])
+            if len(log) != len(forced) or not all(
+                    torch.equal(r["ids"], f) for r, f in zip(log, forced)):
+                raise AssertionError(f"{arch}: the forced run did not take "
+                                     f"the forward's routing")
+            held = decode_agreement(got, want)
+            check.update(held, capacity_factor=ccfg.moe_capacity_factor,
+                         free_run=dict(free, routing_flips=routing_flips(
+                             torch, served_log, whole)))
+        out["check_decode"] = check
+        del fwd, got, want, whole, served_log
+        if not (held["rel_rms"] <= LM_BF16_REL and held["max_abs_diff"]
+                <= LM_BF16_MAX * held["logit_scale"] and held["ids_ok"]):
             raise AssertionError(f"{arch}: prefill + decode disagrees with "
-                                 f"forward: {out['check_decode']}")
+                                 f"forward: {check}")
 
         # prefill_32k at its cut: the last position's logits and the cache
         b, sp = LM_CUTS[arch]["prefill_32k"]
@@ -3967,10 +4172,16 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         holder = {}
-        ms = time_ms(lambda: holder.update(r=prefill(model, toks)), reps=1,
-                     warmup=0)
+        ms = time_ms(lambda: holder.update(r=prefill(model, toks)),
+                     reps=1, warmup=0)
         last = holder.pop("r")[0]
         peak = torch.cuda.max_memory_allocated()
+        routing = None
+        if cfg.moe:
+            # the routing from one more call, untimed: the log adds kernels
+            with M.routing_log() as log:
+                prefill(model, toks)
+            routing = moe_routing_summary(log, cfg)
         if not (torch.isfinite(last).all() and last.shape == (
                 b, cfg.vocab_size)):
             raise AssertionError(f"{arch}: prefill gave non-finite or "
@@ -4007,7 +4218,7 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
             bound_linear_bf16_ms=t_lin * 1e3,
             share=max(t_ops, t_bytes) / ms,
             attention_one_layer_ms=attn_ms, sdpa_library_ms=sdpa_ms,
-            profile=prof)
+            routing=routing, profile=prof)
 
         # decode_32k at its cut: a full cache of random values, greedy steps
         # at its last LM_DECODE_STEPS positions
@@ -4022,13 +4233,19 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
         pos0 = ctx - LM_DECODE_STEPS
         lg, cache = decode(model, tok, cache, torch.full(
             (b,), pos0 - 1, dtype=torch.int32, device=dev))        # warm
-        times = []
+        times, steps_log = [], []
         for i in range(LM_DECODE_STEPS):
             tok = lg.argmax(-1).to(torch.int32)
             pos = torch.full((b,), pos0 + i, dtype=torch.int32, device=dev)
             holder = {}
             times.append(time_ms(lambda: holder.update(
                 r=decode(model, tok, cache, pos)), reps=1, warmup=0))
+            if cfg.moe:
+                # the step's routing from the same step again, untimed (it
+                # rewrites the same cache rows)
+                with M.routing_log() as log:
+                    decode(model, tok, cache, pos)
+                steps_log.append(log)
             lg, cache = holder.pop("r")
         peak = torch.cuda.max_memory_allocated()
         prof = profile_busy(torch, lambda: decode(
@@ -4038,12 +4255,24 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
             raise AssertionError(f"{arch}: decode gave non-finite logits "
                                  f"or lengths {cache.length.tolist()}")
         kv_valid = ctx - LM_DECODE_STEPS / 2 + 0.5     # mean over the steps
-        kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
-                    * b * kv_valid)
-        t_bytes = (lm_bytes_read(model, cfg) + kv_bytes) / bw * 1e3
+        per_pos = (math.prod(cache.a.shape[3:]) + math.prod(cache.b.shape[3:])
+                   ) * cache.a.element_size()        # a layer's, one row's
+        kv_bytes = cfg.n_layers * per_pos * b * kv_valid
+        weight_read = lm_bytes_read(model, cfg)
+        routing = None
+        if cfg.moe:
+            # only the routed experts a step's ids name are read, once each
+            one, every = moe_expert_bytes(model)
+            touched = [sum(int((r["counts"] > 0).sum()) for r in log)
+                       for log in steps_log]
+            weight_read += one * statistics.mean(touched) - every
+            routing = dict(experts_touched_per_step=touched,
+                           expert_bytes=one,
+                           first_step=moe_routing_summary(steps_log[0], cfg))
+        t_bytes = (weight_read + kv_bytes) / bw * 1e3
         t_ops = (lm_linear_flops(cfg, b) + 2.0 * cfg.d_model
-                 * cfg.vocab_size * b) / PEAK_BF16 * 1e3 + lm_attn_flops(
-                     cfg, b, kv_valid) / PEAK_F32 * 1e3
+                 * cfg.vocab_size * b) / PEAK_BF16 * 1e3 \
+            + lm_decode_attn_flops(cfg, b, kv_valid) / PEAK_F32 * 1e3
         step_ms = statistics.median(times)
         out["decode_32k"] = dict(
             batch=b, context=ctx, cut_from=(LM_SHAPES["decode_32k"]
@@ -4051,11 +4280,14 @@ def lm_serve_phase(torch, arch: str, gpu: str, seed: int) -> dict:
                                             LM_SHAPES["decode_32k"].seq_len),
             steps=LM_DECODE_STEPS, ms_per_step=step_ms,
             ms_per_step_min=min(times), ms_per_step_max=max(times),
-            tokens_per_s=b / step_ms * 1e3, cache_bytes=2 * cache.a.numel()
-            * cache.a.element_size(), peak_bytes=peak,
+            tokens_per_s=b / step_ms * 1e3, cache_bytes=(
+                cache.a.numel() + cache.b.numel()) * cache.a.element_size(),
+            peak_bytes=peak, weight_bytes_read=weight_read,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes"
             if t_bytes >= t_ops else "operations",
-            share=max(t_bytes, t_ops) / step_ms, profile=prof)
+            bound_bytes_ms=t_bytes, bound_operations_ms=t_ops,
+            share=max(t_bytes, t_ops) / step_ms, routing=routing,
+            profile=prof)
         del cache, lg
     del model
     torch.cuda.empty_cache()
@@ -4109,17 +4341,127 @@ def lm_checks_phase(torch, seed: int) -> dict:
                                 vocab=cfg.vocab_size, tokens=LM_CPU_TOKENS,
                                 max_abs_err=cpu_err,
                                 logit_scale=float(want.abs().max()),
-                                tol=LM_CPU_TOL, ok=cpu_ok))
+                                tol=LM_CPU_TOL, ok=cpu_ok),
+               moe_card_vs_cpu=lm_moe_check(torch, seed),
+               mla_absorbed_vs_rebuilt=lm_mla_check(torch, seed))
     emit("lm_checks", **out)
-    if not (attn_ok and cpu_ok):
+    if not (attn_ok and cpu_ok and out["moe_card_vs_cpu"]["ok"]
+            and out["mla_absorbed_vs_rebuilt"]["ok"]):
         raise AssertionError(f"lm_checks failed: {out}")
     return out
 
 
-def lm_train_phase(torch, seed: int) -> dict:
-    """qwen2-1.5b at full width trained LM_TRAIN["steps"] steps of
+def lm_moe_check(torch, seed: int) -> dict:
+    """Check 4: a 2-layer deepseek-moe-16b (1 dense + 1 MoE) at full width
+    and vocabulary in float32, one model on the card and its copy on the
+    CPU: logits to LM_CPU_TOL. Then its MoE layer on integer-valued
+    inputs with the router rounded to multiples of 1/64, so every logit
+    is exact on both: the routed ids and the drop set must be equal, the
+    outputs to LM_CPU_TOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    cfg = replace(get_arch("deepseek-moe-16b").config, n_layers=2,
+                  dtype="float32")
+    card = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    toks = torch.randint(0, cfg.vocab_size, LM_CPU_TOKENS,
+                         generator=torch.Generator().manual_seed(seed + 3),
+                         dtype=torch.int32)
+    with torch.no_grad():
+        got, aux = T.forward(card, cfg, toks.to(dev), remat=False)
+        got, aux = got.cpu(), float(aux)
+        cpu = T.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg).cpu()
+        want, waux = T.forward(cpu, cfg, toks, remat=False)
+    logits_err = float((got - want).abs().max())
+    logits_ok = torch.allclose(got, want, **LM_CPU_TOL) and \
+        abs(aux - float(waux)) <= 1e-5 * abs(float(waux))
+
+    moe = card.blocks[1].moe
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    b, s_ = LM_MOE_INT_TOKENS
+    x = (torch.randint(-4, 5, (cfg.d_model,), generator=g, device=dev)
+         + torch.randint(-1, 2, (b, s_, cfg.d_model), generator=g,
+                         device=dev)).float()
+    with torch.no_grad():
+        moe.router.copy_(torch.round(moe.router * 64) / 64)
+        xt = x.reshape(-1, cfg.d_model)
+        grp, _, cap = M.groups_and_capacity(cfg, b * s_)
+        routed = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = moe.to(d)
+            logits = xt.to(d) @ m.router
+            _, idx, _ = M._route(logits, cfg.moe_top_k)
+            slot = M.dispatch_slots(idx, grp, cfg.n_routed_experts, cap)
+            y, _ = M.moe_apply(m, cfg, x.to(d))
+            routed[side] = (logits.cpu(), idx.cpu(), slot.cpu(), y.cpu())
+    dropped = routed["cpu"][2] >= cfg.n_routed_experts * grp * cap
+    del card, cpu, moe, m
+    torch.cuda.empty_cache()
+    ids_equal = torch.equal(routed["card"][1], routed["cpu"][1])
+    drops_equal = torch.equal(routed["card"][2], routed["cpu"][2])
+    y_err = float((routed["card"][3] - routed["cpu"][3]).abs().max())
+    y_scale = float(routed["cpu"][3].abs().max())
+    y_ok = torch.allclose(routed["card"][3], routed["cpu"][3], rtol=1e-4,
+                          atol=LM_MOE_LAYER_ATOL * y_scale)
+    return dict(layers=2, d_model=cfg.d_model, vocab=cfg.vocab_size,
+                tokens=LM_CPU_TOKENS, max_abs_err=logits_err,
+                logit_scale=float(want.abs().max()), aux=aux,
+                aux_cpu=float(waux),
+                int_tokens=LM_MOE_INT_TOKENS, groups=grp, capacity=cap,
+                logits_exact=torch.equal(routed["card"][0],
+                                         routed["cpu"][0]),
+                ids_equal=ids_equal, slots_equal=drops_equal,
+                dropped_pairs=int(dropped.sum()), pairs=dropped.numel(),
+                layer_max_abs_err=y_err, layer_scale=y_scale,
+                layer_atol_of_scale=LM_MOE_LAYER_ATOL, tol=LM_CPU_TOL,
+                ok=bool(logits_ok and ids_equal and drops_equal and y_ok
+                        and int(dropped.sum()) > 0))
+
+
+def lm_mla_check(torch, seed: int) -> dict:
+    """Check 5: deepseek-v2's MLA at its published widths in float32 on
+    the card: one decode step of the absorbed form against the rebuilding
+    one over a random latent cache of LM_MLA_CHECK positions (the output
+    to LM_MLA_TOL, the written caches equal)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    cfg = replace(get_arch("deepseek-v2-236b").config, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    p = L.mla_init(g, cfg)
+    b, s_ = LM_MLA_CHECK["b"], LM_MLA_CHECK["s"]
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=dev)
+    cc = torch.randn((b, s_, cfg.kv_lora_rank), generator=g, device=dev)
+    ckr = torch.randn((b, s_, cfg.qk_rope_head_dim), generator=g,
+                      device=dev)
+    pos = torch.arange(b, device=dev, dtype=torch.int32) + s_ - b
+    outs = []
+    with torch.no_grad():
+        for fn in (L.mla_decode_absorbed, L.mla_decode):
+            cache = (cc.clone(), ckr.clone())
+            o, cache = fn(p, cfg, x, pos, cache, pos + 1)
+            outs.append((o, cache))
+    err = float((outs[0][0] - outs[1][0]).abs().max())
+    ok = torch.allclose(outs[0][0], outs[1][0], **LM_MLA_TOL) and \
+        torch.equal(outs[0][1][0], outs[1][1][0]) and \
+        torch.equal(outs[0][1][1], outs[1][1][1])
+    scale = float(outs[1][0].abs().max())
+    del p, cc, ckr, outs
+    torch.cuda.empty_cache()
+    return dict(rows=b, positions=s_, heads=cfg.n_heads,
+                latent=cfg.kv_lora_rank, rope=cfg.qk_rope_head_dim,
+                max_abs_err=err, scale=scale, tol=LM_MLA_TOL, ok=bool(ok))
+
+
+def lm_train_phase(torch, seed: int, c: dict) -> dict:
+    """One of LM_TRAINS (an arch at full width, cut in depth to
+    c["layers"] where it names a cut) trained c["steps"] steps of
     make_train_step(loss_fn_for("lm", cfg), adamw(3e-4)) on train_4k's
-    sequences at LM_TRAIN's batch cut, then one more step under
+    sequences at c's batch cut, then one more step under
     torch.profiler: step ms, tokens/s, peak bytes and the losses. Finite
     losses, and every parameter moved (asserted) but those bf16 rounding
     holds: the weights are bf16 with no float32 master copy, as the
@@ -4135,8 +4477,8 @@ def lm_train_phase(torch, seed: int) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import loss_fn_for, make_train_step
 
-    c = LM_TRAIN
-    cfg = get_arch(c["arch"]).config
+    full = get_arch(c["arch"]).config
+    cfg = replace(full, n_layers=c["layers"]) if c["layers"] else full
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4148,7 +4490,7 @@ def lm_train_phase(torch, seed: int) -> dict:
                            microbatches=c["microbatches"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, losses, norms = [], [], []
+    times, losses, norms, auxes = [], [], [], []
     for i in range(c["steps"]):
         batch = lm_batch(torch.Generator(device=dev).manual_seed(seed + i),
                          c["batch"], c["seq"], cfg.vocab_size)
@@ -4159,6 +4501,7 @@ def lm_train_phase(torch, seed: int) -> dict:
         times.append((time.perf_counter() - t) * 1e3)
         losses.append(float(met["loss"]))
         norms.append(float(met["grad_norm"]))
+        auxes.append(float(met["aux"]))
     peak = torch.cuda.max_memory_allocated()
     held = {n for n, w in before.items()
             if float(w.float().abs().min()) * 2.0 ** -9 > 2 * c["lr"]}
@@ -4169,13 +4512,17 @@ def lm_train_phase(torch, seed: int) -> dict:
     batch = lm_batch(torch.Generator(device=dev).manual_seed(seed + 99),
                      c["batch"], c["seq"], cfg.vocab_size)
     prof = profile_busy(torch, lambda: step(model, state, batch))
-    out = dict(arch=c["arch"], batch=c["batch"], seq=c["seq"],
+    out = dict(arch=c["arch"], layers=cfg.n_layers,
+               layers_cut_from=full.n_layers,
+               params_count=sum(p.numel() for p in model.parameters()),
+               batch=c["batch"], seq=c["seq"],
                microbatches=c["microbatches"],
                cut_from=(LM_SHAPES["train_4k"].global_batch,
                          LM_SHAPES["train_4k"].seq_len),
                step_ms=times, step_ms_median=ms,
                tokens_per_s=c["batch"] * c["seq"] / ms * 1e3,
-               peak_bytes=peak, losses=losses, grad_norms=norms,
+               peak_bytes=peak, losses=losses, aux_losses=auxes,
+               grad_norms=norms,
                params_moved=len(moved), params=n_params,
                params_held_by_bf16=sorted(held)[:4] + (
                    ["..."] if len(held) > 4 else []),
@@ -4184,7 +4531,7 @@ def lm_train_phase(torch, seed: int) -> dict:
     del model, state, before
     torch.cuda.empty_cache()
     emit("lm_train", **out)
-    if not all(math.isfinite(x) for x in losses + norms) \
+    if not all(math.isfinite(x) for x in losses + norms + auxes) \
             or not must_move <= moved:
         raise AssertionError(f"lm_train: non-finite loss or a parameter "
                              f"that did not move: {out}")
@@ -4192,14 +4539,14 @@ def lm_train_phase(torch, seed: int) -> dict:
 
 
 def lm_cli_phase(src: Path) -> None:
-    """LM_CLI_RUNS (launch.serve and launch.train for qwen2-1.5b, on the
-    card by default), both processes at once: each must exit 0 and print
-    the reference's line."""
+    """LM_CLI_RUNS (launch.serve and launch.train for each of
+    LM_CLI_ARCHS, on the card by default), every process at once: each
+    must exit 0 and print the reference's line."""
     import os
     import re
-    patterns = {"serve": r"qwen2-1\.5b: prefill\(32\) \+ decode\(16\) for "
+    patterns = {"serve": r": prefill\(32\) \+ decode\(16\) for "
                          r"batch 8 in \d+\.\d+s \(\d+\.\d tok/s\)",
-                "train": r"qwen2-1\.5b: trained 2 steps; history=\[\d+\.\d+"
+                "train": r": trained 2 steps; history=\[\d+\.\d+"
                          r"(, \d+\.\d+)*\]"}
     t = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-m", module, *args],
@@ -4215,21 +4562,22 @@ def lm_cli_phase(src: Path) -> None:
             proc.kill()
             out, err = proc.communicate()
         line = out.strip().splitlines()[-1] if out.strip() else ""
-        ok = proc.returncode == 0 and re.fullmatch(patterns[name],
-                                                   line) is not None
+        ok = proc.returncode == 0 and re.fullmatch(
+            re.escape(args[1]) + patterns[name], line) is not None
         emit("lm_cli", run=name, args=[module, *args],
              returncode=proc.returncode, output=line,
              seconds=time.perf_counter() - t,
              stderr_tail=err[-2000:] if proc.returncode else "")
         if not ok:
-            failed.append(name)
+            failed.append(f"{name} {args[1]}")
     if failed:
         raise AssertionError(f"lm_cli: the LM launchers failed or printed "
                              f"another line: {failed}")
 
 
 def lm_phases(torch, src: Path, gpu: str, seed: int) -> dict:
-    """lm_serve for each of LM_ARCHS, lm_checks, lm_train and lm_cli."""
+    """lm_serve for each of LM_ARCHS, lm_checks, lm_train for each of
+    LM_TRAINS and lm_cli."""
     out = {}
     for arch in LM_ARCHS:
         t = time.perf_counter()
@@ -4238,9 +4586,10 @@ def lm_phases(torch, src: Path, gpu: str, seed: int) -> dict:
     t = time.perf_counter()
     lm_checks_phase(torch, seed)
     out["lm_checks"] = time.perf_counter() - t
-    t = time.perf_counter()
-    lm_train_phase(torch, seed)
-    out["lm_train"] = time.perf_counter() - t
+    for c in LM_TRAINS:
+        t = time.perf_counter()
+        lm_train_phase(torch, seed, c)
+        out[f"lm_train_{c['arch']}"] = time.perf_counter() - t
     t = time.perf_counter()
     lm_cli_phase(src)
     out["lm_cli"] = time.perf_counter() - t
@@ -4250,6 +4599,9 @@ def lm_phases(torch, src: Path, gpu: str, seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run the device and LM phases alone; no result "
+                         "line")
     args = ap.parse_args()
 
     try:
@@ -4282,6 +4634,9 @@ def main() -> int:
     emit("device", kind=gpu, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     peaks(gpu)                  # the bounds need this card's data sheet
+    if args.lm_only:
+        emit("lm_only", seconds=lm_phases(torch, src, gpu, args.seed))
+        return 0
 
     # 2. build the kernels
     from repro_torch.kernels import cuda_lib

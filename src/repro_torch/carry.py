@@ -22,12 +22,15 @@ the reference's params pytree of the config's family (two-tower ``{"table",
 ``{"table", "pos", "blocks": [{"ln1", "ln2", "wq", ...}], "final_ln"}``)
 and returns the port's module over the same weights.
 
-``lm_params_from_jax`` carries the dense LM: the reference's params
-``{"embed", "final_norm", "dense_layers": [], "layers": {...}, ["lm_head"]}``,
-whose ``layers`` stacks every layer's leaves on axis 0, become the port's
-``TransformerLM`` with one block per slice; ``lm_named_from_jax`` flattens
-an LM params-shaped tree (gradients, AdamW moments) into the port's names
-(``layers/attn/wq`` slice i is ``blocks.i.attn.wq``). bf16 leaves cross
+``lm_params_from_jax`` carries the LMs: the reference's params
+``{"embed", "final_norm", "dense_layers": [...], "layers": {...},
+["lm_head"]}``, whose ``layers`` stacks the homogeneous layers' leaves on
+axis 0 behind an MoE config's leading ``dense_layers``, become the port's
+``TransformerLM`` with one block per layer, the dense ones first;
+``lm_named_from_jax`` flattens an LM params-shaped tree (gradients, AdamW
+moments) into the port's names (``dense_layers/0/ffn/w_up`` is
+``blocks.0.ffn.w_up``; with one dense layer ``layers/moe/shared/w_up``
+slice i is ``blocks.<i + 1>.moe.shared.w_up``). bf16 leaves cross
 through their 16-bit view, bit for bit.
 
 ``param_name`` names a reference params leaf by the port's parameter name
@@ -163,18 +166,20 @@ def recsys_params_from_jax(params: dict, cfg, device=None):
 
 def _lm_leaves(tree):
     """(port name, array) pairs of a reference LM params-shaped tree: the
-    stacked ``layers`` sliced on axis 0 into ``blocks.<i>``."""
-    if tree.get("dense_layers"):
-        raise NotImplementedError("an LM with leading dense layers (MoE) "
-                                  "is not ported yet (ROADMAP Queue 1 item "
-                                  "10.6b)")
+    leading ``dense_layers[i]`` are ``blocks.<i>``, and the stacked
+    ``layers`` sliced on axis 0 follow them (slice j is ``blocks.<n_dense
+    + j>``), an MoE layer's ``moe`` subtree with them."""
     for keys, a in _path_keys({k: v for k, v in tree.items()
                                if k not in ("layers", "dense_layers")}):
         yield ".".join(keys), np.asarray(a)
+    dense = tree.get("dense_layers") or []
+    for i, layer in enumerate(dense):
+        for keys, a in _path_keys(layer):
+            yield ".".join(("blocks", str(i)) + keys), np.asarray(a)
     for keys, a in _path_keys(tree["layers"]):
         a = np.asarray(a)
-        for i in range(a.shape[0]):
-            yield ".".join(("blocks", str(i)) + keys), a[i]
+        for j in range(a.shape[0]):
+            yield ".".join(("blocks", str(len(dense) + j)) + keys), a[j]
 
 
 def lm_named_from_jax(tree: dict, device=None) -> dict:
@@ -185,21 +190,36 @@ def lm_named_from_jax(tree: dict, device=None) -> dict:
 
 
 def lm_params_from_jax(params: dict, cfg, device=None):
-    """Reference dense-LM params -> the port's ``TransformerLM`` of
-    ``cfg`` on ``device`` (default: the card), the same weights bit for
-    bit."""
+    """Reference LM params -> the port's ``TransformerLM`` of ``cfg`` on
+    ``device`` (default: the card), the same weights bit for bit."""
+    from repro_torch.models.moe import MoE
     from repro_torch.models.transformer import Block, TransformerLM
+
+    def group(part, name):
+        sub = {k[len(name) + 1:]: v for k, v in part.items()
+               if k.startswith(name + ".")}
+        return sub or None
+
+    def pdict(tensors):
+        return nn.ParameterDict({k: nn.Parameter(v)
+                                 for k, v in tensors.items()})
+
     named = lm_named_from_jax(params, device)
     blocks = []
     for i in range(cfg.n_layers):
         pre = f"blocks.{i}."
         part = {k[len(pre):]: v for k, v in named.items()
                 if k.startswith(pre)}
-        sub = {grp: nn.ParameterDict({
-            k[len(grp) + 1:]: nn.Parameter(v) for k, v in part.items()
-            if k.startswith(grp + ".")}) for grp in ("attn", "ffn")}
-        blocks.append(Block(part["ln1"], part["ln2"], sub["attn"],
-                            sub["ffn"]))
+        ffn, moe = group(part, "ffn"), group(part, "moe")
+        if moe is not None:
+            shared = group(moe, "shared")
+            moe = MoE(moe["router"], moe["w_gate"], moe["w_up"],
+                      moe["w_down"], None if shared is None
+                      else pdict(shared))
+        blocks.append(Block(part["ln1"], part["ln2"],
+                            pdict(group(part, "attn")),
+                            ffn=None if ffn is None else pdict(ffn),
+                            moe=moe))
     return TransformerLM(cfg, named["embed"], named["final_norm"], blocks,
                          named.get("lm_head"))
 

@@ -1,17 +1,18 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
 It lists what the port runs: the paper's ANN workload, the four recsys
-models (DLRM, two-tower retrieval, SASRec, DIN) and the three dense LMs
-(qwen2-1.5b, mistral-nemo-12b, qwen3-32b). The reference's MoE / MLA and
-GNN ids raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+models (DLRM, two-tower retrieval, SASRec, DIN) and the five LMs (the
+dense qwen2-1.5b, mistral-nemo-12b and qwen3-32b; the MoE
+deepseek-moe-16b and the MoE + MLA deepseek-v2-236b). The reference's GNN
+id raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import ann_laion, din, dlrm_mlperf, \
-    mistral_nemo_12b, qwen2_1_5b, qwen3_32b, sasrec, two_tower_retrieval
+from repro_torch.configs import ann_laion, deepseek_moe_16b, \
+    deepseek_v2_236b, din, dlrm_mlperf, mistral_nemo_12b, qwen2_1_5b, \
+    qwen3_32b, sasrec, two_tower_retrieval
 from repro_torch.configs.base import (  # noqa: F401
     ANNConfig, ArchSpec, LMConfig, RecsysConfig, ShapeConfig, LM_SHAPES,
     RECSYS_SHAPES, reduced_lm,
@@ -20,17 +21,12 @@ from repro_torch.configs.base import (  # noqa: F401
 _REGISTRY: Dict[str, ArchSpec] = {
     spec.arch_id: spec for spec in [
         qwen3_32b.SPEC, qwen2_1_5b.SPEC, mistral_nemo_12b.SPEC,
-        dlrm_mlperf.SPEC, two_tower_retrieval.SPEC, sasrec.SPEC, din.SPEC,
+        deepseek_v2_236b.SPEC, deepseek_moe_16b.SPEC, dlrm_mlperf.SPEC, two_tower_retrieval.SPEC, sasrec.SPEC, din.SPEC,
         ann_laion.SPEC]
 }
 
-MOE_MLA = "ROADMAP Queue 1 item 10.6b (MoE and MLA)"
 GNN = "ROADMAP Queue 1 item 10.6c (DimeNet)"
-NOT_PORTED: Dict[str, str] = {
-    "deepseek-v2-236b": MOE_MLA,
-    "deepseek-moe-16b": MOE_MLA,
-    "dimenet": GNN,
-}
+NOT_PORTED: Dict[str, str] = {"dimenet": GNN}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -12,9 +12,8 @@ from typing import Any, Dict, Optional, Tuple
 class LMConfig:
     """Dense / MoE decoder-only transformer (covers GQA, qk-norm, MLA, MoE).
 
-    Every field of the reference's is kept, the MoE and MLA ones too; the
-    port's model runs the dense GQA path and refuses ``moe`` and
-    ``use_mla`` (ROADMAP Queue 1 item 10.6b)."""
+    Every field of the reference's, with its meaning: the port's model
+    runs GQA and MLA attention, dense and MoE FFNs."""
 
     name: str
     n_layers: int

@@ -1,7 +1,5 @@
 """Optimization toggles (the reference's ``flags.py``): the three ANN
-toggles and the four of the dense LM. The reference's MoE toggle
-(``REPRO_MOE_SHARD``) comes with the MoE family (ROADMAP Queue 1 item
-10.6b).
+toggles and the four of the dense LM.
 
 Each toggle reads the reference's environment variable, off by default,
 and is read at call time (``flags.ANN_TIGHT_BUDGET``), so a test can flip
@@ -38,6 +36,10 @@ The LM's:
     over the data axes. Only the reference's ``launch/specs.py`` reads
     them (ROADMAP Queue 1 item 11b); on one device nothing is sharded,
     and no module of the port reads them.
+
+The reference's ``MOE_SHARD_CONSTRAINTS`` (``REPRO_MOE_SHARD``), which
+pins the MoE dispatch tensors' shardings on a mesh, has no counterpart:
+on one device there is no placement to pin.
 """
 from __future__ import annotations
 

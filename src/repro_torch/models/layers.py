@@ -2,9 +2,9 @@
 reference's ``models/layers.py``): ``dense_init``, ``mlp_init`` /
 ``mlp_apply``, ``rms_norm``, rotary embeddings (``rope_cache`` /
 ``apply_rope``), attention (``sdpa``, ``chunked_sdpa``, ``attention``),
-grouped-query attention with QKV bias and per-head qk-norm (``gqa_*``) and
-the SwiGLU FFN (``swiglu_*``). MLA (the reference's ``mla_*``) is not
-ported (ROADMAP Queue 1 item 10.6b).
+grouped-query attention with QKV bias and per-head qk-norm (``gqa_*``),
+DeepSeek-V2's multi-head latent attention (``mla_*``) and the SwiGLU FFN
+(``swiglu_*``).
 
 The arithmetic is the reference's: weights are stored (in, out), a layer is
 ``x @ w`` and then ``+ b`` as a separate op, with ReLU between layers. Not
@@ -294,6 +294,151 @@ def gqa_decode(p, cfg, x, pos, cache: Tuple[torch.Tensor, torch.Tensor],
     write_rows(cv, pos, v_new[:, 0])
     o = sdpa(q, ck, cv, causal=False, kv_len_valid=kv_valid)
     return o.reshape(x.shape[0], 1, -1) @ p["wo"], (ck, cv)
+
+
+# ------------------------------------------------------------ MLA attention
+def mla_init(generator: torch.Generator, cfg) -> nn.ParameterDict:
+    """DeepSeek-V2's latent attention: the query through a rank
+    ``q_lora_rank`` bottleneck with its norm (or one ``wq``), the joint
+    KV down-projection ``wkv_a`` (d, r + rd) with the latent's norm, its
+    up-projection ``wkv_b`` (r, H (nd + vd)) and ``wo`` (H vd, d)."""
+    dt = lm_dtype(cfg)
+    dev = generator.device
+    d, h = cfg.d_model, cfg.n_heads
+    qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = dense_init(generator, d, cfg.q_lora_rank).to(dt)
+        p["q_a_norm"] = torch.ones((cfg.q_lora_rank,), dtype=dt, device=dev)
+        p["wq_b"] = dense_init(generator, cfg.q_lora_rank, h * qd).to(dt)
+    else:
+        p["wq"] = dense_init(generator, d, h * qd).to(dt)
+    p["wkv_a"] = dense_init(generator, d, cfg.kv_lora_rank
+                            + cfg.qk_rope_head_dim).to(dt)
+    p["kv_a_norm"] = torch.ones((cfg.kv_lora_rank,), dtype=dt, device=dev)
+    p["wkv_b"] = dense_init(generator, cfg.kv_lora_rank,
+                            h * (cfg.qk_nope_head_dim
+                                 + cfg.v_head_dim)).to(dt)
+    p["wo"] = dense_init(generator, h * cfg.v_head_dim, d).to(dt)
+    return _params(p)
+
+
+def _mla_q(p, cfg, x, positions):
+    """x (B, S, d) -> q (B, S, H, nd + rd): the no-rope part, then the
+    roped part."""
+    b, s, _ = x.shape
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        q = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.rms_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(b, s, cfg.n_heads, nd + rd)
+    cos, sin = rope_cache(positions, rd, cfg.rope_theta)
+    return torch.cat([q[..., :nd], apply_rope(q[..., nd:], cos, sin)],
+                     dim=-1)
+
+
+def _mla_latent(p, cfg, x, positions):
+    """x (B, S, d) -> the normed latent c_kv (B, S, r) and the roped
+    shared key k_rope (B, S, rd): what the MLA cache holds."""
+    r, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    a = x @ p["wkv_a"]
+    c_kv = rms_norm(a[..., :r], p["kv_a_norm"], cfg.rms_eps)
+    cos, sin = rope_cache(positions, rd, cfg.rope_theta)
+    k_rope = apply_rope(a[..., r:][:, :, None, :], cos, sin)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_kv_from_latent(p, cfg, c_kv, k_rope):
+    """latent c_kv (B, S, r) + k_rope (B, S, rd) -> the full k (B, S, H,
+    nd + rd) (k_rope shared by every head) and v (B, S, H, vd)."""
+    b, s, _ = c_kv.shape
+    h, nd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, nd + vd)
+    rope = k_rope[:, :, None, :].expand(b, s, h, k_rope.shape[-1])
+    return torch.cat([kv[..., :nd], rope], dim=-1), kv[..., nd:]
+
+
+def mla_attend(q, k, v, *, causal: bool = True):
+    """Attention of MLA's q / k (width nd + rd) over v (width vd).
+    From CHUNK_THRESHOLD query rows on, v is zero-padded to q's width so
+    that ``chunked_sdpa`` can run, and the output is cut back to vd (the
+    reference's own detour: ``attention`` would fall back to ``sdpa`` on
+    the unequal widths, whose (B, H, S, S) float32 scores are 34 GB at
+    128 heads x 8,192 tokens); below it, ``sdpa`` takes the unequal
+    widths."""
+    if q.shape[1] >= CHUNK_THRESHOLD:
+        vd = v.shape[-1]
+        vpad = F.pad(v, (0, q.shape[-1] - vd))
+        return chunked_sdpa(q, k, vpad, causal=causal)[..., :vd]
+    return sdpa(q, k, v, causal=causal)
+
+
+def mla_apply(p, cfg, x, positions, *, causal: bool = True):
+    b, s, _ = x.shape
+    q = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k, v = _mla_kv_from_latent(p, cfg, c_kv, k_rope)
+    o = mla_attend(q, k, v, causal=causal)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
+def _mla_decode_latent(p, cfg, x, pos, cache):
+    """The decode's q (B, 1, H, nd + rd); the new latent and rope key
+    written into the cache (c_kv (B, Smax, r), k_rope (B, Smax, rd)) in
+    place at ``pos`` (a write past the cache is dropped)."""
+    q = _mla_q(p, cfg, x, pos[:, None])
+    c_new, kr_new = _mla_latent(p, cfg, x, pos[:, None])
+    cc, ckr = cache
+    write_rows(cc, pos, c_new[:, 0])
+    write_rows(ckr, pos, kr_new[:, 0])
+    return q
+
+
+def mla_decode_absorbed(p, cfg, x, pos, cache, kv_valid):
+    """MLA decode with weight absorption (DeepSeek-V2's inference form):
+    ``wkv_b`` folds into the query (``q_nope W_uk`` scores the latent
+    cache directly) and the output (the context is taken in latent space,
+    then ``W_uv``), so the (B, S, H, nd + vd) keys and values are never
+    rebuilt. As the reference, every product and the softmax run in
+    float32 (the cache read is upcast), scores are divided by
+    sqrt(nd + rd) and masked to -1e30 from ``kv_valid`` on, and the
+    context is cast to x's type before ``wo``. x (B, 1, d); cache (c_kv,
+    k_rope), written in place."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nd, rd, vd, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim, cfg.kv_lora_rank)
+    q = _mla_decode_latent(p, cfg, x, pos, cache)
+    cc, ckr = cache
+    wkv_b = p["wkv_b"].reshape(r, h, nd + vd)
+    w_uk, w_uv = wkv_b[..., :nd].float(), wkv_b[..., nd:].float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q[:, 0, :, :nd].float(), w_uk)
+    ccf = cc.float()                                          # (B, S, r)
+    s_nope = q_lat @ ccf.transpose(1, 2)                      # (B, H, S)
+    s_rope = q[:, 0, :, nd:].float() @ ckr.float().transpose(1, 2)
+    scores = (s_nope + s_rope) / ((nd + rd) ** 0.5)
+    del s_nope, s_rope
+    valid = (torch.arange(cc.shape[1], device=x.device)[None, :]
+             < kv_valid.to(x.device)[:, None])
+    scores = torch.where(valid[:, None, :], scores, MASKED)
+    w = torch.softmax(scores, dim=-1)
+    del scores
+    ctx = w @ ccf                                             # (B, H, r)
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
+    out = o.reshape(b, 1, h * vd).to(x.dtype) @ p["wo"]
+    return out, (cc, ckr)
+
+
+def mla_decode(p, cfg, x, pos, cache, kv_valid):
+    """MLA decode that rebuilds the full K / V from the latent cache (the
+    reference's ``mla_decode``; ``decode_step`` uses the absorbed form,
+    and the tests hold the two against each other)."""
+    b = x.shape[0]
+    q = _mla_decode_latent(p, cfg, x, pos, cache)
+    k, v = _mla_kv_from_latent(p, cfg, *cache)
+    o = sdpa(q, k, v, causal=False, kv_len_valid=kv_valid)
+    return o.reshape(b, 1, -1) @ p["wo"], cache
 
 
 # ------------------------------------------------------------------- ffn

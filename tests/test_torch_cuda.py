@@ -1955,3 +1955,110 @@ def test_lm_train_step_on_the_card_equals_the_cpu(dev):
         out[d.type] = (float(met["loss"]), float(met["grad_norm"]))
     for a, b in zip(out["cuda"], out["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b)
+
+
+# -- MoE and MLA (no kernel of the port: plain PyTorch on the card) ----------
+
+def _int_moe(dev, cfg, seed):
+    """An MoE layer of ``cfg`` with small integer weights (exact products
+    and sums on either device) and its integer input rows."""
+    from repro_torch.models.moe import moe_init
+    g = torch.Generator().manual_seed(seed)
+    moe = moe_init(g, cfg)
+    with torch.no_grad():
+        for p in moe.parameters():
+            p.copy_(torch.randint(-2, 3, p.shape, generator=g).float())
+    x = torch.randint(-2, 3, (4, 16, cfg.d_model), generator=g).float()
+    return moe, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [8.0, 0.5])
+def test_lm_moe_layer_on_the_card_equals_the_cpu(dev, capacity):
+    """deepseek-moe-16b's smoke layer with integer weights and inputs: the
+    router's logits are exact integers, full of ties, so the routed ids,
+    the per-expert counts and the kept pairs must equal the CPU's (the
+    tie rule included), and at capacity factor 0.5 tokens drop. The
+    output (a float product chain whose terms cancel) to rtol 1e-5 and
+    atol 1e-5 of its largest magnitude (measured on an H100: 1.5e-3 of
+    values ~1e3, ~1e-6 of the scale); the gradients of a
+    fixed loss too, and a second backward on the card is bit-equal to
+    the first (the dispatch and combine are gathers both ways: no float
+    atomics)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    cfg = replace(get_arch("deepseek-moe-16b").smoke_config,
+                  moe_group_size=16, moe_capacity_factor=capacity)
+    moe, x = _int_moe(dev, cfg, 3)
+    def run(m, xd):
+        y, aux = M.moe_apply(m, cfg, xd)
+        weights = torch.arange(y.numel(), device=y.device).reshape(
+            y.shape).remainder(7)
+        loss = (y * weights).sum() * 1e-3 + aux
+        return y, aux, torch.autograd.grad(loss, [xd, m.router, m.w_up])
+
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        m = moe.to(d)
+        xd = x.to(d).requires_grad_()
+        with M.routing_log() as log:
+            y, aux, grads = run(m, xd)
+        if d.type == "cuda":
+            again = run(m, xd)[2]
+            assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        out[d.type] = ([int(r["kept"]) for r in log],
+                       [r["counts"].cpu() for r in log], y.detach().cpu(),
+                       float(aux), [gg.cpu() for gg in grads])
+    kept, counts, y, aux, grads = out["cuda"]
+    assert kept == out["cpu"][0]
+    assert all(torch.equal(a, b) for a, b in zip(counts, out["cpu"][1]))
+    if capacity < 1:
+        assert kept[0] < 64 * cfg.moe_top_k
+
+    def close(a, b):        # the expert outputs cancel: atol of the scale
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+    close(y, out["cpu"][2])
+    assert abs(aux - out["cpu"][3]) <= 1e-6 * abs(out["cpu"][3])
+    for a, b in zip(grads, out["cpu"][4]):
+        close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["absorbed", "rebuilt"])
+def test_lm_mla_decode_on_the_card_equals_the_cpu(dev, form):
+    """deepseek-v2-236b's MLA at its published widths (d 5120, 128 heads,
+    r 512, rd 64, q LoRA 1536) in float32: one decode step over a random
+    latent cache of 2 x 512 positions, a write past the cache dropped; the
+    card's output and cache against the CPU's, and the absorbed form
+    against the rebuilt one on the card."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    cfg = replace(get_arch("deepseek-v2-236b").config, dtype="float32")
+    p = L.mla_init(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 1, cfg.d_model), generator=g)
+    cc = torch.randn((2, 512, cfg.kv_lora_rank), generator=g)
+    ckr = torch.randn((2, 512, cfg.qk_rope_head_dim), generator=g)
+    pos = torch.tensor([300, 512], dtype=torch.int32)     # row 1: dropped
+    valid = torch.tensor([301, 512], dtype=torch.int32)
+    fns = {"absorbed": L.mla_decode_absorbed, "rebuilt": L.mla_decode}
+    out = {}
+    with torch.no_grad():
+        for d in (torch.device("cpu"), dev):
+            pd = p.to(d)
+            cache = (cc.clone().to(d), ckr.clone().to(d))
+            o, cache = fns[form](pd, cfg, x.to(d), pos.to(d), cache,
+                                 valid.to(d))
+            out[d.type] = (o.cpu(), cache[0].cpu(), cache[1].cpu())
+            if d.type == "cuda":
+                other = "rebuilt" if form == "absorbed" else "absorbed"
+                o2, _ = fns[other](pd, cfg, x.to(d), pos.to(d),
+                                   (cc.clone().to(d), ckr.clone().to(d)),
+                                   valid.to(d))
+                torch.testing.assert_close(o, o2, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"][1][1], cc[1])          # dropped write
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -52,6 +52,11 @@ LM_MODULES = {
     "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.mistral_nemo_12b",
     "repro_torch.configs.qwen3_32b"}
 
+# the modules of the MoE / MLA slice
+MOE_MLA_MODULES = {
+    "repro_torch.models.moe", "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.deepseek_v2_236b"}
+
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.MULTILINE)
 
@@ -72,6 +77,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         TRAIN_MODULES - set(names.split(","))
     assert LM_MODULES <= set(names.split(",")), \
         LM_MODULES - set(names.split(","))
+    assert MOE_MLA_MODULES <= set(names.split(",")), \
+        MOE_MLA_MODULES - set(names.split(","))
 
 
 _LM_PROBE = """
@@ -87,6 +94,20 @@ def test_the_lm_modules_alone_load_no_jax():
     """``models.transformer`` and ``serve.sampling``, imported on their own
     in a fresh process, load neither JAX nor the reference."""
     out = subprocess.run([sys.executable, "-c", _LM_PROBE],
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "none"
+
+
+def test_the_moe_module_alone_loads_no_jax():
+    """``models.moe`` and the two MoE / MLA configs, imported on their own
+    in a fresh process, load neither JAX nor the reference."""
+    probe = ("import sys\nimport repro_torch.models.moe\n"
+             "import repro_torch.configs.deepseek_v2_236b\n"
+             "print(','.join(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'repro.')) or m == 'repro')) or 'none')")
+    out = subprocess.run([sys.executable, "-c", probe],
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, check=True)

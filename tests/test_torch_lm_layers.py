@@ -79,10 +79,11 @@ def test_configs_match_the_reference():
                 (ref.skip_reason(shape) is None)
         assert spec.skip_reason("long_500k").startswith(
             "long_500k needs sub-quadratic attention")
-    # the MoE / MLA configs' fields and counts, for the later slice
+    # the MoE / MLA configs: the registry's, their counts, reduced_lm
     for arch in ("deepseek-v2-236b", "deepseek-moe-16b"):
         big = jax_get_arch(arch).config
-        mine = LMConfig(**vars(big))
+        mine = get_arch(arch).config
+        assert vars(mine) == vars(big) and mine == LMConfig(**vars(big))
         assert mine.param_count() == big.param_count()
         assert mine.active_param_count() == big.active_param_count()
         over = dict(n_kv_heads=2, head_dim=8)

@@ -82,7 +82,8 @@ def _close(got, want):
 
 
 def test_registry_lists_what_the_port_runs():
-    assert list_archs() == ["ann-laion", "din", "dlrm-mlperf",
+    assert list_archs() == ["ann-laion", "deepseek-moe-16b",
+                            "deepseek-v2-236b", "din", "dlrm-mlperf",
                             "mistral-nemo-12b", "qwen2-1.5b", "qwen3-32b",
                             "sasrec", "two-tower-retrieval"]
     assert get_arch("two-tower-retrieval").config == CONFIG
@@ -91,10 +92,10 @@ def test_registry_lists_what_the_port_runs():
             CONFIG.multi_hot) == (ref.config.table_vocabs,
                                   ref.config.embed_dim, ref.config.tower_mlp,
                                   ref.config.multi_hot)
-    for arch, item in [("deepseek-v2-236b", "10.6b"), ("dimenet", "10.6c"),
-                       ("deepseek-moe-16b", "10.6b")]:
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
-            get_arch(arch)
+    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
+        get_arch("dimenet")
+    for arch in ("deepseek-v2-236b", "deepseek-moe-16b"):      # ported
+        assert vars(get_arch(arch).config) == vars(jax_get_arch(arch).config)
     with pytest.raises(KeyError):
         get_arch("bogus")
     # the full config's table: 14,010,368 rows x 256 f32 = 14.35 GB
@@ -188,12 +189,19 @@ def test_recsys_batch_shapes_dtypes_ranges():
 
 
 def test_other_families_raise_naming_their_item():
-    """A config of a family the port does not run (an MoE LM's, a GNN's)
-    is refused by family_of, naming the ROADMAP item that brings it."""
-    for arch, item in (("deepseek-v2-236b", "10.6b"), ("dimenet", "10.6c")):
-        cfg = jax_get_arch(arch).smoke_config
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
-            recsys.family_of(cfg)
+    """A config of a family the port does not run (a GNN's) is refused by
+    family_of, naming the ROADMAP item that brings it; an LM's (the MoE /
+    MLA deepseek-v2-236b's too) is no recsys family, as in the
+    reference, and builds as an LM."""
+    cfg = jax_get_arch("dimenet").smoke_config
+    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
+        recsys.family_of(cfg)
+    cfg = jax_get_arch("deepseek-v2-236b").smoke_config
+    with pytest.raises(KeyError):
+        recsys.family_of(cfg)
+    from repro_torch.models import transformer
+    model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    assert model.blocks[1].moe is not None and "wkv_b" in model.blocks[0].attn
 
 
 def test_serve_launcher_on_the_cpu_prints_the_reference_line(capsys):

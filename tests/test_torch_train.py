@@ -37,7 +37,7 @@ from repro_torch.carry import named_from_jax, optimizer_state_from_jax, \
     recsys_params_from_jax
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_arch
-from repro_torch.data import recsys_batch
+from repro_torch.data import lm_batch, recsys_batch
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import recsys, transformer
 from repro_torch.optim import adamw, init_error_state, mixed_optimizer
@@ -220,15 +220,17 @@ def test_sasrec_negatives_are_a_fixed_set():
 
 def test_loss_fn_for_refuses_lm_and_gnn():
     """The GNN's loss is refused naming its item (10.6c); the LM's is
-    ported (tests/test_torch_transformer.py), and its MoE configs are
-    refused when the model is built (10.6b)."""
+    ported (tests/test_torch_transformer.py), its MoE configs too
+    (tests/test_torch_moe.py): a finite loss with a positive aux."""
     cfg = get_arch("din").smoke_config
     with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
         loss_fn_for("gnn", cfg)
     assert callable(loss_fn_for("lm", get_arch("qwen2-1.5b").smoke_config))
     moe = jax_get_arch("deepseek-moe-16b").smoke_config
-    with pytest.raises(NotImplementedError, match=re.escape("10.6b")):
-        transformer.init_params(torch.Generator().manual_seed(0), moe)
+    model = transformer.init_params(torch.Generator().manual_seed(0), moe)
+    batch = lm_batch(torch.Generator().manual_seed(1), 2, 8, moe.vocab_size)
+    loss, met = loss_fn_for("lm", moe)(model, batch)
+    assert torch.isfinite(loss) and float(met["aux"]) > 0
     with pytest.raises(KeyError):
         loss_fn_for("ann", cfg)
 
@@ -515,6 +517,8 @@ def test_train_launcher_on_the_cpu(arch, capsys, tmp_path):
 def test_train_launcher_refuses_the_other_families():
     with pytest.raises(SystemExit, match="use launch/tune.py"):
         train_main(["--arch", "ann-laion", "--device", "cpu"])
-    for arch, item in (("dimenet", "10.6c"), ("deepseek-moe-16b", "10.6b")):
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
-            train_main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
+        train_main(["--arch", "dimenet", "--device", "cpu"])
+    # the MoE LM is no longer refused (10.6b)
+    train_main(["--arch", "deepseek-moe-16b", "--steps", "1", "--batch", "2",
+                "--seq", "8", "--device", "cpu"])

@@ -159,12 +159,19 @@ def test_init_and_carry_have_the_reference_leaves(models, name):
 
 
 def test_moe_and_mla_raise_naming_their_item():
+    """Item 10.6b is ported: both configs build ``init_params`` and
+    ``init_cache`` with the reference's leaves, shapes and types."""
     for arch in ("deepseek-moe-16b", "deepseek-v2-236b"):
         cfg = jax_get_arch(arch).smoke_config
-        with pytest.raises(NotImplementedError, match="10.6b"):
-            T.init_params(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="10.6b"):
-            T.init_cache(cfg, 1, 4, CPU)
+        jp = JT.init_params(jax.random.PRNGKey(0), cfg)
+        want = {k: (tuple(v.shape), v.dtype)
+                for k, v in lm_named_from_jax(jp, CPU).items()}
+        mine = T.init_params(torch.Generator().manual_seed(0), cfg)
+        assert {k: (tuple(v.shape), v.dtype)
+                for k, v in mine.named_parameters()} == want
+        cache, ref = T.init_cache(cfg, 1, 4, CPU), JT.init_cache(cfg, 1, 4)
+        assert cache.a.shape == ref.a.shape and cache.b.shape == ref.b.shape
+        assert cache.length.shape == ref.length.shape
 
 
 # -- forward, loss, gradients, one AdamW step ------------------------------------------
