@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--lm-only]
+    python3 chip_smoke.py [--seed 0] [--lm-only | --gnn-only]
 
 ``--lm-only`` runs the device phase and the LM phases (16) alone and
-prints no result line.
+prints no result line; ``--gnn-only`` the device, build and gnn (17)
+phases alone, with no result line either.
 
 Phases, each printing one JSON line:
   1. device   — refuses to run without CUDA; prints the card's name and
@@ -324,6 +325,27 @@ Phases, each printing one JSON line:
                 lm_train adds deepseek-moe-16b at full width cut to 4 of
                 its 28 layers (its aux loss beside the loss); lm_cli runs
                 both launchers for both ids.
+ 17. gnn      — DimeNet at its published config (6 blocks, hidden 128,
+                f32) trained GNN_STEPS steps of adamw(1e-3) on each of
+                GNN_CELLS (full_graph_sm, minibatch_lg through the fan-out
+                sampler, molecule at 128 graphs), each batch built on the
+                host from --seed (its real and padded counts and host
+                seconds printed); ogb_products is skipped with its reason
+                (GNN_SKIPPED). Per cell: losses, step ms (median, min and
+                max after the first), peak bytes, the step's f32 bound and
+                share over the real rows first, then over the padded rows,
+                both bag kernels' launches per step; finite losses, every
+                parameter moved, both kernels on every step and no other
+                kernel (asserted). Then the first step twice at
+                minibatch_lg, bit-equal; the card against the CPU at
+                molecule and full_graph_sm (the gradients' errors to a
+                float64 run on each run's own bases and ReLU branches
+                within GNN_F64_RATIO of the CPU's, worst and median leaf);
+                segment_sum
+                and the one-id bag at minibatch_lg's shapes (D = 128) and
+                molecule's graph readout (D = 1), bit-equal to their plain
+                versions, timed beside index_add_ / F.embedding_bag;
+                one profiled step; the dimenet launchers (gnn_cli).
  15. the kernels line: launches on the main path (fit + serve for the f32
                 kernels and l2topk, quantize + serve for the LUT kernels,
                 recsys + recsys_ann for embedding_bag, the two-tower
@@ -354,11 +376,14 @@ Phases, each printing one JSON line:
                 mode, l2topk's by variant), "launches_factory" over phase
                 10c (every fit and one search per family), "launches_sharded"
                 and "launches_streamed" over phases 10d and 10e,
-                "launches_sharded_toggles" over 10f; gather_dist's and
-                beam_hops' "by_mode" give each toggle mode's times and
-                bound (phase 3) and launches (10f). The one-hop entries
-                (beam_hop, beam_hop_lut; "on_main_path": false) must launch
-                no time on the main path: the fused search runs beam_hops.
+                "launches_sharded_toggles" over 10f, "launches_gnn" over
+                the gnn cells' steps (> 0 for both bag kernels, whose
+                "by_shape_gnn" holds phase 17's kernel checks);
+                gather_dist's and beam_hops' "by_mode" give each toggle
+                mode's times and bound (phase 3) and launches (10f). The
+                one-hop entries (beam_hop, beam_hop_lut; "on_main_path":
+                false) must launch no time on the main path: the fused
+                search runs beam_hops.
 
 Any failed check exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -366,6 +391,7 @@ Any failed check exits non-zero. The last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -664,6 +690,44 @@ LM_CLI_RUNS = tuple(
          ["--arch", arch, "--steps", "2"])))
 LM_CLI_TIMEOUT = 300
 PEAK_BF16 = 989e12                          # dense bf16 tensor cores
+
+# 17. DimeNet (item 10.6c): its published config trained on the GNN_SHAPES
+# cells one card holds; molecule scaled as the reference's
+# launch/specs.py:205-209 scales it (the cell's graph times n_graphs)
+GNN_CELLS = ("full_graph_sm", "minibatch_lg", "molecule")
+GNN_SKIPPED = {"ogb_products": (
+    "one (T, 128) f32 activation is 63.3 GB at 123,718,280 triplets and one "
+    "(E, 128) 31.7 GB at 61,859,140 edges, so a block's forward alone is "
+    "over one 80 GB card; the reference only lowers this cell, edge-sharded "
+    "over a mesh (launch/specs.py:202-283): it waits for a multi-card mesh")}
+GNN_STEPS = 10                    # the median and spread of steps 2-10
+GNN_LR = 1e-3
+GNN_KERNELS = ("embedding_bag", "embedding_bag_backward")
+GNN_DETERMINISM_CELL = "minibatch_lg"
+GNN_CPU_CELLS = ("molecule", "full_graph_sm")
+# the card against the CPU on the same weights and batch. The loss: within
+# GNN_CPU_LOSS_RTOL of the CPU's. The gradients: each device's float32 run
+# is held to a float64 run of the same step on that run's own bases and
+# ReLU branches (the MLPs' ReLUs start at zero biases and meet
+# pre-activations within rounding of 0, so each device flips a few units'
+# masks; the bases are inputs no gradient reaches), as a share of each
+# leaf's largest magnitude. The published depth at random weights
+# amplifies float32 rounding into 1e-6 to 2e-4 of a leaf's scale on either
+# device, which leaf the most varying with the device and the seed (PERF.md
+# §6). So every card leaf must lie within GNN_F64_RATIO times the CPU's
+# worst leaf, and the card's median leaf within GNN_F64_RATIO times the
+# CPU's: a 0.1% fault on one leaf fails the first, a 1e-4 shift of every
+# leaf the second
+GNN_CPU_LOSS_RTOL = 1e-5
+GNN_F64_RATIO = 3.0
+# the rows each array of a graph batch is indexed by (any other: nodes)
+GNN_ROW_KIND = {"t_kj": "triplets", "t_ji": "triplets", "src": "edges",
+                "dst": "edges", "edge_mask": "edges", "y_graph": "graphs"}
+GNN_CLI_RUNS = (
+    ("train", "repro_torch.launch.train", ["--arch", "dimenet", "--steps",
+                                           "4"]),
+    ("serve", "repro_torch.launch.serve", ["--arch", "dimenet"]))
+GNN_CLI_TIMEOUT = 300
 
 # the l2topk variant each shape must take (PERF.md names them)
 L2TOPK_ROUTES = {"antihub": "tc", "knn": "tc", "ground_truth": "tc",
@@ -4596,12 +4660,564 @@ def lm_phases(torch, src: Path, gpu: str, seed: int) -> dict:
     return out
 
 
+def gnn_batch(cell: str, seed: int) -> dict:
+    """The cell's padded graph batch on the host (numpy arrays) from
+    ``seed``: minibatch_lg through the fan-out sampler, full_graph_sm
+    through make_dimenet_batch with its 1,433 features and node targets,
+    molecule as the reference's launch/specs.py:205-209 scales it (the
+    cell's graph times n_graphs, graph targets)."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data import graph_sampler as G
+    s = GNN_SHAPES[cell]
+    if cell == "minibatch_lg":
+        return G.sampled_dimenet_batch(seed, s)
+    if cell == "molecule":
+        return G.make_dimenet_batch(
+            seed, n_nodes=s.n_nodes * s.n_graphs,
+            n_edges=s.n_edges * s.n_graphs,
+            n_triplets=s.n_triplets * s.n_graphs, n_graphs=s.n_graphs)
+    return G.make_dimenet_batch(seed, s.n_nodes, s.n_edges, s.n_triplets,
+                                d_feat=s.d_feat, node_targets=True)
+
+
+def gnn_counts(host: dict) -> dict:
+    """A host batch's nodes, edges and triplets, padded and real."""
+    valid = (host["t_kj"] >= 0) & (host["t_ji"] >= 0)
+    return dict(nodes=len(host["node_mask"]),
+                nodes_real=int(host["node_mask"].sum()),
+                edges=len(host["src"]),
+                edges_real=int(host["edge_mask"].sum()),
+                triplets=len(host["t_kj"]), triplets_real=int(valid.sum()),
+                d_feat=host["x"].shape[1] if "x" in host else 0,
+                graphs=len(host["y_graph"]) if "y_graph" in host else 1)
+
+
+def gnn_step_bytes(host: dict, counts: dict, n_params: int,
+                   real: bool) -> float:
+    """Bytes a training step must move: the batch's arrays read once
+    (only their real rows when ``real``) and, per parameter, the weight
+    and its gradient written and read, AdamW's two moments read and
+    written and the new weight written (7 float32 words)."""
+    total = 0.0
+    for key, a in host.items():
+        k = GNN_ROW_KIND.get(key, "nodes")
+        share = counts[f"{k}_real"] / counts[k] if real and k != "graphs" \
+            else 1.0
+        total += a.nbytes * share
+    return total + 7 * 4 * n_params
+
+
+def gnn_step_flops(cfg, n: int, e: int, t: int, d_feat: int) -> float:
+    """float32 FLOP of one training step over n nodes, e edges and t
+    triplets: the forward's products (x @ embed; rbf_proj and msg_init
+    over the edges; per block w_kj, rbf_gate, w_src, update and out_node
+    over the edges, sbf_proj, the bilinear's outer product and its
+    (B H) x H product over the triplets; out_final over the nodes), three
+    times (the backward's two products per product), x @ embed twice (x
+    takes no gradient)."""
+    h, b, r = cfg.d_hidden, cfg.n_bilinear, cfg.n_radial
+    sbf = r * cfg.n_spherical
+    block = (2 * e * (6 * h * h + r * h)
+             + 2 * t * (sbf * b + b * h * h) + t * b * h)
+    fwd = (2 * e * (r * h + 4 * h * h) + cfg.n_blocks * block
+           + 2 * n * (h * h + h * cfg.d_out))
+    return 3.0 * fwd + 2.0 * (2 * n * d_feat * h)
+
+
+def gnn_train_cell(torch, cfg, graph, d_feat: int, seed: int,
+                   wrappers: dict) -> tuple:
+    """GNN_STEPS steps of make_train_step(loss_fn_for("gnn", cfg),
+    adamw(GNN_LR)) on ``graph`` from weights drawn on the CPU from
+    ``seed``. Returns (the run, the trained model, its optimizer state,
+    the step, a copy of the initial model)."""
+    import copy
+    from repro_torch.models import dimenet
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+
+    model = dimenet.init_params(torch.Generator().manual_seed(seed), cfg,
+                                d_feat).to("cuda")
+    init = copy.deepcopy(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = adamw(GNN_LR)
+    state = opt.init(model)
+    step = make_train_step(loss_fn_for("gnn", cfg), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms, per_step = [], [], [], []
+    for _ in range(GNN_STEPS):
+        c0 = {k: wrappers[k].launches for k in GNN_KERNELS}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, state, met = step(model, state, graph)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        per_step.append({k: wrappers[k].launches - c0[k]
+                         for k in GNN_KERNELS})
+    moved = [n for n, p in model.named_parameters()
+             if not torch.equal(p.detach(), before[n])]
+    run = dict(step_ms=times, step_ms_median=statistics.median(times[1:]),
+               step_ms_min=min(times[1:]), step_ms_max=max(times[1:]),
+               first_step_ms=times[0], losses=losses, grad_norms=norms,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               params=len(before), params_moved=len(moved),
+               params_count=sum(p.numel() for p in model.parameters()),
+               launches_per_step=per_step)
+    return run, model, state, step, init
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """``obj``'s attributes set to ``attrs`` inside the block."""
+    kept = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in kept.items():
+            setattr(obj, k, v)
+
+
+def gnn_loss_and_grads(torch, model, cfg, graph, taken=None) -> list:
+    """[loss, every parameter's gradient] of dimenet.loss_fn; with a dict
+    ``taken``, the run's bases ("rbf", "sbf": what radial_basis and
+    spherical_basis returned) and each ReLU's mask (out > 0; "relu", in
+    call order) are stored in it."""
+    from repro_torch.models import dimenet
+    if taken is None:
+        loss, _ = dimenet.loss_fn(model, cfg, graph)
+    else:
+        bases = dimenet.radial_basis, dimenet.spherical_basis, torch.relu
+        taken["relu"] = []
+
+        def rbf(*args):
+            taken["rbf"] = bases[0](*args).detach()
+            return taken["rbf"]
+
+        def sbf(*args):
+            taken["sbf"] = bases[1](*args).detach()
+            return taken["sbf"]
+
+        def relu(x):
+            out = bases[2](x)
+            taken["relu"].append(out > 0)
+            return out
+        with patched(dimenet, radial_basis=rbf, spherical_basis=sbf), \
+                patched(torch, relu=relu):
+            loss, _ = dimenet.loss_fn(model, cfg, graph)
+    return [loss.detach()] + list(torch.autograd.grad(
+        loss, list(model.parameters())))
+
+
+def gnn_float64_grads(torch, model, cfg, graph, taken=None) -> list:
+    """gnn_loss_and_grads of a float64 copy of ``model`` on the card, its
+    scatters and gathers as plain float64 index_add_ / indexing (the
+    yardstick of the card-against-CPU check, off the port's path). What
+    ``taken`` holds of a float32 run (gnn_loss_and_grads) it takes over:
+    that run's bases, widened, and its ReLU branches; the rest it
+    computes itself."""
+    import copy
+    from repro_torch.models import dimenet
+    taken = taken or {}
+
+    def segment_sum(data, ids, n):
+        keep = ids >= 0
+        return torch.zeros((n, data.shape[1]), dtype=data.dtype,
+                           device=data.device).index_add(
+            0, ids[keep].long(), data[keep])
+
+    def gather(table, ids):
+        return table[ids.clamp_min(0).long()] * (ids >= 0)[:, None]
+
+    def given(key, fn):
+        if key not in taken:
+            return fn
+        return lambda d, *rest: taken[key].to(d.device, d.dtype)
+
+    calls, plain_relu = iter(taken.get("relu", ())), torch.relu
+
+    def relu(x):
+        mask = next(calls, None)
+        if mask is None:
+            if "relu" in taken:
+                raise AssertionError("gnn: the float64 run made more ReLU "
+                                     "calls than the run it follows")
+            return plain_relu(x)
+        return x * mask.to(x.device, x.dtype)
+
+    wide = copy.deepcopy(model).double()
+    graph = {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
+             else v for k, v in graph.items()}
+    with patched(dimenet, segment_sum=segment_sum, _gather=gather,
+                 radial_basis=given("rbf", dimenet.radial_basis),
+                 spherical_basis=given("sbf", dimenet.spherical_basis)), \
+            patched(torch, relu=relu):
+        out = gnn_loss_and_grads(torch, wide, cfg, graph)
+    if next(calls, None) is not None:
+        raise AssertionError("gnn: the float64 run made fewer ReLU calls "
+                             "than the run it follows")
+    return out
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal float32 tensors bit for bit (signed zeros and NaNs apart)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def gnn_kernel_cases(cfg, hosts: dict) -> list:
+    """(name, cell, kernel, ids on the host (padding as -1), rows of the
+    output or table, D) for each shape gnn_kernel_checks holds: at
+    minibatch_lg the agg (T x H into E by t_ji), the node readout (E x H
+    into N by dst) and the bag at (m @ w_kj)[t_kj]; at molecule the graph
+    readout (N x d_out into G by graph_id) and its gradient, the one-id
+    bag at D = d_out."""
+    import numpy as np
+    big, mol = hosts["minibatch_lg"], hosts["molecule"]
+    t_valid = (big["t_kj"] >= 0) & (big["t_ji"] >= 0)
+    e, n = len(big["src"]), len(big["node_mask"])
+    g_ids = np.where(mol["node_mask"], mol["graph_id"], -1)
+    n_graphs = len(mol["y_graph"])
+    h = cfg.d_hidden
+    return [
+        ("agg", "minibatch_lg", "embedding_bag_backward",
+         np.where(t_valid, big["t_ji"], -1), e, h),
+        ("node_readout", "minibatch_lg", "embedding_bag_backward",
+         np.where(big["edge_mask"], big["dst"], -1), n, h),
+        ("gather_w_kj", "minibatch_lg", "embedding_bag",
+         np.where(t_valid, big["t_kj"], -1), e, h),
+        ("graph_readout", "molecule", "embedding_bag_backward", g_ids,
+         n_graphs, cfg.d_out),
+        ("gather_graph_readout", "molecule", "embedding_bag", g_ids,
+         n_graphs, cfg.d_out)]
+
+
+def gnn_segment_sum_check(torch, ids, segs: int, d: int, gpu: str,
+                          g) -> dict:
+    """segment_sum (the backward kernel with one id per row) of normal
+    (rows, d) data by ``ids`` into ``segs`` segments: bit-equal to its
+    plain version on the card, timed beside it and the library call
+    (index_add_ into torch.zeros over the valid rows), which the port
+    never calls."""
+    from repro_torch.kernels.embedding_bag import \
+        embedding_bag_backward_ref, segment_sum
+    data = torch.randn((ids.shape[0], d), generator=g, device=ids.device)
+    got = segment_sum(data, ids, segs)
+    want = embedding_bag_backward_ref(data, ids[:, None], None, "sum", segs)
+    equal = same_bits(torch, got, want)
+    err = float((got - want).abs().max())
+    keep = ids >= 0
+    lib_ids, lib_data = ids[keep].long(), data[keep].contiguous()
+
+    def lib():
+        return torch.zeros((segs, d), device=ids.device).index_add_(
+            0, lib_ids, lib_data)
+    lib_err = float((lib() - got).abs().max())
+    del got, want
+    n_valid = int(keep.sum())
+    bmin, by = bound(n_valid * d * 4 + ids.numel() * 4 + segs * d * 4,
+                     n_valid * d, gpu)
+    return dict(
+        kernel="embedding_bag_backward", bit_equal_to_plain=equal,
+        max_abs_err=err,
+        ms=time_ms(lambda: segment_sum(data, ids, segs), 10, 2),
+        device_ms=queued_ms(torch, lambda: segment_sum(data, ids, segs),
+                            calls=8),
+        plain_ms=time_ms(lambda: embedding_bag_backward_ref(
+            data, ids[:, None], None, "sum", segs), 3, 1),
+        bound_ms=bmin, bound_by=by, library_ms=time_ms(lib, 10, 2),
+        library_max_abs_err=lib_err,
+        library_call="torch.zeros(S, D).index_add_ over the valid rows",
+        shape=dict(rows=ids.shape[0], rows_valid=n_valid, segments=segs,
+                   d=d))
+
+
+def gnn_bag_check(torch, ids, rows: int, d: int, gpu: str, g) -> dict:
+    """The one-id bag (a row gather of a normal (rows, d) table by
+    ``ids``): bit-equal to its plain version on the card, timed beside it
+    and the library call (F.embedding_bag over the valid ids with an
+    empty bag per pad), which the port never calls."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_ref
+    ids = ids[:, None].contiguous()
+    table = torch.randn((rows, d), generator=g, device=ids.device)
+    got = embedding_bag_cuda(table, ids, None, "sum")
+    want = embedding_bag_ref(table, ids, None, "sum")
+    equal = same_bits(torch, got, want)
+    err = float((got - want).abs().max())
+    keep = ids[:, 0] >= 0
+    lib_ids = ids[keep, 0].long()
+    offsets = torch.cumsum(keep.long(), 0) - keep.long()   # pads: empty
+
+    def lib():
+        return torch.nn.functional.embedding_bag(lib_ids, table, offsets,
+                                                 mode="sum")
+    lib_err = float((lib() - got).abs().max())
+    del got, want
+    uniq = int(torch.unique(lib_ids).numel())
+    bmin, by = bound(uniq * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4,
+                     0, gpu)
+    return dict(
+        kernel="embedding_bag", bit_equal_to_plain=equal, max_abs_err=err,
+        ms=time_ms(lambda: embedding_bag_cuda(table, ids, None, "sum"), 10,
+                   2),
+        device_ms=queued_ms(torch, lambda: embedding_bag_cuda(
+            table, ids, None, "sum"), calls=8),
+        plain_ms=time_ms(lambda: embedding_bag_ref(table, ids, None, "sum"),
+                         3, 1),
+        bound_ms=bmin, bound_by=by, library_ms=time_ms(lib, 10, 2),
+        library_max_abs_err=lib_err,
+        library_call="F.embedding_bag (sum) over the valid ids, an empty "
+                     "bag per pad",
+        shape=dict(rows=ids.shape[0], rows_valid=int(keep.sum()),
+                   table_rows=rows, unique_rows=uniq, d=d))
+
+
+def gnn_kernel_checks(torch, cfg, hosts: dict, gpu: str, seed: int) -> dict:
+    """Both bag kernels at each of gnn_kernel_cases' shapes, on normal
+    data with the batch's ids (padding as -1): each entry bit-equal to
+    its plain version on the card and timed (gnn_segment_sum_check,
+    gnn_bag_check)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 1717)
+    out = {}
+    for name, cell, kernel, ids, rows, d in gnn_kernel_cases(cfg, hosts):
+        ids = torch.from_numpy(ids).to(dev).int().contiguous()
+        check = gnn_segment_sum_check if kernel == "embedding_bag_backward" \
+            else gnn_bag_check
+        out[name] = dict(check(torch, ids, rows, d, gpu, g), cell=cell)
+    return out
+
+
+def gnn_cli_phase(src: Path) -> None:
+    """GNN_CLI_RUNS at once, on the card by default: the train launcher
+    must exit 0 and print the reference's line, the serve launcher exit 1
+    with the reference's message."""
+    import os
+    import re
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", module, *args],
+                              env={**os.environ, "PYTHONPATH": str(src)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for _, module, args in GNN_CLI_RUNS]
+    failed = []
+    for (name, module, args), proc in zip(GNN_CLI_RUNS, procs):
+        try:
+            out, err = proc.communicate(timeout=GNN_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        line = out.strip().splitlines()[-1] if out.strip() else ""
+        if name == "train":
+            ok = proc.returncode == 0 and re.fullmatch(
+                r"dimenet: trained 4 steps; history=\[\d+\.\d+"
+                r"(, \d+\.\d+){3}\]", line) is not None
+        else:
+            line = err.strip().splitlines()[-1] if err.strip() else ""
+            ok = proc.returncode == 1 and \
+                line == "gnn serving = scoring; use launch/train.py"
+        emit("gnn_cli", run=name, args=[module, *args],
+             returncode=proc.returncode, output=line,
+             seconds=time.perf_counter() - t,
+             stderr_tail=err[-2000:] if not ok else "")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"gnn_cli: the dimenet launchers failed or "
+                             f"printed another line: {failed}")
+
+
+def gnn_phase(torch, src: Path, gpu: str, seed: int, wrappers: dict) -> dict:
+    """DimeNet at its published config (item 10.6c) on GNN_CELLS, each
+    batch built on the host from ``seed``; GNN_SKIPPED printed with its
+    reason. The main path: GNN_STEPS steps of each cell, its launch counts
+    zeroed just before and read just after; finite losses, every parameter
+    moved, both bag kernels launched on every step and no other kernel
+    (asserted). Then: the first step's loss and gradients twice at
+    GNN_DETERMINISM_CELL, bit-equal to each other and to the step's loss;
+    the card against the CPU at GNN_CPU_CELLS, the gradients' errors to a
+    float64 run on each run's own bases and ReLU branches within
+    GNN_F64_RATIO of the CPU's (worst leaf and median leaf); the
+    kernels at gnn_kernel_cases' shapes (bit-equal); one profiled
+    step there; the launchers (gnn_cli_phase). Returns the launches over
+    the main path and the kernels' entries."""
+    import copy
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graph_sampler import graph_to_device
+
+    cfg = get_arch("dimenet").config
+    dev = torch.device("cuda")
+    for cell, why in GNN_SKIPPED.items():
+        emit("gnn_skip", cell=cell, reason=why)
+    hosts, graphs = {}, {}
+    for cell in GNN_CELLS:
+        t = time.perf_counter()
+        hosts[cell] = gnn_batch(cell, seed)
+        emit("gnn_batch", cell=cell, host_seconds=time.perf_counter() - t,
+             **gnn_counts(hosts[cell]))
+        graphs[cell] = graph_to_device(hosts[cell], dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts(wrappers)
+    runs, kept = {}, {}
+    for cell in GNN_CELLS:
+        d_feat = hosts[cell]["x"].shape[1] if "x" in hosts[cell] else 0
+        run, *rest = gnn_train_cell(torch, cfg, graphs[cell], d_feat, seed,
+                                    wrappers)
+        runs[cell], kept[cell] = run, rest
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+
+    for cell in GNN_CELLS:
+        run, c = runs[cell], gnn_counts(hosts[cell])
+        flops = gnn_step_flops(cfg, c["nodes"], c["edges"], c["triplets"],
+                               c["d_feat"])
+        flops_real = gnn_step_flops(cfg, c["nodes_real"], c["edges_real"],
+                                    c["triplets_real"], c["d_feat"])
+        n_params = run["params_count"]
+        step_bytes = gnn_step_bytes(hosts[cell], c, n_params, real=False)
+        bytes_real = gnn_step_bytes(hosts[cell], c, n_params, real=True)
+        bmin, by = bound(step_bytes, flops, gpu)
+        breal, by_real = bound(bytes_real, flops_real, gpu)
+        # the share against the work the real rows need comes first: the
+        # padded rows are work a later change may drop
+        emit("gnn_train", cell=cell, config=cfg.name, **c, **run,
+             bound_ms_real_rows=breal, bound_by_real_rows=by_real,
+             share_of_bound_real_rows=breal / run["step_ms_median"],
+             step_flops_real_rows=flops_real, step_bytes_real_rows=bytes_real,
+             padded_share=dict(nodes=1 - c["nodes_real"] / c["nodes"],
+                               edges=1 - c["edges_real"] / c["edges"],
+                               triplets=1 - c["triplets_real"]
+                               / c["triplets"],
+                               step_flops=1 - flops_real / flops),
+             bound_ms=bmin, bound_by=by,
+             share_of_bound=bmin / run["step_ms_median"],
+             step_flops=flops, step_bytes=step_bytes)
+        every = all(s[k] > 0 for s in run["launches_per_step"]
+                    for k in GNN_KERNELS) and all(
+            s == run["launches_per_step"][0]
+            for s in run["launches_per_step"])
+        if not all(math.isfinite(x) for x in run["losses"]) \
+                or run["params_moved"] != run["params"] or not every:
+            raise AssertionError(f"gnn {cell}: a non-finite loss, a "
+                                 f"parameter that did not move, or a step "
+                                 f"without both bag kernels: {run}")
+    others = {k: v for k, v in launches.items()
+              if k not in GNN_KERNELS and v}
+    if others:
+        raise AssertionError(f"gnn: another kernel launched on the DimeNet "
+                             f"path: {others}")
+
+    # the first step's loss and gradients, twice, from the same weights
+    cell = GNN_DETERMINISM_CELL
+    _, _, _, init = kept[cell]
+    a = gnn_loss_and_grads(torch, init, cfg, graphs[cell])
+    b = gnn_loss_and_grads(torch, init, cfg, graphs[cell])
+    same = all(same_bits(torch, x, y) for x, y in zip(a, b))
+    step_loss = float(a[0]) == runs[cell]["losses"][0]
+    emit("gnn_determinism", cell=cell, tensors=len(a), bit_equal=same,
+         equal_to_the_step_loss=step_loss, loss=float(a[0]))
+    if not (same and step_loss):
+        raise AssertionError(f"gnn: two runs of {cell}'s first step differ "
+                             f"(bit_equal {same}, step loss {step_loss})")
+    del a, b
+
+    # the card against the CPU on the same weights and batch
+    for cell in GNN_CPU_CELLS:
+        init = kept[cell][3]
+        t = time.perf_counter()
+        card_took, cpu_took = {}, {}
+        card = gnn_loss_and_grads(torch, init, cfg, graphs[cell], card_took)
+        cpu = gnn_loss_and_grads(torch, copy.deepcopy(init).cpu(), cfg,
+                                 graph_to_device(hosts[cell], "cpu"),
+                                 cpu_took)
+        card_wide = [x.cpu() for x in gnn_float64_grads(
+            torch, init, cfg, graphs[cell], card_took)]
+        cpu_wide = [x.cpu() for x in gnn_float64_grads(
+            torch, init, cfg, graphs[cell], cpu_took)]
+        flips = sum(int((a.cpu() != b).sum()) for a, b in zip(
+            card_took["relu"], cpu_took["relu"]))
+        units = sum(a.numel() for a in card_took["relu"])
+        bases_err = {k: float((card_took[k].cpu().double() - cpu_took[k])
+                              .abs().max()) / float(cpu_took[k].abs().max())
+                     for k in ("rbf", "sbf")}
+        del card_took, cpu_took
+        names = ["loss"] + [n for n, _ in init.named_parameters()]
+
+        def errs_of(xs, ys):
+            return {name: float((x.cpu().double() - y.cpu().double())
+                                .abs().max()) / (float(y.abs().max()) or 1.0)
+                    for name, x, y in zip(names, xs, ys)}
+        errs, card64, cpu64 = errs_of(card, cpu), errs_of(card, card_wide), \
+            errs_of(cpu, cpu_wide)
+        leaves = names[1:]
+        card_worst = max(leaves, key=card64.get)
+        cpu_worst = max(leaves, key=cpu64.get)
+        card_median = statistics.median(card64[n] for n in leaves)
+        cpu_median = statistics.median(cpu64[n] for n in leaves)
+        worst = max(leaves, key=errs.get)
+        ok = errs["loss"] <= GNN_CPU_LOSS_RTOL and \
+            card64[card_worst] <= GNN_F64_RATIO * cpu64[cpu_worst] and \
+            card_median <= GNN_F64_RATIO * cpu_median
+        emit("gnn_cpu", cell=cell, seconds=time.perf_counter() - t,
+             loss_card=float(card[0]), loss_cpu=float(cpu[0]),
+             loss_float64=float(card_wide[0]), loss_rel_err=errs["loss"],
+             loss_rtol=GNN_CPU_LOSS_RTOL, ratio=GNN_F64_RATIO,
+             leaves=len(leaves), relu_units=units,
+             relu_masks_card_vs_cpu=flips, bases_card_vs_cpu=bases_err,
+             card_worst_leaf=card_worst,
+             card_worst_err_to_float64=card64[card_worst],
+             cpu_worst_leaf=cpu_worst,
+             cpu_worst_err_to_float64=cpu64[cpu_worst],
+             worst_over_worst=card64[card_worst] / cpu64[cpu_worst],
+             card_median_err_to_float64=card_median,
+             cpu_median_err_to_float64=cpu_median,
+             median_over_median=card_median / cpu_median,
+             worst_leaf_card_vs_cpu=worst,
+             worst_leaf_card_vs_cpu_err_of_scale=errs[worst])
+        if not ok:
+            raise AssertionError(
+                f"gnn {cell}: the card's loss differs from the CPU's past "
+                f"{GNN_CPU_LOSS_RTOL}, or its gradients lie further from "
+                f"float64 than {GNN_F64_RATIO} x the CPU's (worst leaf "
+                f"{card_worst} {card64[card_worst]:.3g} against "
+                f"{cpu64[cpu_worst]:.3g}, median {card_median:.3g} against "
+                f"{cpu_median:.3g})")
+        del card, cpu, card_wide, cpu_wide
+
+    kernels = gnn_kernel_checks(torch, cfg, hosts, gpu, seed)
+    emit("gnn_kernels", shapes=kernels)
+    bad = [k for k, v in kernels.items() if not v["bit_equal_to_plain"]]
+    if bad:
+        raise AssertionError(f"gnn: a bag kernel differs from its plain "
+                             f"version at {bad}")
+
+    model, state, step, _ = kept["minibatch_lg"]
+    prof = profile_busy(torch, lambda: step(model, state,
+                                            graphs["minibatch_lg"]))
+    emit("gnn_profile", cell="minibatch_lg", profile=prof,
+         busy_share=None if prof["device_busy_ms"] is None else
+         prof["device_busy_ms"] / prof["profiled_wall_ms"])
+    del kept, graphs, model, state
+    torch.cuda.empty_cache()
+    gnn_cli_phase(src)
+    return dict(launches=launches, kernels=kernels)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-only", action="store_true",
                     help="run the device and LM phases alone; no result "
                          "line")
+    ap.add_argument("--gnn-only", action="store_true",
+                    help="run the device, build and gnn phases alone; no "
+                         "result line")
     args = ap.parse_args()
 
     try:
@@ -4644,6 +5260,16 @@ def main() -> int:
     ptxas = [ln.strip() for ln in lib.log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=lib.build_seconds, ptxas=ptxas)
+    if args.gnn_only:
+        from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+            embedding_bag_backward_cuda
+        t = time.perf_counter()
+        gnn = gnn_phase(torch, src, gpu, args.seed, {
+            "embedding_bag": embedding_bag_cuda,
+            "embedding_bag_backward": embedding_bag_backward_cuda})
+        emit("gnn_only", seconds=time.perf_counter() - t,
+             launches_gnn=gnn["launches"])
+        return 0
 
     # 3. kernels at the main path's shapes, against their plain versions
     from repro_torch.configs.ann_laion import ANN_SHAPES, CONFIG
@@ -4959,12 +5585,20 @@ def main() -> int:
     new_phase_s.update(lm_phases(torch, src, gpu, args.seed))
     lm_launches = {name: w.launches - before[name]
                    for name, w in wrappers.items()}
-    emit("new_phases", seconds=new_phase_s,
-         total_seconds=sum(new_phase_s.values()),
-         recsys_models_launches=models_launches, lm_launches=lm_launches)
     if any(lm_launches.values()):
         raise AssertionError(f"a kernel launched on the LM path, which has "
                              f"none: {lm_launches}")
+
+    # 17. DimeNet: its segment sums and gathers' gradients on the bag
+    # kernels; its launch counts zeroed just before its cells' steps and
+    # read just after
+    t = time.perf_counter()
+    gnn = gnn_phase(torch, src, gpu, args.seed, wrappers)
+    new_phase_s["gnn"] = time.perf_counter() - t
+    emit("new_phases", seconds=new_phase_s,
+         total_seconds=sum(new_phase_s.values()),
+         recsys_models_launches=models_launches, lm_launches=lm_launches,
+         gnn_launches=gnn["launches"])
 
     # 15. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
     # times at the top, its total launches over both backends, and each
@@ -4982,6 +5616,11 @@ def main() -> int:
         entry["launches_sharded"] = sharded_launches[name]
         entry["launches_streamed"] = streamed_launches[name]
         entry["launches_sharded_toggles"] = toggle_launches[name]
+        entry["launches_gnn"] = gnn["launches"][name]
+        if name in GNN_KERNELS:
+            entry["by_shape_gnn"] = {
+                s_: {k_: v for k_, v in b_.items() if k_ != "kernel"}
+                for s_, b_ in gnn["kernels"].items() if b_["kernel"] == name}
         if "by_mode" in info:
             entry["by_mode"] = {
                 m: {**info["by_mode"][m],
@@ -5042,6 +5681,9 @@ def main() -> int:
            for spec, _ in FACTORY_SPECS) <= 0:
         raise AssertionError(f"a family's kernel never launched in the "
                              f"factory phase: {factory_launches}")
+    if min(gnn["launches"][name] for name in GNN_KERNELS) <= 0:
+        raise AssertionError(f"a bag kernel never launched on the DimeNet "
+                             f"path: {gnn['launches']}")
     if min(recsys_launches[name] for name in RECSYS_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the two-tower path never launched "
                              f"in phases 11-12: {recsys_launches}")

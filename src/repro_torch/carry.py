@@ -33,6 +33,12 @@ moments) into the port's names (``dense_layers/0/ffn/w_up`` is
 slice i is ``blocks.<i + 1>.moe.shared.w_up``). bf16 leaves cross
 through their 16-bit view, bit for bit.
 
+``gnn_params_from_jax`` carries DimeNet: the reference's params
+``{"embed", "rbf_proj", "msg_init": {"layers": [...]}, "out_final",
+"blocks": [{"w_src", "w_kj", "rbf_gate", "sbf_proj", "bilinear", "update",
+"out_node"}, ...]}`` become the port's ``models.dimenet.DimeNet`` over the
+same weights, bit for bit.
+
 ``param_name`` names a reference params leaf by the port's parameter name
 (``["user_tower", "layers", 0, "w"]`` is ``user_tower.weights.0``,
 ``["blocks", 1, "wq"]`` is ``blocks.1.wq``), ``named_from_jax`` flattens a
@@ -162,6 +168,32 @@ def recsys_params_from_jax(params: dict, cfg, device=None):
                          [{k: t(v) for k, v in blk.items()}
                           for blk in params["blocks"]],
                          t(params["final_ln"]))
+
+
+def gnn_params_from_jax(params: dict, cfg, device=None):
+    """Reference DimeNet params -> the port's ``DimeNet`` of ``cfg`` on
+    ``device`` (default: the card), the same weights bit for bit."""
+    from repro_torch.models.dimenet import Block, DimeNet
+
+    dev = resolve_device(device)
+
+    def t(a):
+        return _tensor(a).to(dev)
+
+    def mlp(p):
+        return MLP([t(lyr["w"]) for lyr in p["layers"]],
+                   [t(lyr["b"]) for lyr in p["layers"]])
+
+    blocks = [Block(t(b["w_src"]), t(b["w_kj"]), t(b["rbf_gate"]),
+                    t(b["sbf_proj"]), t(b["bilinear"]), mlp(b["update"]),
+                    mlp(b["out_node"]))
+              for b in params["blocks"]]
+    if len(blocks) != cfg.n_blocks:
+        raise ValueError(f"gnn_params_from_jax: {len(blocks)} blocks, the "
+                         f"config has {cfg.n_blocks}")
+    return DimeNet(t(params["embed"]), t(params["rbf_proj"]),
+                   mlp(params["msg_init"]), mlp(params["out_final"]),
+                   blocks)
 
 
 def _lm_leaves(tree):

@@ -1,39 +1,33 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
-It lists what the port runs: the paper's ANN workload, the four recsys
-models (DLRM, two-tower retrieval, SASRec, DIN) and the five LMs (the
-dense qwen2-1.5b, mistral-nemo-12b and qwen3-32b; the MoE
-deepseek-moe-16b and the MoE + MLA deepseek-v2-236b). The reference's GNN
-id raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+It lists the reference's eleven ids, all of which the port runs: the
+paper's ANN workload, the four recsys models (DLRM, two-tower retrieval,
+SASRec, DIN), the five LMs (the dense qwen2-1.5b, mistral-nemo-12b and
+qwen3-32b; the MoE deepseek-moe-16b and the MoE + MLA deepseek-v2-236b)
+and the GNN, dimenet.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.configs import ann_laion, deepseek_moe_16b, \
-    deepseek_v2_236b, din, dlrm_mlperf, mistral_nemo_12b, qwen2_1_5b, \
-    qwen3_32b, sasrec, two_tower_retrieval
+    deepseek_v2_236b, dimenet, din, dlrm_mlperf, mistral_nemo_12b, \
+    qwen2_1_5b, qwen3_32b, sasrec, two_tower_retrieval
 from repro_torch.configs.base import (  # noqa: F401
-    ANNConfig, ArchSpec, LMConfig, RecsysConfig, ShapeConfig, LM_SHAPES,
-    RECSYS_SHAPES, reduced_lm,
+    ANNConfig, ArchSpec, GNNConfig, LMConfig, RecsysConfig, ShapeConfig,
+    GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, reduced_lm,
 )
 
 _REGISTRY: Dict[str, ArchSpec] = {
     spec.arch_id: spec for spec in [
         qwen3_32b.SPEC, qwen2_1_5b.SPEC, mistral_nemo_12b.SPEC,
-        deepseek_v2_236b.SPEC, deepseek_moe_16b.SPEC, dlrm_mlperf.SPEC, two_tower_retrieval.SPEC, sasrec.SPEC, din.SPEC,
+        deepseek_v2_236b.SPEC, deepseek_moe_16b.SPEC, dimenet.SPEC,
+        dlrm_mlperf.SPEC, two_tower_retrieval.SPEC, sasrec.SPEC, din.SPEC,
         ann_laion.SPEC]
 }
 
-GNN = "ROADMAP Queue 1 item 10.6c (DimeNet)"
-NOT_PORTED: Dict[str, str] = {"dimenet": GNN}
-
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet ({NOT_PORTED[arch_id]}); "
-            f"the port runs {list_archs()}")
     if arch_id not in _REGISTRY:
         raise KeyError(
             f"unknown arch {arch_id!r}; available: {list_archs()}")

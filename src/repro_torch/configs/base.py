@@ -1,7 +1,7 @@
 """Config dataclasses of the port (copied from the reference's
 ``configs/base.py``): the dense / MoE decoder LM, the paper's ANN workload,
-the recsys family and the ``ArchSpec`` the launchers select by ``--arch``.
-The GNN config is not ported (ROADMAP Queue 1 item 10.6c)."""
+the recsys family, DimeNet's GNN config and the ``ArchSpec`` the launchers
+select by ``--arch``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -100,6 +100,22 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    """DimeNet-style directional message-passing network."""
+
+    name: str
+    n_blocks: int = 6
+    d_hidden: int = 128
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    cutoff: float = 5.0
+    envelope_p: int = 6
+    d_out: int = 1
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class RecsysConfig:
     """Sparse-embedding + interaction + MLP ranking/retrieval models."""
 
@@ -184,6 +200,25 @@ LM_SHAPES: Dict[str, ShapeConfig] = {
                              global_batch=1),
 }
 
+# Triplet capacity: DimeNet's angular messages live on (kj->ji) wedges. For
+# molecular graphs this is ~deg^2 per node; for the big web/product graphs the
+# budget is capped at 2 triplets/edge (fine-grained angular sampling). The
+# sampler (data/graph_sampler.py) keeps to the cap.
+GNN_SHAPES: Dict[str, ShapeConfig] = {
+    "full_graph_sm": ShapeConfig(
+        "full_graph_sm", "train", n_nodes=2708, n_edges=10556,
+        n_triplets=42224, d_feat=1433),
+    "minibatch_lg": ShapeConfig(
+        "minibatch_lg", "train", n_nodes=171_008, n_edges=168_960,
+        n_triplets=337_920, d_feat=602, batch_nodes=1024, fanout=(15, 10)),
+    "ogb_products": ShapeConfig(
+        "ogb_products", "train", n_nodes=2_449_029, n_edges=61_859_140,
+        n_triplets=123_718_280, d_feat=100),
+    "molecule": ShapeConfig(
+        "molecule", "train", n_nodes=30, n_edges=64, n_triplets=256,
+        d_feat=0, n_graphs=128),
+}
+
 RECSYS_SHAPES: Dict[str, ShapeConfig] = {
     "train_batch": ShapeConfig("train_batch", "train", batch=65536),
     "serve_p99": ShapeConfig("serve_p99", "serve", batch=512),
@@ -198,8 +233,9 @@ class ArchSpec:
     """Everything the launchers need for one ``--arch`` id."""
 
     arch_id: str
-    family: str                      # lm | recsys | ann (gnn: not ported)
-    config: Any                      # LMConfig | RecsysConfig | ANNConfig
+    family: str                      # lm | gnn | recsys | ann
+    config: Any                      # LMConfig | GNNConfig | RecsysConfig |
+                                     # ANNConfig
     shapes: Dict[str, ShapeConfig]
     smoke_config: Any = None         # reduced same-family config, if any
     source: str = ""                 # [citation; verification tier]

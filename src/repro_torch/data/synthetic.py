@@ -1,5 +1,6 @@
-"""Synthetic LAION-like vectors, LM and recsys batches (the reference's
-``data/synthetic.py`` recipes, drawn from a ``torch.Generator``).
+"""Synthetic LAION-like vectors, LM and recsys batches and random graphs
+(the reference's ``data/synthetic.py`` recipes, drawn from a
+``torch.Generator``).
 
 The recipe is the reference's: a Gaussian mixture with Zipf-ish cluster
 weights and a decaying per-dimension spectrum, so PCA has headroom and the
@@ -77,3 +78,28 @@ def recsys_batch(generator: torch.Generator, batch: int, cfg) -> dict:
     out["label"] = (torch.rand((batch,), generator=generator, device=dev)
                     < 0.3).float()
     return out
+
+
+def random_graph(generator: torch.Generator, n_nodes: int, n_edges: int,
+                 d_feat: int = 0, positions: bool = False) -> dict:
+    """Random directed graph (edge_index src->dst) with optional features,
+    with the reference's distributions: src uniform in [0, n), dst = (src
+    + 1 + r) % n with r uniform in [0, n - 2] (no self-loops), int32
+    ids; standard-normal (n, d_feat) features ``x``; (n, 3) positions
+    ``pos``, normal times 2."""
+    dev = generator.device
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=generator, device=dev,
+                             dtype=torch.int32)
+
+    src = ints(n_nodes, (n_edges,))
+    dst = (src + 1 + ints(n_nodes - 1, (n_edges,))) % n_nodes
+    g = {"src": src, "dst": dst, "n_nodes": n_nodes}
+    if d_feat:
+        g["x"] = torch.randn((n_nodes, d_feat), generator=generator,
+                             device=dev)
+    if positions:
+        g["pos"] = torch.randn((n_nodes, 3), generator=generator,
+                               device=dev) * 2.0
+    return g

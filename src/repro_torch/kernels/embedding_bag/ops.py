@@ -8,6 +8,16 @@ each adding into a zero (V, D) float32 gradient in the same order, so the
 two devices give the same gradient bits. Only a float32 table trains (a
 bfloat16 table that requires grad raises); ``weights`` is not
 differentiated.
+
+``segment_sum`` is the same pair of kernels the other way round, for the
+GNN's scatters (``jax.ops.segment_sum``): its forward is the backward
+kernel with one id per row (ids (T, 1), sum), which groups the ids by a
+stable sort and sums each segment's rows in ascending row order, with no
+float atomics; its gradient is the bag (a row gather, L = 1). A row gather
+that trains, ``table[ids]``, is ``embedding_bag(table, ids[:, None])``,
+whose gradient is that deterministic scatter. On the CPU both sides are
+the plain versions, which sum in the same order, so the two devices give
+the same bits. An id of -1 is skipped both ways (its row gathers as 0).
 """
 from __future__ import annotations
 
@@ -65,3 +75,54 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
         ids = ids.to(torch.int32).contiguous()
         weights = None if weights is None else weights.float().contiguous()
     return EmbeddingBagFunction.apply(table, ids, weights, combiner, on_card)
+
+
+class SegmentSumFunction(torch.autograd.Function):
+    """(data, ids (T, 1), num_segments, on_card) -> (num_segments, D)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, num_segments, on_card):
+        ctx.on_card = on_card
+        ctx.save_for_backward(ids)
+        if on_card:
+            out = torch.zeros((num_segments, data.shape[1]),
+                              dtype=torch.float32, device=data.device)
+            return embedding_bag_backward_cuda(data, ids, None, "sum", out)
+        return embedding_bag_backward_ref(data, ids, None, "sum",
+                                          num_segments)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, = ctx.saved_tensors
+        g = grad_out.float().contiguous()
+        if ctx.on_card:
+            grad = embedding_bag_cuda(g, ids, None, "sum")
+        else:
+            grad = embedding_bag_ref(g, ids, None, "sum")
+        return grad, None, None, None
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """data (T, D) float32, segment_ids (T,) (-1 skips a row) ->
+    (num_segments, D) float32: out[s] = sum of data[t] over segment_ids[t]
+    == s, added in ascending t: the backward kernel of the bag for CUDA
+    tensors, its plain version for CPU tensors; differentiable with
+    respect to ``data``. Ids >= num_segments are outside the contract
+    (they add into the last segment)."""
+    if data.dtype != torch.float32 or data.dim() != 2:
+        raise TypeError(f"segment_sum: data must be a 2-D float32 tensor, "
+                        f"got {data.dtype} {tuple(data.shape)}")
+    if segment_ids.shape != data.shape[:1]:
+        raise ValueError(f"segment_sum: segment_ids "
+                         f"{tuple(segment_ids.shape)} do not match data's "
+                         f"{data.shape[0]} rows")
+    if num_segments <= 0:
+        raise ValueError(f"segment_sum: num_segments must be positive, got "
+                         f"{num_segments}")
+    on_card = use_kernel(data, None, "segment_sum")
+    ids = segment_ids.reshape(-1, 1)
+    if on_card:
+        ids = ids.to(torch.int32).contiguous()
+        data = data.contiguous()
+    return SegmentSumFunction.apply(data, ids, num_segments, on_card)

@@ -10,6 +10,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ann-laion \\
         --spec "PCA32,NSG16,EP16" --ef 48 [--device cpu]
 
+``--arch dimenet`` exits as the reference does: GNN serving is scoring,
+which the training launcher runs.
+
 The LM family builds the arch's smoke config from seed 0, prefills a
 batch of 32-token prompts and decodes ``--tokens`` greedily, as the
 reference does: its prefill sizes the cache to the prompt, so the decode
@@ -295,6 +298,8 @@ def main(argv=None):
     if spec.family == "lm":
         serve_lm(args, cfg, dev)
         return
+    if spec.family == "gnn":
+        raise SystemExit("gnn serving = scoring; use launch/train.py")
 
     def gen():
         return torch.Generator(device=dev).manual_seed(0)

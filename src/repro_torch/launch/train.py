@@ -1,6 +1,6 @@
-"""Training launcher (the reference's ``launch/train.py``, its LM and
-recsys branches): ``--arch <id>`` trains one architecture end to end (data
-stream, loss, optimizer, checkpoints).
+"""Training launcher (the reference's ``launch/train.py``): ``--arch <id>``
+trains one architecture end to end (data stream, loss, optimizer,
+checkpoints).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen2-1.5b|mistral-nemo-12b|qwen3-32b --steps 10 \\
@@ -9,19 +9,23 @@ stream, loss, optimizer, checkpoints).
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch two-tower-retrieval|sasrec|din|dlrm-mlperf --steps 10 \\
         [--batch 8] [--full-config] [--ckpt-dir DIR] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dimenet \\
+        --steps 10 [--full-config] [--ckpt-dir DIR] [--device cpu]
 
 It builds the arch's smoke config (``--full-config``: the full one) from
 seed 0, draws batch s from a generator seeded s (the stream is a pure
 function of the step, so a resume replays it), trains the LMs on
-``--seq``-token sequences with ``adamw(3e-4)`` and the recsys models with
+``--seq``-token sequences with ``adamw(3e-4)``, the recsys models with
 ``mixed_optimizer(1e-3)`` (row-wise Adagrad for the table, AdamW for the
-rest), checkpoints every max(2, steps // 2) steps and prints the
-reference's line, ``<arch>: trained <n> steps; history=[...]``: the loss
-every max(1, steps // 4) steps. Without ``--ckpt-dir`` the checkpoints go
-to a temporary directory removed at exit. The ANN id exits as the
-reference does (the tuner is its training); the MoE / MLA and GNN ids
-raise as ``configs.get_arch`` does. The port runs on the card by default;
-``--device cpu`` runs the plain PyTorch versions of the kernels instead.
+rest) and DimeNet with ``adamw(1e-3)`` on the reference's padded graph
+batch (``make_dimenet_batch(step, 64 nodes, 128 edges, 512 triplets, 4
+graphs)``, built on the host and moved to the device), checkpoints every
+max(2, steps // 2) steps and prints the reference's line, ``<arch>:
+trained <n> steps; history=[...]``: the loss every max(1, steps // 4)
+steps. Without ``--ckpt-dir`` the checkpoints go to a temporary directory
+removed at exit. The ANN id exits as the reference does (the tuner is its
+training). The port runs on the card by default; ``--device cpu`` runs
+the plain PyTorch versions of the kernels instead.
 """
 from __future__ import annotations
 
@@ -33,14 +37,17 @@ import torch
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.device import resolve_device
 from repro_torch.data import lm_batch, recsys_batch
-from repro_torch.models import recsys, transformer
+from repro_torch.data.graph_sampler import graph_to_device, \
+    make_dimenet_batch
+from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.optim import adamw, mixed_optimizer
 from repro_torch.train.train_step import loss_fn_for, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def make_parts(spec, cfg, batch_size: int, seq: int, dev: torch.device):
-    """(init, batch_fn, optimizer) of an LM or recsys arch on ``dev``."""
+    """(init, batch_fn, optimizer) of an LM, GNN or recsys arch on
+    ``dev``."""
     def gen(seed: int):
         return torch.Generator(device=dev).manual_seed(seed)
 
@@ -49,6 +56,12 @@ def make_parts(spec, cfg, batch_size: int, seq: int, dev: torch.device):
                 lambda step: lm_batch(gen(step), batch_size, seq,
                                       cfg.vocab_size),
                 adamw(3e-4))
+    if spec.family == "gnn":
+        return (lambda seed: dimenet.init_params(gen(seed), cfg),
+                lambda step: graph_to_device(make_dimenet_batch(
+                    step, n_nodes=64, n_edges=128, n_triplets=512,
+                    n_graphs=4), dev),
+                adamw(1e-3))
     if spec.family != "recsys":
         raise SystemExit(f"train not defined for family {spec.family}; "
                          "use launch/tune.py for the ANN workload")

@@ -27,7 +27,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs import NOT_PORTED
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models import recsys_common as C
 from repro_torch.models.layers import MLP, dense_init, mlp_init, rms_norm, \
@@ -377,8 +376,4 @@ def family_of(cfg: RecsysConfig) -> str:
     for k in INIT:
         if name.startswith(k.split("-")[0]):
             return k
-    for arch_id, item in NOT_PORTED.items():
-        if name.startswith(arch_id.split("-")[0]):
-            raise NotImplementedError(
-                f"recsys family of {cfg.name!r} is not ported yet ({item})")
     raise KeyError(cfg.name)

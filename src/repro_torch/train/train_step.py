@@ -5,8 +5,8 @@ optional int8 error-feedback gradient compression.
     step = make_train_step(loss_fn_for("recsys", cfg), mixed_optimizer(1e-3))
     model, opt_state, metrics = step(model, opt_state, batch)
 
-``loss_fn_for("lm", cfg)`` is ``models.transformer.lm_loss``; the GNN's
-loss is not ported (ROADMAP Queue 1 item 10.6c).
+``loss_fn_for("lm", cfg)`` is ``models.transformer.lm_loss``,
+``loss_fn_for("gnn", cfg)`` ``models.dimenet.loss_fn``.
 
 ``params`` is an ``nn.Module`` or a ``{name: tensor}`` dict of tensors that
 require grad; the step updates them in place (see ``optim.adamw``). The
@@ -20,8 +20,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs import GNN
-from repro_torch.models import recsys, transformer
+from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.optim import Optimizer, compress_with_feedback, named
 
 
@@ -30,8 +29,7 @@ def loss_fn_for(family: str, cfg, lookup_fn=None) -> Callable:
     if family == "lm":
         return lambda p, b: transformer.lm_loss(p, cfg, b)
     if family == "gnn":
-        raise NotImplementedError(f"the gnn family's loss is not ported "
-                                  f"yet ({GNN})")
+        return lambda p, b: dimenet.loss_fn(p, cfg, b)
     if family == "recsys":
         fam = recsys.family_of(cfg)
         return lambda p, b: recsys.LOSS[fam](p, cfg, b, lookup_fn)

@@ -2062,3 +2062,121 @@ def test_lm_mla_decode_on_the_card_equals_the_cpu(dev, form):
     assert torch.equal(out["cuda"][1][1], cc[1])          # dropped write
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# -- DimeNet: segment_sum and the one-id bag (the GNN's scatters and the
+# gathers that train) --------------------------------------------------------
+
+def _gnn_ids(g, t, s, dev):
+    """t ids into s segments: a third -1 (padding), and one id taking
+    10,000 of them (a hub's run, to one warp)."""
+    ids = torch.randint(0, s, (t,), generator=g, dtype=torch.int32)
+    ids[torch.rand((t,), generator=g) < 0.33] = -1
+    ids[torch.randperm(t, generator=g)[:10_000]] = 5
+    return ids.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 128])
+def test_segment_sum_kernel(dev, d):
+    """segment_sum on the card (the backward kernel, ids (T, 1)) equals its
+    plain version bit for bit, -1 skipped, a 10,000-row run included; its
+    gradient (the bag kernel) too; each launches its kernel once."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_backward_cuda, embedding_bag_backward_ref, \
+        embedding_bag_ref, segment_sum
+    g = torch.Generator().manual_seed(d)
+    t, s = 40_000, 3_000
+    ids = _gnn_ids(g, t, s, dev)
+    data = torch.randn((t, d), generator=g).to(dev).requires_grad_(True)
+    n0 = embedding_bag_backward_cuda.launches
+    got = segment_sum(data, ids, s)
+    assert embedding_bag_backward_cuda.launches == n0 + 1
+    want = embedding_bag_backward_ref(data.detach(), ids[:, None], None,
+                                      "sum", s)
+    assert torch.equal(got.detach().view(torch.int32),
+                       want.view(torch.int32))
+    cot = torch.randn((s, d), generator=g).to(dev)
+    n0 = embedding_bag_cuda.launches
+    (grad,) = torch.autograd.grad(got, data, cot)
+    assert embedding_bag_cuda.launches == n0 + 1
+    assert torch.equal(grad, embedding_bag_ref(cot, ids[:, None], None,
+                                               "sum"))
+    assert not grad[ids < 0].any()
+    cpu = segment_sum(data.detach().cpu(), ids.cpu(), s)
+    assert torch.equal(cpu.view(torch.int32), got.detach().cpu().view(
+        torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 128])
+def test_one_id_bag_kernel(dev, d):
+    """A bag of one id per row (table[ids], -1 a zero row) on the card
+    equals its plain version bit for bit, and its gradient (the backward
+    kernel, a 10,000-writer run on one row) too, as on the CPU."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, \
+        embedding_bag_backward_cuda, embedding_bag_backward_ref, \
+        embedding_bag_ref
+    g = torch.Generator().manual_seed(10 + d)
+    v, t = 3_000, 40_000
+    ids = _gnn_ids(g, t, v, dev)[:, None].contiguous()
+    table = torch.randn((v, d), generator=g).to(dev).requires_grad_(True)
+    out = embedding_bag(table, ids)
+    assert torch.equal(out.detach(), embedding_bag_ref(table.detach(), ids))
+    cot = torch.randn((t, d), generator=g).to(dev)
+    n0 = embedding_bag_backward_cuda.launches
+    (grad,) = torch.autograd.grad(out, table, cot)
+    assert embedding_bag_backward_cuda.launches == n0 + 1
+    want = embedding_bag_backward_ref(cot, ids, None, "sum", v)
+    assert torch.equal(grad.view(torch.int32), want.view(torch.int32))
+    cpu = embedding_bag_backward_ref(cot.cpu(), ids.cpu(), None, "sum", v)
+    assert torch.equal(grad.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_dimenet_step_on_the_card_equals_the_cpu(dev):
+    """The SMOKE DimeNet's loss and every gradient on the card against
+    the CPU's on the same weights and padded batch (rtol 1e-5 on the
+    loss, 1e-5 of each leaf's largest magnitude: the products sum in
+    other orders), two runs on the card bit-equal, both bag kernels
+    launched; then one adamw(1e-3) step moves every parameter."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graph_sampler import graph_to_device, \
+        make_dimenet_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
+        embedding_bag_backward_cuda
+    from repro_torch.models import dimenet
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+    cfg = get_arch("dimenet").smoke_config
+    host = make_dimenet_batch(0, n_nodes=64, n_edges=128, n_triplets=512,
+                              n_graphs=4)
+    model = dimenet.init_params(torch.Generator().manual_seed(0), cfg)
+
+    def loss_and_grads(m, graph):
+        loss, _ = dimenet.loss_fn(m, cfg, graph)
+        return [loss.detach()] + list(torch.autograd.grad(
+            loss, list(m.parameters())))
+
+    cpu = loss_and_grads(model, graph_to_device(host, "cpu"))
+    card_model = dimenet.init_params(torch.Generator().manual_seed(0),
+                                     cfg).to(dev)
+    graph = graph_to_device(host, dev)
+    n0 = (embedding_bag_cuda.launches, embedding_bag_backward_cuda.launches)
+    card = loss_and_grads(card_model, graph)
+    assert embedding_bag_cuda.launches > n0[0]
+    assert embedding_bag_backward_cuda.launches > n0[1]
+    again = loss_and_grads(card_model, graph)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(card, again))
+    assert abs(float(card[0]) - float(cpu[0])) <= 1e-5 * abs(float(cpu[0]))
+    for a, b in zip(card[1:], cpu[1:]):
+        scale = float(b.abs().max()) or 1.0
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * scale
+    before = {n: p.detach().clone() for n, p in card_model.named_parameters()}
+    opt = adamw(1e-3)
+    step = make_train_step(loss_fn_for("gnn", cfg), opt)
+    card_model, _, met = step(card_model, opt.init(card_model), graph)
+    assert float(met["loss"]) == float(card[0])
+    assert all(not torch.equal(p.detach(), before[n])
+               for n, p in card_model.named_parameters())

@@ -57,6 +57,11 @@ MOE_MLA_MODULES = {
     "repro_torch.models.moe", "repro_torch.configs.deepseek_moe_16b",
     "repro_torch.configs.deepseek_v2_236b"}
 
+# the modules of the GNN slice (the sampler is the port's own copy)
+GNN_MODULES = {
+    "repro_torch.models.dimenet", "repro_torch.data.graph_sampler",
+    "repro_torch.configs.dimenet"}
+
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.MULTILINE)
 
@@ -79,6 +84,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         LM_MODULES - set(names.split(","))
     assert MOE_MLA_MODULES <= set(names.split(",")), \
         MOE_MLA_MODULES - set(names.split(","))
+    assert GNN_MODULES <= set(names.split(",")), \
+        GNN_MODULES - set(names.split(","))
 
 
 _LM_PROBE = """

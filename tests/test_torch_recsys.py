@@ -83,18 +83,16 @@ def _close(got, want):
 
 def test_registry_lists_what_the_port_runs():
     assert list_archs() == ["ann-laion", "deepseek-moe-16b",
-                            "deepseek-v2-236b", "din", "dlrm-mlperf",
-                            "mistral-nemo-12b", "qwen2-1.5b", "qwen3-32b",
-                            "sasrec", "two-tower-retrieval"]
+                            "deepseek-v2-236b", "dimenet", "din",
+                            "dlrm-mlperf", "mistral-nemo-12b", "qwen2-1.5b",
+                            "qwen3-32b", "sasrec", "two-tower-retrieval"]
     assert get_arch("two-tower-retrieval").config == CONFIG
     ref = jax_get_arch("two-tower-retrieval")
     assert (CONFIG.table_vocabs, CONFIG.embed_dim, CONFIG.tower_mlp,
             CONFIG.multi_hot) == (ref.config.table_vocabs,
                                   ref.config.embed_dim, ref.config.tower_mlp,
                                   ref.config.multi_hot)
-    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
-        get_arch("dimenet")
-    for arch in ("deepseek-v2-236b", "deepseek-moe-16b"):      # ported
+    for arch in ("deepseek-v2-236b", "deepseek-moe-16b", "dimenet"):
         assert vars(get_arch(arch).config) == vars(jax_get_arch(arch).config)
     with pytest.raises(KeyError):
         get_arch("bogus")
@@ -189,13 +187,14 @@ def test_recsys_batch_shapes_dtypes_ranges():
 
 
 def test_other_families_raise_naming_their_item():
-    """A config of a family the port does not run (a GNN's) is refused by
-    family_of, naming the ROADMAP item that brings it; an LM's (the MoE /
-    MLA deepseek-v2-236b's too) is no recsys family, as in the
-    reference, and builds as an LM."""
-    cfg = jax_get_arch("dimenet").smoke_config
-    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
+    """A config of another family is no recsys family, as in the
+    reference: a GNN's (dimenet, ported) and an LM's (the MoE / MLA
+    deepseek-v2-236b's too, which builds as an LM) raise KeyError."""
+    cfg = get_arch("dimenet").smoke_config
+    with pytest.raises(KeyError):
         recsys.family_of(cfg)
+    with pytest.raises(KeyError):
+        jax_recsys.family_of(jax_get_arch("dimenet").smoke_config)
     cfg = jax_get_arch("deepseek-v2-236b").smoke_config
     with pytest.raises(KeyError):
         recsys.family_of(cfg)

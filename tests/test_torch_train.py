@@ -38,8 +38,11 @@ from repro_torch.carry import named_from_jax, optimizer_state_from_jax, \
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_arch
 from repro_torch.data import lm_batch, recsys_batch
+from repro_torch.data.graph_sampler import graph_to_device, \
+    make_dimenet_batch
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
-from repro_torch.models import recsys, transformer
+from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.optim import adamw, init_error_state, mixed_optimizer
 from repro_torch.train.train_step import loss_fn_for, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -219,12 +222,18 @@ def test_sasrec_negatives_are_a_fixed_set():
 
 
 def test_loss_fn_for_refuses_lm_and_gnn():
-    """The GNN's loss is refused naming its item (10.6c); the LM's is
-    ported (tests/test_torch_transformer.py), its MoE configs too
-    (tests/test_torch_moe.py): a finite loss with a positive aux."""
+    """The GNN's loss is ported (tests/test_torch_dimenet.py): a finite
+    loss on the launcher's graph batch; so is the LM's
+    (tests/test_torch_transformer.py), its MoE configs too
+    (tests/test_torch_moe.py): a finite loss with a positive aux. An
+    unknown family raises KeyError."""
     cfg = get_arch("din").smoke_config
-    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
-        loss_fn_for("gnn", cfg)
+    gnn = get_arch("dimenet").smoke_config
+    graph = graph_to_device(make_dimenet_batch(
+        0, n_nodes=64, n_edges=128, n_triplets=512, n_graphs=4), "cpu")
+    model = dimenet.init_params(torch.Generator().manual_seed(0), gnn)
+    loss, met = loss_fn_for("gnn", gnn)(model, graph)
+    assert torch.isfinite(loss) and met["loss"] is loss
     assert callable(loss_fn_for("lm", get_arch("qwen2-1.5b").smoke_config))
     moe = jax_get_arch("deepseek-moe-16b").smoke_config
     model = transformer.init_params(torch.Generator().manual_seed(0), moe)
@@ -514,11 +523,20 @@ def test_train_launcher_on_the_cpu(arch, capsys, tmp_path):
                                             "step_00000004"]
 
 
-def test_train_launcher_refuses_the_other_families():
+def test_train_launcher_refuses_the_other_families(capsys):
     with pytest.raises(SystemExit, match="use launch/tune.py"):
         train_main(["--arch", "ann-laion", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=re.escape("10.6c")):
-        train_main(["--arch", "dimenet", "--device", "cpu"])
+    # the GNN trains (10.6c) and prints the reference's line; its serve
+    # launcher exits with the reference's message
+    capsys.readouterr()
+    train_main(["--arch", "dimenet", "--steps", "2", "--device", "cpu"])
+    line = capsys.readouterr().out.strip()
+    assert re.fullmatch(r"dimenet: trained 2 steps; history=\[\d+\.\d+"
+                        r"(, \d+\.\d+)+\]", line), line
+    with pytest.raises(SystemExit,
+                       match=re.escape("gnn serving = scoring; use "
+                                       "launch/train.py")):
+        serve_main(["--arch", "dimenet", "--device", "cpu"])
     # the MoE LM is no longer refused (10.6b)
     train_main(["--arch", "deepseek-moe-16b", "--steps", "1", "--batch", "2",
                 "--seq", "8", "--device", "cpu"])
