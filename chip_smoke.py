@@ -334,22 +334,30 @@ Phases, each printing one JSON line:
                 (GNN_SKIPPED). Per cell: losses, step ms (median, min and
                 max after the first), peak bytes, the step's f32 bound and
                 share over the real rows first, then over the padded rows,
-                both bag kernels' launches per step; finite losses, every
-                parameter moved, both kernels on every step and no other
-                kernel (asserted). Then the first step twice at
+                the bag kernels' and bag_grouping's launches per step;
+                finite losses, every parameter moved, each step's
+                launches equal to gnn_step_launches' (20
+                backward and 4 groupings, 22 and 6 on molecule) and no
+                other kernel (asserted). Then the first step twice at
                 minibatch_lg, bit-equal; the card against the CPU at
                 molecule and full_graph_sm (the gradients' errors to a
                 float64 run on each run's own bases and ReLU branches
                 within GNN_F64_RATIO of the CPU's, worst and median leaf);
                 segment_sum
                 and the one-id bag at minibatch_lg's shapes (D = 128) and
-                molecule's graph readout (D = 1), bit-equal to their plain
-                versions, timed beside index_add_ / F.embedding_bag;
+                molecule's graph readout (D = 1), and segment_sum on a
+                10,000-member hub (GNN_HUB), bit-equal to their plain
+                versions, timed beside index_add_ / F.embedding_bag (one
+                call and device); at each segment_sum shape the grouping
+                alone (exact against its plain version, beside
+                torch.sort(stable=True)), the sum over a prepared plan and
+                the two together;
                 one profiled step; the dimenet launchers (gnn_cli).
  15. the kernels line: launches on the main path (fit + serve for the f32
                 kernels and l2topk, quantize + serve for the LUT kernels,
                 recsys + recsys_ann for embedding_bag, the two-tower
-                training steps of 14a for embedding_bag_backward), errors,
+                training steps of 14a for embedding_bag_backward and
+                bag_grouping), errors,
                 times and bounds; every kernel must have launched.
                 "launches_train" is each kernel's count over those steps,
                 "launches_recsys" over phases 11-12, which must be > 0
@@ -377,8 +385,9 @@ Phases, each printing one JSON line:
                 10c (every fit and one search per family), "launches_sharded"
                 and "launches_streamed" over phases 10d and 10e,
                 "launches_sharded_toggles" over 10f, "launches_gnn" over
-                the gnn cells' steps (> 0 for both bag kernels, whose
-                "by_shape_gnn" holds phase 17's kernel checks);
+                the gnn cells' steps (> 0 for both bag kernels and
+                bag_grouping, whose "by_shape_gnn" holds phase 17's kernel
+                checks);
                 gather_dist's and beam_hops' "by_mode" give each toggle
                 mode's times and bound (phase 3) and launches (10f). The
                 one-hop entries (beam_hop, beam_hop_lut; "on_main_path":
@@ -702,7 +711,10 @@ GNN_SKIPPED = {"ogb_products": (
     "over a mesh (launch/specs.py:202-283): it waits for a multi-card mesh")}
 GNN_STEPS = 10                    # the median and spread of steps 2-10
 GNN_LR = 1e-3
-GNN_KERNELS = ("embedding_bag", "embedding_bag_backward")
+GNN_KERNELS = ("embedding_bag", "embedding_bag_backward", "bag_grouping")
+# a segment_sum whose ids put 10,000 of 40,000 rows on one segment (a hub:
+# its run stays in one warp) into 3,000 segments at D = 128
+GNN_HUB = dict(rows=40_000, hub=10_000, segments=3_000, d=128)
 GNN_DETERMINISM_CELL = "minibatch_lg"
 GNN_CPU_CELLS = ("molecule", "full_graph_sm")
 # the card against the CPU on the same weights and batch. The loss: within
@@ -2547,12 +2559,13 @@ class BagGradRecorder:
             ops.embedding_bag_backward_cuda, None
         ops.embedding_bag_backward_cuda = self
 
-    def __call__(self, grad_out, ids, weights, combiner, out):
+    def __call__(self, grad_out, ids, weights, combiner, out, plan=None,
+                 store=False):
         if self.first is None:
             self.first = (grad_out.clone(), ids.clone(),
                           None if weights is None else weights.clone(),
                           combiner)
-        return self.real(grad_out, ids, weights, combiner, out)
+        return self.real(grad_out, ids, weights, combiner, out, plan, store)
 
     def close(self):
         self.ops.embedding_bag_backward_cuda = self.real
@@ -2631,14 +2644,17 @@ def train_phase(torch, model, cfg, gpu: str, seed: int, wrappers: dict):
     """The two-tower model at its full config (``model``: the serving
     phases' 14.35 GB table) trained for TRAIN_STEPS steps at B =
     RECSYS_SHAPES["train_batch"], each step through embedding_bag's
-    forward and backward kernels (one launch of each, asserted), and one
-    profiled step; its launch counts are zeroed just before the steps and
-    read just after (TRAIN_STEPS + 1 of each).
-    Then the backward kernel on the first step's operands (g, the
-    history ids, mean) into a zero (V, D) gradient, bit-equal to its plain
-    version on the card, and timed beside it and torch's embedding_bag
-    backward (its own dense gradient included). Returns (launches, the
-    kernel's entry)."""
+    forward and backward kernels and one grouping (one launch of each,
+    asserted), and one profiled step; its launch counts are zeroed just
+    before the steps and read just after (TRAIN_STEPS + 1 of each).
+    Then, on the first step's operands (g, the history ids, mean): the
+    grouping, exact against its plain version (grouping_check); the
+    backward kernel into a zero (V, D) gradient with the plan built inside
+    the call (add mode) and over the prepared plan (store mode), each
+    bit-equal to its plain version on the card; the sum over the prepared
+    plan and the two together timed beside the plain version and torch's
+    embedding_bag backward (its own dense gradient included). Returns
+    (launches, the backward kernel's entry, the grouping's entry)."""
     from repro_torch.configs.base import RECSYS_SHAPES
     from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda, \
         embedding_bag_backward_ref, ops as bag_ops
@@ -2657,20 +2673,34 @@ def train_phase(torch, model, cfg, gpu: str, seed: int, wrappers: dict):
     check_train_run("two-tower-retrieval", run)
     one_each = all(s.get("embedding_bag") == 1
                    and s.get("embedding_bag_backward") == 1
+                   and s.get("bag_grouping") == 1
                    for s in run["launches_per_step"])
     if not one_each:
         raise AssertionError(f"train: a step did not launch each bag kernel "
-                             f"once: {run['launches_per_step']}")
+                             f"and the grouping once: "
+                             f"{run['launches_per_step']}")
 
     g, ids, w, comb = recorder.first
     table = model.table.detach()
     v, d = table.shape
+    grouping, plan = grouping_check(torch, ids, v, gpu)
+    grouping.update(
+        route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="none: the grouping inside XLA's scatter-add transpose of "
+                 "src/repro/models/recsys.py:44 (_bag) and "
+                 "src/repro/models/dimenet.py:150, :157, :174 "
+                 "(jax.ops.segment_sum)",
+        shape=dict(b=ids.shape[0], l=ids.shape[1], v=v))
+    emit("bag_grouping", **grouping)
     rows = torch.unique(ids)
     out = torch.zeros_like(table)
     embedding_bag_backward_cuda(g, ids, w, comb, out)
     want = embedding_bag_backward_ref(g, ids, w, comb, v)
     equal = torch.equal(out, want)
     err = float((out[rows] - want[rows]).abs().max())
+    out.zero_()
+    embedding_bag_backward_cuda(g, ids, w, comb, out, plan, store=True)
+    equal = equal and torch.equal(out, want)
     del want
     lib_t = table.detach().requires_grad_(True)
     lib_out = torch.nn.functional.embedding_bag(ids.long(), lib_t,
@@ -2678,17 +2708,26 @@ def train_phase(torch, model, cfg, gpu: str, seed: int, wrappers: dict):
     (lib_grad,) = torch.autograd.grad(lib_out, lib_t, g, retain_graph=True)
     lib_err = float((lib_grad[rows] - out[rows]).abs().max())
     del lib_grad
-    ms = time_ms(lambda: embedding_bag_backward_cuda(g, ids, w, comb, out),
-                 10, 2)
-    dev_ms = queued_ms(torch, lambda: embedding_bag_backward_cuda(
-        g, ids, w, comb, out), calls=8)
+    def planned():
+        return embedding_bag_backward_cuda(g, ids, w, comb, out, plan,
+                                           store=True)
+
+    def grouped_inside():
+        return embedding_bag_backward_cuda(g, ids, w, comb, out, store=True)
+    ms = time_ms(planned, 10, 2)
+    dev_ms = queued_ms(torch, planned, calls=8)
+    both_ms = time_ms(grouped_inside, 10, 2)
+    both_dev_ms = queued_ms(torch, grouped_inside, calls=8)
     zero_ms = time_ms(lambda: out.zero_(), 5, 1)
-    del out
+    del out, plan
     torch.cuda.empty_cache()
     plain = time_ms(lambda: embedding_bag_backward_ref(g, ids, w, comb, v),
                     3, 1)
-    library = time_ms(lambda: torch.autograd.grad(lib_out, lib_t, g,
-                                                  retain_graph=True), 5, 1)
+
+    def library_call():
+        return torch.autograd.grad(lib_out, lib_t, g, retain_graph=True)
+    library = time_ms(library_call, 5, 1)
+    library_dev = queued_ms(torch, library_call, calls=3)
     del lib_out, lib_t
     torch.cuda.empty_cache()
     uniq = int(rows.numel())
@@ -2697,8 +2736,11 @@ def train_phase(torch, model, cfg, gpu: str, seed: int, wrappers: dict):
     entry = dict(route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
                  replaces="none: src/repro/models/recsys.py:44 (_bag, a take "
                           "and a masked sum; XLA's scatter-add transpose)",
-                 max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                 max_abs_err=err, ms=ms, device_ms=dev_ms,
+                 with_grouping_ms=both_ms,
+                 with_grouping_device_ms=both_dev_ms, plain_ms=plain,
                  bound_ms=bmin, bound_by=by, library_ms=library,
+                 library_device_ms=library_dev,
                  library_max_abs_err=lib_err,
                  library_call="torch.autograd.grad of F.embedding_bag "
                               "(mode=mean), its dense (V, D) gradient "
@@ -2711,7 +2753,10 @@ def train_phase(torch, model, cfg, gpu: str, seed: int, wrappers: dict):
         raise AssertionError(f"embedding_bag's backward kernel differs from "
                              f"its plain version on the first step's "
                              f"operands (max abs err {err})")
-    return launches, entry
+    if not grouping["exact"]:
+        raise AssertionError("bag_grouping differs from its plain version "
+                             "on the first step's ids")
+    return launches, entry, grouping
 
 
 def train_models_phase(torch, seed: int, wrappers: dict) -> dict:
@@ -4724,6 +4769,21 @@ def gnn_step_flops(cfg, n: int, e: int, t: int, d_feat: int) -> float:
     return 3.0 * fwd + 2.0 * (2 * n * d_feat * h)
 
 
+def gnn_step_launches(cfg, host: dict) -> dict:
+    """Each GNN kernel's launches in one training step on ``host``'s batch:
+    a gather (bag) per src, dst and block's t_kj, and embed[z] on atom
+    types; a segment sum (backward kernel) per block's agg and node
+    readout, and the graph readout with several graphs; each one's
+    gradient the other kernel; one grouping per id array (a plan each for
+    src, dst, t_kj and t_ji; z's and the graph ids' inside their one call):
+    20 / 20 / 4 at 6 blocks, 22 / 22 / 6 on molecule."""
+    z = "x" not in host
+    graphs = "y_graph" in host and len(host["y_graph"]) > 1
+    per = 3 * cfg.n_blocks + 2 + z + graphs
+    return {"embedding_bag": per, "embedding_bag_backward": per,
+            "bag_grouping": 4 + z + graphs}
+
+
 def gnn_train_cell(torch, cfg, graph, d_feat: int, seed: int,
                    wrappers: dict) -> tuple:
     """GNN_STEPS steps of make_train_step(loss_fn_for("gnn", cfg),
@@ -4823,13 +4883,13 @@ def gnn_float64_grads(torch, model, cfg, graph, taken=None) -> list:
     from repro_torch.models import dimenet
     taken = taken or {}
 
-    def segment_sum(data, ids, n):
+    def segment_sum(data, ids, n, plan=None):
         keep = ids >= 0
         return torch.zeros((n, data.shape[1]), dtype=data.dtype,
                            device=data.device).index_add(
             0, ids[keep].long(), data[keep])
 
-    def gather(table, ids):
+    def gather(table, ids, plan=None):
         return table[ids.clamp_min(0).long()] * (ids >= 0)[:, None]
 
     def given(key, fn):
@@ -4895,19 +4955,63 @@ def gnn_kernel_cases(cfg, hosts: dict) -> list:
          n_graphs, cfg.d_out)]
 
 
+def grouping_check(torch, ids, rows: int, gpu: str) -> tuple:
+    """bag_grouping of ``ids`` (int32 on the card) over ``rows`` rows:
+    exact against its plain version (order, rows, starts, U), timed (one
+    call, device) beside the plain version and the library call
+    torch.sort(stable=True) of the flat ids, which the port does not call
+    on the card. Bound: the ids read once, the plan written once. Returns
+    (the entry, the plan)."""
+    from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+        bag_grouping_ref
+    plan = bag_grouping_cuda(ids, rows)
+    want = bag_grouping_ref(ids, rows)
+    got, exp = plan.used(), want.used()
+    exact = all(a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(got, exp))
+    err = max((float((a.long() - b.long()).abs().max()) if a.numel() else
+               0.0) if a.shape == b.shape else math.inf
+              for a, b in zip(got, exp))
+    order, runs, starts = exp
+    lengths = starts[1:] - starts[:-1]
+    flat = ids.reshape(-1)
+    bmin, by = bound(4 * (flat.numel() + order.numel() + 2 * runs.numel()
+                          + 1), 0, gpu)
+
+    def library():
+        return torch.sort(flat, stable=True)
+    entry = dict(
+        kernel="bag_grouping", exact=exact, max_abs_err=err,
+        ms=time_ms(lambda: bag_grouping_cuda(ids, rows), 10, 2),
+        device_ms=queued_ms(torch, lambda: bag_grouping_cuda(ids, rows),
+                            calls=8),
+        plain_ms=time_ms(lambda: bag_grouping_ref(ids, rows), 3, 1),
+        bound_ms=bmin, bound_by=by, library_ms=time_ms(library, 10, 2),
+        library_device_ms=queued_ms(torch, library, calls=8),
+        library_call="torch.sort(stable=True) of the flat ids",
+        ids=flat.numel(), ids_valid=order.numel(), runs=runs.numel(),
+        longest_run=int(lengths.max()) if lengths.numel() else 0,
+        rows=rows)
+    return entry, plan
+
+
 def gnn_segment_sum_check(torch, ids, segs: int, d: int, gpu: str,
                           g) -> dict:
     """segment_sum (the backward kernel with one id per row) of normal
-    (rows, d) data by ``ids`` into ``segs`` segments: bit-equal to its
-    plain version on the card, timed beside it and the library call
-    (index_add_ into torch.zeros over the valid rows), which the port
-    never calls."""
+    (rows, d) data by ``ids`` into ``segs`` segments, over a prepared plan
+    and with the plan built inside the call: both bit-equal to its plain
+    version on the card; the grouping alone (grouping_check), the sum
+    over the plan and the two together timed (one call, device) beside the
+    plain version and the library call (index_add_ into torch.zeros over
+    the valid rows), which the port never calls."""
     from repro_torch.kernels.embedding_bag import \
         embedding_bag_backward_ref, segment_sum
+    grouping, plan = grouping_check(torch, ids, segs, gpu)
     data = torch.randn((ids.shape[0], d), generator=g, device=ids.device)
-    got = segment_sum(data, ids, segs)
+    got = segment_sum(data, ids, segs, plan)
+    inside = segment_sum(data, ids, segs)
     want = embedding_bag_backward_ref(data, ids[:, None], None, "sum", segs)
-    equal = same_bits(torch, got, want)
+    equal = same_bits(torch, got, want) and same_bits(torch, inside, want)
     err = float((got - want).abs().max())
     keep = ids >= 0
     lib_ids, lib_data = ids[keep].long(), data[keep].contiguous()
@@ -4916,21 +5020,29 @@ def gnn_segment_sum_check(torch, ids, segs: int, d: int, gpu: str,
         return torch.zeros((segs, d), device=ids.device).index_add_(
             0, lib_ids, lib_data)
     lib_err = float((lib() - got).abs().max())
-    del got, want
+    del got, inside, want
     n_valid = int(keep.sum())
     bmin, by = bound(n_valid * d * 4 + ids.numel() * 4 + segs * d * 4,
                      n_valid * d, gpu)
+
+    def planned():
+        return segment_sum(data, ids, segs, plan)
+
+    def grouped_inside():
+        return segment_sum(data, ids, segs)
     return dict(
         kernel="embedding_bag_backward", bit_equal_to_plain=equal,
-        max_abs_err=err,
-        ms=time_ms(lambda: segment_sum(data, ids, segs), 10, 2),
-        device_ms=queued_ms(torch, lambda: segment_sum(data, ids, segs),
-                            calls=8),
+        max_abs_err=err, ms=time_ms(planned, 10, 2),
+        device_ms=queued_ms(torch, planned, calls=8),
+        with_grouping_ms=time_ms(grouped_inside, 10, 2),
+        with_grouping_device_ms=queued_ms(torch, grouped_inside, calls=8),
         plain_ms=time_ms(lambda: embedding_bag_backward_ref(
             data, ids[:, None], None, "sum", segs), 3, 1),
         bound_ms=bmin, bound_by=by, library_ms=time_ms(lib, 10, 2),
+        library_device_ms=queued_ms(torch, lib, calls=8),
         library_max_abs_err=lib_err,
         library_call="torch.zeros(S, D).index_add_ over the valid rows",
+        grouping=grouping, longest_run=grouping["longest_run"],
         shape=dict(rows=ids.shape[0], rows_valid=n_valid, segments=segs,
                    d=d))
 
@@ -4978,8 +5090,9 @@ def gnn_bag_check(torch, ids, rows: int, d: int, gpu: str, g) -> dict:
 
 def gnn_kernel_checks(torch, cfg, hosts: dict, gpu: str, seed: int) -> dict:
     """Both bag kernels at each of gnn_kernel_cases' shapes, on normal
-    data with the batch's ids (padding as -1): each entry bit-equal to
-    its plain version on the card and timed (gnn_segment_sum_check,
+    data with the batch's ids (padding as -1), and segment_sum on GNN_HUB's
+    ids: each entry bit-equal to its plain version on the card and timed
+    (gnn_segment_sum_check, with the grouping's entry under "grouping";
     gnn_bag_check)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 1717)
@@ -4989,6 +5102,12 @@ def gnn_kernel_checks(torch, cfg, hosts: dict, gpu: str, seed: int) -> dict:
         check = gnn_segment_sum_check if kernel == "embedding_bag_backward" \
             else gnn_bag_check
         out[name] = dict(check(torch, ids, rows, d, gpu, g), cell=cell)
+    h = GNN_HUB
+    ids = torch.randint(0, h["segments"], (h["rows"],), generator=g,
+                        device=dev, dtype=torch.int32)
+    ids[torch.randperm(h["rows"], generator=g, device=dev)[:h["hub"]]] = 5
+    out["hub"] = dict(gnn_segment_sum_check(torch, ids, h["segments"],
+                                            h["d"], gpu, g), cell="synthetic")
     return out
 
 
@@ -5036,13 +5155,14 @@ def gnn_phase(torch, src: Path, gpu: str, seed: int, wrappers: dict) -> dict:
     batch built on the host from ``seed``; GNN_SKIPPED printed with its
     reason. The main path: GNN_STEPS steps of each cell, its launch counts
     zeroed just before and read just after; finite losses, every parameter
-    moved, both bag kernels launched on every step and no other kernel
-    (asserted). Then: the first step's loss and gradients twice at
+    moved, each step's launches of both bag kernels and bag_grouping equal
+    to gnn_step_launches' and no other kernel (asserted). Then: the first step's loss and gradients twice at
     GNN_DETERMINISM_CELL, bit-equal to each other and to the step's loss;
     the card against the CPU at GNN_CPU_CELLS, the gradients' errors to a
     float64 run on each run's own bases and ReLU branches within
     GNN_F64_RATIO of the CPU's (worst leaf and median leaf); the
-    kernels at gnn_kernel_cases' shapes (bit-equal); one profiled
+    kernels at gnn_kernel_cases' shapes and GNN_HUB (bit-equal, the
+    grouping exact); one profiled
     step there; the launchers (gnn_cli_phase). Returns the launches over
     the main path and the kernels' entries."""
     import copy
@@ -5098,15 +5218,13 @@ def gnn_phase(torch, src: Path, gpu: str, seed: int, wrappers: dict) -> dict:
              bound_ms=bmin, bound_by=by,
              share_of_bound=bmin / run["step_ms_median"],
              step_flops=flops, step_bytes=step_bytes)
-        every = all(s[k] > 0 for s in run["launches_per_step"]
-                    for k in GNN_KERNELS) and all(
-            s == run["launches_per_step"][0]
-            for s in run["launches_per_step"])
+        want = gnn_step_launches(cfg, hosts[cell])
+        every = all(s == want for s in run["launches_per_step"])
         if not all(math.isfinite(x) for x in run["losses"]) \
                 or run["params_moved"] != run["params"] or not every:
             raise AssertionError(f"gnn {cell}: a non-finite loss, a "
                                  f"parameter that did not move, or a step "
-                                 f"without both bag kernels: {run}")
+                                 f"whose launches are not {want}: {run}")
     others = {k: v for k, v in launches.items()
               if k not in GNN_KERNELS and v}
     if others:
@@ -5192,10 +5310,11 @@ def gnn_phase(torch, src: Path, gpu: str, seed: int, wrappers: dict) -> dict:
 
     kernels = gnn_kernel_checks(torch, cfg, hosts, gpu, seed)
     emit("gnn_kernels", shapes=kernels)
-    bad = [k for k, v in kernels.items() if not v["bit_equal_to_plain"]]
+    bad = [k for k, v in kernels.items() if not v["bit_equal_to_plain"]
+           or not v.get("grouping", {"exact": True})["exact"]]
     if bad:
-        raise AssertionError(f"gnn: a bag kernel differs from its plain "
-                             f"version at {bad}")
+        raise AssertionError(f"gnn: a bag kernel or the grouping differs "
+                             f"from its plain version at {bad}")
 
     model, state, step, _ = kept["minibatch_lg"]
     prof = profile_busy(torch, lambda: step(model, state,
@@ -5261,12 +5380,13 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=lib.build_seconds, ptxas=ptxas)
     if args.gnn_only:
-        from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
-            embedding_bag_backward_cuda
+        from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+            embedding_bag_cuda, embedding_bag_backward_cuda
         t = time.perf_counter()
         gnn = gnn_phase(torch, src, gpu, args.seed, {
             "embedding_bag": embedding_bag_cuda,
-            "embedding_bag_backward": embedding_bag_backward_cuda})
+            "embedding_bag_backward": embedding_bag_backward_cuda,
+            "bag_grouping": bag_grouping_cuda})
         emit("gnn_only", seconds=time.perf_counter() - t,
              launches_gnn=gnn["launches"])
         return 0
@@ -5301,8 +5421,8 @@ def main() -> int:
     from repro_torch.kernels.alpha_scan import ops as scan_ops
     from repro_torch.kernels.beam_hop import beam_hop_cuda, \
         beam_hop_lut_cuda, beam_hops_cuda, beam_hops_lut_cuda
-    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, \
-        embedding_bag_backward_cuda
+    from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+        embedding_bag_cuda, embedding_bag_backward_cuda
     from repro_torch.kernels.gather_dist import gather_dist_cuda
     from repro_torch.kernels.l2topk import l2topk_cuda
     from repro_torch.kernels.lut_dist import lut_dist_cuda
@@ -5315,6 +5435,7 @@ def main() -> int:
                 "beam_hops_lut": beam_hops_lut_cuda, "l2topk": l2topk_cuda,
                 "embedding_bag": embedding_bag_cuda,
                 "embedding_bag_backward": embedding_bag_backward_cuda,
+                "bag_grouping": bag_grouping_cuda,
                 "alpha_scan": alpha_scan_cuda}
     recorder = ScanRecorder(torch, scan_ops)
 
@@ -5556,10 +5677,11 @@ def main() -> int:
     del index, cpu_index, data, queries, true_i
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    train_launches, kernels["embedding_bag_backward"] = train_phase(
-        torch, model, TWO_TOWER, gpu, args.seed, wrappers)
-    launches["embedding_bag_backward"] = \
-        train_launches["embedding_bag_backward"]
+    train_launches, kernels["embedding_bag_backward"], \
+        kernels["bag_grouping"] = train_phase(torch, model, TWO_TOWER, gpu,
+                                              args.seed, wrappers)
+    for name in ("embedding_bag_backward", "bag_grouping"):
+        launches[name] = train_launches[name]
     del model
     torch.cuda.empty_cache()
     train_models_phase(torch, args.seed, wrappers)
@@ -5617,9 +5739,15 @@ def main() -> int:
         entry["launches_streamed"] = streamed_launches[name]
         entry["launches_sharded_toggles"] = toggle_launches[name]
         entry["launches_gnn"] = gnn["launches"][name]
-        if name in GNN_KERNELS:
+        if name == "bag_grouping":
             entry["by_shape_gnn"] = {
-                s_: {k_: v for k_, v in b_.items() if k_ != "kernel"}
+                s_: {k_: v for k_, v in b_["grouping"].items()
+                     if k_ != "kernel"}
+                for s_, b_ in gnn["kernels"].items() if "grouping" in b_}
+        elif name in GNN_KERNELS:
+            entry["by_shape_gnn"] = {
+                s_: {k_: v for k_, v in b_.items()
+                     if k_ not in ("kernel", "grouping")}
                 for s_, b_ in gnn["kernels"].items() if b_["kernel"] == name}
         if "by_mode" in info:
             entry["by_mode"] = {

@@ -42,8 +42,11 @@ _SIGNATURES = {
     "topk_merge_smem_bytes": [_I],
     "l2topk_f32": [_P] * 7 + [_I] * 7 + [_P],
     "embedding_bag": [_P] * 4 + [_I] * 7 + [_P],
-    "embedding_bag_backward": [_P] * 7 + [_I] * 6 + [_P],
+    "embedding_bag_backward": [_P] * 9 + [_I] * 8 + [_P],
+    "bag_grouping": [_P] * 6 + [_I] * 2 + [_P],
+    "bag_grouping_scratch_words": [_I],
 }
+_RESTYPES = {"bag_grouping_scratch_words": ctypes.c_longlong}
 
 
 class KernelLibrary:
@@ -57,7 +60,7 @@ class KernelLibrary:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
 
     def __getattr__(self, name):
         return getattr(self.lib, name)

@@ -1,6 +1,6 @@
 """Launch wrappers of the CUDA ``embedding_bag`` kernels
-(``csrc/embedding_bag.cu``): the bag, and its gradient with respect to the
-table."""
+(``csrc/embedding_bag.cu``): the bag, the grouping of its ids (a plan), and
+its gradient with respect to the table over a plan."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.embedding_bag.ref import BagPlan
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -66,18 +67,72 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
 embedding_bag_cuda.launches = 0
 
 
+def bag_grouping_cuda(ids: torch.Tensor, num_rows: int) -> BagPlan:
+    """The plan of ``ids`` (int32 on CUDA, any shape; flattened) over
+    ``num_rows`` rows, built on the card with no host sync: pads (< 0)
+    dropped, ids >= num_rows folded onto num_rows - 1, positions grouped
+    stably by id (a radix sort over the ids' ceil(log2 num_rows) bits; no
+    library sort). Equal to ``bag_grouping_ref``'s in the entries it uses.
+    No ids launch no kernel (two memsets) and count no launch."""
+    if not ids.is_cuda:
+        raise ValueError("bag_grouping_cuda: ids must be on CUDA")
+    if ids.dtype != torch.int32:
+        raise TypeError("bag_grouping_cuda: ids must be int32")
+    if num_rows <= 0:
+        raise ValueError(f"bag_grouping_cuda: num_rows must be positive, "
+                         f"got {num_rows}")
+    flat = ids.reshape(-1).contiguous()
+    n = flat.numel()
+    if n >= 1 << 29:
+        raise ValueError(f"bag_grouping_cuda: {n} ids; at most 2^29 - 1")
+    cap = min(n, num_rows)
+    lib = cuda_lib.library()
+    # one allocation: order (n), rows (cap), starts (cap + 1), count (2),
+    # then the kernel's scratch
+    buf = torch.empty((n + 2 * cap + 3 + lib.bag_grouping_scratch_words(n),),
+                      dtype=torch.int32, device=flat.device)
+    order, rows, starts, count, scratch = buf.split(
+        [n, cap, cap + 1, 2, buf.numel() - n - 2 * cap - 3])
+    code = lib.bag_grouping(
+        flat.data_ptr(), order.data_ptr(), rows.data_ptr(),
+        starts.data_ptr(), count.data_ptr(), scratch.data_ptr(), n,
+        num_rows, torch.cuda.current_stream(flat.device).cuda_stream)
+    cuda_lib.check(code, "bag_grouping")
+    if n:
+        bag_grouping_cuda.launches += 1
+    return BagPlan(ids=flat, num_rows=num_rows, order=order, rows=rows,
+                   starts=starts, count=count)
+
+
+bag_grouping_cuda.launches = 0
+
+
+def check_plan(plan: BagPlan, ids: torch.Tensor, num_rows: int,
+               name: str) -> None:
+    """Raise unless ``plan`` groups as many ids as ``ids`` holds, over
+    ``num_rows`` rows, on ``ids``' device."""
+    if plan.num_rows != num_rows or plan.ids.numel() != ids.numel() or \
+            plan.order.device != ids.device:
+        raise ValueError(f"{name}: the plan groups {plan.ids.numel()} ids "
+                         f"over {plan.num_rows} rows on {plan.order.device}"
+                         f", not {ids.numel()} over {num_rows} on "
+                         f"{ids.device}")
+
+
 def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
                                 weights: Optional[torch.Tensor],
-                                combiner: str,
-                                out: torch.Tensor) -> torch.Tensor:
+                                combiner: str, out: torch.Tensor,
+                                plan: Optional[BagPlan] = None,
+                                store: bool = False) -> torch.Tensor:
     """Add the bag's gradient with respect to the table into ``out``:
     out[ids[b, l]] += (grad_out[b] / denom_b) * weights[b, l] for every
     ids[b, l] >= 0 (denom_b = max(sum_l weights[b, l], 1e-9) under mean, 1
     under sum). grad_out (B, D) f32, ids (B, L) int32, weights (B, L) f32
     or None, out (V, D) f32; returns ``out``. Each row's terms are summed
-    in ascending (b, l) order and added to it once; the grouping is a
-    stable ``torch.sort`` of the flat ids, ids >= V folded onto V - 1
-    first (the forward reads that row for them)."""
+    in ascending (b, l) order from +0.0 and added to it once, one warp a
+    row. ``plan``: ``bag_grouping_cuda(ids, V)``, built here (one grouping
+    launch) when None. ``store``: ``out`` is fresh zeros, so each touched
+    row is written with its sum and not read (the same bits)."""
     _check_operands(out, ids, weights, combiner)
     if out.dtype != torch.float32:
         raise TypeError(f"embedding_bag_backward_cuda: the gradient must be "
@@ -90,19 +145,24 @@ def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
                          f"contiguous float32 ({b}, {d}) tensor on "
                          f"{out.device}, got {grad_out.dtype} "
                          f"{tuple(grad_out.shape)} on {grad_out.device}")
-    sorted_ids, perm = torch.sort(ids.reshape(-1).clamp_max(v - 1),
-                                  stable=True)
+    if plan is None:
+        plan = bag_grouping_cuda(ids, v)
+    else:
+        check_plan(plan, ids, v, "embedding_bag_backward_cuda")
     mean = combiner == "mean"
-    denom = torch.empty((b if mean else 0,), dtype=torch.float32,
-                        device=out.device)
+    denom = torch.empty((b,), dtype=torch.float32, device=out.device) \
+        if mean else None
     vec4 = d % 4 == 0 and out.data_ptr() % 16 == 0 and \
         grad_out.data_ptr() % 16 == 0
     lib = cuda_lib.library()
     code = lib.embedding_bag_backward(
-        grad_out.data_ptr(), ids.data_ptr(), sorted_ids.data_ptr(),
-        perm.data_ptr(), None if weights is None else weights.data_ptr(),
-        denom.data_ptr(), out.data_ptr(), b, bag_len, v, d, int(mean),
-        int(vec4), torch.cuda.current_stream(out.device).cuda_stream)
+        grad_out.data_ptr(), ids.data_ptr(), plan.order.data_ptr(),
+        plan.rows.data_ptr(), plan.starts.data_ptr(), plan.count.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        None if denom is None else denom.data_ptr(),
+        out.data_ptr(), b, bag_len, v, d, plan.rows.numel(), int(mean),
+        int(vec4), int(store),
+        torch.cuda.current_stream(out.device).cuda_stream)
     cuda_lib.check(code, "embedding_bag_backward")
     embedding_bag_backward_cuda.launches += 1
     return out

@@ -12,20 +12,74 @@ the midpoint, and the rounding goes that way. The mean divides by
 ``max(sum_l w_l, 1e-9)``, summed in l order in float32. One (B, D) slice
 is gathered per step, never a (B, L, D) tensor.
 
-``embedding_bag_backward_ref`` is the plain version of the gradient with
-respect to the table, in the CUDA kernel's order: the terms
-``(g[b] / denom_b) * w[b, l]`` of the members with ids >= 0, stably sorted
-by id, added into a zero (V, D) tensor in ascending (b, l) order per row.
-It adds them rank by rank (the r-th member of every id at once, through
-``index_add_`` over ids that are then all distinct), so no two additions
-into one row race on any device: each row gets ((0 + t_0) + t_1) + ...,
-on the CPU and on the card alike.
+``bag_grouping_ref`` is the plain version of the grouping kernel: a
+stable ``torch.sort`` of the flat ids (pads < 0 dropped, ids >= V folded
+onto V - 1) into a ``BagPlan``. ``embedding_bag_backward_ref`` is the
+plain version of the gradient with respect to the table, in the CUDA
+kernel's order: the terms ``(g[b] / denom_b) * w[b, l]`` of the members
+with ids >= 0, grouped by the plan, added into a zero (V, D) tensor in
+ascending (b, l) order per row. It adds them rank by rank (the r-th member
+of every id at once, through ``index_add_`` over ids that are then all
+distinct), so no two additions into one row race on any device: each row
+gets ((0 + t_0) + t_1) + ..., on the CPU and on the card alike.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class BagPlan:
+    """The grouping of a flat id tensor over ``num_rows`` rows: pads (< 0)
+    dropped, ids >= num_rows folded onto num_rows - 1, positions grouped
+    stably by id.
+
+    ids: (n,) int32, the ids as given (contiguous); order: the n_valid
+    flat positions, ascending within each id; rows: the U distinct ids,
+    ascending; starts: the U + 1 run starts (the last is n_valid); count:
+    (2,) int32 ``[U, n_valid]`` on the plan's device. The card's plan
+    (``bag_grouping_cuda``) keeps U on the device, so its ``order``,
+    ``rows`` and ``starts`` hold n, min(n, V) and min(n, V) + 1 entries of
+    which the first n_valid, U and U + 1 are used; the plain version's are
+    exactly as long as used."""
+    ids: torch.Tensor
+    num_rows: int
+    order: torch.Tensor
+    rows: torch.Tensor
+    starts: torch.Tensor
+    count: torch.Tensor
+
+    def used(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(order, rows, starts) cut to the entries in use (reads the count
+        on the host)."""
+        u, n_valid = (int(x) for x in self.count.tolist())
+        return self.order[:n_valid], self.rows[:u], self.starts[:u + 1]
+
+
+def bag_grouping_ref(ids: torch.Tensor, num_rows: int) -> BagPlan:
+    """The plan of ``ids`` (any shape; flattened) over ``num_rows`` rows by
+    a stable ``torch.sort`` of the folded ids, on the ids' device."""
+    if num_rows <= 0:
+        raise ValueError(f"bag_grouping: num_rows must be positive, got "
+                         f"{num_rows}")
+    flat = ids.reshape(-1).to(torch.int32).contiguous()
+    keys, perm = torch.sort(flat.long().clamp_max(num_rows - 1),
+                            stable=True)
+    keep = keys >= 0
+    keys, perm = keys[keep], perm[keep]
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[1:] = keys[1:] != keys[:-1]
+    n_valid = keys.numel()
+    starts = torch.cat([torch.nonzero(head)[:, 0],
+                        torch.tensor([n_valid], device=keys.device)])
+    rows = keys[head]
+    return BagPlan(ids=flat, num_rows=num_rows, order=perm.int(),
+                   rows=rows.int(), starts=starts.int(),
+                   count=torch.tensor([rows.numel(), n_valid],
+                                      dtype=torch.int32, device=keys.device))
 
 
 def _fma32(w: torch.Tensor, row: torch.Tensor,
@@ -80,23 +134,30 @@ def bag_denoms(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def embedding_bag_backward_ref(grad_out: torch.Tensor, ids: torch.Tensor,
                                weights: Optional[torch.Tensor],
-                               combiner: str,
-                               num_rows: int) -> torch.Tensor:
+                               combiner: str, num_rows: int,
+                               plan: Optional[BagPlan] = None
+                               ) -> torch.Tensor:
     """grad_out (B, D), ids (B, L) (-1 pads), weights (B, L) or None ->
     the (num_rows, D) float32 gradient of ``embedding_bag_ref(table, ids,
     weights, combiner)`` with respect to ``table``. Ids >= num_rows add
-    into row num_rows - 1, as the forward reads it."""
+    into row num_rows - 1, as the forward reads it. ``plan``:
+    ``bag_grouping_ref(ids, num_rows)`` (or the card's), built here when
+    None."""
     if combiner not in ("sum", "mean"):
         raise ValueError(f"unknown combiner {combiner!r}")
     g = grad_out.float()
     out = torch.zeros((num_rows, g.shape[1]), dtype=torch.float32,
                       device=g.device)
-    keys, perm = torch.sort(ids.reshape(-1).long().clamp_max(num_rows - 1),
-                            stable=True)
-    keep = keys >= 0
-    keys, perm = keys[keep], perm[keep]
-    if keys.numel() == 0:
+    if plan is None:
+        plan = bag_grouping_ref(ids, num_rows)
+    order, rows, starts = plan.used()
+    if order.numel() == 0:
         return out
+    perm = order.long()
+    lengths = (starts[1:] - starts[:-1]).long()
+    keys = rows.long().repeat_interleave(lengths)
+    rank = torch.arange(perm.numel(), device=perm.device) - \
+        starts[:-1].long().repeat_interleave(lengths)
     bag = perm // ids.shape[1]
     terms = g[bag]
     if combiner == "mean":
@@ -105,11 +166,7 @@ def embedding_bag_backward_ref(grad_out: torch.Tensor, ids: torch.Tensor,
         terms = terms / bag_denoms(ids, w)[bag, None]
     if weights is not None:
         terms = terms * weights.float().reshape(-1)[perm, None]
-    pos = torch.arange(keys.numel(), device=keys.device)
-    head = torch.ones_like(keys, dtype=torch.bool)
-    head[1:] = keys[1:] != keys[:-1]
-    rank = pos - torch.where(head, pos, 0).cummax(0).values
-    for r in range(int(rank.max()) + 1):
+    for r in range(int(lengths.max())):
         at = rank == r
         out.index_add_(0, keys[at], terms[at])
     return out

@@ -15,7 +15,12 @@ The scatters and the gathers that train go through the port's
 the graph readout) are ``segment_sum``, and the gathers of tensors that
 require grad (``hnode[src]``, ``hnode[dst]``, ``(m @ w_kj)[t_kj]``, and
 ``embed[z]``) are bags of one id, whose gradient is that same
-sort-grouped scatter. So nothing on the path adds with float atomics:
+grouped scatter. Each id array is grouped once a step: ``bag_grouping``
+builds one plan each for ``src``, ``dst``, ``t_kj`` and ``t_ji``, which
+every call on those ids takes, and the calls on molecule batches' ``z``
+and graph ids, one each, group inside the call; so the step groups 4 (6)
+times for its 20 (22) scatters. So nothing on the path adds with float
+atomics:
 no ``index_add_``, ``scatter_add_`` or accumulating ``index_put_``, and
 no advanced indexing of a tensor that requires grad (autograd would
 transpose it into one). Gathers of geometry (``pos``, ``svec``, ``d``),
@@ -23,7 +28,7 @@ which needs no gradient, are plain indexing.
 
 Padding is passed as id -1. The reference clamps a padded triplet's ids
 to 0 and keeps a padded edge as src = dst = 0; their terms are exact
-zeros (times ``tmask`` / ``emask``) that all land on row 0. A sort-grouped
+zeros (times ``tmask`` / ``emask``) that all land on row 0. A grouped
 sum gives each run of one id to one warp (and its plain version loops
 once per rank of a run), so such a hub would serialise the sum: at
 minibatch_lg 96,345 of 168,960 edges are padding. Skipping those terms
@@ -43,7 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.kernels.embedding_bag import embedding_bag, segment_sum
+from repro_torch.kernels.embedding_bag import BagPlan, bag_grouping, \
+    embedding_bag, segment_sum
 from repro_torch.models.layers import MLP, dense_init, mlp_init
 
 N_ATOM_TYPES = 95
@@ -154,10 +160,12 @@ def init_params(generator: torch.Generator, cfg: GNNConfig,
 
 
 # ----------------------------------------------------------------- forward
-def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _gather(table: torch.Tensor, ids: torch.Tensor,
+            plan: Optional[BagPlan] = None) -> torch.Tensor:
     """table[ids] for a table that trains (-1 gathers a zero row): a bag
-    of one id, whose gradient is the sort-grouped scatter."""
-    return embedding_bag(table, ids[:, None])
+    of one id, whose gradient is the grouped scatter over ``plan``
+    (``bag_grouping(ids, len(table))``)."""
+    return embedding_bag(table, ids[:, None], plan=plan)
 
 
 def _bilinear(a: torch.Tensor, m_kj: torch.Tensor,
@@ -185,6 +193,7 @@ def forward(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
     n, e = pos.shape[0], src.shape[0]
     src_ids = torch.where(edge_mask, src, -1)      # padding skipped
     dst_ids = torch.where(edge_mask, dst, -1)
+    src_plan, dst_plan = bag_grouping(src_ids, n), bag_grouping(dst_ids, n)
 
     # node embedding
     if "x" in graph:
@@ -204,6 +213,7 @@ def forward(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
     t_kj, t_ji = t_kj_raw.clamp_min(0), t_ji_raw.clamp_min(0)
     kj_ids = torch.where(valid, t_kj_raw, -1)
     ji_ids = torch.where(valid, t_ji_raw, -1)
+    kj_plan, ji_plan = bag_grouping(kj_ids, e), bag_grouping(ji_ids, e)
     v_ji = svec[t_ji]
     v_jk = -svec[t_kj]                                         # j -> k
     dot = (v_ji * v_jk).sum(-1)
@@ -213,25 +223,25 @@ def forward(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
     sbf = spherical_basis(d[t_kj], angle, cfg) * tmask[:, None]
 
     # initial directional messages
-    m = model.msg_init(torch.cat([_gather(hnode, src_ids),
-                                  _gather(hnode, dst_ids),
+    m = model.msg_init(torch.cat([_gather(hnode, src_ids, src_plan),
+                                  _gather(hnode, dst_ids, dst_plan),
                                   rbf @ model.rbf_proj], dim=-1))
     m = m * emask[:, None]
 
     node_out = torch.zeros((n, cfg.d_hidden), device=pos.device)
     for blk in model.blocks:
         # angular message: bilinear(sbf, m_kj) aggregated over triplets
-        m_kj = _gather(m @ blk.w_kj, kj_ids) * tmask[:, None]   # (T, H)
+        m_kj = _gather(m @ blk.w_kj, kj_ids, kj_plan) * tmask[:, None]
         a = sbf @ blk.sbf_proj                                 # (T, B)
         tri = _bilinear(a, m_kj, blk.bilinear)
-        agg = segment_sum(tri * tmask[:, None], ji_ids, e)
+        agg = segment_sum(tri * tmask[:, None], ji_ids, e, ji_plan)
         gate = F.silu(rbf @ blk.rbf_gate)
         m = m + F.silu(m @ blk.w_src) * gate + agg
         m = m + blk.update(F.silu(m))
         m = m * emask[:, None]
         # per-block node readout
         node_out = node_out + segment_sum(
-            blk.out_node(m) * emask[:, None], dst_ids, n)
+            blk.out_node(m) * emask[:, None], dst_ids, n, dst_plan)
 
     if node_reduce is not None:
         node_out = node_reduce(node_out)

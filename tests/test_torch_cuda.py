@@ -2180,3 +2180,231 @@ def test_dimenet_step_on_the_card_equals_the_cpu(dev):
     assert float(met["loss"]) == float(card[0])
     assert all(not torch.equal(p.detach(), before[n])
                for n, p in card_model.named_parameters())
+
+
+# -- the bag's grouping (bag_grouping: the plan of a flat id tensor) and the
+# planned sum -------------------------------------------------------------
+
+def _group_ids(g, n, v, kind):
+    """n ids over v rows: random with a third padding, all pads, a
+    10,000-member hub (or half of n), or ids past the table."""
+    if kind == "pads":
+        return torch.full((n,), -1, dtype=torch.int32)
+    ids = torch.randint(0, v, (n,), generator=g, dtype=torch.int32)
+    if kind == "past":
+        ids[torch.rand((n,), generator=g) < 0.2] = v + 7
+        ids[0] = 2 ** 31 - 1
+    ids[torch.rand((n,), generator=g) < 0.33] = -1
+    if kind == "hub":
+        ids[torch.randperm(n, generator=g)[:min(10_000, n // 2)]] = v // 2
+    return ids
+
+
+def _assert_plan_equal(plan, want):
+    u, n_valid = (int(x) for x in plan.count.cpu().tolist())
+    assert [u, n_valid] == want.count.tolist()
+    assert torch.equal(plan.order[:n_valid].cpu(), want.order)
+    assert torch.equal(plan.rows[:u].cpu(), want.rows)
+    assert torch.equal(plan.starts[:u + 1].cpu(), want.starts)
+
+
+# n from none to 147 radix tiles of 2,048 ids (both sides of one tile),
+# V from 1 to 2^24 (one radix pass to three)
+GROUP_CASES = [(0, 5, "rand"), (1, 1, "rand"), (3_840, 128, "rand"),
+               (2_048, 300, "hub"), (2_049, 7, "rand"),
+               (8_192, 2 ** 24, "hub"), (8_193, 1, "rand"),
+               (8_193, 300, "hub"), (20_000, 2, "pads"), (5_000, 7, "pads"),
+               (40_000, 3_000, "hub"), (100_000, 2 ** 24, "past"),
+               (7_000, 257, "past"), (300_000, 65_537, "rand")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,kind", GROUP_CASES)
+def test_bag_grouping_kernel(dev, n, v, kind):
+    """order, rows, starts and U equal the plain version's (a stable
+    torch.sort) exactly, one launch a call (none for no ids), the same
+    plan twice."""
+    from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+        bag_grouping_ref
+    g = torch.Generator().manual_seed(n + v)
+    ids = _group_ids(g, n, v, kind)
+    n0 = bag_grouping_cuda.launches
+    plan = bag_grouping_cuda(ids.to(dev), v)
+    assert bag_grouping_cuda.launches == n0 + (n > 0)
+    want = bag_grouping_ref(ids, v)
+    _assert_plan_equal(plan, want)
+    again = bag_grouping_cuda(ids.to(dev), v)
+    _assert_plan_equal(again, want)
+
+
+def _path_group_ids(g, name):
+    """Ids of the grouping's four path shapes: DimeNet's agg (337,920
+    triplets into 168,960 edges), node readout (168,960 edges, 57%
+    padding, into 171,008 nodes), molecule's graph readout (3,840 nodes,
+    31% padding, into 128 graphs) and the two-tower step (65,536 bags of
+    32 over 14,010,368 rows)."""
+    if name == "agg":
+        return torch.randint(0, 168_960, (337_920,), generator=g,
+                             dtype=torch.int32), 168_960
+    if name == "node_readout":
+        ids = torch.randint(0, 8_191, (168_960,), generator=g,
+                            dtype=torch.int32)
+        ids[torch.rand((168_960,), generator=g) < 0.57] = -1
+        return ids, 171_008
+    if name == "graph_readout":
+        ids = torch.arange(3_840, dtype=torch.int32) // 30
+        ids[torch.rand((3_840,), generator=g) < 0.31] = -1
+        return ids, 128
+    return torch.randint(0, 14_010_368, (65_536, 32), generator=g,
+                         dtype=torch.int32), 14_010_368
+
+
+PATH_GROUPS = ["agg", "node_readout", "graph_readout", "two_tower"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PATH_GROUPS)
+def test_bag_grouping_kernel_at_the_path_shapes(dev, name):
+    from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+        bag_grouping_ref
+    ids, v = _path_group_ids(torch.Generator().manual_seed(3), name)
+    _assert_plan_equal(bag_grouping_cuda(ids.to(dev), v),
+                       bag_grouping_ref(ids, v))
+
+
+# the planned sum at D = 1, 3 (scalar lanes), 128 and 256 (float4 lanes)
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("d", [1, 3, 128, 256])
+def test_planned_sum_kernel_store_and_add(dev, d, combiner, store):
+    """The sum over a plan built once, in store mode into fresh zeros and
+    in add mode into a gradient that is not zero (-0.0 in it and among
+    the terms): bit-equal to the plain version, and the plan reused gives
+    the same bits; one backward launch a call, no grouping launch."""
+    from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+        bag_grouping_ref, embedding_bag_backward_cuda, \
+        embedding_bag_backward_ref
+    g = torch.Generator().manual_seed(d + 2 * store)
+    b, l, v = 3_000, 5, 700
+    ids = _group_ids(g, b * l, v, "hub").reshape(b, l).to(dev)
+    ids[7] = 3                                       # a bag all on one row
+    grad = torch.randn((b, d), generator=g)
+    grad[::5] = -0.0
+    grad = grad.to(dev)
+    w = torch.rand((b, l), generator=g).to(dev)
+    w[1] = -0.0
+    plan = bag_grouping_cuda(ids, v)
+    want = embedding_bag_backward_ref(grad.cpu(), ids.cpu(), w.cpu(),
+                                      combiner, v)
+    rows = bag_grouping_ref(ids.cpu(), v).rows.long()
+    base = torch.randn((v, d), generator=g)
+    base[::3] = -0.0
+    if store:
+        start, expect = torch.zeros((v, d)), want
+    else:
+        start, expect = base, base.clone()
+        expect[rows] = base[rows] + want[rows]
+    n0 = (bag_grouping_cuda.launches, embedding_bag_backward_cuda.launches)
+    outs = [embedding_bag_backward_cuda(grad, ids, w, combiner,
+                                        start.to(dev), plan, store=store)
+            for _ in range(2)]
+    assert (bag_grouping_cuda.launches,
+            embedding_bag_backward_cuda.launches) == (n0[0], n0[1] + 2)
+    for out in outs:
+        assert torch.equal(out.cpu().view(torch.int32),
+                           expect.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_planned_sum_at_the_two_tower_path_shape(dev):
+    """65,536 bags of 32 over 14,010,368 rows at D = 256, mean: the plan
+    built inside the call and a prepared plan give the plain version's
+    bits."""
+    from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+        embedding_bag_backward_cuda, embedding_bag_backward_ref
+    g = torch.Generator(device=dev).manual_seed(9)
+    v = 14_010_368
+    ids = torch.randint(0, v, (65_536, 32), generator=g, device=dev,
+                        dtype=torch.int32)
+    grad = torch.randn((65_536, 256), generator=g, device=dev)
+    want = embedding_bag_backward_ref(grad, ids, None, "mean", v)
+    out = torch.zeros((v, 256), device=dev)
+    embedding_bag_backward_cuda(grad, ids, None, "mean", out)
+    assert torch.equal(out, want)
+    out.zero_()
+    embedding_bag_backward_cuda(grad, ids, None, "mean", out,
+                                bag_grouping_cuda(ids, v), store=True)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_card_backward_reaches_no_library_sort(dev, monkeypatch):
+    """With torch.sort and torch.argsort raising, the bag's backward and
+    segment_sum on the card run: the grouping is the port's own kernel."""
+    from repro_torch.kernels.embedding_bag import bag_grouping, \
+        bag_grouping_cuda, embedding_bag, embedding_bag_backward_cuda, \
+        segment_sum
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library sort on the card path")
+    g = torch.Generator().manual_seed(12)
+    ids = _group_ids(g, 30_000, 900, "hub").to(dev)
+    table = torch.randn((900, 64), generator=g).to(dev).requires_grad_(True)
+    data = torch.randn((30_000, 64), generator=g).to(dev)
+    out = embedding_bag(table, ids[:, None].contiguous())
+    plan = bag_grouping(ids, 900)
+    n0 = (bag_grouping_cuda.launches, embedding_bag_backward_cuda.launches)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sort", refuse)
+        m.setattr(torch, "argsort", refuse)
+        m.setattr(torch.Tensor, "sort", refuse)
+        m.setattr(torch.Tensor, "argsort", refuse)
+        (grad,) = torch.autograd.grad(out, table,
+                                      torch.ones_like(out))
+        summed = segment_sum(data, ids, 900, plan)
+        torch.cuda.synchronize()
+    assert (bag_grouping_cuda.launches,
+            embedding_bag_backward_cuda.launches) == (n0[0] + 1, n0[1] + 2)
+    assert grad.shape == table.shape and summed.shape == (900, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graphs", [4, 1])
+def test_dimenet_step_groups_once_per_id_array(dev, graphs):
+    """A SMOKE DimeNet loss and gradient on the card: one grouping per id
+    array (src, dst, t_kj, t_ji, z, and the graph ids with several
+    graphs) and 3 n_blocks + 2 backward launches, one more for z's gather
+    and one for the graph readout (22 with the published config's 6
+    blocks); the planned step's bits equal an unplanned one's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graph_sampler import graph_to_device, \
+        make_dimenet_batch
+    from repro_torch.kernels.embedding_bag import bag_grouping_cuda, \
+        embedding_bag_backward_cuda
+    from repro_torch.models import dimenet
+    cfg = get_arch("dimenet").smoke_config
+    host = make_dimenet_batch(0, n_nodes=64, n_edges=128, n_triplets=512,
+                              n_graphs=graphs)
+    graph = graph_to_device(host, dev)
+    model = dimenet.init_params(torch.Generator().manual_seed(0),
+                                cfg).to(dev)
+
+    def loss_and_grads():
+        loss, _ = dimenet.loss_fn(model, cfg, graph)
+        return [loss.detach()] + list(torch.autograd.grad(
+            loss, list(model.parameters())))
+    n0 = (bag_grouping_cuda.launches, embedding_bag_backward_cuda.launches)
+    planned = loss_and_grads()
+    extra = 1 + (graphs > 1)
+    assert (bag_grouping_cuda.launches - n0[0],
+            embedding_bag_backward_cuda.launches - n0[1]) == (
+        4 + extra, 3 * cfg.n_blocks + 2 + extra)
+    kept = dimenet.bag_grouping
+    dimenet.bag_grouping = lambda ids, rows: None
+    try:
+        bare = loss_and_grads()
+    finally:
+        dimenet.bag_grouping = kept
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(planned, bare))

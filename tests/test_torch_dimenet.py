@@ -321,13 +321,13 @@ def test_gradients_match_value_and_grad(cases, name):
         _close(g, want[n], rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=n)
 
 
-def _plain_segment_sum(data, ids, n):
+def _plain_segment_sum(data, ids, n, plan=None):
     keep = ids >= 0
     return torch.zeros((n, data.shape[1]), dtype=data.dtype).index_add(
         0, ids[keep].long(), data[keep])
 
 
-def _plain_gather(table, ids):
+def _plain_gather(table, ids, plan=None):
     return table[ids.clamp_min(0).long()] * (ids >= 0)[:, None]
 
 
