@@ -353,6 +353,24 @@ Phases, each printing one JSON line:
                 torch.sort(stable=True)), the sum over a prepared plan and
                 the two together;
                 one profiled step; the dimenet launchers (gnn_cli).
+ 18. dryrun   — the dry run (repro_torch.launch.dryrun): the meta sweep
+                (--all --include-ann --mesh single multi: every cell on
+                the (16, 16) and (2, 16, 16) meshes of meta devices, run
+                in DRYRUN_JOBS worker processes in the background from
+                just after the build, on the host's cores) is waited for
+                (DRYRUN_TIMEOUT) and its seconds printed; err=0, its ok
+                and skipped cells exactly iter_cells(include_ann=True) x 2
+                meshes, skipped only where the config gives a reason
+                (long_500k on the full-attention LMs), with that reason.
+                Then every cell once more on this card (run_cell_cuda: a
+                1 x 1 mesh, weights and inputs from --seed) where its
+                1 x 1 meta run fits 90% of the card; one line per cell
+                (measured ms beside the roofline's, the share, the peak
+                beside the meta estimate); each card run's counted FLOPs
+                and bytes equal to its meta run's, the meta peak at most
+                10% under the card's, and beam_hops, l2topk,
+                embedding_bag, its backward and bag_grouping each
+                launched in the phase ("launches_dryrun") (asserted).
  15. the kernels line: launches on the main path (fit + serve for the f32
                 kernels and l2topk, quantize + serve for the LUT kernels,
                 recsys + recsys_ann for embedding_bag, the two-tower
@@ -400,9 +418,12 @@ Any failed check exits non-zero. The last line is
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -412,10 +433,10 @@ from pathlib import Path
 
 # Data-sheet peaks (NVIDIA H100 SXM, dense, without sparsity) of the one
 # card this script's bounds were written for, under the name torch reports:
-# device-memory bytes/s, float32 operations/s outside the tensor cores, and
-# TF32 operations/s on them.
-PEAK_CARD = "NVIDIA H100 80GB HBM3"
-PEAK_BW, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
+# device-memory bytes/s, float32 operations/s outside the tensor cores,
+# TF32 and bf16 operations/s on them. Set by load_peaks from the port's
+# analysis/roofline.py, their one source.
+PEAK_CARD = PEAK_BW = PEAK_F32 = PEAK_TF32 = PEAK_BF16 = None
 
 TOPK_SHAPE = dict(b=2048, m=96, k=64)      # NSG pool assembly
 # topk_merge at the next slices' shapes (ann-laion: degree 32, chunks and
@@ -698,7 +719,6 @@ LM_CLI_RUNS = tuple(
         ("train", "repro_torch.launch.train",
          ["--arch", arch, "--steps", "2"])))
 LM_CLI_TIMEOUT = 300
-PEAK_BF16 = 989e12                          # dense bf16 tensor cores
 
 # 17. DimeNet (item 10.6c): its published config trained on the GNN_SHAPES
 # cells one card holds; molecule scaled as the reference's
@@ -751,7 +771,18 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+def load_peaks() -> None:
+    """The data-sheet peaks from ``repro_torch.analysis.roofline``."""
+    global PEAK_CARD, PEAK_BW, PEAK_F32, PEAK_TF32, PEAK_BF16
+    from repro_torch.analysis import roofline as R
+    PEAK_CARD, PEAK_BW = R.CARD, R.HBM_BW
+    PEAK_F32, PEAK_TF32 = R.PEAK_FLOPS_F32, R.PEAK_FLOPS_TF32
+    PEAK_BF16 = R.PEAK_FLOPS_BF16
+
+
 def peaks(name: str):
+    if PEAK_CARD is None:
+        load_peaks()
     if name != PEAK_CARD:
         raise RuntimeError(f"no data-sheet peaks for {name!r}; bounds are "
                            f"known for {PEAK_CARD!r} only")
@@ -5328,6 +5359,110 @@ def gnn_phase(torch, src: Path, gpu: str, seed: int, wrappers: dict) -> dict:
     return dict(launches=launches, kernels=kernels)
 
 
+DRYRUN_JOBS = 4                  # worker processes of the meta sweep
+DRYRUN_TIMEOUT = 900             # s from its start, in the background
+DRYRUN_KERNELS = ("beam_hops", "l2topk", "embedding_bag",
+                  "embedding_bag_backward", "bag_grouping")
+
+
+def start_dryrun_sweep(src: Path) -> dict:
+    """Start phase 18's meta sweep (launch.dryrun on the production
+    meshes; no card: CUDA_VISIBLE_DEVICES is empty) in the background;
+    it is killed at exit if it still runs."""
+    out = src.parent / "build" / "dryrun_meta"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = open(out / "sweep.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--include-ann", "--mesh", "single", "multi", "--jobs",
+         str(DRYRUN_JOBS), "--out", str(out), "--force"],
+        stdout=log, stderr=subprocess.STDOUT, cwd=src.parent,
+        env=dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "t0": time.perf_counter(), "out": out, "log": log}
+
+
+def dryrun_phase(torch, src: Path, sweep: dict, wrappers: dict,
+                 seed: int) -> dict:
+    """Phase 18 (the module docstring)."""
+    from repro_torch.configs import get_arch, iter_cells
+    from repro_torch.launch.dryrun import run_cell_cuda
+    proc = sweep["proc"]
+    proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT
+                          - (time.perf_counter() - sweep["t0"])))
+    sweep["log"].close()
+    text = (sweep["out"] / "sweep.log").read_text()
+    done = [ln for ln in text.splitlines() if ln.startswith("done:")]
+    if proc.returncode != 0 or not done:
+        raise AssertionError(f"the meta dry run failed (exit "
+                             f"{proc.returncode}):\n{text[-3000:]}")
+    tally = dict(kv.split("=") for kv in done[-1].split()[1:])
+    recs = {}
+    for f in sweep["out"].glob("*.json"):
+        r = json.loads(f.read_text())
+        recs[(r["arch"], r["shape"], r["mesh"])] = r
+    want = {(a, s_, m) for a, s_, _ in iter_cells(include_ann=True)
+            for m in ("16x16", "2x16x16")}
+    if set(recs) != want or int(tally["err"]) != 0:
+        raise AssertionError(f"the meta dry run covers {len(recs)} of "
+                             f"{len(want)} cells, err={tally['err']}")
+    for (a, s_, m), r in recs.items():
+        reason = get_arch(a).skip_reason(s_)
+        if (r["status"] == "skipped") != bool(reason) or \
+                r.get("reason", reason) != reason or \
+                r["status"] not in ("ok", "skipped"):
+            raise AssertionError(f"dry run {a} {s_} {m}: {r['status']} "
+                                 f"{r.get('reason')}")
+    slowest = sorted(((r["run_s"], f"{a} {s_} {m}") for (a, s_, m), r
+                      in recs.items() if r["status"] == "ok"))[-3:]
+    emit("dryrun_meta", seconds=float(tally["seconds"]),
+         wall_seconds=time.perf_counter() - sweep["t0"], ok=int(tally["ok"]),
+         skipped=int(tally["skip"]), err=int(tally["err"]),
+         jobs=DRYRUN_JOBS, slowest=slowest)
+
+    out = src.parent / "build" / "dryrun_cuda"
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    before = {name: w.launches for name, w in wrappers.items()}
+    rows = []
+    for arch, shape, _ in iter_cells(include_ann=True):
+        r = run_cell_cuda(arch, shape, str(out), seed)
+        if r["status"] != "ok":
+            emit("dryrun_cell", arch=arch, shape=shape, skipped=r["reason"])
+            continue
+        emit("dryrun_cell", arch=arch, shape=shape, kind=r["kind"],
+             ms=r["ms"], ms_runs=r["ms_runs"], roofline_ms=r["roofline_ms"],
+             share=r["share"], bottleneck=r["bottleneck"],
+             flops=r["flops"], bytes=r["bytes"], meta_flops=r["meta_flops"],
+             meta_bytes=r["meta_bytes"], peak_bytes=r["peak_bytes"],
+             meta_peak_bytes=r["meta_peak_bytes"],
+             args_on_card=r["args_on_card"], launches=r["launches"],
+             counted_kernels=r["counted_kernels"])
+        if not r["counts_equal"]:
+            raise AssertionError(f"dry run {arch} {shape}: the card counted "
+                                 f"{r['flops']} FLOPs / {r['bytes']} bytes, "
+                                 f"meta {r['meta_flops']} / "
+                                 f"{r['meta_bytes']}")
+        if not r["peak_covered"]:
+            raise AssertionError(f"dry run {arch} {shape}: meta peak "
+                                 f"{r['meta_peak_bytes']} under the card's "
+                                 f"{r['peak_bytes']} by more than 10%")
+        rows.append(r)
+    launches = {name: w.launches - before[name]
+                for name, w in wrappers.items()}
+    for r in rows:
+        print(f"dryrun {r['arch']:20s} {r['shape']:15s} "
+              f"{r['ms']:10.3f} ms  roofline {r['roofline_ms']:9.3f} ms "
+              f"({r['bottleneck']}) share {r['share']:.4f}  peak "
+              f"{r['peak_bytes'] / 1e9:.3f} GB (meta "
+              f"{r['meta_peak_bytes'] / 1e9:.3f})", flush=True)
+    if min(launches[k] for k in DRYRUN_KERNELS) <= 0:
+        raise AssertionError(f"a kernel never launched in the dry run's "
+                             f"card cells: {launches}")
+    return {"launches": launches, "cells": len(rows)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5354,6 +5489,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    load_peaks()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -5390,6 +5526,7 @@ def main() -> int:
         emit("gnn_only", seconds=time.perf_counter() - t,
              launches_gnn=gnn["launches"])
         return 0
+    sweep = start_dryrun_sweep(src)     # 18's meta sweep, on the host
 
     # 3. kernels at the main path's shapes, against their plain versions
     from repro_torch.configs.ann_laion import ANN_SHAPES, CONFIG
@@ -5717,10 +5854,16 @@ def main() -> int:
     t = time.perf_counter()
     gnn = gnn_phase(torch, src, gpu, args.seed, wrappers)
     new_phase_s["gnn"] = time.perf_counter() - t
+
+    # 18. the dry run: the meta sweep's result, then the cells one card
+    # holds, each card run held to its meta run
+    t = time.perf_counter()
+    dry = dryrun_phase(torch, src, sweep, wrappers, args.seed)
+    new_phase_s["dryrun"] = time.perf_counter() - t
     emit("new_phases", seconds=new_phase_s,
          total_seconds=sum(new_phase_s.values()),
          recsys_models_launches=models_launches, lm_launches=lm_launches,
-         gnn_launches=gnn["launches"])
+         gnn_launches=gnn["launches"], dryrun_launches=dry["launches"])
 
     # 15. the kernels line. A LUT kernel's entry gives its M = 300 (pq)
     # times at the top, its total launches over both backends, and each
@@ -5739,6 +5882,7 @@ def main() -> int:
         entry["launches_streamed"] = streamed_launches[name]
         entry["launches_sharded_toggles"] = toggle_launches[name]
         entry["launches_gnn"] = gnn["launches"][name]
+        entry["launches_dryrun"] = dry["launches"][name]
         if name == "bag_grouping":
             entry["by_shape_gnn"] = {
                 s_: {k_: v for k_, v in b_["grouping"].items()

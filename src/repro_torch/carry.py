@@ -280,6 +280,35 @@ def param_name(keys) -> str:
     return ".".join(str(k) for k in keys)
 
 
+def reference_path(name: str) -> str:
+    """A port parameter name -> the reference's params path, the inverse of
+    ``param_name``: an MLP's ``weights.<i>`` / ``biases.<i>`` are its
+    ``layers/<i>/w`` / ``b``, every other dot a '/'."""
+    keys = name.split(".")
+    for i, k in enumerate(keys[:-1]):
+        if k in ("weights", "biases"):
+            keys = keys[:i] + ["layers", keys[i + 1],
+                               "w" if k == "weights" else "b"] + keys[i + 2:]
+            break
+    return "/".join(keys)
+
+
+def lm_reference_path(name: str, cfg):
+    """A ``TransformerLM`` parameter name -> (the reference's path, the
+    leading dims of its stacked leaf), the inverse of ``_lm_leaves``:
+    ``blocks.<i>`` is ``dense_layers/<i>`` for an MoE config's leading
+    dense layers, else slice i - n_dense of the stacked ``layers`` (whose
+    leaf has n_layers - n_dense rows in front)."""
+    keys = name.split(".")
+    if keys[0] != "blocks":
+        return "/".join(keys), ()
+    i = int(keys[1])
+    n_dense = cfg.first_dense_layers if cfg.moe else 0
+    if i < n_dense:
+        return "/".join(["dense_layers", str(i)] + keys[2:]), ()
+    return "/".join(["layers"] + keys[2:]), (cfg.n_layers - n_dense,)
+
+
 def named_from_jax(tree, device=None) -> dict:
     """A reference params-shaped tree -> {port name: tensor} on
     ``device`` (default: the card)."""

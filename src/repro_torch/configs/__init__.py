@@ -22,9 +22,12 @@ _REGISTRY: Dict[str, ArchSpec] = {
     spec.arch_id: spec for spec in [
         qwen3_32b.SPEC, qwen2_1_5b.SPEC, mistral_nemo_12b.SPEC,
         deepseek_v2_236b.SPEC, deepseek_moe_16b.SPEC, dimenet.SPEC,
-        dlrm_mlperf.SPEC, two_tower_retrieval.SPEC, sasrec.SPEC, din.SPEC,
+        sasrec.SPEC, two_tower_retrieval.SPEC, dlrm_mlperf.SPEC, din.SPEC,
         ann_laion.SPEC]
 }
+
+# the ten assigned architectures, in the registry's (the reference's) order
+ASSIGNED_ARCHS: List[str] = [a for a in _REGISTRY if a != "ann-laion"]
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -36,3 +39,13 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 def list_archs() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def iter_cells(include_ann: bool = False):
+    """Yield (arch_id, shape_name, skip_reason) for every assigned cell
+    (and the ANN workload's with ``include_ann``)."""
+    archs = list(_REGISTRY) if include_ann else ASSIGNED_ARCHS
+    for arch_id in archs:
+        spec = _REGISTRY[arch_id]
+        for shape_name in spec.shapes:
+            yield arch_id, shape_name, spec.skip_reason(shape_name)

@@ -130,17 +130,19 @@ def resolve_gather_backend(backend: Optional[str],
     if backend not in (None, "kernel"):
         raise ValueError(f"unknown gather backend {backend!r} "
                          f"(expected None | 'kernel')")
-    if backend is None and torch.device(device).type == "cuda":
+    if backend is None and torch.device(device).type in ("cuda", "meta"):
         return "kernel"
     return backend
 
 
 def resolve_hop_backend(backend: Optional[str],
                         device: torch.device) -> str:
-    """None/"auto" -> the fused kernel on CUDA, the staged path on the CPU
-    (as the reference picks fused on TPU, staged elsewhere)."""
+    """None/"auto" -> the fused kernel on CUDA (and on meta, where the
+    dry run prices the card's path), the staged path on the CPU (as the
+    reference picks fused on TPU, staged elsewhere)."""
     if backend in (None, "auto"):
-        return "fused" if torch.device(device).type == "cuda" else "staged"
+        return "fused" if torch.device(device).type in ("cuda", "meta") \
+            else "staged"
     if backend not in ("staged", "fused"):
         raise ValueError(f"unknown hop backend {backend!r} "
                          f"(expected 'staged' | 'fused' | 'auto')")
@@ -201,7 +203,7 @@ def beam_search(queries: torch.Tensor, db: torch.Tensor,
     q_or_lut, table = (queries, db) if dist_backend == "f32" else \
         (lut, codes)
     if resolve_hop_backend(hop_backend, db.device) == "fused" \
-            and table.is_cuda:
+            and (table.is_cuda or table.is_meta):
         state = _run_hop_slices(state, q_or_lut, table, neighbors,
                                 dist_backend, max_steps=max_iters,
                                 norms=norms, **loop_kw)

@@ -143,8 +143,9 @@ def make_sharded_l2_topk(mesh, k: int, chunk: int = 16384):
     def search(queries, db, offsets):
         if not isinstance(db, RowSharded):
             db = put_row_sharded(mesh, torch.as_tensor(db))
-        offs = put_row_sharded(mesh, torch.as_tensor(
-            np.asarray(offsets), dtype=torch.int32))
+        offs = offsets if isinstance(offsets, torch.Tensor) else \
+            torch.as_tensor(np.asarray(offsets))
+        offs = put_row_sharded(mesh, offs.to(torch.int32))
         q = torch.as_tensor(queries, dtype=torch.float32).to(
             db.blocks[0].device)
         d, i = shard_map(local, mesh, db, offs, batch=q, out="batch")
@@ -801,3 +802,31 @@ class ShardedFactoryIndex:
         idx._structural_subs = idx.subs
         return idx
 
+
+
+def input_specs_for_search(cfg, batch: int, n_candidates: int,
+                           n_shards: int, device="meta") -> dict:
+    """The ANN serve step's inputs as tensors on ``device`` (meta: shapes
+    and dtypes, nothing allocated, the port's counterpart of the
+    reference's ``ShapeDtypeStruct``s): the queries and a
+    ``ShardedIndexArrays`` of flat (unsharded) tensors, the base in bf16
+    under ``ANN_BF16_BASE``."""
+    dim = cfg.pca_dim
+    m = -(-n_candidates // n_shards)
+    n_rows = n_shards * m
+    f32, i32 = torch.float32, torch.int32
+    base_dt = torch.bfloat16 if flags.ANN_BF16_BASE else f32
+    sd = lambda shape, dt: torch.empty(shape, dtype=dt, device=device)
+    return dict(
+        queries=sd((batch, cfg.dim), f32),
+        arrays=ShardedIndexArrays(
+            base=sd((n_rows, dim), base_dt),
+            neighbors=sd((n_rows, cfg.graph_degree), i32),
+            global_ids=sd((n_rows,), i32),
+            centroids=sd((n_shards * cfg.ep_clusters, dim), f32),
+            members=sd((n_shards * cfg.ep_clusters,), i32),
+            pca_mean=sd((cfg.dim,), f32),
+            pca_comp=sd((cfg.dim, dim), f32),
+            base_norms=sd((n_rows,), f32),
+        ),
+    )

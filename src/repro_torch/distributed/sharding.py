@@ -1,6 +1,6 @@
-"""Row sharding on a mesh — the ANN part of the reference's
-``distributed/sharding.py`` (database rows on the ``model`` axis); the LM,
-recsys and GNN rules come with those families.
+"""Sharding on a mesh (the reference's ``distributed/sharding.py``): the
+ANN's row sharding, the per-family rules, and the batch, cache and ZeRO-1
+specs.
 
 ``RowSharded`` is what the reference's ``NamedSharding(mesh, P("model",
 ...))`` array is here: a ``(S * m, ...)`` array held as S equal blocks,
@@ -12,14 +12,42 @@ blocks except ``to_host`` — the flat read for counts and tests.
 per-shard body on the device that owns each shard, in one process, and
 collects the results — row-sharded (one output block per shard) or
 batch-major (the query batch split over the batch axes, each shard's
-columns side by side in shard order).
+columns side by side in shard order). ``shard_sum`` splits tensors over
+every device of the mesh and sums the programs' results (the
+reference's ``psum`` over all axes: the GNN's edge partition). Each
+(group, shard) program runs inside ``analysis.op_costs.in_shard``, and
+each merge is priced as the reference's collective (an all-gather over
+``model``, an all-reduce over every device), so a cost counter sees each
+device's program apart. On a mesh of ``meta`` devices (the dry run)
+every program has the same shapes, so only the first runs and stands in
+for the others: the counted program is every device's, and a
+production mesh of 256 or 512 devices costs one program's time.
+
+Rules: (regex on a parameter's reference path, spec) pairs, first match
+wins, a spec a tuple of mesh-axis names (or tuples of names) and None per
+dimension, as the reference's ``PartitionSpec``. The regexes are the
+reference's, matched on the reference's paths: ``carry.reference_path``
+maps a port name back to its path, and an LM layer of the port is a slice
+of the reference's stacked ``layers/...`` leaf (``carry.lm_reference_
+path``), so its spec drops the stacked axis. ``tree_shardings`` gives
+each leaf's spec with the reference's divisibility guard, ``shard_shape``
+a leaf's per-device shape under one.
+
+Left out: the reference's ``set_active_mesh``, ``maybe_shard``,
+``shard_batch_seq`` and ``active_dp_axes`` (its ``:41-118``). They place
+tensors inside one XLA program with ``with_sharding_constraint``; the
+port's one process has no placement to constrain, as ``flags.py`` says of
+``MOE_SHARD_CONSTRAINTS``.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+import re
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.analysis import op_costs
 
 
 def model_size(mesh) -> int:
@@ -106,6 +134,15 @@ def _arg(a, shard: int, dev):
     return a.local(shard, dev) if isinstance(a, RowSharded) else a
 
 
+def on_meta(mesh) -> bool:
+    """A mesh of ``meta`` devices (the dry run's)."""
+    return all(d.type == "meta" for d in mesh.devices.reshape(-1))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def shard_map(fn: Callable, mesh, *args, batch=None, out: str = "rows"):
     """Run ``fn`` once per shard on the device that owns it.
 
@@ -116,27 +153,295 @@ def shard_map(fn: Callable, mesh, *args, batch=None, out: str = "rows"):
     (Q, ...) tensor) is split into equal parts over the batch groups,
     ``fn(part, *blocks)`` runs on every (group, shard) device and returns
     a tuple of (Q_g, w) tensors; the shards' results sit side by side in
-    shard order along axis 1, the groups' along axis 0, on ``batch``'s
-    device.
+    shard order along axis 1 (an all-gather over ``model``), the groups'
+    along axis 0, on ``batch``'s device. On a meta mesh the first program
+    stands in for every one (module docstring).
     """
     cols = columns(mesh)
     n_groups, n_shards = cols.shape
+    one = on_meta(mesh)
     if out == "rows":
-        return RowSharded(mesh, [
-            fn(*(_arg(a, s, cols[0, s]) for a in args))
-            for s in range(n_shards)])
+        run = range(1 if one else n_shards)
+        blocks = [op_costs.in_shard(
+            (0, s), fn, *(_arg(a, s, cols[0, s]) for a in args))
+            for s in run]
+        return RowSharded(mesh, blocks * n_shards if one else blocks)
     if out != "batch":
         raise ValueError(f"out must be 'rows' or 'batch', got {out!r}")
     if batch.shape[0] % n_groups:
         raise ValueError(f"a batch of {batch.shape[0]} does not split over "
                          f"{n_groups} batch groups")
     home = batch.device
+    parts = batch.split(batch.shape[0] // n_groups)
+    if one:
+        first = op_costs.in_shard((0, 0), fn, parts[0],
+                                  *(_arg(a, 0, cols[0, 0]) for a in args))
+        out = []
+        for o in first:
+            m = op_costs.stand_in(o, n_shards, dim=1)
+            op_costs.record_collective("all-gather", _nbytes(m), n_shards)
+            out.append(op_costs.stand_in(m, n_groups, dim=0))
+        return tuple(out)
     groups = []
-    for g, part in enumerate(batch.split(batch.shape[0] // n_groups)):
-        per_shard = [fn(part.to(cols[g, s]),
-                        *(_arg(a, s, cols[g, s]) for a in args))
-                     for s in range(n_shards)]
-        groups.append([torch.cat([o[j].to(home) for o in per_shard], dim=1)
-                       for j in range(len(per_shard[0]))])
-    return tuple(torch.cat([g_[j] for g_ in groups])
-                 for j in range(len(groups[0])))
+    for g, part in enumerate(parts):
+        per_shard = [
+            op_costs.in_shard((g, s), fn, part.to(cols[g, s]),
+                              *(_arg(a, s, cols[g, s]) for a in args))
+            for s in range(n_shards)]
+        with op_costs.suspended():
+            merged = [_cat([o[j].to(home) for o in per_shard], dim=1)
+                      for j in range(len(per_shard[0]))]
+        for m in merged:
+            op_costs.record_collective("all-gather", _nbytes(m), n_shards)
+        groups.append(merged)
+    with op_costs.suspended():
+        return tuple(_cat([g_[j] for g_ in groups], dim=0)
+                     for j in range(len(groups[0])))
+
+
+def _cat(parts: List[torch.Tensor], dim: int) -> torch.Tensor:
+    """``torch.cat``, except that one part is returned as it is."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def shard_sum(fn: Callable, mesh, *args):
+    """Split each tensor of ``args`` evenly on axis 0 over every device of
+    the mesh (row-major device order), run ``fn(*parts)`` per device and
+    return the sum of the results in device order (the reference's
+    ``psum`` over all axes, an all-reduce), on the first device. On a
+    meta mesh the first program stands in for every one."""
+    devs = list(mesh.devices.reshape(-1))
+    n = len(devs)
+    for a in args:
+        if a.shape[0] % n:
+            raise ValueError(f"{a.shape[0]} rows do not split over {n} "
+                             f"devices")
+    splits = [a.split(a.shape[0] // n) for a in args]
+    run = 1 if on_meta(mesh) else n
+    outs = [op_costs.in_shard((0, i), fn,
+                              *(sp[i].to(devs[i]) for sp in splits))
+            for i in range(run)]
+    op_costs.record_collective("all-reduce", _nbytes(outs[0]), n)
+    if run == 1:
+        return outs[0]
+    with op_costs.suspended():
+        total = outs[0].to(devs[0])
+        for o in outs[1:]:
+            total = total + o.to(devs[0])
+    return total
+
+
+# ---------------------------------------------------------------------------
+# rule machinery
+# ---------------------------------------------------------------------------
+
+Spec = Tuple
+Rule = Tuple[str, Spec]
+
+
+def path_str(path) -> str:
+    """A path given as a string (returned as is) or a sequence of keys,
+    joined with '/'."""
+    if isinstance(path, str):
+        return path
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
+def spec_for(rules: List[Rule], path, ndim: int) -> Spec:
+    """The first rule matching ``path``, cut to ``ndim`` entries."""
+    s = path_str(path)
+    for pat, spec in rules:
+        if re.search(pat, s):
+            return tuple(spec[:ndim])
+    return ()
+
+
+def axes_size(mesh, axes) -> int:
+    n = 1
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        n *= mesh.shape[a]
+    return n
+
+
+def guard(mesh, spec: Spec, shape) -> Spec:
+    """The reference's divisibility guard: an entry whose axes do not
+    divide its dimension becomes None; the spec is padded to the rank."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(ax if ax is None or shape[d] % axes_size(mesh, ax) == 0
+                 else None for d, ax in enumerate(spec))
+
+
+def shard_shape(spec: Spec, shape, mesh) -> tuple:
+    """The per-device shape of a ``shape`` leaf under ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n if ax is None else n // axes_size(mesh, ax)
+                 for n, ax in zip(shape, spec))
+
+
+def shard_bytes(spec: Spec, t: torch.Tensor, mesh) -> int:
+    return int(np.prod(shard_shape(spec, t.shape, mesh), dtype=np.int64)) \
+        * t.element_size()
+
+
+def _default_path(name: str):
+    from repro_torch.carry import reference_path
+    return reference_path(name), ()
+
+
+def tree_shardings(mesh, leaves: Dict[str, torch.Tensor],
+                   rules: List[Rule],
+                   path_of: Optional[Callable] = None) -> Dict[str, Spec]:
+    """{name: spec} of named leaves under ``rules``. ``path_of(name)`` ->
+    (reference path, leading dims): a leaf that is a slice of a stacked
+    reference leaf is matched and guarded with those dims in front, which
+    its spec then drops (default: ``carry.reference_path``, no leading
+    dims)."""
+    path_of = path_of or _default_path
+    out = {}
+    for name, t in leaves.items():
+        path, lead = path_of(name)
+        shape = tuple(lead) + tuple(t.shape)
+        spec = guard(mesh, spec_for(rules, path, len(shape)), shape)
+        out[name] = spec[len(lead):]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# family rules (the reference's, verbatim)
+# ---------------------------------------------------------------------------
+
+
+def lm_rules(mesh) -> List[Rule]:
+    # stacked layer params have a leading L axis -> specs shifted by one
+    return [
+        (r"embed$", ("model", None)),
+        (r"lm_head$", (None, "model")),
+        # attention (stacked under layers/, unstacked under dense_layers/N/)
+        (r"layers.*attn/w[qkv]$", (None, None, "model")),
+        (r"layers.*attn/wq_b$", (None, None, "model")),
+        (r"layers.*attn/wkv_b$", (None, None, "model")),
+        (r"layers.*attn/wo$", (None, "model", None)),
+        (r"layers.*attn/b[qkv]$", (None, "model")),
+        # MoE experts: EP on model
+        (r"layers.*moe/w_(gate|up|down)$", (None, "model", None, None)),
+        (r"layers.*moe/shared/w_(gate|up)$", (None, None, "model")),
+        (r"layers.*moe/shared/w_down$", (None, "model", None)),
+        (r"layers.*moe/router$", ()),
+        # dense FFN: TP on model
+        (r"layers.*ffn/w_(gate|up)$", (None, None, "model")),
+        (r"layers.*ffn/w_down$", (None, "model", None)),
+        # dense_layers are unstacked (no leading L): shift left
+        (r"dense_layers.*attn/w[qkv]$", (None, "model")),
+        (r"dense_layers.*attn/wo$", ("model", None)),
+        (r"dense_layers.*(ffn|shared)/w_(gate|up)$", (None, "model")),
+        (r"dense_layers.*(ffn|shared)/w_down$", ("model", None)),
+        (r"dense_layers.*moe/w_(gate|up|down)$", ("model", None, None)),
+        (r".*", ()),
+    ]
+
+
+def recsys_rules(mesh) -> List[Rule]:
+    return [
+        (r"(^|/)table$", ("model", None)),
+        (r"top/layers/0/w$", (None, "model")),
+        (r"top/layers/1/w$", ("model", None)),
+        (r".*", ()),
+    ]
+
+
+def gnn_rules(mesh) -> List[Rule]:
+    return [(r".*", ())]
+
+
+def family_rules(family: str, mesh) -> List[Rule]:
+    return {"lm": lm_rules, "recsys": recsys_rules,
+            "gnn": gnn_rules}[family](mesh)
+
+
+def lm_param_shardings(mesh, model, cfg) -> Dict[str, Spec]:
+    """{port parameter name: spec} of a ``TransformerLM`` under
+    ``lm_rules``: each layer as its slice of the reference's stacked leaf
+    (``carry.lm_reference_path``)."""
+    from repro_torch.carry import lm_reference_path
+    return tree_shardings(mesh, dict(model.named_parameters()),
+                          lm_rules(mesh),
+                          lambda n: lm_reference_path(n, cfg))
+
+
+# ---------------------------------------------------------------------------
+# batch specs
+# ---------------------------------------------------------------------------
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def lm_batch_sharding(mesh, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, Spec]:
+    b = batch_axes(mesh)
+    return {k: (b,) + (None,) * (x.dim() - 1) for k, x in batch.items()}
+
+
+def kv_cache_sharding(mesh, cache, cfg) -> Dict[str, Spec]:
+    """Cache (L, B, S, ...) : batch on the data axes; GQA kv-head dim on
+    model when divisible, else the sequence dim. ``cache``: a ``KVCache``
+    or a {name: tensor} dict."""
+    b = batch_axes(mesh)
+    items = cache._asdict() if hasattr(cache, "_asdict") else cache
+
+    def one(x):
+        if x.dim() == 5:                        # (L, B, S, KV, hd)
+            if x.shape[3] % mesh.shape["model"] == 0:
+                return (None, b, None, "model", None)
+            return (None, b, "model", None, None)
+        if x.dim() == 4:                        # (L, B, S, r) MLA latent
+            return (None, b, "model", None)
+        return (b,)                             # lengths (B,)
+    return {k: one(x) for k, x in items.items()}
+
+
+_GNN_EDGE = re.compile(r"src|dst|edge_mask|t_kj|t_ji")
+
+
+def gnn_batch_sharding(mesh, graph: Dict[str, torch.Tensor]
+                       ) -> Dict[str, Spec]:
+    """Edges/triplets sharded across ALL axes; nodes replicated."""
+    every = tuple(mesh.axis_names)
+    out = {}
+    for name, x in graph.items():
+        if _GNN_EDGE.search(name):
+            ax = every if x.shape[0] % axes_size(mesh, every) == 0 else None
+            out[name] = (ax,) + (None,) * (x.dim() - 1)
+        else:
+            out[name] = (None,) * x.dim()
+    return out
+
+
+def recsys_batch_sharding(mesh, batch) -> dict:
+    """The batch's leading dim on the data axes where they divide it;
+    ``batch``'s structure kept (``sparse_ids`` is a list)."""
+    b = batch_axes(mesh)
+
+    def one(x):
+        if x.dim() == 0:
+            return ()
+        ok = x.shape[0] % axes_size(mesh, b) == 0
+        return (b if ok else None,) + (None,) * (x.dim() - 1)
+    return {k: [one(x) for x in v] if isinstance(v, list) else one(v)
+            for k, v in batch.items()}
+
+
+def zero1_shardings(mesh, param_shardings, opt_state) -> dict:
+    """ZeRO-1: shard optimizer moments' leading dim over DP axes when it
+    divides evenly (``opt_state``: {"m": {name: t}, "v": ..., "step"})."""
+    b = batch_axes(mesh)
+    dp = axes_size(mesh, b)
+
+    def one(x):
+        if x.dim() >= 1 and x.shape[0] % dp == 0:
+            return (b,) + (None,) * (x.dim() - 1)
+        return ()
+    return {k: ({n: one(x) for n, x in v.items()} if isinstance(v, dict)
+                else one(v)) for k, v in opt_state.items()}

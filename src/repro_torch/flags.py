@@ -33,9 +33,12 @@ The LM's:
     identity: it reads no toggle and computes the same numbers.
   * ``GRAD_SHARD_CONSTRAINTS`` (``REPRO_GRAD_SHARD``) and ``LM_FSDP``
     (``REPRO_FSDP``): pin the gradients' and the LM parameters' shardings
-    over the data axes. Only the reference's ``launch/specs.py`` reads
-    them (ROADMAP Queue 1 item 11b); on one device nothing is sharded,
-    and no module of the port reads them.
+    over the data axes. ``launch/specs.py`` reads them for the dry run's
+    per-device bytes (``LM_FSDP``: the big parameters and their moments
+    also over the data axes); ``GRAD_SHARD_CONSTRAINTS`` only notes a
+    cell, as the one-process step has no gradient placement to pin.
+    ``enable_all`` / ``disable_all`` flip every toggle (the dry run's
+    ``--opt``).
 
 The reference's ``MOE_SHARD_CONSTRAINTS`` (``REPRO_MOE_SHARD``), which
 pins the MoE dispatch tensors' shardings on a mesh, has no counterpart:
@@ -74,3 +77,21 @@ HEAD_TP_ATTENTION = _env("REPRO_HEAD_TP", False)
 
 # P7: FSDP of the big LM params over the data axes
 LM_FSDP = _env("REPRO_FSDP", False)
+
+# every toggle above (the reference's ``_ALL`` less MOE_SHARD_CONSTRAINTS)
+_ALL = ["SHARDED_CE", "ANN_BF16_BASE", "ANN_TIGHT_BUDGET",
+        "GRAD_SHARD_CONSTRAINTS", "HEAD_TP_ATTENTION", "LM_FSDP",
+        "ANN_PRENORM"]
+
+
+def enable_all():
+    """Turn every toggle on (the dry run's ``--opt``)."""
+    g = globals()
+    for name in _ALL:
+        g[name] = True
+
+
+def disable_all():
+    g = globals()
+    for name in _ALL:
+        g[name] = False

@@ -34,6 +34,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis.hop_traffic import fused_loop_bytes
+from repro_torch.analysis.op_costs import record_kernel
+from repro_torch.analysis.roofline import L2_BYTES, SM_COUNT
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.gather_dist.gather_dist import MODES, check_rows, \
     mode_of, rows_vec4_ok, vec4_ok
@@ -106,8 +109,25 @@ def _check_plan(name, plan, m, c, r, ef):
 
 @functools.lru_cache(maxsize=None)
 def _card(device: torch.device):
+    if device.type == "meta":           # routed as for an H100
+        return L2_BYTES, SM_COUNT
     props = torch.cuda.get_device_properties(device)
     return props.L2_cache_size, props.multi_processor_count
+
+
+def hops_cost(lanes: int, steps: int, ef: int, r: int, d: int, lut_c: int,
+              row_bytes: int, prenorm: bool):
+    """(FLOPs, bytes) of one loop launch with every lane running ``steps``
+    hops (the shapes alone): the bytes of ``hop_traffic.fused_loop_bytes``;
+    per hop R candidates of D elements at 3 FLOPs each in f32 (2 under
+    prenorm), one add a code under a LUT (``lut_c`` > 0, D the code
+    width)."""
+    if lut_c:
+        return (lanes * steps * r * d,
+                fused_loop_bytes(lanes, steps, ef, r, d, "pq", d, lut_c))
+    return ((2 if prenorm else 3) * lanes * steps * r * d,
+            fused_loop_bytes(lanes, steps, ef, r, d, row_bytes=row_bytes,
+                             prenorm=prenorm))
 
 
 def _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut,
@@ -120,7 +140,7 @@ def _check_operands(name, neighbors, pool_i, pool_d, pool_v, q_or_lut,
              "table": (table, table_dtype or table.dtype)}
     named.update({k: (t, torch.int32) for k, t in extra.items()})
     for arg, (t, dt) in named.items():
-        if not t.is_cuda or t.device != table.device:
+        if not (t.is_cuda or t.is_meta) or t.device != table.device:
             raise ValueError(f"{name}: {arg} must be on {table.device}")
         if t.dtype != dt:
             raise TypeError(f"{name}: {arg} must be {dt}, got {t.dtype}")
@@ -225,12 +245,18 @@ def _hops(name, neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
             plan = route(*shape, *_card(table.device))
         else:
             _check_plan(name, plan, *shape)
-    lib = cuda_lib.library()
     dev = table.device
     out = _pool_like(nq, ef, dev) + tuple(
         torch.empty((nq,), dtype=torch.int32, device=dev)
         for _ in range(5)) + (torch.empty((nq,), dtype=torch.bool,
                                           device=dev),)
+    record_kernel("beam_hops", *hops_cost(
+        nq, max_steps, ef, neighbors.shape[1], d,
+        q_or_lut.shape[2] if lut else 0, table.element_size(),
+        norms is not None))
+    if dev.type == "meta":
+        return out, plan
+    lib = cuda_lib.library()
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
     ins = ptrs((neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
                 stale))
@@ -264,12 +290,15 @@ def beam_hops_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup,
                    eps: float = 0.0, norms: Optional[torch.Tensor] = None):
     """The f32 hop loop, up to ``max_steps`` hops per lane in one launch:
     ``db`` f32 or bf16 rows, ``norms`` (N,) f32 for the prenorm distance;
-    see ``ref.beam_hops_ref``."""
+    see ``ref.beam_hops_ref``. Meta operands: the outputs, the cost of
+    ``max_steps`` hops for every lane recorded, no launch."""
     if queries.dim() != 2:
         raise ValueError("beam_hops_cuda: queries must be (Q, D)")
     out, _ = _hops("beam_hops_cuda", neighbors, pool_i, pool_d, pool_v,
                    hops, gathered, dup, stale, queries, db, k, max_iters,
                    max_steps, patience, eps, norms=norms)
+    if db.is_meta:
+        return out
     beam_hops_cuda.launches += 1
     beam_hops_cuda.by_mode[mode_of(db, norms)] += 1
     return out
@@ -282,6 +311,9 @@ def beam_hops_lut_cuda(neighbors, pool_i, pool_d, pool_v, hops, gathered,
     """The LUT-mode hop loop: lut (Q, M, C) f32, codes (N, M) uint8; see
     ``ref.beam_hops_ref``. On ``route``'s plan unless one is forced (tests,
     measurements); a forced plan must fit the kernel."""
+    if codes.is_meta:
+        raise NotImplementedError("beam_hops_lut_cuda: no meta branch (no "
+                                  "dry-run cell reaches the LUT loop)")
     out, plan = _hops("beam_hops_lut_cuda", neighbors, pool_i, pool_d,
                       pool_v, hops, gathered, dup, stale, lut, codes, k,
                       max_iters, max_steps, patience, eps, plan)

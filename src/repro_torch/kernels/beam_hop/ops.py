@@ -48,13 +48,15 @@ def beam_hops(neighbors, pool_i, pool_d, pool_v, hops, gathered, dup, stale,
     pool_d, pool_v, hops, gathered, dup_gathered, stale, iters, live); see
     ``ref.beam_hops_ref``. The operands as ``beam_hop``'s; in f32 mode the
     table may hold bf16 rows, and ``norms`` (N,) f32 selects the prenorm
-    distance."""
+    distance. On meta tensors (f32 mode) the outputs and the cost of
+    ``max_steps`` hops for every lane, the fixed-beam ``fori`` cell's
+    count; no launch."""
     if norms is not None and dist_backend != "f32":
         raise ValueError(f"norms (the prenorm distance) need f32 mode, got "
                          f"dist_backend={dist_backend!r}")
     kw = dict(k=k, max_iters=max_iters, max_steps=max_steps,
               patience=patience, eps=eps)
-    if use_kernel(table, backend, "beam_hops"):
+    if use_kernel(table, backend, "beam_hops", meta=dist_backend == "f32"):
         c = lambda t, dt: t.to(dt).contiguous()
         i32 = lambda t: c(t, torch.int32)
         head = (i32(neighbors), i32(pool_i), c(pool_d, torch.float32),

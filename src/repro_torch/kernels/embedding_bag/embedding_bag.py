@@ -7,10 +7,52 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import cuda_lib
+from repro_torch.analysis.op_costs import record_kernel
+from repro_torch.kernels import card_or_meta, cuda_lib
 from repro_torch.kernels.embedding_bag.ref import BagPlan
 
 _DTYPES = (torch.float32, torch.bfloat16)
+RADIX_TILE, RADIX_BINS = 2048, 256     # csrc kRadixTile, kRadixBins
+
+
+def grouping_scratch_words(n: int) -> int:
+    """int32 scratch words ``bag_grouping`` takes for n ids (csrc
+    ``bag_grouping_scratch_words``: two key and two value buffers, each
+    tile's digit counts, the totals and the tile heads)."""
+    tiles = -(-n // RADIX_TILE)
+    return 4 * n + RADIX_BINS * tiles + RADIX_BINS + tiles
+
+
+def bag_cost(b: int, bag_len: int, d: int, row_bytes: int,
+             weighted: bool):
+    """(FLOPs, bytes) of one bag launch (the shapes alone): the ids (and
+    weights) read, every member's row read (each id counted, the upper
+    bound of the distinct rows), the (B, D) f32 bags written; a multiply
+    and an add a member element."""
+    n = b * bag_len
+    return 2 * n * d, n * 4 * (2 if weighted else 1) + n * d * row_bytes \
+        + b * d * 4
+
+
+def grouping_cost(n: int, num_rows: int):
+    """(FLOPs, bytes) of one grouping: the ids read once and the plan
+    written once, its rows and starts at their allocated bound
+    min(n, V) (U stays on the card: reading it would cost a host sync)."""
+    cap = min(n, num_rows)
+    return 0, n * 4 + (n + 2 * cap + 3) * 4
+
+
+def backward_cost(b: int, bag_len: int, d: int, num_rows: int,
+                  weighted: bool, store: bool):
+    """(FLOPs, bytes) of one backward launch: the (B, D) gradient, the
+    ids, the plan (and weights) read once, the touched rows at their
+    bound min(B L, V) written once (read too when adding into ``out``);
+    a multiply and an add a member element."""
+    n = b * bag_len
+    cap = min(n, num_rows)
+    nbytes = b * d * 4 + n * 4 * (2 if weighted else 1) \
+        + (n + 2 * cap + 3) * 4 + cap * d * 4 * (1 if store else 2)
+    return 2 * n * d, nbytes
 
 
 def _check_operands(table, ids, weights, combiner):
@@ -18,8 +60,9 @@ def _check_operands(table, ids, weights, combiner):
         raise ValueError(f"embedding_bag_cuda: unknown combiner "
                          f"{combiner!r}")
     ts = (table, ids) if weights is None else (table, ids, weights)
-    if not all(t.is_cuda for t in ts):
-        raise ValueError("embedding_bag_cuda: every operand must be on CUDA")
+    if not card_or_meta(*ts):
+        raise ValueError("embedding_bag_cuda: every operand must be on CUDA "
+                         "(or all on meta)")
     if any(t.device != table.device for t in ts):
         raise ValueError("embedding_bag_cuda: operands on different devices")
     if table.dtype not in _DTYPES:
@@ -46,11 +89,17 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
                        combiner: str = "sum") -> torch.Tensor:
     """table (V, D) f32/bf16, ids (B, L) int32 (-1 pads), weights (B, L)
     f32 or None -> (B, D) f32. Ids >= V are outside the contract: they are
-    not checked (a check would cost a host sync) and read row V - 1."""
+    not checked (a check would cost a host sync) and read row V - 1. Meta
+    operands: the output and the cost, no launch."""
     _check_operands(table, ids, weights, combiner)
     b, bag_len = ids.shape
     v, d = table.shape
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    record_kernel("embedding_bag", *bag_cost(b, bag_len, d,
+                                             table.element_size(),
+                                             weights is not None))
+    if table.is_meta:
+        return out
     vec4 = d % 4 == 0 and table.data_ptr() % (4 * table.element_size()) == 0
     lib = cuda_lib.library()
     code = lib.embedding_bag(
@@ -73,9 +122,10 @@ def bag_grouping_cuda(ids: torch.Tensor, num_rows: int) -> BagPlan:
     dropped, ids >= num_rows folded onto num_rows - 1, positions grouped
     stably by id (a radix sort over the ids' ceil(log2 num_rows) bits; no
     library sort). Equal to ``bag_grouping_ref``'s in the entries it uses.
-    No ids launch no kernel (two memsets) and count no launch."""
-    if not ids.is_cuda:
-        raise ValueError("bag_grouping_cuda: ids must be on CUDA")
+    No ids launch no kernel (two memsets) and count no launch. Meta ids:
+    the plan's buffers at their bound, the cost, no launch."""
+    if not card_or_meta(ids):
+        raise ValueError("bag_grouping_cuda: ids must be on CUDA (or meta)")
     if ids.dtype != torch.int32:
         raise TypeError("bag_grouping_cuda: ids must be int32")
     if num_rows <= 0:
@@ -86,13 +136,22 @@ def bag_grouping_cuda(ids: torch.Tensor, num_rows: int) -> BagPlan:
     if n >= 1 << 29:
         raise ValueError(f"bag_grouping_cuda: {n} ids; at most 2^29 - 1")
     cap = min(n, num_rows)
-    lib = cuda_lib.library()
+    meta = flat.is_meta
+    lib = None if meta else cuda_lib.library()
+    words = grouping_scratch_words(n) if meta else \
+        lib.bag_grouping_scratch_words(n)
     # one allocation: order (n), rows (cap), starts (cap + 1), count (2),
     # then the kernel's scratch
-    buf = torch.empty((n + 2 * cap + 3 + lib.bag_grouping_scratch_words(n),),
-                      dtype=torch.int32, device=flat.device)
+    buf = torch.empty((n + 2 * cap + 3 + words,), dtype=torch.int32,
+                      device=flat.device)
     order, rows, starts, count, scratch = buf.split(
         [n, cap, cap + 1, 2, buf.numel() - n - 2 * cap - 3])
+    plan = BagPlan(ids=flat, num_rows=num_rows, order=order, rows=rows,
+                   starts=starts, count=count)
+    if n:
+        record_kernel("bag_grouping", *grouping_cost(n, num_rows))
+    if meta:
+        return plan
     code = lib.bag_grouping(
         flat.data_ptr(), order.data_ptr(), rows.data_ptr(),
         starts.data_ptr(), count.data_ptr(), scratch.data_ptr(), n,
@@ -100,8 +159,7 @@ def bag_grouping_cuda(ids: torch.Tensor, num_rows: int) -> BagPlan:
     cuda_lib.check(code, "bag_grouping")
     if n:
         bag_grouping_cuda.launches += 1
-    return BagPlan(ids=flat, num_rows=num_rows, order=order, rows=rows,
-                   starts=starts, count=count)
+    return plan
 
 
 bag_grouping_cuda.launches = 0
@@ -132,7 +190,8 @@ def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
     in ascending (b, l) order from +0.0 and added to it once, one warp a
     row. ``plan``: ``bag_grouping_cuda(ids, V)``, built here (one grouping
     launch) when None. ``store``: ``out`` is fresh zeros, so each touched
-    row is written with its sum and not read (the same bits)."""
+    row is written with its sum and not read (the same bits). Meta
+    operands: the cost, no launch."""
     _check_operands(out, ids, weights, combiner)
     if out.dtype != torch.float32:
         raise TypeError(f"embedding_bag_backward_cuda: the gradient must be "
@@ -152,6 +211,10 @@ def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
     mean = combiner == "mean"
     denom = torch.empty((b,), dtype=torch.float32, device=out.device) \
         if mean else None
+    record_kernel("embedding_bag_backward", *backward_cost(
+        b, bag_len, d, v, weights is not None, store))
+    if out.is_meta:
+        return out
     vec4 = d % 4 == 0 and out.data_ptr() % 16 == 0 and \
         grad_out.data_ptr() % 16 == 0
     lib = cuda_lib.library()

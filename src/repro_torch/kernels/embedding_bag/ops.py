@@ -27,6 +27,11 @@ bag (a row gather, L = 1). A row gather that trains, ``table[ids]``, is
 deterministic scatter. On the CPU both sides are the plain versions, which
 sum in the same order, so the two devices give the same bits. An id of -1
 is skipped both ways (its row gathers as 0).
+
+On meta tensors (the dry run) every call takes the card's path, whose
+wrappers allocate as for a launch, record each kernel's cost and launch
+nothing; a plan's rows and starts are then at their bound min(n, V), as
+the card allocates them.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ def bag_grouping(ids: torch.Tensor, num_rows: int) -> BagPlan:
     ``plan=`` to every ``embedding_bag`` / ``segment_sum`` call on those
     ids and rows: the grouping kernel for CUDA ids, its plain version for
     CPU ids."""
-    if use_kernel(ids, None, "bag_grouping"):
+    if use_kernel(ids, None, "bag_grouping", meta=True):
         return bag_grouping_cuda(ids.to(torch.int32), num_rows)
     return bag_grouping_ref(ids, num_rows)
 
@@ -104,7 +109,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
             table.dtype != torch.float32:
         raise TypeError(f"embedding_bag: only a float32 table trains, got "
                         f"{table.dtype} with requires_grad")
-    on_card = use_kernel(table, backend, "embedding_bag")
+    on_card = use_kernel(table, backend, "embedding_bag", meta=True)
     ids = _planned_ids(ids, plan, table.shape[0], on_card, "embedding_bag")
     if on_card and weights is not None:
         weights = weights.float().contiguous()
@@ -159,7 +164,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     if num_segments <= 0:
         raise ValueError(f"segment_sum: num_segments must be positive, got "
                          f"{num_segments}")
-    on_card = use_kernel(data, None, "segment_sum")
+    on_card = use_kernel(data, None, "segment_sum", meta=True)
     ids = _planned_ids(segment_ids.reshape(-1, 1), plan, num_segments,
                        on_card, "segment_sum")
     if on_card:

@@ -9,7 +9,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import cuda_lib
+from repro_torch.analysis.op_costs import record_kernel
+from repro_torch.kernels import card_or_meta, cuda_lib
 
 ROW_DTYPES = (torch.float32, torch.bfloat16)
 MODES = ("f32", "bf16", "prenorm", "bf16+prenorm")
@@ -41,8 +42,9 @@ def check_rows(name: str, db: torch.Tensor,
 
 
 def _check_operands(queries, db, ids, norms):
-    if not (queries.is_cuda and db.is_cuda and ids.is_cuda):
-        raise ValueError("gather_dist_cuda: every operand must be on CUDA")
+    if not card_or_meta(queries, db, ids):
+        raise ValueError("gather_dist_cuda: every operand must be on CUDA "
+                         "(or all on meta)")
     if queries.device != db.device or ids.device != db.device:
         raise ValueError("gather_dist_cuda: operands on different devices")
     if queries.dtype != torch.float32:
@@ -75,16 +77,32 @@ def rows_vec4_ok(d: int, queries: torch.Tensor, db: torch.Tensor) -> bool:
             and db.data_ptr() % (4 * db.element_size()) == 0)
 
 
+def cost(b: int, r: int, d: int, row_bytes: int, prenorm: bool):
+    """(FLOPs, bytes) of one launch, every id counted valid (the shapes
+    alone: no host read): the queries, ids and R rows per query read once,
+    the norms of those rows under prenorm, the distances written; 3 FLOPs
+    per element (difference, square, add; 2 under prenorm: multiply,
+    add)."""
+    nbytes = b * d * 4 + b * r * 4 + b * r * d * row_bytes + b * r * 4 \
+        + (b * r * 4 if prenorm else 0)
+    return (2 if prenorm else 3) * b * r * d, nbytes
+
+
 def gather_dist_cuda(queries: torch.Tensor, db: torch.Tensor,
                      ids: torch.Tensor,
                      norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """queries (B, D) f32, db (N, D) f32 or bf16, ids (B, R) int32 [,
-    norms (N,) f32: the prenorm distance] -> (B, R) f32."""
+    norms (N,) f32: the prenorm distance] -> (B, R) f32. Meta operands:
+    the output, the cost recorded, no launch."""
     _check_operands(queries, db, ids, norms)
-    lib = cuda_lib.library()
     b, d = queries.shape
     r = ids.shape[1]
     out = torch.empty((b, r), dtype=torch.float32, device=db.device)
+    record_kernel("gather_dist", *cost(b, r, d, db.element_size(),
+                                       norms is not None))
+    if db.is_meta:
+        return out
+    lib = cuda_lib.library()
     stream = torch.cuda.current_stream(db.device).cuda_stream
     code = lib.gather_dist_rows(
         queries.data_ptr(), db.data_ptr(), ids.data_ptr(),

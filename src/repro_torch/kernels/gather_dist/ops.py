@@ -15,9 +15,10 @@ def gather_dist(queries: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
                 norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, D), (N, D), (B, R) int32 -> (B, R) f32 squared L2 (+inf for
     ids < 0): the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. ``db`` may hold bf16 rows; ``norms`` (N,) f32 selects the
+    tensors (on meta tensors: the output, no launch). ``db`` may hold bf16
+    rows; ``norms`` (N,) f32 selects the
     prenorm distance ``max(|q|^2 + norms[id] - 2 q.x, 0)``."""
-    if use_kernel(db, backend, "gather_dist"):
+    if use_kernel(db, backend, "gather_dist", meta=True):
         return gather_dist_cuda(queries.contiguous(), db,
                                 ids.to(torch.int32).contiguous(), norms)
     return gather_dist_ref(queries, db, ids, norms)

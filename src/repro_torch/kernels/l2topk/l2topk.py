@@ -21,7 +21,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import cuda_lib
+from repro_torch.analysis.op_costs import record_kernel
+from repro_torch.analysis.roofline import SM_COUNT
+from repro_torch.kernels import card_or_meta, cuda_lib
 
 MAX_K = 128                  # the tile variant's list capacity
 # wide: at most this many scratch keys (splits x Q x k, 8 bytes each) for
@@ -109,8 +111,9 @@ def route(nq: int, n: int, d: int, k: int, sm_count: int,
 
 
 def _check_operands(queries, database, k):
-    if not (queries.is_cuda and database.is_cuda):
-        raise ValueError("l2topk_cuda: queries and database must be on CUDA")
+    if not card_or_meta(queries, database):
+        raise ValueError("l2topk_cuda: queries and database must be on CUDA "
+                         "(or both on meta)")
     if queries.device != database.device:
         raise ValueError("l2topk_cuda: operands on different devices")
     if queries.dtype != torch.float32 or database.dtype != torch.float32:
@@ -128,11 +131,23 @@ def _check_operands(queries, database, k):
         raise ValueError(f"l2topk_cuda: k={k} must be >= 1")
 
 
+def cost(nq: int, n: int, d: int, k: int, variant: str):
+    """(FLOPs, bytes, dtype) of one call: the queries and the database
+    read once, the (Q, k) distances and ids written; 2 Q N D FLOPs in
+    f32, or 3 x that on the TF32 tensor cores (the tc variant's 3xTF32)."""
+    nbytes = (nq + n) * d * 4 + nq * k * 8
+    if variant == "tc":
+        return 6 * nq * n * d, nbytes, "tf32"
+    return 2 * nq * n * d, nbytes, "f32"
+
+
 def l2topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int,
                 variant: Optional[str] = None):
     """queries (Q, D) f32, database (N, D) f32 -> (dists (Q, k) f32
     ascending, ids (Q, k) int32), ties by lower id; k is cut to N. The
-    variant is ``route``'s unless one is forced."""
+    variant is ``route``'s unless one is forced. Meta operands: the
+    outputs and the launch's scratch allocated, its cost recorded (routed
+    for an H100, ``roofline.SM_COUNT``), no launch."""
     _check_operands(queries, database, k)
     nq, d = queries.shape
     n = database.shape[0]
@@ -142,7 +157,8 @@ def l2topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int,
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_d, out_i
-    plan = route(nq, n, d, k, _sm_count(dev), variant)
+    plan = route(nq, n, d, k, SM_COUNT if dev.type == "meta"
+                 else _sm_count(dev), variant)
     norms = split = partial = None
     if plan.variant != "small":
         norms = torch.empty(nq + n, dtype=torch.float32, device=dev)
@@ -153,6 +169,9 @@ def l2topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int,
     if plan.splits > 1 or plan.variant == "wide":   # wide: its lists
         partial = torch.empty((plan.splits, nq, k), dtype=torch.int64,
                               device=dev)
+    record_kernel("l2topk", *cost(nq, n, d, k, plan.variant))
+    if dev.type == "meta":
+        return out_d, out_i
     ptr = (lambda t: None if t is None else t.data_ptr())
     lib = cuda_lib.library()
     code = lib.l2topk_f32(

@@ -16,8 +16,9 @@ def l2_topk(queries: torch.Tensor, database: torch.Tensor, k: int,
     """(Q, D), (N, D) -> (dists (Q, k) f32 ascending, ids (Q, k) int32),
     ties by lower id, k cut to N: the CUDA kernels for CUDA tensors (the
     variant ``l2topk.route`` picks by shape; they take no ``chunk``: none
-    holds the (Q, N) matrix), the plain version for CPU tensors."""
-    if use_kernel(database, backend, "l2topk"):
+    holds the (Q, N) matrix), the plain version for CPU tensors; on meta
+    tensors the outputs, no launch."""
+    if use_kernel(database, backend, "l2topk", meta=True):
         return l2topk_cuda(queries.float().contiguous(),
                            database.float().contiguous(), k)
     return l2_topk_ref(queries, database, k, chunk=chunk)

@@ -50,7 +50,8 @@ from torch import nn
 from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels.embedding_bag import BagPlan, bag_grouping, \
     embedding_bag, segment_sum
-from repro_torch.models.layers import MLP, dense_init, mlp_init
+from repro_torch.models.layers import MLP, dense_init, init_device, \
+    mlp_init
 
 N_ATOM_TYPES = 95
 
@@ -134,27 +135,27 @@ class DimeNet(nn.Module):
 
 
 def init_params(generator: torch.Generator, cfg: GNNConfig,
-                d_feat: int = 0) -> DimeNet:
+                d_feat: int = 0, device=None) -> DimeNet:
     """Random weights with the reference's distributions, drawn on the
-    generator's device: ``embed`` dense (d_feat, H) or (95, H) normal x
-    0.5, dense projections, zero-bias MLPs, ``bilinear`` (B, H, H) normal
-    x H^-0.5."""
-    h, dev = cfg.d_hidden, generator.device
+    generator's device (or ``device``): ``embed`` dense (d_feat, H) or
+    (95, H) normal x 0.5, dense projections, zero-bias MLPs, ``bilinear``
+    (B, H, H) normal x H^-0.5."""
+    h, dev = cfg.d_hidden, init_device(generator, device)
     n_sbf = cfg.n_radial * cfg.n_spherical
-    embed = (dense_init(generator, d_feat, h) if d_feat else
+    embed = (dense_init(generator, d_feat, h, dev) if d_feat else
              torch.randn((N_ATOM_TYPES, h), generator=generator,
                          device=dev) * 0.5)
-    rbf_proj = dense_init(generator, cfg.n_radial, h)
-    msg_init = mlp_init(generator, (3 * h, h, h))
-    out_final = mlp_init(generator, (h, h, cfg.d_out))
-    blocks = [Block(dense_init(generator, h, h),
-                    dense_init(generator, h, h),
-                    dense_init(generator, cfg.n_radial, h),
-                    dense_init(generator, n_sbf, cfg.n_bilinear),
+    rbf_proj = dense_init(generator, cfg.n_radial, h, dev)
+    msg_init = mlp_init(generator, (3 * h, h, h), dev)
+    out_final = mlp_init(generator, (h, h, cfg.d_out), dev)
+    blocks = [Block(dense_init(generator, h, h, dev),
+                    dense_init(generator, h, h, dev),
+                    dense_init(generator, cfg.n_radial, h, dev),
+                    dense_init(generator, n_sbf, cfg.n_bilinear, dev),
                     torch.randn((cfg.n_bilinear, h, h), generator=generator,
                                 device=dev) * h ** -0.5,
-                    mlp_init(generator, (h, h, h)),
-                    mlp_init(generator, (h, h, h)))
+                    mlp_init(generator, (h, h, h), dev),
+                    mlp_init(generator, (h, h, h), dev))
               for _ in range(cfg.n_blocks)]
     return DimeNet(embed, rbf_proj, msg_init, out_final, blocks)
 
@@ -178,14 +179,12 @@ def _bilinear(a: torch.Tensor, m_kj: torch.Tensor,
     return outer @ w.reshape(b * h, w.shape[2])
 
 
-def forward(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
-            node_reduce: Optional[Callable] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (graph_out (G, d_out), node_out (N, d_out)).
-
-    node_reduce: optional reducer applied to the node accumulator before
-    the final MLP (the reference's edge-partition hook: a psum of the
-    shards' partial sums there)."""
+def node_messages(model: DimeNet, cfg: GNNConfig,
+                  graph: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The message passing over the graph's edges and triplets -> the
+    (N, H) node accumulator (the per-block node readouts summed). Over one
+    shard's edges it is that shard's partial sum (``launch/specs.py``'s
+    edge partition)."""
     pos = graph["pos"]
     src, dst = graph["src"].long(), graph["dst"].long()
     edge_mask = graph["edge_mask"]
@@ -242,9 +241,13 @@ def forward(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
         # per-block node readout
         node_out = node_out + segment_sum(
             blk.out_node(m) * emask[:, None], dst_ids, n, dst_plan)
+    return node_out
 
-    if node_reduce is not None:
-        node_out = node_reduce(node_out)
+
+def readout(model: DimeNet, graph: Dict[str, torch.Tensor],
+            node_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The node accumulator -> (graph_out (G, d_out), node_out (N,
+    d_out)): the final MLP, the node mask, the graph sums."""
     node_mask = graph["node_mask"]
     node_out = model.out_final(F.silu(node_out))
     node_out = node_out * node_mask.float()[:, None]
@@ -260,12 +263,31 @@ def forward(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
     return graph_out, node_out
 
 
+def forward(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
+            node_reduce: Optional[Callable] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (graph_out (G, d_out), node_out (N, d_out)).
+
+    node_reduce: optional reducer applied to the node accumulator before
+    the final MLP (the reference's edge-partition hook: a psum of the
+    shards' partial sums there)."""
+    node_out = node_messages(model, cfg, graph)
+    if node_reduce is not None:
+        node_out = node_reduce(node_out)
+    return readout(model, graph, node_out)
+
+
 def loss_fn(model: DimeNet, cfg: GNNConfig, graph: Dict[str, torch.Tensor],
             node_reduce: Optional[Callable] = None):
     """-> (loss, {"loss": loss}): the mean squared error of the graph
     outputs against ``y_graph``, or of the masked node outputs against
     ``y_node`` over max(sum of the mask, 1)."""
-    graph_out, node_out = forward(model, cfg, graph, node_reduce)
+    return loss_of(graph, *forward(model, cfg, graph, node_reduce))
+
+
+def loss_of(graph: Dict[str, torch.Tensor], graph_out: torch.Tensor,
+            node_out: torch.Tensor):
+    """``loss_fn``'s loss of given outputs."""
     if "y_graph" in graph:
         err = graph_out[:, 0] - graph["y_graph"]
         loss = (err * err).mean()

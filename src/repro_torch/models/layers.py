@@ -36,12 +36,19 @@ from torch import nn
 MASKED = -1e30        # the reference's masked score (not -inf: no NaN rows)
 
 
+def init_device(generator: torch.Generator, device=None) -> torch.device:
+    """Where an init puts its tensors: ``device``, else the generator's.
+    A CPU generator with ``device="meta"`` gives shape-only parameters and
+    draws nothing (the dry run's models)."""
+    return generator.device if device is None else torch.device(device)
+
+
 def dense_init(generator: torch.Generator, d_in: int,
-               d_out: int) -> torch.Tensor:
+               d_out: int, device=None) -> torch.Tensor:
     """(d_in, d_out) normal weights times d_in^-0.5, drawn on the
-    generator's device."""
+    generator's device (or ``device``)."""
     w = torch.randn((d_in, d_out), generator=generator,
-                    device=generator.device)
+                    device=init_device(generator, device))
     return w * d_in ** -0.5
 
 
@@ -65,12 +72,13 @@ class MLP(nn.Module):
         return x
 
 
-def mlp_init(generator: torch.Generator, dims: Sequence[int]) -> MLP:
+def mlp_init(generator: torch.Generator, dims: Sequence[int],
+             device=None) -> MLP:
     """dims = (in, h1, ..., out): dense_init weights, zero biases."""
     pairs = list(zip(dims[:-1], dims[1:]))
-    return MLP([dense_init(generator, a, b) for a, b in pairs],
-               [torch.zeros((b,), device=generator.device)
-                for _, b in pairs])
+    dev = init_device(generator, device)
+    return MLP([dense_init(generator, a, b, dev) for a, b in pairs],
+               [torch.zeros((b,), device=dev) for _, b in pairs])
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -219,17 +227,18 @@ def attention(q, k, v, *, causal: bool, block_kv: int = 1024):
 
 
 # ------------------------------------------------------------ GQA attention
-def gqa_init(generator: torch.Generator, cfg) -> nn.ParameterDict:
+def gqa_init(generator: torch.Generator, cfg,
+             device=None) -> nn.ParameterDict:
     """wq (d, H hd), wk / wv (d, KV hd), wo (H hd, d) from ``dense_init``,
     each cast to the config's type as it is drawn; zero QKV biases and
     unit q/k norms where the config has them."""
     dt = lm_dtype(cfg)
-    dev = generator.device
+    dev = init_device(generator, device)
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    p = {"wq": dense_init(generator, d, h * hd).to(dt),
-         "wk": dense_init(generator, d, kvh * hd).to(dt),
-         "wv": dense_init(generator, d, kvh * hd).to(dt),
-         "wo": dense_init(generator, h * hd, d).to(dt)}
+    p = {"wq": dense_init(generator, d, h * hd, dev).to(dt),
+         "wk": dense_init(generator, d, kvh * hd, dev).to(dt),
+         "wv": dense_init(generator, d, kvh * hd, dev).to(dt),
+         "wo": dense_init(generator, h * hd, d, dev).to(dt)}
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((h * hd,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((kvh * hd,), dtype=dt, device=dev)
@@ -297,29 +306,31 @@ def gqa_decode(p, cfg, x, pos, cache: Tuple[torch.Tensor, torch.Tensor],
 
 
 # ------------------------------------------------------------ MLA attention
-def mla_init(generator: torch.Generator, cfg) -> nn.ParameterDict:
+def mla_init(generator: torch.Generator, cfg,
+             device=None) -> nn.ParameterDict:
     """DeepSeek-V2's latent attention: the query through a rank
     ``q_lora_rank`` bottleneck with its norm (or one ``wq``), the joint
     KV down-projection ``wkv_a`` (d, r + rd) with the latent's norm, its
     up-projection ``wkv_b`` (r, H (nd + vd)) and ``wo`` (H vd, d)."""
     dt = lm_dtype(cfg)
-    dev = generator.device
+    dev = init_device(generator, device)
     d, h = cfg.d_model, cfg.n_heads
     qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     p = {}
     if cfg.q_lora_rank:
-        p["wq_a"] = dense_init(generator, d, cfg.q_lora_rank).to(dt)
+        p["wq_a"] = dense_init(generator, d, cfg.q_lora_rank, dev).to(dt)
         p["q_a_norm"] = torch.ones((cfg.q_lora_rank,), dtype=dt, device=dev)
-        p["wq_b"] = dense_init(generator, cfg.q_lora_rank, h * qd).to(dt)
+        p["wq_b"] = dense_init(generator, cfg.q_lora_rank, h * qd,
+                               dev).to(dt)
     else:
-        p["wq"] = dense_init(generator, d, h * qd).to(dt)
+        p["wq"] = dense_init(generator, d, h * qd, dev).to(dt)
     p["wkv_a"] = dense_init(generator, d, cfg.kv_lora_rank
-                            + cfg.qk_rope_head_dim).to(dt)
+                            + cfg.qk_rope_head_dim, dev).to(dt)
     p["kv_a_norm"] = torch.ones((cfg.kv_lora_rank,), dtype=dt, device=dev)
     p["wkv_b"] = dense_init(generator, cfg.kv_lora_rank,
                             h * (cfg.qk_nope_head_dim
-                                 + cfg.v_head_dim)).to(dt)
-    p["wo"] = dense_init(generator, h * cfg.v_head_dim, d).to(dt)
+                                 + cfg.v_head_dim), dev).to(dt)
+    p["wo"] = dense_init(generator, h * cfg.v_head_dim, d, dev).to(dt)
     return _params(p)
 
 
@@ -443,10 +454,12 @@ def mla_decode(p, cfg, x, pos, cache, kv_valid):
 
 # ------------------------------------------------------------------- ffn
 def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
-                dtype: torch.dtype) -> nn.ParameterDict:
-    return _params({"w_gate": dense_init(generator, d, d_ff).to(dtype),
-                    "w_up": dense_init(generator, d, d_ff).to(dtype),
-                    "w_down": dense_init(generator, d_ff, d).to(dtype)})
+                dtype: torch.dtype, device=None) -> nn.ParameterDict:
+    dev = init_device(generator, device)
+    return _params({
+        "w_gate": dense_init(generator, d, d_ff, dev).to(dtype),
+        "w_up": dense_init(generator, d, d_ff, dev).to(dtype),
+        "w_down": dense_init(generator, d_ff, d, dev).to(dtype)})
 
 
 def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:

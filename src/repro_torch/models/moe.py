@@ -55,8 +55,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import dense_init, lm_dtype, swiglu_apply, \
-    swiglu_init
+from repro_torch.models.layers import dense_init, init_device, lm_dtype, \
+    swiglu_apply, swiglu_init
 
 
 class MoE(nn.Module):
@@ -78,24 +78,24 @@ class MoE(nn.Module):
         return getattr(self, key)
 
 
-def moe_init(generator: torch.Generator, cfg) -> MoE:
+def moe_init(generator: torch.Generator, cfg, device=None) -> MoE:
     """The reference's recipe on the generator's device: the router
     N(0, 1/d) in float32, the experts N(0, 1/d) (gate, up) and N(0, 1/m)
     (down) cast to the config's type one tensor at a time, the shared
     experts from ``swiglu_init``."""
     dt = lm_dtype(cfg)
-    dev = generator.device
+    dev = init_device(generator, device)
     d, e, m = cfg.d_model, cfg.n_routed_experts, cfg.moe_d_ff
 
     def normal(shape, scale):
         return (torch.randn(shape, generator=generator, device=dev)
                 * scale).to(dt)
 
-    router = dense_init(generator, d, e)
+    router = dense_init(generator, d, e, dev)
     w_gate = normal((e, d, m), d ** -0.5)
     w_up = normal((e, d, m), d ** -0.5)
     w_down = normal((e, m, d), m ** -0.5)
-    shared = swiglu_init(generator, d, cfg.n_shared_experts * m, dt) \
+    shared = swiglu_init(generator, d, cfg.n_shared_experts * m, dt, dev) \
         if cfg.n_shared_experts else None
     return MoE(router, w_gate, w_up, w_down, shared)
 
@@ -113,7 +113,12 @@ def _route(logits: torch.Tensor, top_k: int,
     w = probs.gather(1, idx)
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
     t, e = logits.shape
-    f = torch.bincount(idx.reshape(-1), minlength=e).float() / t
+    flat = idx.reshape(-1)
+    # bincount(flat, minlength=e) with its length fixed (every id < e):
+    # the same counts, and a shape the meta device can give
+    counts = torch.zeros((e,), dtype=torch.int64, device=idx.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+    f = counts.float() / t
     aux = e * (f * probs.mean(0)).sum() / top_k
     return w, idx, aux
 

@@ -29,12 +29,12 @@ from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models import recsys_common as C
-from repro_torch.models.layers import MLP, dense_init, mlp_init, rms_norm, \
-    sdpa
+from repro_torch.models.layers import MLP, dense_init, init_device, \
+    mlp_init, rms_norm, sdpa
 
 
-def _tables(generator, cfg):
-    return C.init_tables(generator, cfg.table_vocabs, cfg.embed_dim)
+def _tables(generator, cfg, device=None):
+    return C.init_tables(generator, cfg.table_vocabs, cfg.embed_dim, device)
 
 
 def _offsets(cfg):
@@ -109,13 +109,14 @@ class TwoTower(nn.Module):
         return (u @ v.T)[0]                                        # (C,)
 
 
-def two_tower_init(generator: torch.Generator, cfg: RecsysConfig
-                   ) -> TwoTower:
-    """Table and towers drawn from ``generator`` on its device."""
+def two_tower_init(generator: torch.Generator, cfg: RecsysConfig,
+                   device=None) -> TwoTower:
+    """Table and towers drawn from ``generator`` on its device (or
+    ``device``)."""
     d = cfg.embed_dim
-    table = _tables(generator, cfg)
-    user = mlp_init(generator, (2 * d,) + tuple(cfg.tower_mlp))
-    item = mlp_init(generator, (2 * d,) + tuple(cfg.tower_mlp))
+    table = _tables(generator, cfg, device)
+    user = mlp_init(generator, (2 * d,) + tuple(cfg.tower_mlp), device)
+    item = mlp_init(generator, (2 * d,) + tuple(cfg.tower_mlp), device)
     return TwoTower(cfg, table, user, item)
 
 
@@ -166,13 +167,15 @@ def dlrm_loss(params: DLRM, cfg, batch, lookup_fn=None):
     return loss, {"loss": loss}
 
 
-def dlrm_init(generator: torch.Generator, cfg: RecsysConfig) -> DLRM:
+def dlrm_init(generator: torch.Generator, cfg: RecsysConfig,
+              device=None) -> DLRM:
     n_f = cfg.n_sparse + 1
     n_int = n_f * (n_f - 1) // 2
-    return DLRM(cfg, _tables(generator, cfg),
-                mlp_init(generator, (cfg.n_dense,) + tuple(cfg.bot_mlp)),
+    return DLRM(cfg, _tables(generator, cfg, device),
+                mlp_init(generator, (cfg.n_dense,) + tuple(cfg.bot_mlp),
+                         device),
                 mlp_init(generator, (n_int + cfg.bot_mlp[-1],)
-                         + tuple(cfg.top_mlp)))
+                         + tuple(cfg.top_mlp), device))
 
 
 # ===========================================================================
@@ -237,8 +240,10 @@ def sasrec_negatives(cfg, device, n_neg: int = N_NEG) -> torch.Tensor:
     none: ``n_neg`` uniform item ids from a ``torch.Generator`` seeded 0,
     drawn anew (the same ids) on every call. The reference draws from
     ``jax.random.PRNGKey(0)`` in the same way; torch cannot give that
-    stream, so the ids differ while the meaning, one fixed set, holds."""
-    g = torch.Generator(device=device).manual_seed(0)
+    stream, so the ids differ while the meaning, one fixed set, holds.
+    On meta (the dry run) a CPU generator stands in: meta draws nothing."""
+    meta = torch.device(device).type == "meta"
+    g = torch.Generator(device="cpu" if meta else device).manual_seed(0)
     return torch.randint(0, cfg.table_vocabs[0], (n_neg,), generator=g,
                          device=device, dtype=torch.int32)
 
@@ -267,17 +272,19 @@ def sasrec_loss(params: SASRec, cfg, batch, lookup_fn=None,
     return loss, {"loss": loss}
 
 
-def sasrec_init(generator: torch.Generator, cfg: RecsysConfig) -> SASRec:
+def sasrec_init(generator: torch.Generator, cfg: RecsysConfig,
+                device=None) -> SASRec:
     d = cfg.embed_dim
-    dev = generator.device
-    table = _tables(generator, cfg)
+    dev = init_device(generator, device)
+    table = _tables(generator, cfg, dev)
     pos = torch.randn((cfg.seq_len, d), generator=generator,
                       device=dev) * 0.02
     blocks = []
     for _ in range(cfg.n_blocks):
         blk = {"ln1": torch.ones(d, device=dev),
                "ln2": torch.ones(d, device=dev)}
-        blk.update({w: dense_init(generator, d, d) for w in BLOCK_WEIGHTS})
+        blk.update({w: dense_init(generator, d, d, dev)
+                    for w in BLOCK_WEIGHTS})
         blocks.append(blk)
     return SASRec(cfg, table, pos, blocks, torch.ones(d, device=dev))
 
@@ -350,11 +357,14 @@ def din_loss(params: DIN, cfg, batch, lookup_fn=None):
     return loss, {"loss": loss}
 
 
-def din_init(generator: torch.Generator, cfg: RecsysConfig) -> DIN:
+def din_init(generator: torch.Generator, cfg: RecsysConfig,
+             device=None) -> DIN:
     d2 = 2 * cfg.embed_dim
-    return DIN(cfg, _tables(generator, cfg),
-               mlp_init(generator, (4 * d2,) + tuple(cfg.attn_mlp) + (1,)),
-               mlp_init(generator, (3 * d2,) + tuple(cfg.top_mlp) + (1,)))
+    return DIN(cfg, _tables(generator, cfg, device),
+               mlp_init(generator, (4 * d2,) + tuple(cfg.attn_mlp) + (1,),
+                        device),
+               mlp_init(generator, (3 * d2,) + tuple(cfg.top_mlp) + (1,),
+                        device))
 
 
 # ===========================================================================

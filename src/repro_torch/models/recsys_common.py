@@ -18,9 +18,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import RowSharded, columns, \
+from repro_torch.analysis import op_costs
+from repro_torch.distributed.sharding import RowSharded, columns, on_meta, \
     model_size, put_row_sharded
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.models.layers import init_device
 
 
 def table_offsets(vocabs: Sequence[int]) -> np.ndarray:
@@ -34,11 +36,12 @@ def padded_rows(vocabs: Sequence[int], multiple: int = 512) -> int:
 
 
 def init_tables(generator: torch.Generator, vocabs: Sequence[int],
-                dim: int) -> torch.Tensor:
+                dim: int, device=None) -> torch.Tensor:
     """(padded_rows, dim) f32 normal rows times dim^-0.5, drawn on the
-    generator's device (scaled in place: a full-size table is 14 GB)."""
+    generator's device or ``device`` (scaled in place: a full-size table
+    is 14 GB)."""
     t = torch.randn((padded_rows(vocabs), dim), generator=generator,
-                    device=generator.device)
+                    device=init_device(generator, device))
     return t.mul_(dim ** -0.5)
 
 
@@ -76,6 +79,7 @@ def make_sharded_lookup(mesh, total_rows: int):
     n_shards = model_size(mesh)
     rows_local = -(-total_rows // n_shards)
     cols = columns(mesh)                        # (groups, shards)
+    one = on_meta(mesh)
 
     def local(table_local, ids, shard):
         loc = ids - shard * rows_local
@@ -85,12 +89,18 @@ def make_sharded_lookup(mesh, total_rows: int):
                                                             device=rows.device))
 
     def psum(table, ids, group):
-        acc = None
-        for s in range(n_shards):
-            dev = cols[group, s]
-            rows = local(table.local(s, dev), ids.to(dev), s).to(ids.device)
-            acc = rows if acc is None else acc + rows
-        return acc
+        # each (group, shard) take counted as that device's; on a meta
+        # mesh the first stands in for every shard (sharding.shard_map)
+        parts = [op_costs.in_shard(
+            (group, s), local, table.local(s, cols[group, s]),
+            ids.to(cols[group, s]), s) for s in range(1 if one else n_shards)]
+        op_costs.record_collective("all-reduce", parts[0].numel()
+                                   * parts[0].element_size(), n_shards)
+        with op_costs.suspended():
+            acc = parts[0].to(ids.device)
+            for rows in parts[1:]:
+                acc = acc + rows.to(ids.device)
+            return acc
 
     def fn(table, flat_ids):
         if not isinstance(table, RowSharded):
@@ -100,8 +110,13 @@ def make_sharded_lookup(mesh, total_rows: int):
             return psum(table, flat_ids, 0)
         parts = flat_ids.split(flat_ids.shape[0] // dp) if dp > 1 \
             else (flat_ids,)
-        return torch.cat([psum(table, part, g)
-                          for g, part in enumerate(parts)])
+        if one:                                 # the groups alike
+            return op_costs.stand_in(psum(table, parts[0], 0), dp)
+        rows = [psum(table, part, g) for g, part in enumerate(parts)]
+        if len(rows) == 1:
+            return rows[0]
+        with op_costs.suspended():
+            return torch.cat(rows)
 
     return fn
 

@@ -87,16 +87,18 @@ class TransformerLM(nn.Module):
 
 
 # ---------------------------------------------------------------- init
-def init_params(generator: torch.Generator, cfg: LMConfig) -> TransformerLM:
+def init_params(generator: torch.Generator, cfg: LMConfig,
+                device=None) -> TransformerLM:
     """The reference's init recipe on the generator's device: embed
     N(0, 0.02^2), unit norms, ``gqa_init`` or ``mla_init`` per layer, then
     ``swiglu_init`` (width ``dense_d_ff`` in an MoE config's leading dense
     layers) or ``moe_init``, an untied head N(0, 1/d). Each tensor is
     drawn in float32 and cast to the config's type before the next is
     drawn, so the largest temporary is one float32 tensor (qwen3-32b's
-    embed: 3.1 GB; deepseek-v2-236b's stacked experts: 5.0 GB)."""
+    embed: 3.1 GB; deepseek-v2-236b's stacked experts: 5.0 GB).
+    ``device="meta"`` builds the model shape-only, drawing nothing."""
     dt = L.lm_dtype(cfg)
-    dev = generator.device
+    dev = L.init_device(generator, device)
     d, v = cfg.d_model, cfg.vocab_size
     width = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
 
@@ -105,12 +107,13 @@ def init_params(generator: torch.Generator, cfg: LMConfig) -> TransformerLM:
                 * scale).to(dt)
 
     def block(i):
-        attn = L.mla_init(generator, cfg) if cfg.use_mla \
-            else L.gqa_init(generator, cfg)
+        attn = L.mla_init(generator, cfg, dev) if cfg.use_mla \
+            else L.gqa_init(generator, cfg, dev)
         ones = [torch.ones((d,), dtype=dt, device=dev) for _ in range(2)]
         if cfg.moe and i >= cfg.first_dense_layers:
-            return Block(*ones, attn, moe=moe_init(generator, cfg))
-        return Block(*ones, attn, ffn=L.swiglu_init(generator, d, width, dt))
+            return Block(*ones, attn, moe=moe_init(generator, cfg, dev))
+        return Block(*ones, attn,
+                     ffn=L.swiglu_init(generator, d, width, dt, dev))
 
     embed = normal((v, d), 0.02)
     blocks = [block(i) for i in range(cfg.n_layers)]

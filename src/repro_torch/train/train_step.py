@@ -20,6 +20,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.analysis import op_costs
 from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.optim import Optimizer, compress_with_feedback, named
 
@@ -74,11 +75,15 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
             return grads_of(params, batch)
         acc = {n: torch.zeros_like(p, requires_grad=False)
                for n, p in named(params).items()}
-        for i in range(microbatches):
-            g, metrics = grads_of(params, _slice(batch, i, microbatches))
-            for n, a in acc.items():
-                a.add_(g[n])
-            del g
+        # a meta dry run counts one microbatch times the count
+        # (analysis.op_costs.loop)
+        with op_costs.loop(microbatches, *acc.values()) as trips:
+            for i in range(trips):
+                g, metrics = grads_of(params,
+                                      _slice(batch, i, microbatches))
+                for n, a in acc.items():
+                    a.add_(g[n])
+                del g
         return {n: a.div_(microbatches) for n, a in acc.items()}, metrics
 
     if compress:

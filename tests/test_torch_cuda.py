@@ -2408,3 +2408,119 @@ def test_dimenet_step_groups_once_per_id_array(dev, graphs):
         dimenet.bag_grouping = kept
     assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(planned, bare))
+
+
+# -- the dry run's cost records: the card's equal the meta branch's --------
+
+def _costs_of(fn, *args):
+    from repro_torch.analysis.op_costs import CostCounter
+    with CostCounter() as c:
+        out = fn(*args)
+    d = c.per_device()
+    return out, dict(d.op_counts), d.total_flops, d.bytes, c.peak_bytes
+
+
+def _on_meta(t):
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _same_costs(card, meta):
+    out_c, counts_c, f_c, b_c, _ = card
+    out_m, counts_m, f_m, b_m, _ = meta
+    assert counts_c == counts_m and f_c == f_m and b_c == b_m
+    outs = lambda o: [o] if isinstance(o, torch.Tensor) else list(o)
+    assert [(t.shape, t.dtype) for t in outs(out_c)] == \
+        [(t.shape, t.dtype) for t in outs(out_m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["search", "build_knn", "tc", "tile",
+                                  "small"])
+def test_cost_record_card_equals_meta_ann(dev, case):
+    """gather_dist, beam_hops (the fixed-beam search's 256 hops) and
+    l2topk at the dry run's ANN shapes (a 64-query shard of search_300k;
+    build_knn's 4096 x 300k; the other variants' shapes): the same ops,
+    kernel records, FLOPs and bytes on the card as on meta."""
+    from repro_torch.kernels.beam_hop import beam_hops
+    from repro_torch.kernels.gather_dist import gather_dist
+    from repro_torch.kernels.l2topk import l2_topk
+    g = torch.Generator().manual_seed(7)
+    if case == "search":
+        q, ef, r, n, d = 64, 64, 32, 18_750, 600
+        args = (torch.randint(0, n, (n, r), generator=g, dtype=torch.int32),
+                torch.full((q, ef), -1, dtype=torch.int32),
+                torch.full((q, ef), float("inf")),
+                torch.zeros((q, ef), dtype=torch.bool),
+                *(torch.zeros((q,), dtype=torch.int32) for _ in range(4)),
+                torch.randn(q, d, generator=g), torch.randn(n, d, generator=g))
+        args[1][:, 0] = 0
+        args[2][:, 0] = 1.0
+
+        def fn(*a):
+            return (gather_dist(a[8], a[9], a[1][:, :1].contiguous()),
+                    *beam_hops(*a, k=10, max_iters=256, max_steps=256))
+        card = [t.to(dev) for t in args]
+    else:
+        q, n, d, k = {"build_knn": (4096, 300_000, 600, 33),
+                      "tc": (256, 4096, 64, 16),
+                      "tile": (7, 3000, 600, 1),
+                      "small": (300, 256, 2, 1)}[case]
+        args = (torch.randn(q, d, generator=g), torch.randn(n, d, generator=g))
+
+        def fn(a, b):
+            return l2_topk(a, b, k)
+        card = [t.to(dev) for t in args]
+    got = _costs_of(fn, *card)
+    torch.cuda.synchronize()
+    _same_costs(got, _costs_of(fn, *(_on_meta(t) for t in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["two_tower_bag", "dimenet_step"])
+def test_cost_record_card_equals_meta_bags(dev, path):
+    """The bag, its backward and its grouping at their path shapes (a
+    two-tower batch of 512 bags of 32 over 1M rows, mean; a DimeNet
+    minibatch_lg-sized segment sum and one-id bag through autograd): the
+    same records on the card as on meta."""
+    from repro_torch.kernels.embedding_bag import bag_grouping, \
+        embedding_bag, segment_sum
+    g = torch.Generator().manual_seed(3)
+    if path == "two_tower_bag":
+        v, d, b, l = 1 << 20, 256, 512, 32
+        table = torch.randn(v, d, generator=g)
+        ids = torch.randint(-1, v, (b, l), generator=g, dtype=torch.int32)
+
+        def fn(t, i):
+            t = t.requires_grad_()
+            out = embedding_bag(t, i, combiner="mean")
+            out.sum().backward()
+            return out, t.grad
+        args = (table, ids)
+    else:
+        e, n, d = 168_960, 171_008, 128
+        data = torch.randn(e, d, generator=g)
+        seg = torch.randint(-1, n, (e,), generator=g, dtype=torch.int32)
+
+        def fn(x, s):
+            x = x.requires_grad_()
+            plan = bag_grouping(s, n)
+            out = segment_sum(x, s, n, plan)
+            back = embedding_bag(out, s[:, None], plan=None)
+            (out.sum() + back.sum()).backward()
+            return out, back, x.grad
+        args = (data, seg)
+    got = _costs_of(fn, *(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    _same_costs(got, _costs_of(fn, *(_on_meta(t) for t in args)))
+
+
+@pytest.mark.cuda
+def test_grouping_scratch_words_match_the_library(dev):
+    """The meta branch's Python count of the grouping's scratch equals the
+    C library's."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.embedding_bag.embedding_bag import \
+        grouping_scratch_words
+    lib = cuda_lib.library()
+    for n in (0, 1, 2047, 2048, 2049, 337_920, 2_097_152):
+        assert lib.bag_grouping_scratch_words(n) == grouping_scratch_words(n)

@@ -62,6 +62,12 @@ GNN_MODULES = {
     "repro_torch.models.dimenet", "repro_torch.data.graph_sampler",
     "repro_torch.configs.dimenet"}
 
+# the modules of the analysis and dry-run slice
+DRYRUN_MODULES = {
+    "repro_torch.analysis", "repro_torch.analysis.op_costs",
+    "repro_torch.analysis.roofline", "repro_torch.analysis.hop_traffic",
+    "repro_torch.launch.specs", "repro_torch.launch.dryrun"}
+
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.MULTILINE)
 
@@ -86,6 +92,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         MOE_MLA_MODULES - set(names.split(","))
     assert GNN_MODULES <= set(names.split(",")), \
         GNN_MODULES - set(names.split(","))
+    assert DRYRUN_MODULES <= set(names.split(",")), \
+        DRYRUN_MODULES - set(names.split(","))
 
 
 _LM_PROBE = """
