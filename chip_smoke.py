@@ -133,7 +133,10 @@ Phases, each printing one JSON line:
                 version's (on the card) exactly; ms, device_ms and share of
                 bound of each variant (timed in turns), plain_ms and the
                 bound of each first chunk; the variant each shape routes
-                to, which every α-scan launch of the fits must have taken.
+                to, which every α-scan launch of the fits must have taken;
+                core.nsg.mrng_prune on the prune stage's first chunk (one
+                alpha_scan launch) bit-equal to alpha_prune at alpha = 1
+                and to the plain scan ("mrng_prune" line).
 10c. factory — the paper's Fig. 1 through the unified index API
                 (build_index) on the phase-4 data and queries:
                 FACTORY_SPECS (Flat, NSG24,EP1, IVF128,Flat at nprobe 8,
@@ -361,7 +364,13 @@ Phases, each printing one JSON line:
                 (DRYRUN_TIMEOUT) and its seconds printed; err=0, its ok
                 and skipped cells exactly iter_cells(include_ann=True) x 2
                 meshes, skipped only where the config gives a reason
-                (long_500k on the full-attention LMs), with that reason.
+                (long_500k on the full-attention LMs), with that reason;
+                every record, meta and card, named
+                {arch}__{shape}__{mesh}[__cuda]__torch.json and naming
+                "package": "repro_torch" (asserted); one "dryrun_train"
+                line per train cell and mesh (link_bytes_per_device, the
+                all-reduce count: the merges and the gradients'
+                all-reduce; bytes_per_device; the partition).
                 Then every cell once more on this card (run_cell_cuda: a
                 1 x 1 mesh, weights and inputs from --seed) where its
                 1 x 1 meta run fits 90% of the card; one line per cell
@@ -2118,6 +2127,30 @@ def scan_work(torch, data, node_ids, cand_ids, cand_dists, degree, alpha,
     return evals, int(torch.unique(cand_ids[cand_ids >= 0]).numel())
 
 
+def mrng_check(torch, args) -> None:
+    """``core.nsg.mrng_prune`` on the prune stage's first chunk: one
+    alpha_scan launch, bit-equal to ``alpha_prune`` at alpha = 1 and to
+    the plain scan (on the card)."""
+    from repro_torch.core.build.prune import alpha_prune
+    from repro_torch.core.nsg import mrng_prune
+    from repro_torch.kernels.alpha_scan import alpha_scan_cuda, \
+        alpha_scan_ref
+    data, node_ids, cand_ids, cand_dists, degree, _ = args
+    before = alpha_scan_cuda.launches
+    got = mrng_prune(data, node_ids, cand_ids, cand_dists, degree)
+    launched = alpha_scan_cuda.launches - before
+    want = alpha_prune(data, node_ids, cand_ids, cand_dists, degree, 1.0)
+    plain = alpha_scan_ref(data, node_ids, cand_ids, cand_dists, degree,
+                           1.0)[0]
+    equal = torch.equal(got, want) and torch.equal(got, plain)
+    emit("mrng_prune", b=cand_ids.shape[0], l=cand_ids.shape[1],
+         degree=degree, d=data.shape[1], launches=launched,
+         equal_to_alpha_prune=equal, kept=int(got.ge(0).sum()))
+    if not equal or launched != 1:
+        raise AssertionError(f"mrng_prune: {launched} alpha_scan launches, "
+                             f"equal to alpha_prune at 1: {equal}")
+
+
 def alpha_scan_kernel_phase(torch, calls: dict, gpu: str,
                             fit_by_variant: dict) -> dict:
     """alpha_scan at its three path shapes on the operands the fit and the
@@ -2192,6 +2225,7 @@ def alpha_scan_kernel_phase(torch, calls: dict, gpu: str,
         if not launched <= routed_all or not launched:
             raise AssertionError(f"alpha_scan: {phase}'s launches took "
                                  f"{counts}, not the routed {routed_all}")
+    mrng_check(torch, calls[SCAN_SHAPES["prune"]][0])
     top = by_shape["prune"]
     return dict(route="cuda", source="src/repro_torch/csrc/alpha_scan.cu",
                 replaces="src/repro/core/build/prune.py:66",
@@ -5401,6 +5435,10 @@ def dryrun_phase(torch, src: Path, sweep: dict, wrappers: dict,
     recs = {}
     for f in sweep["out"].glob("*.json"):
         r = json.loads(f.read_text())
+        if r.get("package") != "repro_torch" or \
+                not f.name.endswith("__torch.json"):
+            raise AssertionError(f"dry run record {f.name} is not the "
+                                 f"port's: {r.get('package')}")
         recs[(r["arch"], r["shape"], r["mesh"])] = r
     want = {(a, s_, m) for a, s_, _ in iter_cells(include_ann=True)
             for m in ("16x16", "2x16x16")}
@@ -5420,6 +5458,13 @@ def dryrun_phase(torch, src: Path, sweep: dict, wrappers: dict,
          wall_seconds=time.perf_counter() - sweep["t0"], ok=int(tally["ok"]),
          skipped=int(tally["skip"]), err=int(tally["err"]),
          jobs=DRYRUN_JOBS, slowest=slowest)
+    for (a, s_, m), r in sorted(recs.items()):
+        if r["status"] == "ok" and r["kind"] == "train":
+            print(f"dryrun_train {a:20s} {s_:15s} {m:8s} "
+                  f"link_bytes_per_device {r['link_bytes_per_device']!r} "
+                  f"all-reduce {r['collective_counts'].get('all-reduce', 0)} "
+                  f"bytes_per_device {r['bytes_per_device']!r} "
+                  f"partition {r['partition']}", flush=True)
 
     out = src.parent / "build" / "dryrun_cuda"
     shutil.rmtree(out, ignore_errors=True)
@@ -5428,6 +5473,9 @@ def dryrun_phase(torch, src: Path, sweep: dict, wrappers: dict,
     rows = []
     for arch, shape, _ in iter_cells(include_ann=True):
         r = run_cell_cuda(arch, shape, str(out), seed)
+        if r.get("package") != "repro_torch":
+            raise AssertionError(f"dry run {arch} {shape}: the card record "
+                                 f"names {r.get('package')}")
         if r["status"] != "ok":
             emit("dryrun_cell", arch=arch, shape=shape, skipped=r["reason"])
             continue

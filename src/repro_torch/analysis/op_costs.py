@@ -36,19 +36,25 @@ backward ops autograd records for them, are counted for that device apart.
 The merges between a shard and the merge device are priced as the
 reference's collectives (``record_collective``: all-gather, all-reduce,
 with ``hlo.py``'s per-device wire factors) and their own ops are not
-counted. Per device, the counter gives the busiest (group, shard)
-program's costs plus the work outside any shard divided by
-``outside_split`` (1: every device runs it, as nodes replicated over an
-edge partition; the batch axes' size for a batch the reference splits
-over them; the mesh size for an LM the reference partitions by its rules
-alone, marked ``"partition": "ideal"``).
+counted. Work on rows the reference splits over n devices (a recsys
+table, its row accumulator, its gradient) is counted in a bucket of its
+own, divided by n: ``in_split`` runs a function so (``sharding.
+put_row_sharded``'s split, whose backward assembles the table's
+gradient), ``place`` names such a tensor, and an op outside every shard
+and ``in_split`` whose largest operand lies on a placed storage, or on
+one that such work allocated, is counted there too (the optimizer's
+update of the table). Per device, the counter gives the busiest (group,
+shard) program's costs, plus each split bucket over its n, plus the rest
+divided by ``outside_split`` (1: every device runs it, as nodes
+replicated over an edge partition; the batch axes' size for a batch the
+reference splits over them; the mesh size for an LM the reference
+partitions by its rules alone, marked ``"partition": "ideal"``). The
+bucket of n = 1 is work every device does once: a train step's
+gradients' all-reduce (``launch/specs.py``) is recorded there.
 
-Two differences from the reference. Trip counts: ``hlo_costs`` multiplies
-a while body by its ``known_trip_count``; an eager loop dispatches every
-trip and is counted on every trip. Gradients: the port's step sums the
-gradients of replicated weights in one process, so the reference's
-all-reduce of those gradients over the batch axes has no counterpart and
-no link bytes here.
+One difference from the reference in what is counted: ``hlo_costs``
+multiplies a while body by its ``known_trip_count``; an eager loop
+dispatches every trip and is counted on every trip.
 
 Memory: every op result on a storage no operand has is a new allocation.
 The storage stays live while any tensor on it does: the results and views
@@ -252,13 +258,19 @@ class CostCounter(TorchDispatchMode):
         self.outside_split = max(int(outside_split), 1)
         self.common = DeviceCosts()
         self.shards: Dict[tuple, DeviceCosts] = defaultdict(DeviceCosts)
+        # work on rows split over n devices, by n (module docstring)
+        self.splits: Dict[int, DeviceCosts] = defaultdict(DeviceCosts)
         self.key: Optional[tuple] = None
+        self.split: Optional[int] = None          # inside ``in_split``
+        self._placed: Dict[int, int] = {}         # storage -> n
         self.scale = 1.0               # > 1 inside ``loop``'s counted trip
         self._suspended = 0
         self._live_common = 0
         self._live_shard: Dict[tuple, int] = defaultdict(int)
-        # storage -> [holders, bytes, bucket key]: a storage is live while
-        # any tensor on it (a result, a view, a tensor autograd saved) is
+        self._live_split: Dict[int, int] = defaultdict(int)
+        # storage -> [holders, bytes, bucket]: a storage is live while
+        # any tensor on it (a result, a view, a tensor autograd saved) is;
+        # a bucket is None (common), a shard key or a split's n
         self._storages: Dict[int, list] = {}
         self._saved_hooks = None
         self.peak_bytes = 0.0          # per device, outside ÷ outside_split
@@ -282,8 +294,42 @@ class CostCounter(TorchDispatchMode):
             self._saved_hooks = None
         return super().__exit__(*exc)
 
+    def _scope(self):
+        """The bucket the current context names: the shard program's,
+        else ``in_split``'s, else None (the common work)."""
+        return self.key if self.key is not None else self.split
+
+    def _costs(self, where) -> DeviceCosts:
+        if where is None:
+            return self.common
+        if isinstance(where, int):
+            return self.splits[where]
+        return self.shards[where]
+
     def _bucket(self) -> DeviceCosts:
-        return self.common if self.key is None else self.shards[self.key]
+        return self._costs(self._scope())
+
+    def _split_of(self, t: torch.Tensor) -> Optional[int]:
+        cd = t.untyped_storage()._cdata
+        n = self._placed.get(cd)
+        if n is None:
+            ent = self._storages.get(cd)
+            if ent is not None and isinstance(ent[2], int):
+                n = ent[2]
+        return n
+
+    def _where(self, ins: List[torch.Tensor]):
+        """An op's bucket: the context's, else its largest operand's
+        split, else the common work."""
+        where = self._scope()
+        if where is None and ins and (self._placed or self._live_split):
+            where = self._split_of(max(ins, key=torch.Tensor.numel))
+        return where
+
+    def place(self, t: torch.Tensor, n: int) -> None:
+        """``t``'s rows are split over ``n`` devices: work on it is counted
+        per device over n (module docstring)."""
+        self._placed[t.untyped_storage()._cdata] = int(n)
 
     @contextlib.contextmanager
     def suspended(self):
@@ -299,25 +345,31 @@ class CostCounter(TorchDispatchMode):
     def _note_peak(self):
         own = self._live_shard[self.key] if self.key is not None else (
             max(self._live_shard.values()) if self._live_shard else 0)
-        cur = self._live_common / self.outside_split + own
+        cur = self._live_common / self.outside_split + own + sum(
+            v / n for n, v in self._live_split.items())
         if cur > self.peak_bytes:
             self.peak_bytes = cur
 
-    def _hold(self, t: torch.Tensor, new: bool):
-        """One more holder of ``t``'s storage (a new allocation when
-        ``new``; an alias of a tracked one otherwise), released when ``t``
-        dies."""
+    def _live(self, where, nbytes: int):
+        if where is None:
+            self._live_common += nbytes
+        elif isinstance(where, int):
+            self._live_split[where] += nbytes
+        else:
+            self._live_shard[where] += nbytes
+
+    def _hold(self, t: torch.Tensor, new: bool, where=None):
+        """One more holder of ``t``'s storage (a new allocation in bucket
+        ``where`` when ``new``; an alias of a tracked one otherwise),
+        released when ``t`` dies."""
         cd = t.untyped_storage()._cdata
         ent = self._storages.get(cd)
         if ent is None:
             if not new:
                 return                     # on a storage from before the run
             ent = self._storages[cd] = [0, t.untyped_storage().nbytes(),
-                                        self.key]
-            if self.key is None:
-                self._live_common += ent[1]
-            else:
-                self._live_shard[self.key] += ent[1]
+                                        where]
+            self._live(where, ent[1])
             self._note_peak()
         ent[0] += 1
         weakref.finalize(t, self._release, cd)
@@ -329,10 +381,7 @@ class CostCounter(TorchDispatchMode):
         ent[0] -= 1
         if ent[0] == 0:
             del self._storages[cd]
-            if ent[2] is None:
-                self._live_common -= ent[1]
-            else:
-                self._live_shard[ent[2]] -= ent[1]
+            self._live(ent[2], -ent[1])
 
     # -- recording ------------------------------------------------------
     def record(self, name: str, flops: float, nbytes: float,
@@ -368,13 +417,14 @@ class CostCounter(TorchDispatchMode):
             ins += _flat_tensors(kwargs.values())
         res = [out] if isinstance(out, torch.Tensor) else \
             _flat_tensors(out if isinstance(out, (tuple, list)) else ())
+        where = self._where(ins)
         if res:
             # a result on a storage no input has is a new allocation; one
             # on an input's storage (a view, detach) holds that storage
             have = {t.untyped_storage()._cdata for t in ins}
             for o in res:
                 key = o.untyped_storage()._cdata
-                self._hold(o, key not in have)
+                self._hold(o, key not in have, where)
                 have.add(key)
         if self._suspended:
             return out
@@ -396,8 +446,8 @@ class CostCounter(TorchDispatchMode):
                 nbytes = sum(tensor_bytes(t) for t in ins[1:])
             else:
                 nbytes = sum(tensor_bytes(t) for t in ins) + rb
-        self._bucket().add(name, flops * self.scale, dtype,
-                           nbytes * self.scale)
+        self._costs(where).add(name, flops * self.scale, dtype,
+                               nbytes * self.scale)
         return out
 
     # -- results --------------------------------------------------------
@@ -408,10 +458,13 @@ class CostCounter(TorchDispatchMode):
                    key=lambda c: (c.total_flops, c.bytes, c.link_bytes))
 
     def per_device(self) -> DeviceCosts:
-        """The busiest device: its (group, shard) programs plus the work
-        outside any shard over ``outside_split``."""
-        return self.busiest_shard().merged(
+        """The busiest device: its (group, shard) programs, plus each split
+        bucket over its n, plus the rest over ``outside_split``."""
+        out = self.busiest_shard().merged(
             self.common.scaled(1.0 / self.outside_split))
+        for n, c in sorted(self.splits.items()):
+            out = out.merged(c.scaled(1.0 / n))
+        return out
 
 
 def record_kernel(name: str, flops: float, nbytes: float,
@@ -498,17 +551,18 @@ def _seq_now() -> int:
         return (_PROBE * 1.0).grad_fn._sequence_nr() + 1
 
 
-def _hook_backward(counter: CostCounter, key: tuple, outputs, first: int,
-                   last: int) -> None:
-    """Run the backward nodes that the shard's forward recorded (sequence
-    numbers in [first, last)) under the shard's key."""
+def _hook_backward(counter: CostCounter, attr: str, value, outputs,
+                   first: int, last: int) -> None:
+    """Run the backward nodes that a forward recorded (sequence numbers in
+    [first, last)) with ``counter.<attr>`` set to ``value`` (a shard's
+    key, a split's n)."""
     def pre(*_):
         if active() is counter:
-            counter.key = key
+            setattr(counter, attr, value)
 
     def post(*_):
         if active() is counter:
-            counter.key = None
+            setattr(counter, attr, None)
 
     seen, todo = set(), [t.grad_fn for t in _tensors(outputs)
                          if t.grad_fn is not None]
@@ -537,5 +591,23 @@ def in_shard(key: tuple, fn, *args):
     finally:
         c.key = prev
     if track:
-        _hook_backward(c, key, out, first, _seq_now())
+        _hook_backward(c, "key", key, out, first, _seq_now())
+    return out
+
+
+def in_split(n: int, fn, *args):
+    """``fn(*args)`` counted as work on rows split over ``n`` devices, and
+    so are the backward ops autograd records for it."""
+    c = active()
+    if c is None:
+        return fn(*args)
+    track = torch.is_grad_enabled()
+    first = _seq_now() if track else 0
+    prev, c.split = c.split, int(n)
+    try:
+        out = fn(*args)
+    finally:
+        c.split = prev
+    if track:
+        _hook_backward(c, "split", int(n), out, first, _seq_now())
     return out

@@ -23,7 +23,7 @@ from repro_torch.core.build.pools import nnd_candidate_pools
 from repro_torch.core.build.prune import (
     RepruneFamily, alpha_prune, alpha_prune_mask, mark_dups,
     nsg_from_neighbors, pairwise_rows_sqdist, prune_in_chunks, reprune,
-    reprune_family, reprune_nsg, rows_sqdist_in_chunks,
+    reprune_family, reprune_nsg, rows_sqdist_in_chunks, sorted_adjacency,
     sorted_adjacency_chunk,
 )
 from repro_torch.core.build.shardlocal import derive_local, repair_local
@@ -41,7 +41,7 @@ __all__ = [
     "repair_connectivity_device", "repair_local", "reprune",
     "reprune_family", "reprune_nsg",
     "resolve_backend", "resolve_finish_backend", "rows_sqdist_in_chunks",
-    "sorted_adjacency_chunk",
+    "sorted_adjacency", "sorted_adjacency_chunk",
 ]
 
 # Below this N the exact pass wins on wall-clock (one matmul sweep, no

@@ -98,6 +98,19 @@ def sorted_adjacency_chunk(data: torch.Tensor, rows: torch.Tensor,
     return neighbors.gather(1, order), d.gather(1, order)
 
 
+def sorted_adjacency(data: torch.Tensor, neighbors: torch.Tensor,
+                     chunk: int = 2048):
+    """Adjacency rows as distance-ascending candidate pools (ids, dists).
+
+    Materializes the full (N, R) f32 table, the small-N / parity form;
+    out-of-core callers stream ``sorted_adjacency_chunk`` instead. The
+    sort is stable, as the chunk's.
+    """
+    d = rows_sqdist_in_chunks(data, neighbors, chunk)
+    order = torch.sort(d, dim=1, stable=True).indices
+    return neighbors.gather(1, order), d.gather(1, order)
+
+
 def reprune(data: torch.Tensor, neighbors: torch.Tensor, *,
             alpha: float = 1.0, degree: Optional[int] = None,
             chunk: int = 2048) -> torch.Tensor:

@@ -5,7 +5,10 @@ hand-written kernel, on CPU tensors its plain version (the chunked
 ``torch.matmul`` + packed-key ``torch.topk`` pass in
 ``kernels/l2topk/ref.py``). Both use the matmul form
 ``|q|^2 + |x|^2 - 2 q.x`` clamped at 0 and the reference's ``lax.top_k``
-tie rule: among equal distances the lower id comes first.
+tie rule: among equal distances the lower id comes first. ``l2_topk`` and
+``pairwise_sqdist`` live in ``kernels/l2topk`` and are re-exported here,
+where the reference defines them. The reference's ``match_vma`` (a
+``shard_map`` typing aid) has no counterpart.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from repro_torch.kernels.l2topk.ops import l2_topk
 from repro_torch.kernels.l2topk.ref import (  # noqa: F401  (re-exported)
     pack_keys, pairwise_sqdist, unpack_keys,
 )
+
+__all__ = ["l2_topk", "nearest", "pack_keys", "pairwise_sqdist",
+           "smallest_k", "unpack_keys"]
 
 
 def nearest(queries: torch.Tensor, database: torch.Tensor,

@@ -26,7 +26,8 @@ from repro_torch.core.beam_search import beam_search
 from repro_torch.core.build.finish import finish_nsg, resolve_finish_backend
 from repro_torch.core.build.pools import nnd_candidate_pools
 from repro_torch.core.build.prune import (
-    pairwise_rows_sqdist, prune_in_chunks, rows_sqdist_in_chunks,
+    alpha_prune, pairwise_rows_sqdist, prune_in_chunks,
+    rows_sqdist_in_chunks,
 )
 from repro_torch.core.device import synchronize
 from repro_torch.core.distances import nearest
@@ -65,6 +66,14 @@ def resolve_pools_backend(backend: str, knn_dists) -> str:
     if backend == "auto":
         return "nndescent" if knn_dists is not None else "search"
     return backend
+
+
+def mrng_prune(data: torch.Tensor, node_ids: torch.Tensor,
+               cand_ids: torch.Tensor, cand_dists: torch.Tensor,
+               degree: int) -> torch.Tensor:
+    """MRNG edge selection: ``alpha_prune`` at alpha=1 (bit-identical; on
+    the card the same ``alpha_scan`` launch)."""
+    return alpha_prune(data, node_ids, cand_ids, cand_dists, degree)
 
 
 def _candidate_pools(data, knn_ids, medoid, n_candidates, chunk):

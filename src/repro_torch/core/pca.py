@@ -36,3 +36,12 @@ def fit_pca(x: torch.Tensor, dim: int) -> PCA:
     total = evals.sum().clamp_min(1e-12)
     return PCA(mean=mean, components=evecs[:, :dim].contiguous(),
                explained=evals[:dim] / total)
+
+
+def dim_for_energy(x: torch.Tensor, energy: float) -> int:
+    """Smallest D capturing ``energy`` fraction of variance (tuner helper):
+    the first cumulative explained share >= ``energy`` (the reference's
+    ``searchsorted``, left side), plus one."""
+    cum = torch.cumsum(fit_pca(x, x.shape[1]).explained, 0)
+    target = torch.tensor([energy], dtype=cum.dtype, device=cum.device)
+    return int(torch.searchsorted(cum, target)[0]) + 1

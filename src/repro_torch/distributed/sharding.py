@@ -116,11 +116,15 @@ class RowSharded:
 
 
 def put_row_sharded(mesh, x: torch.Tensor) -> RowSharded:
-    """``x`` with its leading dim split over ``model`` (it must divide)."""
+    """``x`` with its leading dim split over ``model`` (it must divide).
+    The split's backward, which assembles ``x``'s gradient from the
+    blocks', is counted as work on rows split over ``model``
+    (``op_costs.in_split``): the reference keeps that gradient sharded."""
     s = model_size(mesh)
     if x.shape[0] % s:
         raise ValueError(f"{x.shape[0]} rows do not split over {s} shards")
-    return RowSharded(mesh, list(x.split(x.shape[0] // s)))
+    return RowSharded(mesh, list(op_costs.in_split(
+        s, torch.split, x, x.shape[0] // s)))
 
 
 def row_sharded_from_blocks(mesh, blocks) -> RowSharded:
@@ -178,9 +182,12 @@ def shard_map(fn: Callable, mesh, *args, batch=None, out: str = "rows"):
                                   *(_arg(a, 0, cols[0, 0]) for a in args))
         out = []
         for o in first:
-            m = op_costs.stand_in(o, n_shards, dim=1)
+            m = op_costs.stand_in(op_costs.stand_in(o, n_shards, dim=1),
+                                  n_groups, dim=0)
+            # every group's merge, as the loop below records them: the
+            # common work's split over the groups gives a device its own
             op_costs.record_collective("all-gather", _nbytes(m), n_shards)
-            out.append(op_costs.stand_in(m, n_groups, dim=0))
+            out.append(m)
         return tuple(out)
     groups = []
     for g, part in enumerate(parts):

@@ -27,6 +27,15 @@ equal the meta run's, then the step timed (median of 3 after one
 warm-up) beside the roofline, and ``torch.cuda.max_memory_allocated``
 beside the meta peak.
 
+Records. Every record names its package (``"package": "repro_torch"``)
+and goes to ``{out}/{arch}__{shape}__{mesh}[__cuda]__torch.json``, by
+default under ``benchmarks/results/dryrun_torch``: a name the reference's
+dry run (``{arch}__{shape}__{mesh}.json``) never writes, so neither
+package reads or overwrites the other's records, whatever ``--out`` they
+share. Without ``--force`` a meta cell whose record exists is returned as
+it is, but only if that record names this package; any other file there
+is run again and replaced.
+
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k \\
         --mesh single multi
@@ -55,6 +64,8 @@ FIT_SHARE = 0.9            # of the card's memory a card run may take
 TIMED_RUNS = 3
 COUNT_RTOL = 1e-9          # card counts against meta: the same program
 PEAK_SLACK = 0.1           # the meta peak may fall this far under the card's
+PACKAGE = "repro_torch"     # every record's "package"
+DEFAULT_OUT = "benchmarks/results/dryrun_torch"
 # a card cell runs 4 steps (one counted warm-up, 3 timed): one whose
 # roofline alone is over this is skipped (qwen2-1.5b's train_4k fits one
 # card at 64 microbatches, at a roofline of ~100 s and ~190 s a step)
@@ -88,6 +99,8 @@ def _leaves(tree) -> list:
 def count_cell(cell) -> dict:
     """Run ``cell`` once under a counter -> the counter, outputs, seconds."""
     counter = CostCounter(outside_split=cell.outside_split)
+    for t, n in cell.row_split:
+        counter.place(t, n)
     t0 = time.perf_counter()
     with counter:
         out = cell.fn(*cell.args)
@@ -107,7 +120,7 @@ def cell_record(cell, mesh, mesh_name: str, run: dict) -> dict:
                   notes=cell.notes, arg_bytes=int(cell.arg_bytes),
                   temp_bytes=int(c.peak_bytes), out_bytes=out_bytes)
     return {
-        "status": "ok", "kind": cell.kind,
+        "package": PACKAGE, "status": "ok", "kind": cell.kind,
         "run_s": round(run["run_s"], 2),
         "hbm_fit_80g": hbm_fit(rep),
         "partition": cell.partition,
@@ -128,19 +141,34 @@ _KERNELS = ("beam_hops", "gather_dist", "l2topk", "embedding_bag",
             "embedding_bag_backward", "bag_grouping")
 
 
-def _record_path(out_dir, arch, shape, mesh_name, device) -> str:
+def record_path(out_dir, arch, shape, mesh_name, device="meta") -> str:
+    """Where the port writes a cell's record (the module docstring)."""
     tag = "" if device == "meta" else f"__{device}"
-    return os.path.join(out_dir, f"{arch}__{shape}__{mesh_name}{tag}.json")
+    return os.path.join(out_dir,
+                        f"{arch}__{shape}__{mesh_name}{tag}__torch.json")
+
+
+def _own_record(path: str):
+    """The record at ``path`` if it is one this package wrote, else
+    None."""
+    try:
+        with open(path) as f:
+            rec = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return rec if isinstance(rec, dict) and \
+        rec.get("package") == PACKAGE else None
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
              force: bool = False) -> dict:
     """One cell on a production mesh of meta devices."""
     mesh_name = "2x16x16" if multi_pod else "16x16"
-    out_path = _record_path(out_dir, arch, shape, mesh_name, "meta")
-    if os.path.exists(out_path) and not force:
-        with open(out_path) as f:
-            return json.load(f)
+    out_path = record_path(out_dir, arch, shape, mesh_name)
+    if not force:
+        rec = _own_record(out_path)
+        if rec is not None:
+            return rec
     reason = get_arch(arch).skip_reason(shape)
     if reason:
         rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
@@ -161,6 +189,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
 
 
 def _write(path: str, rec: dict) -> None:
+    """Write ``rec`` (which gains its ``"package"``) to ``path``."""
+    rec["package"] = PACKAGE
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(rec, f, indent=1, default=str)
@@ -193,7 +223,7 @@ def run_cell_cuda(arch: str, shape: str, out_dir: str, seed: int = 0
     reason = get_arch(arch).skip_reason(shape)
     if reason:
         rec = {**base, "status": "skipped", "reason": reason}
-        _write(_record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
+        _write(record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
         return rec
     meta_mesh = make_mesh((1, 1), ("data", "model"), [torch.device("meta")])
     meta_cell = build_cell(arch, shape, meta_mesh, device="meta", seed=seed)
@@ -203,7 +233,7 @@ def run_cell_cuda(arch: str, shape: str, out_dir: str, seed: int = 0
         rec = {**base, "status": "skipped",
                "reason": f"arguments alone {meta_cell.arg_bytes / 1e9:.2f} "
                          f"GB of {cap / 1e9:.2f}"}
-        _write(_record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
+        _write(record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
         return rec
     meta = cell_record(meta_cell, meta_mesh, "1x1", count_cell(meta_cell))
     del meta_cell
@@ -213,7 +243,7 @@ def run_cell_cuda(arch: str, shape: str, out_dir: str, seed: int = 0
         rec = {**base, "status": "skipped", "meta": meta,
                "reason": f"roofline {roof_s:.1f} s a step, over the "
                          f"{CARD_MAX_ROOFLINE_S:.0f} s a card cell may take"}
-        _write(_record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
+        _write(record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
         return rec
     if need > cap:
         rec = {**base, "status": "skipped", "meta": meta,
@@ -221,7 +251,7 @@ def run_cell_cuda(arch: str, shape: str, out_dir: str, seed: int = 0
                          f"{meta['memory']['argument_bytes'] / 1e9:.2f} + "
                          f"peak {meta['memory']['temp_bytes'] / 1e9:.2f}) "
                          f"of {cap / 1e9:.2f}"}
-        _write(_record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
+        _write(record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
         return rec
     mesh = make_mesh((1, 1), ("data", "model"), [torch.device("cuda", 0)])
     torch.cuda.empty_cache()
@@ -270,7 +300,7 @@ def run_cell_cuda(arch: str, shape: str, out_dir: str, seed: int = 0
            "card": card, "meta": meta}
     del cell
     torch.cuda.empty_cache()
-    _write(_record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
+    _write(record_path(out_dir, arch, shape, "1x1", "cuda"), rec)
     return rec
 
 
@@ -297,7 +327,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--include-ann", action="store_true",
                     help="also run the paper's own ANN workload cells")
-    ap.add_argument("--out", default="benchmarks/results/dryrun")
+    ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--opt", action="store_true",
                     help="enable all beyond-baseline optimizations (flags.py)")
@@ -374,7 +404,7 @@ def _main_cuda(cells, args):
         except Exception as e:                      # noqa: BLE001
             rec = {"status": "error", "error": f"{type(e).__name__}: {e}",
                    "trace": traceback.format_exc()[-2000:]}
-            _write(_record_path(args.out, arch, shape, "1x1", "cuda"), rec)
+            _write(record_path(args.out, arch, shape, "1x1", "cuda"), rec)
         if rec["status"] == "ok":
             n_ok += 1
             print(f"[OK]   {arch:22s} {shape:15s} ms={rec['ms']:9.3f} "

@@ -27,7 +27,22 @@ process over its ``Mesh``. So a cell carries:
     of a recsys or ANN step runs on the batch the reference splits over
     the data axes (``dp`` devices). The port has no tensor-parallel LM:
     XLA partitioned the reference's from the rules alone, so an LM cell
-    counts the global step over the mesh size (``partition="ideal"``).
+    counts the global step over the mesh size (``partition="ideal"``,
+    which its ``notes`` say);
+  * ``row_split``: (tensor, n) pairs the counter places (``op_costs.
+    CostCounter.place``): a recsys table and its row accumulator, whose
+    rows the rule ``model`` splits. The table's dense gradient (the
+    lookup's ``put_row_sharded`` split, run backwards), the clip's sum
+    over it and the row-wise Adagrad update are counted per device over
+    ``model``, as the accumulator's bytes in ``arg_bytes`` are.
+
+A train cell with ``partition="shards"`` (recsys, dimenet) also prices the
+reference's all-reduce of the weights' gradients over the axes that split
+the step's work (recsys: the batch axes; dimenet: every axis, its edges
+and triplets split over the whole mesh), once per step between the
+backward and the optimizer (``_reduce_grads``): each gradient at its
+per-device bytes under its spec, over those of the axes its spec leaves
+unsharded.
 
 ``model_flops`` are the reference's analytic formulas, copied as they
 are.
@@ -41,6 +56,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from repro_torch import flags
+from repro_torch.analysis import op_costs
 from repro_torch.analysis.roofline import lm_model_flops
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeConfig
@@ -51,7 +67,7 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.models.recsys_common import make_sharded_lookup, \
     padded_rows
-from repro_torch.optim import adamw, mixed_optimizer
+from repro_torch.optim import Optimizer, adamw, mixed_optimizer
 from repro_torch.serve.serve_step import lm_decode_step, lm_prefill_step, \
     recsys_retrieval_step, recsys_score_step
 from repro_torch.train.train_step import loss_fn_for, make_train_step
@@ -69,6 +85,7 @@ class Cell:
     arg_bytes: int = 0            # per device, under the rules
     outside_split: int = 1        # analysis.op_costs.CostCounter's
     partition: str = "shards"     # "shards" or "ideal" (module docstring)
+    row_split: tuple = ()         # (tensor, n): CostCounter.place
 
 
 # ---------------------------------------------------------------- helpers
@@ -127,6 +144,28 @@ def _empty(shape, dtype, device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=device)
 
 
+def _reduce_grads(opt: Optimizer, mesh, specs: Dict[str, tuple],
+                  work_axes: Tuple[str, ...]) -> Optimizer:
+    """``opt``, whose update first prices the reference's all-reduce of
+    the gradients (module docstring): gradient n at its per-device bytes
+    under ``specs[n]``, over the ``work_axes`` that spec leaves unsharded
+    (none left: no collective), as work every device does once."""
+    def record(grads):
+        for n, g in grads.items():
+            used = {a for e in specs[n] if e is not None
+                    for a in (e if isinstance(e, tuple) else (e,))}
+            over = tuple(a for a in work_axes if a not in used)
+            op_costs.record_collective(
+                "all-reduce", SH.shard_bytes(specs[n], g, mesh),
+                SH.axes_size(mesh, over))
+
+    def update(grads, state, params):
+        op_costs.in_split(1, record, grads)
+        return opt.update(grads, state, params)
+
+    return Optimizer(opt.init, update)
+
+
 # ===========================================================================
 # LM cells
 # ===========================================================================
@@ -175,6 +214,8 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device(device).type == "meta"
     common = dict(outside_split=mesh.size, partition="ideal")
+    ideal = ("; ideal partition: the global step over the mesh, no "
+             "tensor-parallel collectives or gradient all-reduce priced")
 
     def tokens(shape_):
         if meta:
@@ -202,7 +243,8 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
         if flags.GRAD_SHARD_CONSTRAINTS:
             notes += ", grad shardings (no placement in one process)"
         return Cell(spec.arch_id, shape.name, step,
-                    (model, opt_state, batch), "train", mf, notes=notes,
+                    (model, opt_state, batch), "train", mf,
+                    notes=notes + ideal,
                     arg_bytes=param_bytes + moment_bytes + 4 + batch_bytes,
                     **common)
 
@@ -210,7 +252,7 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
         t = tokens((b, s))
         return Cell(spec.arch_id, shape.name, lm_prefill_step(cfg),
                     (model, t), "prefill", mf,
-                    notes="chunked (flash) attention",
+                    notes="chunked (flash) attention" + ideal,
                     arg_bytes=param_bytes + SH.shard_bytes((dp, None), t,
                                                            mesh),
                     **common)
@@ -229,7 +271,7 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
     notes = "absorbed-MLA latent cache" if cfg.use_mla else \
         "KV cache seq-sharded on model"
     return Cell(spec.arch_id, shape.name, lm_decode_step(cfg),
-                (model, tok, cache, pos), "decode", mf, notes=notes,
+                (model, tok, cache, pos), "decode", mf, notes=notes + ideal,
                 arg_bytes=param_bytes + cache_bytes + _spec_bytes(
                     mesh, ((tok, (dp,)), (pos, (dp,)))), **common)
 
@@ -354,7 +396,8 @@ def _gnn_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
     opt = adamw(1e-3)
     opt_state = opt.init(model)
     moment_specs = _opt_specs(mesh, param_specs, params)
-    step = make_train_step(make_gnn_loss(cfg, mesh), opt)
+    step = make_train_step(make_gnn_loss(cfg, mesh), _reduce_grads(
+        opt, mesh, param_specs, tuple(mesh.axis_names)))
     graph = _gnn_graph(shape, mesh, device, seed)
     g_specs = SH.gnn_batch_sharding(mesh, graph)
     arg_bytes = _spec_bytes(mesh, ((p, param_specs[n])
@@ -369,7 +412,8 @@ def _gnn_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
     mf = 3.0 * cfg.n_blocks * (tri_flops + edge_flops)   # fwd+bwd
     return Cell(spec.arch_id, shape.name, step, (model, opt_state, graph),
                 "train", mf,
-                notes="edge-partition shard_sum; shard-local triplets",
+                notes="edge-partition shard_sum; shard-local triplets; "
+                      "gradients all-reduced over every axis",
                 arg_bytes=arg_bytes, outside_split=1)
 
 
@@ -434,15 +478,23 @@ def _recsys_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
             SH.shard_bytes(("model",) if k == "acc" else (), x, mesh)
             for leaf in opt_state["leaves"].values()
             for k, x in leaf.items()) + 4
-        step = make_train_step(loss_fn_for("recsys", cfg, lookup_fn=lookup),
-                               opt)
+        step = make_train_step(
+            loss_fn_for("recsys", cfg, lookup_fn=lookup),
+            _reduce_grads(opt, mesh, param_specs, dp))
+        # a table and its accumulator: rows over the table's row rule
+        row_split = tuple(
+            (t, SH.axes_size(mesh, param_specs[n][0] or ()))
+            for n, leaf in opt_state["leaves"].items() if "acc" in leaf
+            for t in (params[n], leaf["acc"]))
         mf = 6.0 * shape.batch * (cfg.n_sparse + 10) * d * d
         return Cell(spec.arch_id, shape.name, step, (model, opt_state, b),
                     "train", mf,
                     notes="row-sharded tables (shard psum) + "
-                          "rowwise-adagrad",
+                          "rowwise-adagrad over model; gradients "
+                          "all-reduced over the batch axes",
                     arg_bytes=param_bytes + opt_bytes
-                    + _batch_bytes(mesh, b), **common)
+                    + _batch_bytes(mesh, b), row_split=row_split,
+                    **common)
 
     if shape.kind == "serve":
         step = recsys_score_step(cfg, lookup_fn=lookup)

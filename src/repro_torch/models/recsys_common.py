@@ -88,13 +88,15 @@ def make_sharded_lookup(mesh, total_rows: int):
         return torch.where(mask[:, None], rows, torch.zeros((), dtype=rows.dtype,
                                                             device=rows.device))
 
-    def psum(table, ids, group):
+    def psum(table, ids, group, groups=1):
         # each (group, shard) take counted as that device's; on a meta
         # mesh the first stands in for every shard (sharding.shard_map)
+        # and its merge for ``groups`` groups' (the common work's split
+        # over the groups gives a device its own)
         parts = [op_costs.in_shard(
             (group, s), local, table.local(s, cols[group, s]),
             ids.to(cols[group, s]), s) for s in range(1 if one else n_shards)]
-        op_costs.record_collective("all-reduce", parts[0].numel()
+        op_costs.record_collective("all-reduce", groups * parts[0].numel()
                                    * parts[0].element_size(), n_shards)
         with op_costs.suspended():
             acc = parts[0].to(ids.device)
@@ -106,12 +108,12 @@ def make_sharded_lookup(mesh, total_rows: int):
         if not isinstance(table, RowSharded):
             table = put_row_sharded(mesh, table)
         dp = cols.shape[0]
-        if flat_ids.shape[0] % dp:
-            return psum(table, flat_ids, 0)
+        if flat_ids.shape[0] % dp:              # every group merges all
+            return psum(table, flat_ids, 0, dp)
         parts = flat_ids.split(flat_ids.shape[0] // dp) if dp > 1 \
             else (flat_ids,)
         if one:                                 # the groups alike
-            return op_costs.stand_in(psum(table, parts[0], 0), dp)
+            return op_costs.stand_in(psum(table, parts[0], 0, dp), dp)
         rows = [psum(table, part, g) for g, part in enumerate(parts)]
         if len(rows) == 1:
             return rows[0]

@@ -31,6 +31,17 @@ N, D, B, L = 160, 8, 48, 24
 jax_alpha_scan = jax.jit(jax_prune._alpha_scan, static_argnums=(4,))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pools():
     """Integer data (coordinates in [-3, 3]: ties and repeated points) and

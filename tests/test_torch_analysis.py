@@ -23,6 +23,17 @@ from repro_torch.configs import get_arch, reduced_lm
 META = torch.device("meta")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _compile(fn, *args):
     return jax.jit(fn).lower(*args).compile()
 

@@ -33,6 +33,17 @@ from repro_torch.core.nsg import build_nsg
 from repro_torch.core.pca import fit_pca
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ints(rng, shape, lo=-3, hi=3):
     return rng.integers(lo, hi + 1, shape).astype(np.float32)
 

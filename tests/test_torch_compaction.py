@@ -35,6 +35,17 @@ from repro_torch.serve.batching import bucket_for, pow2_buckets
 NQ, M = 40, 8          # 40 queries: the first bucket (64) has spare lanes
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("max_batch,min_bucket",
                          [(1, 1), (5, 1), (64, 1), (1000, 4), (37, 64)])
 def test_buckets_equal_reference(max_batch, min_bucket):

@@ -35,6 +35,17 @@ CELLS = [("qwen2-1.5b", "train_4k", (2,)),
          ("ann-laion", "build_knn", (0, 1, 2))]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ref_mesh():
     from repro.distributed import sharding as RS
@@ -96,7 +107,7 @@ def test_cli_meta_cell_writes_reference_keys(arch, shape, tmp_path):
         dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
                      "--out", str(tmp_path)])
     assert e.value.code == 0
-    rec = json.load(open(tmp_path / f"{arch}__{shape}__16x16.json"))
+    rec = json.load(open(tmp_path / f"{arch}__{shape}__16x16__torch.json"))
     assert REF_KEYS <= set(rec) and {"run_s", "hbm_fit_80g"} <= set(rec)
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                   "temp_bytes", "alias_bytes"}

@@ -40,6 +40,17 @@ from repro_torch.models import recsys
 SWEEP = [(50, 16, 6, 5), (128, 64, 16, 1), (11, 8, 3, 20)]   # v, d, b, l
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(v, d, b, l, seed):
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((v, d)).astype(np.float32)

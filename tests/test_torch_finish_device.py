@@ -34,6 +34,17 @@ from repro_torch.core.build.prune import nsg_from_neighbors, reprune_nsg
 N, D = 400, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(got, want):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 

@@ -20,6 +20,17 @@ MINI = dict(n_nodes=600, n_edges=1200, n_triplets=2400, d_feat=16,
             batch_nodes=32, fanout=(5, 3))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _same(got, want):
     """Equal arrays: shapes, dtypes and every bit."""
     if isinstance(want, dict):

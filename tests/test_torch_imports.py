@@ -76,7 +76,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE],
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
-                         capture_output=True, text=True, check=True)
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
     n, bad, names = out.stdout.strip().split(" ", 2)
     assert int(n) >= 30
     assert bad == "none", bad
@@ -111,7 +112,8 @@ def test_the_lm_modules_alone_load_no_jax():
     out = subprocess.run([sys.executable, "-c", _LM_PROBE],
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
-                         capture_output=True, text=True, check=True)
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
     assert out.stdout.strip() == "none"
 
 
@@ -125,7 +127,8 @@ def test_the_moe_module_alone_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", probe],
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
-                         capture_output=True, text=True, check=True)
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
     assert out.stdout.strip() == "none"
 
 

@@ -30,6 +30,17 @@ from repro_torch.kernels.topk_merge import topk_merge, topk_pool
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _vectors(rng, shape, kind, lo=-8, hi=8):
     if kind == "int":
         return rng.integers(lo, hi + 1, shape).astype(np.float32)

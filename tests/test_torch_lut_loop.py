@@ -47,6 +47,17 @@ ROUTE_CASES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("shape,plan", ROUTE_CASES,
                          ids=[f"m{s[0]}-c{s[1]}-r{s[2]}-l2{s[4]}"
                               for s, _ in ROUTE_CASES])

@@ -26,6 +26,17 @@ PARAMS = dict(pca_dim=24, antihub_keep=0.9, ep_clusters=8, ef_search=32,
               knn_backend="exact", finish_backend="host")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_index(ann_data):
     return JaxTunedGraphIndex(JaxIndexParams(**PARAMS)).fit(ann_data["data"])

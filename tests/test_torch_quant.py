@@ -56,6 +56,17 @@ INT_PARAMS = dict(pca_dim=32, antihub_keep=0.9, ep_clusters=1,
 FLOAT_PARAMS = dict(INT_PARAMS, pca_dim=24, ep_clusters=8, pq_m=0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 

@@ -52,6 +52,17 @@ N_ITEMS = 500
 RECALL_MARGIN = 0.01
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     params = jax_recsys.two_tower_init(jax.random.PRNGKey(0), SMOKE)
@@ -207,7 +218,8 @@ def test_serve_launcher_on_the_cpu_prints_the_reference_line(capsys):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "two-tower-retrieval", "--batch", "8", "--device", "cpu"],
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"},
         capture_output=True, text=True, check=True, timeout=120)
     assert re.fullmatch(
         r"two-tower-retrieval: scored batch 8 \(mean -?\d+\.\d{4}\); "

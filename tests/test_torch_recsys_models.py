@@ -42,6 +42,17 @@ ARCHS = ["sasrec", "din", "dlrm-mlperf"]
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL,
                                atol=ATOL)

@@ -31,6 +31,17 @@ PORT_HOPS = [(dict(hop_backend="staged"), None),             # dot formula
 HOP_IDS = ["staged-dot", "staged-kernel", "fused"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def int_graph():
     """Integer-valued data (coordinates in [-3, 3]: many tied distances)

@@ -68,6 +68,17 @@ from repro_torch.launch import tune as tune_cli
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread while this module runs: the suite runs in
+    several worker processes, and their OpenMP threads spinning against
+    each other make many small ops several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(got, want):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
@@ -362,7 +373,8 @@ def test_ann_objective_cache_counters_equal_reference():
 # -- 5. the CLI ---------------------------------------------------------------
 
 def test_tune_cli_runs_the_pipeline_tuner_on_the_cpu():
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.tune", "--device", "cpu",
          "--knn-backend", "exact", "--finish-backend", "host", "--n", "600",
