@@ -328,6 +328,20 @@ Phases, each printing one JSON line:
                 lm_train adds deepseek-moe-16b at full width cut to 4 of
                 its 28 layers (its aux loss beside the loss); lm_cli runs
                 both launchers for both ids.
+                lm_tp (after lm_train): qwen2-1.5b at full width in bf16
+                tensor-parallel over meshes naming cuda:0 several times
+                (sharding.shard_lm, mesh= on the steps): on LM_TP_SERVE's
+                1 x 4 mesh a prefill of 1 x 8,192 and LM_TP_DECODE_STEPS
+                greedy decode steps filling an 8 x 8,192 cache (2 KV heads do
+                not divide 4: the cache split on sequence, the shards'
+                softmaxes combined), on LM_TP_TRAIN's 2 x 2 mesh one
+                adamw(3e-4) step of 4 x 1,024; each against the unsharded
+                port on the same card and weights: logits within
+                LM_BF16_REL / LM_BF16_MAX, the step's loss within
+                LM_TP_LOSS_RTOL, every parameter finite and moved but those
+                bf16 rounding holds; ms of each step, its collectives
+                (calls and link bytes per device, from one counted run),
+                the card's name and power limit.
  17. gnn      — DimeNet at its published config (6 blocks, hidden 128,
                 f32) trained GNN_STEPS steps of adamw(1e-3) on each of
                 GNN_CELLS (full_graph_sm, minibatch_lg through the fan-out
@@ -429,6 +443,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import contextlib
+import copy
 import json
 import math
 import os
@@ -721,6 +736,20 @@ LM_TRAINS = (dict(arch="qwen2-1.5b", layers=None, batch=4, seq=4096,
                   microbatches=2, steps=3, lr=3e-4),
              dict(arch="deepseek-moe-16b", layers=4, batch=4, seq=4096,
                   microbatches=2, steps=3, lr=3e-4))
+# lm_tp: qwen2-1.5b tensor-parallel over meshes of cuda:0 repeated; the
+# serve mesh (1 x 4) splits the 2 KV heads' cache on sequence, the train
+# mesh (2 x 2) is two batch groups of two shards. Prefill 1 x 8,192; then
+# 8 prompts of 8,192 - LM_TP_DECODE_STEPS tokens prefilled into an 8,192
+# cache and LM_TP_DECODE_STEPS greedy steps (both sides fed the unsharded
+# run's ids); one train step of 4 x 1,024. The sharded loss against the
+# unsharded one: LM_TP_LOSS_RTOL
+LM_TP_SERVE = (1, 4)
+LM_TP_TRAIN = (2, 2)
+LM_TP_PREFILL = (1, 8192)
+LM_TP_DECODE = (8, 8192)
+LM_TP_DECODE_STEPS = 16
+LM_TP_BATCH = (4, 1024)
+LM_TP_LOSS_RTOL = 1e-2
 LM_CLI_ARCHS = ("qwen2-1.5b", "deepseek-moe-16b", "deepseek-v2-236b")
 LM_CLI_RUNS = tuple(
     run for arch in LM_CLI_ARCHS for run in (
@@ -4712,6 +4741,177 @@ def lm_train_phase(torch, seed: int, c: dict) -> dict:
     return out
 
 
+def logit_errors(torch, got, want) -> dict:
+    """Relative RMS and largest |got - want| over the largest |want|."""
+    d = (got.float() - want.float())
+    scale = float(want.float().abs().max())
+    return dict(rel_rms=float(d.pow(2).mean().sqrt()
+                              / want.float().pow(2).mean().sqrt()),
+                max_err_of_scale=float(d.abs().max()) / scale, scale=scale)
+
+
+def counted(torch, fn) -> tuple:
+    """``fn()`` once under the port's cost counter: (its result, the
+    collectives per device: calls by kind and link bytes)."""
+    from repro_torch.analysis.op_costs import CostCounter
+    with CostCounter() as c:
+        out = fn()
+    torch.cuda.synchronize()
+    dev = c.per_device()
+    return out, dict(calls=dict(dev.collective_counts),
+                     link_bytes=dev.link_bytes)
+
+
+def lm_tp_phase(torch, gpu: str, smi: str, seed: int) -> dict:
+    """qwen2-1.5b tensor-parallel on meshes of cuda:0 repeated against the
+    unsharded port on the same card and weights (phase 16's lm_tp)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import shard_lm, unshard_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+
+    cfg = get_arch("qwen2-1.5b").config
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def mesh_of(shape):
+        return make_host_mesh(*shape, devices=[dev] * math.prod(shape))
+
+    # serve: prefill, then greedy decode on a cache of LM_TP_DECODE rows
+    serve = mesh_of(LM_TP_SERVE)
+    sm = shard_lm(model, serve)
+    prompt = tokens(*LM_TP_PREFILL)
+    out = dict(arch=cfg.name, nvidia_smi=smi, gpu=gpu,
+               serve_mesh=LM_TP_SERVE, train_mesh=LM_TP_TRAIN,
+               prefill=LM_TP_PREFILL, decode=LM_TP_DECODE,
+               decode_steps=LM_TP_DECODE_STEPS, batch=LM_TP_BATCH)
+    with torch.no_grad():
+        for _ in range(2):          # the second call of each is timed
+            want, ms_plain = timed(lambda: T.prefill_states(model, cfg,
+                                                            prompt))
+            _, ms = timed(lambda: T.prefill_states(sm, cfg, prompt,
+                                                   mesh=serve))
+        want = T.logits_of(model, want[0][:, -1])
+        (x, _), coll = counted(torch, lambda: T.prefill_states(
+            sm, cfg, prompt, mesh=serve))
+        del x, _
+        x, cache = T.prefill_states(sm, cfg, prompt, mesh=serve)
+        got = T.logits_of(sm, x[:, -1], serve)
+        out["prefill_ms"], out["prefill_plain_ms"] = ms, ms_plain
+        out["prefill_collectives"] = coll
+        out["prefill_logits"] = logit_errors(torch, got, want)
+        out["cache_split"] = "seq" if cfg.n_kv_heads % LM_TP_SERVE[1] \
+            else "heads"
+        del x, cache, got, want
+        b, s = LM_TP_DECODE
+        n = s - LM_TP_DECODE_STEPS
+        rows = tokens(b, n)
+        x, c_plain = T.prefill_states(model, cfg, rows, max_len=s)
+        tok = T.logits_of(model, x[:, -1]).argmax(-1).int()
+        tok_tp = tok.clone()
+        del x
+        _, c_tp = T.prefill_states(sm, cfg, rows, max_len=s, mesh=serve)
+        errs, ms_tp, ms_pl, same_ids = [], [], [], 0
+        for i in range(LM_TP_DECODE_STEPS):
+            pos = torch.full((b,), n + i, device=dev, dtype=torch.int32)
+            (lp, c_plain), t_pl = timed(lambda: T.decode_step(
+                model, cfg, tok, c_plain, pos))
+            if i == 0:
+                _, coll = counted(torch, lambda: T.decode_step(
+                    sm, cfg, tok_tp, c_tp, pos, mesh=serve))
+                out["decode_collectives"] = coll
+            (lt, c_tp), t_tp = timed(lambda: T.decode_step(
+                sm, cfg, tok_tp, c_tp, pos, mesh=serve))
+            errs.append(logit_errors(torch, lt, lp))
+            ms_pl.append(t_pl)
+            ms_tp.append(t_tp)
+            tok, tok_tp = lp.argmax(-1).int(), lp.argmax(-1).int()
+            same_ids += int(torch.equal(lt.argmax(-1), lp.argmax(-1)))
+        out["decode_ms"] = statistics.median(ms_tp)
+        out["decode_plain_ms"] = statistics.median(ms_pl)
+        out["decode_rel_rms_max"] = max(e["rel_rms"] for e in errs)
+        out["decode_max_err_of_scale"] = max(e["max_err_of_scale"]
+                                             for e in errs)
+        out["decode_steps_same_ids"] = same_ids
+        del c_plain, c_tp, lp, lt
+    del sm
+    torch.cuda.empty_cache()
+
+    # train: one step on the 2 x 2 mesh against the unsharded step
+    train = mesh_of(LM_TP_TRAIN)
+    plain = copy.deepcopy(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    t = tokens(*LM_TP_BATCH)
+    batch = {"tokens": t, "labels": torch.roll(t, -1, dims=1)}
+    opt = adamw(3e-4)
+    step_plain = make_train_step(loss_fn_for("lm", cfg), opt)
+    step_tp = make_train_step(loss_fn_for("lm", cfg, mesh=train), opt,
+                              mesh=train)
+    sm = shard_lm(model, train)
+    st_plain, st_tp = opt.init(plain), opt.init(sm)
+    _, _, met_plain = step_plain(plain, st_plain, batch)
+    _, _, met_tp = step_tp(sm, st_tp, batch)
+    after = unshard_lm(sm)
+    lr = 3e-4
+    held = {n for n, w in before.items()
+            if float(w.float().abs().min()) * 2.0 ** -9 > 2 * lr}
+    moved = {n for n, p in after.named_parameters()
+             if not torch.equal(p.detach(), before[n])}
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in after.parameters())
+    # Adam moves an element by about lr whatever its gradient's size, so
+    # a leaf whose gradient is rounding noise (bk: the softmax ignores a
+    # shift of every key) may move either way: the largest difference
+    # between the two steps, in units of lr
+    with torch.no_grad():
+        diff = max(float((p.float() - q.float()).abs().max()) / lr
+                   for p, q in zip(after.parameters(), plain.parameters()))
+    del after
+    # a second step of each timed, a third of the sharded one counted
+    _, ms_plain = timed(lambda: step_plain(plain, st_plain, batch))
+    _, ms = timed(lambda: step_tp(sm, st_tp, batch))
+    del plain, st_plain
+    _, coll = counted(torch, lambda: step_tp(sm, st_tp, batch))
+    loss, loss_plain = float(met_tp["loss"]), float(met_plain["loss"])
+    out.update(train_ms=ms, train_plain_ms=ms_plain,
+               train_collectives=coll, loss=loss, loss_plain=loss_plain,
+               loss_rel_diff=abs(loss - loss_plain) / abs(loss_plain),
+               params_moved=len(moved), params=len(before),
+               params_held_count=len(held), params_finite=finite,
+               param_max_diff_over_lr=diff)
+    must_move = set(before) - held
+    del sm, st_tp, model, before
+    torch.cuda.empty_cache()
+    emit("lm_tp", **out)
+    pre = out["prefill_logits"]
+    if not (pre["rel_rms"] <= LM_BF16_REL
+            and pre["max_err_of_scale"] <= LM_BF16_MAX
+            and out["decode_rel_rms_max"] <= LM_BF16_REL
+            and out["decode_max_err_of_scale"] <= LM_BF16_MAX
+            and out["loss_rel_diff"] <= LM_TP_LOSS_RTOL
+            and math.isfinite(loss) and finite and must_move <= moved
+            and out["cache_split"] == "seq"):
+        raise AssertionError(f"lm_tp: the tensor-parallel LM left its "
+                             f"limits: {out}")
+    return out
+
+
 def lm_cli_phase(src: Path) -> None:
     """LM_CLI_RUNS (launch.serve and launch.train for each of
     LM_CLI_ARCHS, on the card by default), every process at once: each
@@ -4749,9 +4949,9 @@ def lm_cli_phase(src: Path) -> None:
                              f"another line: {failed}")
 
 
-def lm_phases(torch, src: Path, gpu: str, seed: int) -> dict:
+def lm_phases(torch, src: Path, gpu: str, seed: int, smi: str) -> dict:
     """lm_serve for each of LM_ARCHS, lm_checks, lm_train for each of
-    LM_TRAINS and lm_cli."""
+    LM_TRAINS, lm_tp and lm_cli."""
     out = {}
     for arch in LM_ARCHS:
         t = time.perf_counter()
@@ -4764,6 +4964,9 @@ def lm_phases(torch, src: Path, gpu: str, seed: int) -> dict:
         t = time.perf_counter()
         lm_train_phase(torch, seed, c)
         out[f"lm_train_{c['arch']}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm_tp_phase(torch, gpu, smi, seed)
+    out["lm_tp"] = time.perf_counter() - t
     t = time.perf_counter()
     lm_cli_phase(src)
     out["lm_cli"] = time.perf_counter() - t
@@ -5554,7 +5757,8 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     peaks(gpu)                  # the bounds need this card's data sheet
     if args.lm_only:
-        emit("lm_only", seconds=lm_phases(torch, src, gpu, args.seed))
+        emit("lm_only", seconds=lm_phases(torch, src, gpu, args.seed,
+                                          smi))
         return 0
 
     # 2. build the kernels
@@ -5889,7 +6093,7 @@ def main() -> int:
     # 16. the dense LMs: serving at full width, the checks, qwen2-1.5b's
     # training and the launchers; no kernel of the port lies on their path
     before = {name: w.launches for name, w in wrappers.items()}
-    new_phase_s.update(lm_phases(torch, src, gpu, args.seed))
+    new_phase_s.update(lm_phases(torch, src, gpu, args.seed, smi))
     lm_launches = {name: w.launches - before[name]
                    for name, w in wrappers.items()}
     if any(lm_launches.values()):

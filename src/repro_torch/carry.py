@@ -224,6 +224,12 @@ def lm_named_from_jax(tree: dict, device=None) -> dict:
 def lm_params_from_jax(params: dict, cfg, device=None):
     """Reference LM params -> the port's ``TransformerLM`` of ``cfg`` on
     ``device`` (default: the card), the same weights bit for bit."""
+    return lm_from_named(lm_named_from_jax(params, device), cfg)
+
+
+def lm_from_named(named: dict, cfg):
+    """{port parameter name: tensor} -> a ``TransformerLM`` of ``cfg``
+    holding those tensors (wrapped as parameters, not copied)."""
     from repro_torch.models.moe import MoE
     from repro_torch.models.transformer import Block, TransformerLM
 
@@ -236,7 +242,6 @@ def lm_params_from_jax(params: dict, cfg, device=None):
         return nn.ParameterDict({k: nn.Parameter(v)
                                  for k, v in tensors.items()})
 
-    named = lm_named_from_jax(params, device)
     blocks = []
     for i in range(cfg.n_layers):
         pre = f"blocks.{i}."

@@ -33,19 +33,29 @@ path``), so its spec drops the stacked axis. ``tree_shardings`` gives
 each leaf's spec with the reference's divisibility guard, ``shard_shape``
 a leaf's per-device shape under one.
 
-Left out: the reference's ``set_active_mesh``, ``maybe_shard``,
-``shard_batch_seq`` and ``active_dp_axes`` (its ``:41-118``). They place
-tensors inside one XLA program with ``with_sharding_constraint``; the
-port's one process has no placement to constrain, as ``flags.py`` says of
-``MOE_SHARD_CONSTRAINTS``.
+The dense LM's tensor-parallel program (``distributed.tensor_parallel``,
+``models.transformer``'s ``mesh=``) runs on ``shard_lm``'s ``ShardedLM``:
+each parameter sliced as ``lm_param_shardings`` gives its spec, one slice
+per ``model`` shard; a replicated parameter is one leaf that every shard's
+module holds. ``batch_seq_spec`` is the reference's ``shard_batch_seq``
+rule, by which the programs split the batch over the data axes and the
+sequence over ``model``; ``init_sharded_cache`` splits a KV cache as
+``kv_cache_sharding`` says.
+
+Left out: the reference's ``set_active_mesh``, ``maybe_shard`` and
+``active_dp_axes`` (its ``:41-118``). They place tensors inside one XLA
+program with ``with_sharding_constraint``; the port's programs take their
+splits explicitly, as ``flags.py`` says of ``MOE_SHARD_CONSTRAINTS``.
 """
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.analysis import op_costs
 
@@ -452,3 +462,181 @@ def zero1_shardings(mesh, param_shardings, opt_state) -> dict:
         return ()
     return {k: ({n: one(x) for n, x in v.items()} if isinstance(v, dict)
                 else one(v)) for k, v in opt_state.items()}
+
+
+def batch_seq_spec(mesh, shape, batch_dim: int = 0,
+                   seq_dim: Optional[int] = None) -> Spec:
+    """The reference's ``shard_batch_seq`` rule for a ``shape`` tensor: the
+    batch dim over the data axes, ``seq_dim`` (if given) over ``model``,
+    each only where it divides."""
+    b = batch_axes(mesh)
+    spec = [None] * len(shape)
+    if shape[batch_dim] % axes_size(mesh, b) == 0:
+        spec[batch_dim] = b
+    if seq_dim is not None and shape[seq_dim] % model_size(mesh) == 0:
+        spec[seq_dim] = "model"
+    return tuple(spec)
+
+
+def record_grad_allreduce(mesh, grads: Dict[str, torch.Tensor],
+                          specs: Dict[str, Spec],
+                          work_axes: Tuple[str, ...]) -> None:
+    """Price the reference's all-reduce of the weights' gradients: gradient
+    n at its per-device bytes under ``specs[n]``, over the ``work_axes``
+    that spec leaves unsharded (none left: no collective)."""
+    for n, g in grads.items():
+        used = {a for e in specs[n] if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))}
+        over = tuple(a for a in work_axes if a not in used)
+        op_costs.record_collective("all-reduce", shard_bytes(specs[n], g,
+                                                             mesh),
+                                   axes_size(mesh, over))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel LM's weights and cache
+# ---------------------------------------------------------------------------
+
+
+def _model_dim(spec: Spec) -> Optional[int]:
+    """The dimension a spec splits over ``model`` (None: replicated)."""
+    for d, ax in enumerate(spec):
+        if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+            return d
+    return None
+
+
+def _block(t: torch.Tensor, dim: Optional[int], s: int, n: int):
+    return t if dim is None else t.narrow(dim, s * (t.shape[dim] // n),
+                                          t.shape[dim] // n)
+
+
+class ShardedLM(nn.Module):
+    """A ``TransformerLM`` split over a mesh's ``model`` axis:
+    ``shards[s]`` is a ``TransformerLM`` of shard s's slices (its column
+    block of ``wq``, its rows of ``embed`` and ``wo`` ...), on the device of
+    mesh column s, and a replicated parameter is the one leaf every shard
+    module holds, so ``named_parameters()`` lists each leaf once.
+    ``dims[name]``: the dimension that name's parameter splits over
+    ``model`` (None: replicated)."""
+
+    def __init__(self, cfg, mesh, shards, dims: Dict[str, Optional[int]]):
+        super().__init__()
+        self.cfg = cfg
+        self.mesh = mesh
+        self.shards = nn.ModuleList(shards)
+        self.dims = dims
+
+    def split(self, name: str) -> bool:
+        return self.dims[name] is not None
+
+    def device_names(self) -> List[str]:
+        """The names of one device's leaves: shard 0's, replicated ones
+        included."""
+        return [f"shards.0.{n}" for n in self.dims]
+
+
+def _set_param(module: nn.Module, name: str, param: nn.Parameter) -> None:
+    *path, leaf = name.split(".")
+    owner = module
+    for k in path:
+        owner = owner[int(k)] if k.isdigit() else getattr(owner, k)
+    if isinstance(owner, nn.ParameterDict):
+        owner[leaf] = param
+    else:
+        setattr(owner, leaf, param)
+
+
+def shard_lm(model, mesh) -> ShardedLM:
+    """``model`` (a dense ``TransformerLM``) split as ``lm_param_shardings``
+    gives each parameter's spec, a dimension that does not divide
+    replicated (the reference's guard). A shard's slice is a view of
+    ``model``'s parameter where it already lies on the shard's device (an
+    update of one is an update of the other), else a copy. Every device of
+    a mesh column must be one device: a column's batch groups share its
+    slices."""
+    from repro_torch.carry import lm_from_named
+    cfg = model.cfg
+    if cfg.moe or cfg.use_mla:
+        raise ValueError(f"{cfg.name}: the tensor-parallel LM is the dense "
+                         f"GQA decoder's (no MoE or MLA partition yet)")
+    cols = columns(mesh)
+    for s in range(cols.shape[1]):
+        if len(set(cols[:, s])) != 1:
+            raise ValueError(f"mesh column {s} names several devices "
+                             f"{sorted(map(str, set(cols[:, s])))}")
+    n = model_size(mesh)
+    specs = lm_param_shardings(mesh, model, cfg)
+    dims = {name: _model_dim(spec) for name, spec in specs.items()}
+    params = dict(model.named_parameters())
+    shards = []
+    for s in range(n):
+        dev = cols[0, s]
+        shards.append({name: nn.Parameter(
+            _block(p.detach(), dims[name], s, n).to(dev),
+            requires_grad=p.requires_grad) for name, p in params.items()})
+    modules = [lm_from_named(named, cfg) for named in shards]
+    first = dict(modules[0].named_parameters())
+    for m in modules[1:]:
+        for name, d in dims.items():
+            if d is None:
+                _set_param(m, name, first[name])
+    return ShardedLM(cfg, mesh, modules, dims)
+
+
+def unshard_lm(sharded: ShardedLM):
+    """The ``TransformerLM`` a ``ShardedLM`` splits, its slices joined on
+    shard 0's device (new tensors)."""
+    from repro_torch.carry import lm_from_named
+    dev = sharded.mesh.devices.reshape(-1)[0]
+    per = [dict(m.named_parameters(remove_duplicate=False))
+           for m in sharded.shards]
+    named = {}
+    for name, d in sharded.dims.items():
+        if d is None:
+            named[name] = per[0][name].detach().clone()
+        else:
+            named[name] = torch.cat([p[name].detach().to(dev) for p in per],
+                                    dim=d)
+    return lm_from_named(named, sharded.cfg)
+
+
+class ShardedKVCache(NamedTuple):
+    """A KV cache split as ``kv_cache_sharding`` says: ``blocks[g][s]`` =
+    (a, b), batch group g's rows of the (Lyr, B, Smax, KV, hd) cache on
+    device (g, s), their KV heads split over ``model`` or their positions
+    (``cache_split``); ``length`` (B,) on the mesh's first device."""
+    blocks: list
+    length: torch.Tensor
+
+
+def cache_split(cfg, mesh) -> str:
+    """``kv_cache_sharding``'s choice: "heads" when the KV heads divide over
+    ``model``, else "seq"."""
+    return "heads" if cfg.n_kv_heads % model_size(mesh) == 0 else "seq"
+
+
+def init_sharded_cache(cfg, mesh, batch: int, max_len: int,
+                       dtype: torch.dtype) -> ShardedKVCache:
+    """A zero cache of ``batch`` rows and ``max_len`` positions split over
+    ``mesh`` (each block allocated as its device's work)."""
+    cols = columns(mesh)
+    n_groups, n = cols.shape
+    split = cache_split(cfg, mesh)
+    for what, size, by in (("batch", batch, n_groups),
+                           ("cache length", max_len, n if split == "seq"
+                            else 1)):
+        if size % by:
+            raise ValueError(f"a {what} of {size} does not split over {by}")
+    kv = cfg.n_kv_heads // n if split == "heads" else cfg.n_kv_heads
+    seq = max_len // n if split == "seq" else max_len
+    shape = (cfg.n_layers, batch // n_groups, seq, kv, cfg.head_dim)
+
+    def zeros(dev):
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
+    blocks = [[op_costs.in_shard((g, s), zeros, cols[g, s])
+               for s in range(n)] for g in range(n_groups)]
+    length = torch.zeros((batch,), dtype=torch.int32, device=cols[0, 0])
+    return ShardedKVCache(blocks, length)

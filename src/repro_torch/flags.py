@@ -22,15 +22,17 @@ The LM's:
   * ``SHARDED_CE`` (``REPRO_SHARDED_CE``): ``models.transformer.lm_loss``
     takes the cross entropy as ``max + log(sum(exp(logits - max)))`` minus
     the label's logit picked by a one-hot product, instead of
-    ``log_softmax`` and a gather. On a mesh whose ``model`` axis shards
-    the vocabulary this never gathers the (tokens, V) logits; on the
-    port's one-process mesh it changes only the arithmetic (the loss
-    agrees to float32 rounding), which is why it is kept.
+    ``log_softmax`` and a gather. In the tensor-parallel LM (``mesh=``)
+    the vocabulary-parallel head's logits then never gather: each shard
+    reduces its columns and three (tokens,) all-reduces combine them;
+    without a mesh it changes only the arithmetic (the loss agrees to
+    float32 rounding).
   * ``HEAD_TP_ATTENTION`` (``REPRO_HEAD_TP``): the reference places
     ``chunked_sdpa``'s q on the mesh's ``model`` axis by heads instead of
-    by sequence, and only when a mesh is active. The port's attention
-    runs in one process on one device, where either placement is the
-    identity: it reads no toggle and computes the same numbers.
+    by sequence, and only when a mesh is active. So does the port's
+    tensor-parallel LM (``layers.gqa_apply_tp``: head-TP when the heads
+    divide ``model``, else sequence-parallel); without a mesh it is
+    read by nothing and the numbers are the same.
   * ``GRAD_SHARD_CONSTRAINTS`` (``REPRO_GRAD_SHARD``) and ``LM_FSDP``
     (``REPRO_FSDP``): pin the gradients' and the LM parameters' shardings
     over the data axes. ``launch/specs.py`` reads them for the dry run's

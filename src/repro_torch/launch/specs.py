@@ -25,24 +25,30 @@ process over its ``Mesh``. So a cell carries:
     recsys and ANN cells run their real per-shard programs (the edge
     partition, the row-sharded lookup, the per-shard searches); the rest
     of a recsys or ANN step runs on the batch the reference splits over
-    the data axes (``dp`` devices). The port has no tensor-parallel LM:
-    XLA partitioned the reference's from the rules alone, so an LM cell
-    counts the global step over the mesh size (``partition="ideal"``,
-    which its ``notes`` say);
+    the data axes (``dp`` devices). The dense LMs run their
+    tensor-parallel programs (``sharding.shard_lm``, ``mesh=`` on the
+    steps): one per batch group, its shards' work and its collectives
+    counted per device. The MoE and MLA configs have no partition in the
+    port yet: XLA partitioned the reference's from the rules alone, so
+    their cells count the global step over the mesh size
+    (``partition="ideal"``, which their ``notes`` say);
   * ``row_split``: (tensor, n) pairs the counter places (``op_costs.
     CostCounter.place``): a recsys table and its row accumulator, whose
     rows the rule ``model`` splits. The table's dense gradient (the
     lookup's ``put_row_sharded`` split, run backwards), the clip's sum
     over it and the row-wise Adagrad update are counted per device over
-    ``model``, as the accumulator's bytes in ``arg_bytes`` are.
+    ``model``, as the accumulator's bytes in ``arg_bytes`` are. A
+    tensor-parallel LM's leaves and AdamW moments: a shard's slice over
+    the mesh size (its ``model`` share, then ZeRO-1's over the data
+    axes), a replicated leaf over the data axes.
 
-A train cell with ``partition="shards"`` (recsys, dimenet) also prices the
-reference's all-reduce of the weights' gradients over the axes that split
-the step's work (recsys: the batch axes; dimenet: every axis, its edges
-and triplets split over the whole mesh), once per step between the
-backward and the optimizer (``_reduce_grads``): each gradient at its
-per-device bytes under its spec, over those of the axes its spec leaves
-unsharded.
+A train cell with ``partition="shards"`` also prices the reference's
+all-reduce of the weights' gradients over the axes that split the step's
+work (recsys and the dense LMs: the batch axes; dimenet: every axis, its
+edges and triplets split over the whole mesh), once per step between the
+backward and the optimizer (``_reduce_grads``; the LM's train step with
+its ``mesh``): each gradient at its per-device bytes under its spec, over
+those of the axes its spec leaves unsharded.
 
 ``model_flops`` are the reference's analytic formulas, copied as they
 are.
@@ -150,17 +156,9 @@ def _reduce_grads(opt: Optimizer, mesh, specs: Dict[str, tuple],
     the gradients (module docstring): gradient n at its per-device bytes
     under ``specs[n]``, over the ``work_axes`` that spec leaves unsharded
     (none left: no collective), as work every device does once."""
-    def record(grads):
-        for n, g in grads.items():
-            used = {a for e in specs[n] if e is not None
-                    for a in (e if isinstance(e, tuple) else (e,))}
-            over = tuple(a for a in work_axes if a not in used)
-            op_costs.record_collective(
-                "all-reduce", SH.shard_bytes(specs[n], g, mesh),
-                SH.axes_size(mesh, over))
-
     def update(grads, state, params):
-        op_costs.in_split(1, record, grads)
+        op_costs.in_split(1, SH.record_grad_allreduce, mesh, grads, specs,
+                          work_axes)
         return opt.update(grads, state, params)
 
     return Optimizer(opt.init, update)
@@ -213,9 +211,17 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
     dp = _dp(mesh)
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device(device).type == "meta"
-    common = dict(outside_split=mesh.size, partition="ideal")
-    ideal = ("; ideal partition: the global step over the mesh, no "
-             "tensor-parallel collectives or gradient all-reduce priced")
+    dense = not (cfg.moe or cfg.use_mla)
+    if dense:
+        # the tensor-parallel programs on the model's slices
+        model = SH.shard_lm(model, mesh)
+        common = dict(outside_split=1)
+        tail, on = "", mesh
+    else:
+        common = dict(outside_split=mesh.size, partition="ideal")
+        tail = ("; ideal partition: the global step over the mesh, no "
+                "tensor-parallel collectives or gradient all-reduce priced")
+        on = None
 
     def tokens(shape_):
         if meta:
@@ -228,13 +234,14 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
         opt_state = opt.init(model)
         per_dev = shape.global_batch // dp_n
         micro = per_dev if cfg.d_model >= 4096 else max(1, per_dev // 4)
-        step = make_train_step(loss_fn_for("lm", cfg), opt,
-                               microbatches=micro)
+        step = make_train_step(loss_fn_for("lm", cfg, mesh=on), opt,
+                               microbatches=micro, mesh=on)
         t = tokens((b, s))
         batch = {"tokens": t, "labels": torch.roll(t, -1, dims=1)}
-        moment_bytes = 2 * sum(
-            _slice_bytes(mesh, specs[n][0], specs[n][2], opt_state["m"][n])
-            for n in params)
+        moment_bytes = 2 * sum(          # AdamW's moments are float32
+            _slice_bytes(mesh, specs[n][0], specs[n][2],
+                         _empty(p.shape, torch.float32, "meta"))
+            for n, p in params.items())
         batch_bytes = _spec_bytes(mesh, ((x, (dp, None))
                                          for x in batch.values()))
         notes = f"microbatches={micro}, ZeRO-1 moments"
@@ -242,38 +249,61 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
             notes += ", FSDP"
         if flags.GRAD_SHARD_CONSTRAINTS:
             notes += ", grad shardings (no placement in one process)"
+        if dense:
+            notes += "; gradients all-reduced over the batch axes"
+            common["row_split"] = _lm_placed(model, opt_state, mesh)
         return Cell(spec.arch_id, shape.name, step,
                     (model, opt_state, batch), "train", mf,
-                    notes=notes + ideal,
+                    notes=notes + tail,
                     arg_bytes=param_bytes + moment_bytes + 4 + batch_bytes,
                     **common)
 
     if shape.kind == "prefill":
         t = tokens((b, s))
-        return Cell(spec.arch_id, shape.name, lm_prefill_step(cfg),
+        return Cell(spec.arch_id, shape.name, lm_prefill_step(cfg, on),
                     (model, t), "prefill", mf,
-                    notes="chunked (flash) attention" + ideal,
+                    notes="chunked (flash) attention" + tail,
                     arg_bytes=param_bytes + SH.shard_bytes((dp, None), t,
                                                            mesh),
                     **common)
 
     # decode: one token against a seq_len KV cache
-    cache = transformer.init_cache(cfg, b, s, device=device) if not meta \
-        else transformer.KVCache(*(
-            _empty(x.shape, x.dtype, device) for x in
-            _cache_shapes(cfg, b, s)))
+    shapes = _cache_shapes(cfg, b, s)
+    cache_specs = SH.kv_cache_sharding(mesh, dict(zip(
+        ("a", "b", "length"), (_empty(x.shape, x.dtype, "meta")
+                               for x in shapes))), cfg)
+    cache_bytes = _spec_bytes(mesh, ((_empty(x.shape, x.dtype, "meta"),
+                                      cache_specs[k]) for k, x in
+                                     zip(("a", "b", "length"), shapes)))
+    if dense:
+        cache = SH.init_sharded_cache(cfg, mesh, b, s, shapes[0].dtype)
+    elif meta:
+        cache = transformer.KVCache(*(_empty(x.shape, x.dtype, device)
+                                      for x in shapes))
+    else:
+        cache = transformer.init_cache(cfg, b, s, device=device)
     tok = tokens((b,))
     pos = torch.full((b,), s - 1, dtype=torch.int32, device=device) \
         if not meta else _empty((b,), torch.int32, device)
-    cache_specs = SH.kv_cache_sharding(mesh, cache, cfg)
-    cache_bytes = _spec_bytes(mesh, ((x, cache_specs[k])
-                                     for k, x in cache._asdict().items()))
     notes = "absorbed-MLA latent cache" if cfg.use_mla else \
         "KV cache seq-sharded on model"
-    return Cell(spec.arch_id, shape.name, lm_decode_step(cfg),
-                (model, tok, cache, pos), "decode", mf, notes=notes + ideal,
+    return Cell(spec.arch_id, shape.name, lm_decode_step(cfg, on),
+                (model, tok, cache, pos), "decode", mf, notes=notes + tail,
                 arg_bytes=param_bytes + cache_bytes + _spec_bytes(
                     mesh, ((tok, (dp,)), (pos, (dp,)))), **common)
+
+
+def _lm_placed(model, opt_state, mesh) -> tuple:
+    """A ``ShardedLM``'s leaves and their AdamW moments, each with the
+    devices its update is counted over (the ``row_split`` docstring)."""
+    dims = {n: model.split(n.split(".", 2)[2])
+            for n, _ in model.named_parameters()}
+    out = []
+    for n, p in model.named_parameters():
+        k = mesh.size if dims[n] else _dp_size(mesh)
+        out.extend((t, k) for t in (p, opt_state["m"][n],
+                                    opt_state["v"][n]))
+    return tuple(out)
 
 
 def _cache_shapes(cfg, b: int, s: int):

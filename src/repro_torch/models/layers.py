@@ -27,11 +27,14 @@ so ``p["wq"]`` reads as the reference's ``p["wq"]``.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed import tensor_parallel as TP
 
 MASKED = -1e30        # the reference's masked score (not -inf: no NaN rows)
 
@@ -160,7 +163,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 # --------------------------------------------------------------- attention
 def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool, block_kv: int = 1024) -> torch.Tensor:
+                 causal: bool, block_kv: int = 1024,
+                 q_offset: int = 0) -> torch.Tensor:
     """Flash-style attention: a loop over KV blocks with an online softmax.
 
     q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H, hd). It never
@@ -169,9 +173,11 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h // (H / KV), as ``sdpa``'s head groups do). As the reference: q is
     scaled by hd^-0.5 before the product, the tail block is padded with
     zero rows, masked scores are -1e30, the running max starts at -inf,
-    and every block is computed, fully masked ones too. The reference
-    places the operands on a mesh first (``flags.HEAD_TP_ATTENTION`` picks
-    how); one process on one device has no placement to make."""
+    and every block is computed, fully masked ones too. ``causal`` masks
+    by absolute positions (query i sits at ``q_offset + i``: a shard's
+    rows of a split sequence). The reference places the operands on a mesh
+    first (``flags.HEAD_TP_ATTENTION`` picks how); the tensor-parallel
+    programs (``gqa_apply_tp``) take their heads or rows explicitly."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -179,6 +185,8 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nblk = -(-skv // block_kv)
     qf = (q.float() * (hd ** -0.5)).transpose(1, 2)            # (B,H,Sq,hd)
     qpos = torch.arange(sq, device=dev)
+    if q_offset:
+        qpos = qpos + q_offset
     m = torch.full((b, h, sq), -torch.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
@@ -218,12 +226,17 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 CHUNK_THRESHOLD = 2048
 
 
-def attention(q, k, v, *, causal: bool, block_kv: int = 1024):
+def attention(q, k, v, *, causal: bool, block_kv: int = 1024,
+              q_offset: int = 0, seq_len: Optional[int] = None):
     """``chunked_sdpa`` from CHUNK_THRESHOLD query rows on (where q's and
-    v's head widths agree), ``sdpa`` below."""
-    if q.shape[1] >= CHUNK_THRESHOLD and q.shape[-1] == v.shape[-1]:
-        return chunked_sdpa(q, k, v, causal=causal, block_kv=block_kv)
-    return sdpa(q, k, v, causal=causal)
+    v's head widths agree), ``sdpa`` below. ``seq_len``: the rows of the
+    whole sequence, which decide when q holds a shard's rows of it (at
+    ``q_offset``)."""
+    if (seq_len or q.shape[1]) >= CHUNK_THRESHOLD and \
+            q.shape[-1] == v.shape[-1]:
+        return chunked_sdpa(q, k, v, causal=causal, block_kv=block_kv,
+                            q_offset=q_offset)
+    return sdpa(q, k, v, causal=causal, q_offset=q_offset)
 
 
 # ------------------------------------------------------------ GQA attention
@@ -253,21 +266,36 @@ def gqa_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
     """x (B, S, d), positions (B, S) -> q (B, S, H, hd), k / v (B, S, KV,
     hd): the projections, the biases, per-head qk-norm, then rope on q and
     k."""
-    b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return gqa_heads(p, cfg, *gqa_project(p, cfg, x), positions)
+
+
+def gqa_project(p, cfg, x: torch.Tensor):
+    """x (B, S, d) -> its products with ``p``'s wq, wk and wv (any column
+    block of them), the biases added."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    return q, k, v
+
+
+def gqa_heads(p, cfg, q, k, v, positions):
+    """Projected q / k / v (B, S, heads x hd) -> (B, S, heads, hd), per-head
+    qk-norm, rope on q and k at ``positions`` (B, S); q may be None."""
+    hd = cfg.head_dim
+    k = k.reshape(*k.shape[:2], -1, hd)
+    v = v.reshape(*v.shape[:2], -1, hd)
+    if q is not None:
+        q = q.reshape(*q.shape[:2], -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        if q is not None:
+            q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     cos, sin = rope_cache(positions, hd, cfg.rope_theta)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    if q is not None:
+        q = apply_rope(q, cos, sin)
+    return q, apply_rope(k, cos, sin), v
 
 
 def gqa_apply(p, cfg, x, positions, *, causal: bool = True):
@@ -464,3 +492,192 @@ def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
 
 def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ------------------------------------------- tensor parallel (``model``)
+# One batch group's programs over a mesh's ``model`` axis: ``attns`` /
+# ``ffns`` hold each shard's parameter blocks (``sharding.shard_lm``), a
+# replicated tensor lies on the group's first device, and the collectives
+# are ``distributed.tensor_parallel``'s (its docstring).
+
+def _q_heads(p, cfg, q, positions):
+    """Projected q (B, S, H x hd) -> heads, qk-norm, rope at
+    ``positions``."""
+    q = q.reshape(*q.shape[:2], -1, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+    cos, sin = rope_cache(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, cos, sin)
+
+
+def _kv_for(cfg, k, v, s: int, n: int):
+    """Shard s of n's K / V heads out of all of them (B, S, KV, hd): the
+    ones its H / n query heads read (head h reads KV head h // (H / KV))."""
+    hq, gs = cfg.n_heads // n, cfg.n_heads // cfg.n_kv_heads
+    if gs % hq and hq % gs:
+        raise ValueError(f"{hq} query heads a shard straddle groups of "
+                         f"{gs}: no head-TP split of {cfg.n_heads} / "
+                         f"{cfg.n_kv_heads} heads over {n} shards")
+    w = max(1, hq // gs)
+    return k.narrow(2, s * hq // gs, w), v.narrow(2, s * hq // gs, w)
+
+
+def gqa_apply_tp(grp, attns, cfg, h, positions, mode: str):
+    """Causal GQA attention of one batch group, h (B, S, d) on its first
+    device -> (the output there, each running shard's K / V after rope:
+    its own KV heads, or all of them).
+
+    ``mode``: "rep", the weights are replicated and every device computes
+    the whole; "heads" (head-TP), shard s takes its H / n query heads from
+    its column blocks of wq / wk / wv, and the KV heads they read (its own
+    blocks' when the KV heads divide, else all of them gathered); "seq"
+    (sequence-parallel), shard s takes its S / n query rows against the
+    group's whole K / V: its q columns traded for q rows by an all-to-all,
+    K / V gathered, the output traded back. Either split ends in a
+    row-parallel ``wo`` and an all-reduce."""
+    b, s, _ = h.shape
+    if mode == "rep":
+        def rep(p):
+            q, k, v = gqa_qkv(p, cfg, h, positions)
+            o = attention(q, k, v, causal=True)
+            return o.reshape(b, s, -1) @ p["wo"], k, v
+        out, k, v = grp.local(rep, attns[0])
+        return out, list(zip(TP.replicate(grp, k), TP.replicate(grp, v)))
+    n = grp.size
+    hs = TP.fan_out(grp, h)
+    proj = [grp.run(i, gqa_project, attns[i], cfg, hs[i])
+            for i in grp.shards]
+    own = mode == "heads" and cfg.n_kv_heads % n == 0
+    if own:
+        kvs = [(pk, pv) for _, pk, pv in proj]
+    else:
+        kvs = list(zip(TP.all_gather_to_shards(grp, [x[1] for x in proj], -1),
+                       TP.all_gather_to_shards(grp, [x[2] for x in proj], -1)))
+    if mode == "heads":
+        def shard(i, p, q, k, v):
+            q, k, v = gqa_heads(p, cfg, q, k, v, positions.to(q.device))
+            ks, vs = (k, v) if own else _kv_for(cfg, k, v, i, n)
+            o = attention(q, ks, vs, causal=True)
+            return o.reshape(b, s, -1) @ p["wo"], k, v
+        outs = [grp.run(i, shard, i, attns[i], proj[k_][0], *kvs[k_])
+                for k_, i in enumerate(grp.shards)]
+        return TP.all_reduce(grp, [o[0] for o in outs]), \
+            [o[1:] for o in outs]
+    rows = s // n
+    q_rows = TP.all_to_all(grp, [x[0] for x in proj], 1, 2)
+
+    def attend(i, p, q, k, v):
+        pos = positions.to(q.device)
+        q = _q_heads(p, cfg, q, pos[:, i * rows:(i + 1) * rows])
+        _, k, v = gqa_heads(p, cfg, None, k, v, pos)
+        o = attention(q, k, v, causal=True, q_offset=i * rows, seq_len=s)
+        return o.reshape(b, rows, -1), k, v
+    att = [grp.run(i, attend, i, attns[i], q_rows[k_], *kvs[k_])
+           for k_, i in enumerate(grp.shards)]
+    o_cols = TP.all_to_all(grp, [a[0] for a in att], 2, 1)
+    parts = [grp.run(i, torch.matmul, o_cols[k_], attns[i]["wo"])
+             for k_, i in enumerate(grp.shards)]
+    return TP.all_reduce(grp, parts), [a[1:] for a in att]
+
+
+def swiglu_apply_tp(grp, ffns, h, split: bool):
+    """The SwiGLU of one batch group, column-parallel ``w_gate`` / ``w_up``
+    then row-parallel ``w_down`` and an all-reduce (``split``), else
+    replicated."""
+    if not split:
+        return grp.local(swiglu_apply, ffns[0], h)
+    hs = TP.fan_out(grp, h)
+    return TP.all_reduce(grp, [grp.run(i, swiglu_apply, ffns[i], hs[k])
+                               for k, i in enumerate(grp.shards)])
+
+
+def sdpa_partial(q, k, v, valid):
+    """``sdpa``'s softmax over one block of keys, unnormalised: q (B, Sq,
+    H, hd), k / v (B, Sb, KV, hd), valid (B, Sb) -> float32 max m (B, KV,
+    G, Sq), sum l (B, KV, G, Sq) and weighted values acc (B, KV, G, Sq,
+    hd), each term relative to the block's own max."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
+                          k.float()) / (hd ** 0.5)
+    scores = torch.where(valid[:, None, None, None, :], scores, MASKED)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m[..., None])
+    return m, p.sum(-1), torch.einsum("bkgqs,bskh->bkgqh", p, v.float())
+
+
+def _local_pos(pos, lo: int, size: int, smax: int):
+    """Global cache positions -> a block of ``size`` positions from
+    ``lo``'s own, ``size`` (dropped by ``write_rows``) where outside it."""
+    gp = torch.where(pos < 0, pos + smax, pos)
+    lp = gp - lo
+    return torch.where((lp >= 0) & (lp < size), lp, size)
+
+
+@torch.no_grad()
+def gqa_decode_tp(grp, attns, cfg, x, pos, caches, kv_valid, split: str,
+                  tp: bool):
+    """One decode step of one batch group's attention, x (B, 1, d) on its
+    first device; ``caches``: each shard's (k, v) block of this layer,
+    written in place. ``split`` "heads": shard s decodes its KV heads and
+    their query heads (``gqa_decode`` on its blocks), a row-parallel
+    ``wo``. "seq": every shard holds all heads over its positions; q and
+    the new k / v (column-parallel and gathered where ``tp``) go to every
+    shard, each writes the new entry if it holds the position and scores
+    its own positions; the shards' partial softmaxes (max, sum, weighted
+    values) are combined by an all-reduce of the max and one of the
+    rescaled sums, exact up to float order, and ``wo`` is row-parallel
+    where ``tp``."""
+    n = grp.size
+    b = x.shape[0]
+    xs = TP.replicate(grp, x)
+    if split == "heads":
+        cfg_s = replace(cfg, n_heads=cfg.n_heads // n,
+                        n_kv_heads=cfg.n_kv_heads // n)
+        parts = [grp.run(i, lambda i, k_: gqa_decode(
+            attns[i], cfg_s, xs[k_], pos.to(xs[k_].device), caches[k_],
+            kv_valid.to(xs[k_].device))[0], i, k_)
+            for k_, i in enumerate(grp.shards)]
+        return TP.all_reduce(grp, parts)
+    if tp:
+        proj = [grp.run(i, gqa_project, attns[i], cfg, xs[k_])
+                for k_, i in enumerate(grp.shards)]
+        q, k, v = (TP.all_gather(grp, [x_[j] for x_ in proj], -1)
+                   for j in range(3))
+    else:
+        q, k, v = grp.local(gqa_project, attns[0], cfg, x)
+    q, k, v = grp.local(gqa_heads, attns[0], cfg, q, k, v, pos[:, None])
+    qs, ks, vs = (TP.replicate(grp, t) for t in (q, k, v))
+    size = caches[0][0].shape[1]
+
+    def block(i, k_):
+        ck, cv = caches[k_]
+        dev = ck.device
+        lp = _local_pos(pos.to(dev), i * size, size, n * size)
+        write_rows(ck, lp, ks[k_][:, 0])
+        write_rows(cv, lp, vs[k_][:, 0])
+        valid = (i * size + torch.arange(size, device=dev))[None, :] \
+            < kv_valid.to(dev)[:, None]
+        return sdpa_partial(qs[k_], ck, cv, valid)
+    pieces = [grp.run(i, block, i, k_) for k_, i in enumerate(grp.shards)]
+    top = TP.replicate(grp, TP.all_reduce_max(grp, [m for m, _, _ in
+                                                    pieces]))
+
+    def rescale(k_, m, l, acc):
+        w = torch.exp(m - top[k_])
+        return torch.cat([(l * w)[..., None], acc * w[..., None]], dim=-1)
+    tot = TP.all_reduce(grp, [grp.run(i, rescale, k_, *pieces[k_])
+                              for k_, i in enumerate(grp.shards)])
+
+    def finish(tot):
+        o = tot[..., 1:] / tot[..., :1]                   # (B, KV, G, 1, hd)
+        return o.permute(0, 3, 1, 2, 4).reshape(b, 1, -1).to(x.dtype)
+    o = grp.local(finish, tot)
+    if not tp:
+        return grp.local(torch.matmul, o, attns[0]["wo"])
+    os_ = TP.replicate(grp, o)
+    w = o.shape[-1] // n
+    return TP.all_reduce(grp, [grp.run(
+        i, lambda o_, wo: o_[..., i * w:(i + 1) * w] @ wo, os_[k_],
+        attns[i]["wo"]) for k_, i in enumerate(grp.shards)])

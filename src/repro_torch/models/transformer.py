@@ -9,6 +9,10 @@ deepseek-v2-236b.
     logits, cache = prefill(model, cfg, tokens, max_len=None)
     logits, cache = decode_step(model, cfg, token, cache, pos)
 
+Each entry point also takes a ``mesh=``: the dense decoders' tensor-parallel
+programs over a ``sharding.ShardedLM`` (the section at the end of this
+file); without one, nothing changes.
+
 The reference stacks its layers into one pytree and scans over it, with
 an MoE config's leading dense layers (``first_dense_layers``, a SwiGLU of
 width ``dense_d_ff``) unrolled ahead of the stack as ``dense_layers``. The
@@ -46,8 +50,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import flags
+from repro_torch.analysis import op_costs
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, moe_apply, moe_init
 
@@ -143,16 +150,28 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def logits_of(model: TransformerLM, x: torch.Tensor) -> torch.Tensor:
-    """Final-normed states (..., d) -> float32 logits (..., V)."""
+def logits_of(model, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Final-normed states (..., d) -> float32 logits (..., V). With a
+    ``mesh`` (``model`` a ``ShardedLM``): each batch group's rows through
+    the vocabulary-parallel head, gathered over ``model``."""
+    if mesh is not None:
+        return _tp_over_groups(mesh, x, lambda grp, x_: _tp_full_logits(
+            model, grp, x_))
     return (x @ model.head()).float()
 
 
-def forward(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
-            remat: bool = True):
+def forward(model, cfg: LMConfig, tokens: torch.Tensor,
+            remat: bool = True, mesh=None):
     """tokens (B, S) -> (logits (B, S, V) float32, the MoE layers' summed
     aux loss: 0 for a dense model). With ``remat`` and autograd on, each
-    block is recomputed in the backward pass."""
+    block is recomputed in the backward pass. With a ``mesh`` (``model`` a
+    ``ShardedLM``), each batch group runs its tensor-parallel program
+    (module docstring)."""
+    if mesh is not None:
+        x = _tp_over_groups(mesh, tokens, lambda grp, t: _tp_states(
+            model, cfg, grp, t, remat))
+        return logits_of(model, x, mesh), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
     b, s = tokens.shape
     x = model.embed[tokens]
     positions = _positions(b, s, tokens.device)
@@ -168,27 +187,44 @@ def forward(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
     return logits_of(model, x), aux_total
 
 
-def lm_loss(model: TransformerLM, cfg: LMConfig,
-            batch: Dict[str, torch.Tensor], remat: bool = True):
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits, (B, S) labels -> (B, S) NLL under the branch
+    ``flags.SHARDED_CE`` picks (``lm_loss``)."""
+    labels = labels.long()[..., None]
+    if flags.SHARDED_CE:
+        m = logits.amax(-1)
+        lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
+        onehot = torch.zeros_like(logits).scatter_(-1, labels, 1.0)
+        return lse - (logits * onehot).sum(-1)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels)[..., 0]
+
+
+def _masked_mean(nll: torch.Tensor) -> torch.Tensor:
+    """The mean over every position but each row's last."""
+    mask = torch.ones_like(nll)
+    mask[:, -1] = 0.0
+    return (nll * mask).sum() / mask.sum()
+
+
+def lm_loss(model, cfg: LMConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True, mesh=None):
     """Mean next-token NLL over every position but the last (its label
     wraps around), plus the router's aux term; metrics loss, aux, ppl.
     ``flags.SHARDED_CE`` (read now) takes the NLL as max + log-sum-exp
     minus the label's logit picked by a one-hot product, as the
     reference's vocab-sharding-safe branch; otherwise log_softmax and a
-    gather."""
-    logits, aux = forward(model, cfg, batch["tokens"], remat=remat)
-    labels = batch["labels"].long()[..., None]
-    if flags.SHARDED_CE:
-        m = logits.amax(-1)
-        lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
-        onehot = torch.zeros_like(logits).scatter_(-1, labels, 1.0)
-        nll = lse - (logits * onehot).sum(-1)
+    gather. With a ``mesh``: each batch group's mean from its
+    tensor-parallel program (the vocabulary-parallel head's logits
+    gathered over ``model``, or, under ``SHARDED_CE``, reduced as their
+    max, sum of exponentials and the label's logit), averaged over the
+    groups."""
+    if mesh is not None:
+        loss = _tp_loss(model, cfg, batch, remat, mesh)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     else:
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, labels)[..., 0]
-    mask = torch.ones_like(nll)
-    mask[:, -1] = 0.0
-    loss = (nll * mask).sum() / mask.sum()
+        logits, aux = forward(model, cfg, batch["tokens"], remat=remat)
+        loss = _masked_mean(_nll(logits, batch["labels"]))
     total = loss + cfg.router_aux_loss * aux
     return total, {"loss": loss, "aux": aux, "ppl": torch.exp(loss)}
 
@@ -222,16 +258,20 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 
 
 @torch.no_grad()
-def prefill_states(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
-                   max_len: Optional[int] = None):
+def prefill_states(model, cfg: LMConfig, tokens: torch.Tensor,
+                   max_len: Optional[int] = None, mesh=None):
     """One causal pass over tokens (B, S) -> (final-normed states (B, S,
     d), a cache of ``max_len`` (default S) positions holding each layer's
-    k / v (MLA: c_kv / k_rope) for the S tokens, lengths S)."""
+    k / v (MLA: c_kv / k_rope) for the S tokens, lengths S). With a
+    ``mesh``: the tensor-parallel program per batch group, into a
+    ``ShardedKVCache``."""
     b, s = tokens.shape
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt "
                          f"({s} tokens)")
+    if mesh is not None:
+        return _tp_prefill(model, cfg, tokens, max_len, mesh)
     cache = init_cache(cfg, b, max_len, tokens.device)
     x = model.embed[tokens]
     positions = _positions(b, s, tokens.device)
@@ -258,19 +298,23 @@ def prefill_states(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
     return L.rms_norm(x, model.final_norm, cfg.rms_eps), cache
 
 
-def prefill(model: TransformerLM, cfg: LMConfig, tokens: torch.Tensor,
-            max_len: Optional[int] = None):
+def prefill(model, cfg: LMConfig, tokens: torch.Tensor,
+            max_len: Optional[int] = None, mesh=None):
     """tokens (B, S) -> (logits (B, S, V) float32, populated KVCache)."""
-    x, cache = prefill_states(model, cfg, tokens, max_len)
+    x, cache = prefill_states(model, cfg, tokens, max_len, mesh)
     with torch.no_grad():
-        return logits_of(model, x), cache
+        return logits_of(model, x, mesh), cache
 
 
 @torch.no_grad()
-def decode_step(model: TransformerLM, cfg: LMConfig, token: torch.Tensor,
-                cache: KVCache, pos: torch.Tensor):
+def decode_step(model, cfg: LMConfig, token: torch.Tensor, cache,
+                pos: torch.Tensor, mesh=None):
     """token (B,), pos (B,) absolute position -> (logits (B, V) float32,
-    the same cache written at ``pos`` with lengths ``pos + 1``)."""
+    the same cache written at ``pos`` with lengths ``pos + 1``). With a
+    ``mesh``: the tensor-parallel step per batch group on a
+    ``ShardedKVCache``."""
+    if mesh is not None:
+        return _tp_decode(model, cfg, token, cache, pos, mesh)
     x = model.embed[token][:, None, :]                       # (B, 1, d)
     kv_valid = pos + 1
     attend = L.mla_decode_absorbed if cfg.use_mla else L.gqa_decode
@@ -283,3 +327,248 @@ def decode_step(model: TransformerLM, cfg: LMConfig, token: torch.Tensor,
     x = L.rms_norm(x, model.final_norm, cfg.rms_eps)
     return logits_of(model, x[:, 0]), KVCache(a=cache.a, b=cache.b,
                                               length=kv_valid)
+
+
+# ------------------------------------------------------ tensor parallel
+# The dense decoder over a mesh (``mesh=`` above): ``model`` is a
+# ``sharding.ShardedLM``. Each batch group (the batch split over the data
+# axes where it divides, ``sharding.batch_seq_spec``) runs one program over
+# its ``model`` shards: the vocabulary-parallel lookup (each shard its own
+# rows, an all-reduce), per block the replicated norms and residual adds,
+# attention (``layers.gqa_apply_tp``: head-TP under
+# ``flags.HEAD_TP_ATTENTION`` when the heads divide, else
+# sequence-parallel, as the reference's ``chunked_sdpa`` places q) and the
+# SwiGLU (column- then row-parallel), and the vocabulary-parallel head. A
+# block is recomputed in the backward pass under ``remat``. On a meta mesh
+# the first group's program stands in for every group's.
+
+def _tp_over_groups(mesh, x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(group, rows)`` over each batch group's rows of ``x`` (axis 0),
+    the results joined on axis 0 on the mesh's first device: every group
+    where the batch divides over the data axes, else group 0 over all of
+    it (every group computes the same)."""
+    n = SH.columns(mesh).shape[0]
+    if SH.batch_seq_spec(mesh, x.shape)[0] is None:
+        n = 1
+    parts = x.split(x.shape[0] // n)
+    run = 1 if SH.on_meta(mesh) else n
+    outs = []
+    for g in range(run):
+        grp = TP.Group(mesh, g)
+        outs.append(fn(grp, parts[g].to(grp.home)))
+    home = mesh.devices.reshape(-1)[0]
+    if run < n:
+        return op_costs.stand_in(outs[0], n, dim=0)
+    if n == 1:
+        return outs[0]
+    with op_costs.suspended():
+        return torch.cat([o.to(home) for o in outs])
+
+
+def _tp_mode(model, cfg: LMConfig, mesh, s: int) -> str:
+    """How the groups run attention over ``model`` (``gqa_apply_tp``)."""
+    n = SH.model_size(mesh)
+    if not all(model.split(f"blocks.0.attn.{w}")
+               for w in ("wq", "wk", "wv", "wo")):
+        return "rep"
+    if flags.HEAD_TP_ATTENTION and cfg.n_heads % n == 0:
+        return "heads"
+    if SH.batch_seq_spec(mesh, (1, s), 0, 1)[1] == "model":
+        return "seq"
+    if cfg.n_heads % n == 0:
+        return "heads"
+    raise ValueError(f"{s} positions and {cfg.n_heads} heads: neither "
+                     f"splits over {n} shards")
+
+
+def _tp_embed(model, grp, tokens: torch.Tensor) -> torch.Tensor:
+    """Vocabulary-parallel lookup: each shard its own rows' ids, zeros for
+    the rest, summed (exactly) by an all-reduce."""
+    if not model.split("embed"):
+        return grp.local(lambda e: e[tokens], model.shards[0].embed)
+    toks = TP.replicate(grp, tokens)
+
+    def look(i, table, ids):
+        n = table.shape[0]
+        local = ids.long() - i * n
+        keep = (local >= 0) & (local < n)
+        rows = table[torch.where(keep, local, torch.zeros_like(local))]
+        return rows * keep[..., None].to(rows.dtype)
+    return TP.all_reduce(grp, [grp.run(i, look, i, model.shards[i].embed,
+                                       toks[k]) for k, i in
+                               enumerate(grp.shards)])
+
+
+def _tp_block(model, cfg: LMConfig, grp, i: int, x, positions, mode: str):
+    blks = [m.blocks[i] for m in model.shards]
+    h = grp.local(L.rms_norm, x, blks[0].ln1, cfg.rms_eps)
+    a, _ = L.gqa_apply_tp(grp, [b.attn for b in blks], cfg, h, positions,
+                          mode)
+    x = grp.local(torch.add, x, a)
+    h = grp.local(L.rms_norm, x, blks[0].ln2, cfg.rms_eps)
+    f = L.swiglu_apply_tp(grp, [b.ffn for b in blks], h,
+                          model.split(f"blocks.{i}.ffn.w_gate"))
+    return grp.local(torch.add, x, f)
+
+
+def _tp_states(model, cfg: LMConfig, grp, tokens, remat: bool):
+    """One group's tokens (B, S) -> its final-normed states (B, S, d)."""
+    b, s = tokens.shape
+    x = _tp_embed(model, grp, tokens)
+    positions = _positions(b, s, grp.home)
+    mode = _tp_mode(model, cfg, grp.mesh, s)
+    for i in range(cfg.n_layers):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_tp_block, model, cfg, grp, i, x, positions,
+                           mode, use_reentrant=False)
+        else:
+            x = _tp_block(model, cfg, grp, i, x, positions, mode)
+    return grp.local(L.rms_norm, x, model.shards[0].final_norm,
+                     cfg.rms_eps)
+
+
+def _tp_head(model, grp, x):
+    """Each running shard's float32 logits over its vocabulary columns
+    (the head's input fanned out), or None where the head is
+    replicated."""
+    name = "embed" if model.cfg.tie_embeddings else "lm_head"
+    if not model.split(name):
+        return None
+    xs = TP.fan_out(grp, x)
+    return [grp.run(i, logits_of, model.shards[i], xs[k])
+            for k, i in enumerate(grp.shards)]
+
+
+def _tp_full_logits(model, grp, x) -> torch.Tensor:
+    parts = _tp_head(model, grp, x)
+    if parts is None:
+        return grp.local(logits_of, model.shards[0], x)
+    return TP.all_gather(grp, parts, -1)
+
+
+def _tp_nll(model, grp, x, labels) -> torch.Tensor:
+    """One group's (B, S) NLL: the head's logits gathered, or under
+    ``SHARDED_CE`` reduced over the shards (the max, the sum of
+    exponentials and the label's logit, each an all-reduce of (B, S))."""
+    parts = _tp_head(model, grp, x)
+    if parts is None or not flags.SHARDED_CE:
+        logits = grp.local(logits_of, model.shards[0], x) if parts is None \
+            else TP.all_gather(grp, parts, -1)
+        return grp.local(_nll, logits, labels)
+    run = list(enumerate(grp.shards))
+    labs = TP.replicate(grp, labels)
+    m = TP.all_reduce_max(grp, [grp.run(i, torch.amax, parts[k], -1)
+                                for k, i in run])
+    ms = TP.replicate(grp, m)
+    se = TP.all_reduce(grp, [grp.run(
+        i, lambda lg, m_: torch.exp(lg - m_[..., None]).sum(-1), parts[k],
+        ms[k]) for k, i in run])
+
+    def pick(i, lg, lab):
+        v = lg.shape[-1]
+        local = lab.long() - i * v
+        keep = (local >= 0) & (local < v)
+        idx = torch.where(keep, local, torch.zeros_like(local))[..., None]
+        onehot = torch.zeros_like(lg).scatter_(-1, idx,
+                                               keep[..., None].to(lg.dtype))
+        return (lg * onehot).sum(-1)
+    lab = TP.all_reduce(grp, [grp.run(i, pick, i, parts[k], labs[k])
+                              for k, i in run])
+    return grp.local(lambda m_, se_, lab_: m_ + torch.log(se_) - lab_, m,
+                     se, lab)
+
+
+def _tp_loss(model, cfg: LMConfig, batch, remat: bool, mesh):
+    """The mean of the groups' losses (equal row counts), the groups'
+    scalars all-reduced over the data axes."""
+    both = torch.stack([batch["tokens"], batch["labels"].to(
+        batch["tokens"].dtype)], dim=-1)
+
+    def group_loss(grp, tl):
+        x = _tp_states(model, cfg, grp, tl[..., 0], remat)
+        return grp.local(_masked_mean, _tp_nll(model, grp, x, tl[..., 1]))[
+            None]
+    losses = _tp_over_groups(mesh, both, group_loss)
+    op_costs.record_collective("all-reduce", 4, SH.axes_size(
+        mesh, SH.batch_axes(mesh)) if losses.shape[0] > 1 else 1)
+    return losses.mean()
+
+
+def _tp_prefill(model, cfg: LMConfig, tokens, max_len: int, mesh):
+    b, s = tokens.shape
+    cache = SH.init_sharded_cache(cfg, mesh, b, max_len,
+                                  model.shards[0].embed.dtype)
+    split = SH.cache_split(cfg, mesh)
+
+    def group(grp, t):
+        blocks = cache.blocks[grp.g]
+        x = _tp_embed(model, grp, t)
+        positions = _positions(t.shape[0], s, grp.home)
+        mode = _tp_mode(model, cfg, mesh, s)
+        for i in range(cfg.n_layers):
+            blks = [m.blocks[i] for m in model.shards]
+            h = grp.local(L.rms_norm, x, blks[0].ln1, cfg.rms_eps)
+            a, kvs = L.gqa_apply_tp(grp, [b_.attn for b_ in blks], cfg, h,
+                                    positions, mode)
+            for k, j in enumerate(grp.shards):
+                grp.run(j, _write_prefill, cfg, blocks[j], i, kvs[k], j,
+                        grp.size, split, s)
+            x = grp.local(torch.add, x, a)
+            h = grp.local(L.rms_norm, x, blks[0].ln2, cfg.rms_eps)
+            x = grp.local(torch.add, x, L.swiglu_apply_tp(
+                grp, [b_.ffn for b_ in blks], h,
+                model.split(f"blocks.{i}.ffn.w_gate")))
+        return grp.local(L.rms_norm, x, model.shards[0].final_norm,
+                         cfg.rms_eps)
+    x = _tp_over_groups(mesh, tokens, group)
+    cache.length.fill_(s)
+    return x, cache
+
+
+def _write_prefill(cfg, block, i: int, kv, j: int, n: int, split: str,
+                   s: int) -> None:
+    """Shard j's part of layer i's K / V for the prompt's s positions into
+    its cache block: its KV heads ("heads"), or the prompt positions its
+    block of the sequence holds ("seq")."""
+    (ca, cb), (k, v) = block, kv
+    if split == "heads":
+        if k.shape[2] == cfg.n_kv_heads:            # it holds all heads
+            w = cfg.n_kv_heads // n
+            k, v = k.narrow(2, j * w, w), v.narrow(2, j * w, w)
+        ca[i, :, :s] = k
+        cb[i, :, :s] = v
+        return
+    size = ca.shape[2]
+    lo, hi = j * size, min(s, (j + 1) * size)
+    if hi > lo:
+        ca[i, :, :hi - lo] = k[:, lo:hi]
+        cb[i, :, :hi - lo] = v[:, lo:hi]
+
+
+def _tp_decode(model, cfg: LMConfig, token, cache, pos, mesh):
+    split = SH.cache_split(cfg, mesh)
+    tp = all(model.split(f"blocks.0.attn.{w}")
+             for w in ("wq", "wk", "wv", "wo"))
+    both = torch.stack([token.to(pos.dtype), pos], dim=-1)
+
+    def group(grp, tp_):
+        tok, p = tp_[:, 0], tp_[:, 1]
+        blocks = cache.blocks[grp.g]
+        kv_valid = p + 1
+        x = _tp_embed(model, grp, tok[:, None])
+        for i in range(cfg.n_layers):
+            blks = [m.blocks[i] for m in model.shards]
+            h = grp.local(L.rms_norm, x, blks[0].ln1, cfg.rms_eps)
+            caches = [(blocks[j][0][i], blocks[j][1][i]) for j in grp.shards]
+            x = grp.local(torch.add, x, L.gqa_decode_tp(
+                grp, [b_.attn for b_ in blks], cfg, h, p, caches, kv_valid,
+                split, tp))
+            h = grp.local(L.rms_norm, x, blks[0].ln2, cfg.rms_eps)
+            x = grp.local(torch.add, x, L.swiglu_apply_tp(
+                grp, [b_.ffn for b_ in blks], h,
+                model.split(f"blocks.{i}.ffn.w_gate")))
+        x = grp.local(L.rms_norm, x, model.shards[0].final_norm,
+                      cfg.rms_eps)
+        return _tp_full_logits(model, grp, x[:, 0])
+    logits = _tp_over_groups(mesh, both, group)
+    return logits, cache._replace(length=(pos + 1).to(cache.length.device))

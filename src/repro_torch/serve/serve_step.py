@@ -64,24 +64,27 @@ def ann_search_step(index, k: int = 10, params=None, buckets=None,
     return out
 
 
-def lm_prefill_step(cfg) -> Callable:
+def lm_prefill_step(cfg, mesh=None) -> Callable:
     """step(model, tokens, max_len=None) -> (logits (B, V) of the last
     position, cache). The reference takes ``prefill``'s (B, S, V) logits
     and keeps the last row; rows never interact, so the head is applied to
     the last position only (at 32k x 151,936 the whole would be 19.9 GB a
     sequence). Without ``max_len`` the cache holds the prompt exactly, as
-    the reference's step."""
+    the reference's step. ``mesh``: the tensor-parallel prefill (``model``
+    a ``ShardedLM``; the logits gathered over ``model``)."""
     @torch.no_grad()
     def step(model, tokens, max_len=None):
-        x, cache = transformer.prefill_states(model, cfg, tokens, max_len)
-        return transformer.logits_of(model, x[:, -1]), cache
+        x, cache = transformer.prefill_states(model, cfg, tokens, max_len,
+                                              mesh)
+        return transformer.logits_of(model, x[:, -1], mesh), cache
     return step
 
 
-def lm_decode_step(cfg) -> Callable:
-    """step(model, token, cache, pos) -> (logits (B, V), cache)."""
+def lm_decode_step(cfg, mesh=None) -> Callable:
+    """step(model, token, cache, pos) -> (logits (B, V), cache);
+    ``mesh``: the tensor-parallel step on a ``ShardedKVCache``."""
     def step(model, token, cache, pos):
-        return transformer.decode_step(model, cfg, token, cache, pos)
+        return transformer.decode_step(model, cfg, token, cache, pos, mesh)
     return step
 
 

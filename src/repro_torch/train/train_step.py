@@ -21,14 +21,16 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.analysis import op_costs
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.optim import Optimizer, compress_with_feedback, named
 
 
-def loss_fn_for(family: str, cfg, lookup_fn=None) -> Callable:
-    """(params, batch) -> (loss, metrics)."""
+def loss_fn_for(family: str, cfg, lookup_fn=None, mesh=None) -> Callable:
+    """(params, batch) -> (loss, metrics). ``mesh``: the LM's
+    tensor-parallel loss (``params`` a ``sharding.ShardedLM``)."""
     if family == "lm":
-        return lambda p, b: transformer.lm_loss(p, cfg, b)
+        return lambda p, b: transformer.lm_loss(p, cfg, b, mesh=mesh)
     if family == "gnn":
         return lambda p, b: dimenet.loss_fn(p, cfg, b)
     if family == "recsys":
@@ -53,14 +55,20 @@ def _slice(batch: Any, i: int, n: int) -> Any:
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
-                    microbatches: int = 1, compress: bool = False):
+                    microbatches: int = 1, compress: bool = False,
+                    mesh=None):
     """Returns step(params, opt_state, batch[, err_state]) ->
     (params, opt_state[, err_state], metrics).
 
     microbatches > 1 splits the batch on axis 0 and accumulates the
     gradients in the parameters' dtype (zeros, then one add per
     microbatch, then a division by the count, as the reference); the
-    metrics are the last microbatch's."""
+    metrics are the last microbatch's. With a ``mesh`` (the LM's
+    tensor-parallel loss over a ``ShardedLM``), each microbatch is split
+    over the batch groups inside the loss, as the reference's split keeps
+    it on the data axes; the groups' gradients meet in the leaves they
+    share, and the step prices the reference's all-reduce of one device's
+    gradients over the data axes once, before the optimizer."""
 
     def grads_of(params, batch):
         ps = named(params)
@@ -86,6 +94,14 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
                 del g
         return {n: a.div_(microbatches) for n, a in acc.items()}, metrics
 
+    if mesh is not None:
+        inner = accumulate
+
+        def accumulate(params, batch):
+            grads, metrics = inner(params, batch)
+            op_costs.in_split(1, _price_allreduce, mesh, params, grads)
+            return grads, metrics
+
     if compress:
         def step(params, opt_state, batch, err_state):
             grads, metrics = accumulate(params, batch)
@@ -102,3 +118,12 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
 
     return step
 
+
+
+def _price_allreduce(mesh, params, grads) -> None:
+    """The data axes' all-reduce of one device's gradients (its leaves of
+    a ``ShardedLM``, each at its bytes), work every device does once."""
+    names = params.device_names() if hasattr(params, "device_names") \
+        else list(grads)
+    SH.record_grad_allreduce(mesh, {n: grads[n] for n in names},
+                             {n: () for n in names}, SH.batch_axes(mesh))

@@ -1957,6 +1957,57 @@ def test_lm_train_step_on_the_card_equals_the_cpu(dev):
         assert abs(a - b) <= 1e-5 * abs(b)
 
 
+@pytest.mark.cuda
+def test_lm_tensor_parallel_on_the_card_equals_unsharded(dev):
+    """qwen2-1.5b's smoke config (vocabulary 512, so the lookup and head
+    split) in float32, tensor-parallel over a (1, 2) mesh naming cuda:0
+    twice: forward's logits, the loss and every gradient, and a prefill
+    then 2 decode steps on a cache split on sequence (its one KV head does
+    not divide 2), each equal to the unsharded model's on the card to
+    rtol 1e-5 (atol 1e-5 of the compared tensor's largest magnitude)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import cache_split, shard_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    cfg = replace(get_arch("qwen2-1.5b").smoke_config, vocab_size=512)
+    model = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    mesh = make_host_mesh(1, 2, devices=[dev] * 2)
+    sm = shard_lm(model, mesh)
+    assert cache_split(cfg, mesh) == "seq"
+    toks = torch.randint(0, 512, (2, 16), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def close(got, want):
+        scale = float(want.abs().max()) or 1.0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+    with torch.no_grad():
+        close(T.forward(sm, cfg, toks, mesh=mesh)[0],
+              T.forward(model, cfg, toks)[0])
+    loss, _ = T.lm_loss(sm, cfg, batch, mesh=mesh)
+    want, _ = T.lm_loss(model, cfg, batch)
+    close(loss.detach(), want.detach())
+    ps = dict(sm.named_parameters())
+    got = dict(zip(ps, torch.autograd.grad(loss, list(ps.values()))))
+    ref = dict(zip(dict(model.named_parameters()), torch.autograd.grad(
+        want, list(model.parameters()))))
+    for name, d in sm.dims.items():
+        g = got[f"shards.0.{name}"] if d is None else torch.cat(
+            [got[f"shards.{s}.{name}"] for s in range(2)], dim=d)
+        close(g, ref[name])
+    lg, cache = T.prefill(sm, cfg, toks[:, :8], max_len=12, mesh=mesh)
+    lw, cw = T.prefill(model, cfg, toks[:, :8], max_len=12)
+    close(lg, lw)
+    for i in range(2):
+        tok = lw[:, -1].argmax(-1).int() if i == 0 else lw.argmax(-1).int()
+        pos = torch.full((2,), 8 + i, dtype=torch.int32, device=dev)
+        lg, cache = T.decode_step(sm, cfg, tok, cache, pos, mesh=mesh)
+        lw, cw = T.decode_step(model, cfg, tok, cw, pos)
+        close(lg, lw)
+
+
 # -- MoE and MLA (no kernel of the port: plain PyTorch on the card) ----------
 
 def _int_moe(dev, cfg, seed):

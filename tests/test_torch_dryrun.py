@@ -82,8 +82,7 @@ def test_cell_matches_reference(arch, shape, inputs, ref_mesh):
     assert len(cell.args) == len(ref.args)
     for i in inputs:
         assert _leaves(cell.args[i]) == _leaves(ref.args[i]), i
-    assert cell.partition == ("ideal" if arch in ("qwen2-1.5b",
-                                                  "deepseek-v2-236b")
+    assert cell.partition == ("ideal" if arch == "deepseek-v2-236b"
                               else "shards")
 
 

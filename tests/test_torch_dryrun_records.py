@@ -8,10 +8,14 @@ The gradients' all-reduce is computed from the reference alone: its
 parameter tree (``jax.eval_shape``), its ``family_rules`` and
 ``tree_shardings`` on an ``AbstractMesh`` of the production axis sizes,
 and its ``analysis.hlo.parse_collectives`` wire factor, fed one HLO
-all-reduce line per weight."""
+all-reduce line per weight. A dense LM's train cell (qwen2-1.5b's
+train_4k at full width, cut to LM_LAYERS layers: every term is linear in
+the depth) adds its tensor-parallel collectives to that."""
 import functools
 import json
 import math
+import re
+from dataclasses import replace
 
 import jax
 import numpy as np
@@ -24,12 +28,14 @@ from repro.analysis.hlo import parse_collectives
 from repro.distributed import sharding as RS
 from repro.models import dimenet as r_dimenet
 from repro.models import recsys as r_recsys
+from repro.models import transformer as r_transformer
 
 from repro_torch.analysis.op_costs import CostCounter
 from repro_torch.configs import get_arch
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import transformer
 from repro_torch.models.recsys_common import make_sharded_lookup, \
     padded_rows
 from repro_torch.optim import mixed_optimizer
@@ -38,7 +44,9 @@ from repro_torch.train.train_step import loss_fn_for
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 TRAIN_CELLS = [("sasrec", "train_batch"), ("dimenet", "molecule")]
-_HLO_DTYPE = {np.dtype(np.float32): "f32", np.dtype(np.int32): "s32"}
+_HLO_DTYPE = {np.dtype(np.float32): "f32", np.dtype(np.int32): "s32",
+              np.dtype(jax.numpy.bfloat16): "bf16"}
+LM_LAYERS = 2
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -124,9 +132,17 @@ def _ref_grad_allreduce(arch, shape, mesh_name) -> float:
     dims, axes = MESHES[mesh_name]
     mesh = AbstractMesh(dims, axes)
     fam = RC.get_arch(arch).family
-    tree = _ref_params(arch, shape)
+    return _allreduce_link_bytes(mesh, _ref_params(arch, shape), fam,
+                                 RS.batch_axes(mesh) if fam == "recsys"
+                                 else tuple(axes))
+
+
+def _allreduce_link_bytes(mesh, tree, fam, work) -> float:
+    """``parse_collectives``' link bytes of one all-reduce per leaf of
+    ``tree`` at its shard shape under ``fam``'s rules, over the axes of
+    ``work`` its spec leaves unsharded."""
+    dims = tuple(mesh.shape.values())
     shardings = RS.tree_shardings(mesh, tree, RS.family_rules(fam, mesh))
-    work = RS.batch_axes(mesh) if fam == "recsys" else tuple(axes)
     lines = []
     for i, (leaf, sh) in enumerate(zip(jax.tree.leaves(tree),
                                        jax.tree.leaves(shardings))):
@@ -244,3 +260,58 @@ def test_table_update_bytes_per_device_are_over_model():
     assert split.peak_bytes == pytest.approx(whole.peak_bytes / 16,
                                              rel=1e-6)
     assert whole.common.bytes > 2 * table.numel() * 4
+
+
+# ---------------------------------------------------- the dense LMs
+@functools.lru_cache(maxsize=None)
+def _lm_counted(mesh_name):
+    """qwen2-1.5b's train_4k cell cut to LM_LAYERS layers: (the record,
+    the link bytes and all-reduces of its loss and gradients alone over
+    the step's microbatches, the cell, the reference config)."""
+    spec = get_arch("qwen2-1.5b")
+    spec = replace(spec, config=replace(spec.config, n_layers=LM_LAYERS))
+    mesh = _mesh(mesh_name)
+    cell = S._lm_cell(spec, spec.shape("train_4k"), mesh, "meta", 0)
+    rec = dryrun.cell_record(cell, mesh, mesh_name, dryrun.count_cell(cell))
+    model, _, batch = cell.args
+    micro = int(re.search(r"microbatches=(\d+)", cell.notes).group(1))
+    rows = batch["tokens"].shape[0] // micro
+    merges = CostCounter(outside_split=cell.outside_split)
+    with merges:
+        loss, _ = transformer.lm_loss(model, spec.config,
+                                      {k: v[:rows] for k, v in batch.items()},
+                                      mesh=mesh)
+        torch.autograd.grad(loss, list(model.parameters()),
+                            allow_unused=True)
+    ref_cfg = replace(RC.get_arch("qwen2-1.5b").config, n_layers=LM_LAYERS)
+    return rec, micro * merges.per_device().link_bytes, \
+        merges.per_device().collective_counts["all-reduce"], cell, ref_cfg
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_lm_train_link_bytes_are_tp_collectives_plus_gradient_allreduce(
+        mesh_name):
+    """A dense LM's train record (``"partition": "shards"``): its link
+    bytes are its tensor-parallel collectives (the loss and gradients of
+    each microbatch: the lookup's and the row-parallel all-reduces, the
+    attention's all-to-alls and K / V gathers, the fan-outs' backward
+    all-reduces, the head's gather) plus the reference's all-reduce of
+    every weight's gradient over the data axes (rtol 1e-9); its
+    all-reduces are those of the programs plus one per leaf a device
+    holds; its notes drop the ideal partition."""
+    rec, tp_bytes, tp_reduces, cell, ref_cfg = _lm_counted(mesh_name)
+    dims, axes = MESHES[mesh_name]
+    mesh = AbstractMesh(dims, axes)
+    tree = jax.eval_shape(lambda: r_transformer.init_params(
+        jax.random.PRNGKey(0), ref_cfg))
+    grads = _allreduce_link_bytes(mesh, tree, "lm", RS.batch_axes(mesh))
+    assert tp_bytes > 0 and grads > 0
+    assert rec["link_bytes_per_device"] == pytest.approx(tp_bytes + grads,
+                                                         rel=1e-9)
+    model = cell.args[0]
+    assert rec["collective_counts"]["all-reduce"] == \
+        tp_reduces + len(model.device_names())
+    assert {"all-gather", "all-to-all", "reduce-scatter"} <= \
+        set(rec["collective_counts"])
+    assert rec["partition"] == "shards" and rec["collective_s"] > 0
+    assert "all-reduced" in rec["notes"] and "ideal" not in rec["notes"]

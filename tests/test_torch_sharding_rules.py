@@ -137,7 +137,8 @@ def test_lm_train_arg_bytes_equal(arch, mesh_name, fsdp, monkeypatch):
     want += 2 * (shape.global_batch // dp_n) * shape.seq_len * 4
     cell = S.build_cell(arch, "train_4k", mesh, device="meta")
     assert cell.arg_bytes == want
-    assert cell.kind == "train" and cell.partition == "ideal"
+    assert cell.kind == "train"
+    assert cell.partition == ("shards" if arch == "qwen3-32b" else "ideal")
 
 
 def _spec_shape(spec, shape, mesh):
