@@ -341,7 +341,18 @@ Phases, each printing one JSON line:
                 LM_TP_LOSS_RTOL, every parameter finite and moved but those
                 bf16 rounding holds; ms of each step, its collectives
                 (calls and link bytes per device, from one counted run),
-                the card's name and power limit.
+                the card's name and power limit. Then LM_TP_MOE
+                (lm_tp_moe_run, its depth cuts on lm_tp_cut lines):
+                deepseek-moe-16b (4 of 28 layers) and deepseek-v2-236b (3
+                of 60) at full width, tensor- and expert-parallel
+                (experts over model, the leading dense block's wo / w_down
+                on their output columns, MLA's latent cache split on
+                sequence): prefill LM_TP_PREFILL and LM_TP_MOE_DECODE_STEPS
+                greedy decode steps on LM_TP_SERVE, the sharded runs routed
+                to the unsharded runs' experts (their dropped pairs
+                asserted equal), logits within LM_BF16_REL /
+                LM_BF16_MAX; deepseek-moe-16b one train step on
+                LM_TP_TRAIN, its loss within LM_TP_LOSS_RTOL.
  17. gnn      — DimeNet at its published config (6 blocks, hidden 128,
                 f32) trained GNN_STEPS steps of adamw(1e-3) on each of
                 GNN_CELLS (full_graph_sm, minibatch_lg through the fan-out
@@ -750,6 +761,19 @@ LM_TP_DECODE = (8, 8192)
 LM_TP_DECODE_STEPS = 16
 LM_TP_BATCH = (4, 1024)
 LM_TP_LOSS_RTOL = 1e-2
+# lm_tp's MoE / MLA configs at full width, cut in depth (listed on an
+# lm_tp_cut line first): deepseek-moe-16b to 4 of its 28 layers (1 dense +
+# 3 MoE) with a train step of LM_TP_BATCH on LM_TP_TRAIN, deepseek-v2-236b
+# to 3 of 60 (1 dense + 2 MoE, ~18 GB of weights) serving only. Prefill
+# LM_TP_PREFILL on LM_TP_SERVE; then LM_TP_MOE_DECODE prompts of
+# LM_TP_MOE_DECODE[1] - LM_TP_MOE_DECODE_STEPS = 4,096 tokens (whole
+# dispatch groups of 1,024) and that many greedy steps. Both sides take the unsharded run's ids, and the sharded run is
+# routed to the unsharded run's experts (moe.forced_routing): its dropped
+# pairs must be the unsharded run's
+LM_TP_MOE = (dict(arch="deepseek-moe-16b", layers=4, train=True),
+             dict(arch="deepseek-v2-236b", layers=3, train=False))
+LM_TP_MOE_DECODE = (4, 4104)
+LM_TP_MOE_DECODE_STEPS = 8
 LM_CLI_ARCHS = ("qwen2-1.5b", "deepseek-moe-16b", "deepseek-v2-236b")
 LM_CLI_RUNS = tuple(
     run for arch in LM_CLI_ARCHS for run in (
@@ -4762,21 +4786,12 @@ def counted(torch, fn) -> tuple:
                      link_bytes=dev.link_bytes)
 
 
-def lm_tp_phase(torch, gpu: str, smi: str, seed: int) -> dict:
-    """qwen2-1.5b tensor-parallel on meshes of cuda:0 repeated against the
-    unsharded port on the same card and weights (phase 16's lm_tp)."""
-    from repro_torch.configs import get_arch
-    from repro_torch.distributed.sharding import shard_lm, unshard_lm
+def lm_tp_tools(torch, cfg, dev, seed: int) -> tuple:
+    """lm_tp's helpers on ``dev``: (tokens(b, s), ids of ``cfg``'s
+    vocabulary from one generator seeded ``seed + 7``; timed(fn), its
+    result and ms between two synchronisations; mesh_of(shape), a mesh
+    naming ``dev`` once per device)."""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import transformer as T
-    from repro_torch.optim import adamw
-    from repro_torch.train.train_step import loss_fn_for, make_train_step
-
-    cfg = get_arch("qwen2-1.5b").config
-    dev = torch.device("cuda", 0)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    model = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
     g = torch.Generator(device=dev).manual_seed(seed + 7)
 
     def tokens(b, s):
@@ -4792,6 +4807,25 @@ def lm_tp_phase(torch, gpu: str, smi: str, seed: int) -> dict:
 
     def mesh_of(shape):
         return make_host_mesh(*shape, devices=[dev] * math.prod(shape))
+    return tokens, timed, mesh_of
+
+
+def lm_tp_phase(torch, gpu: str, smi: str, seed: int) -> dict:
+    """qwen2-1.5b tensor-parallel on meshes of cuda:0 repeated against the
+    unsharded port on the same card and weights (phase 16's lm_tp), then
+    each of LM_TP_MOE (``lm_tp_moe_run``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import shard_lm, unshard_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+
+    cfg = get_arch("qwen2-1.5b").config
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    tokens, timed, mesh_of = lm_tp_tools(torch, cfg, dev, seed)
 
     # serve: prefill, then greedy decode on a cache of LM_TP_DECODE rows
     serve = mesh_of(LM_TP_SERVE)
@@ -4909,6 +4943,164 @@ def lm_tp_phase(torch, gpu: str, smi: str, seed: int) -> dict:
             and out["cache_split"] == "seq"):
         raise AssertionError(f"lm_tp: the tensor-parallel LM left its "
                              f"limits: {out}")
+    for c in LM_TP_MOE:
+        emit("lm_tp_cut", arch=c["arch"], layers=c["layers"],
+             of_layers=get_arch(c["arch"]).config.n_layers)
+    out["moe"] = [lm_tp_moe_run(torch, c, gpu, smi, seed) for c in LM_TP_MOE]
+    return out
+
+
+def same_routing(torch, got: list, want: list) -> bool:
+    """Two routing logs of one sequence: the same ids and dropped pairs
+    in every MoE call."""
+    return len(got) == len(want) and all(
+        torch.equal(a["ids"], b["ids"]) and torch.equal(a["dropped"],
+                                                        b["dropped"])
+        for a, b in zip(got, want))
+
+
+def lm_tp_moe_run(torch, c: dict, gpu: str, smi: str, seed: int) -> dict:
+    """One config of LM_TP_MOE tensor- and expert-parallel on meshes of
+    cuda:0 repeated against the unsharded port on the same card and
+    weights (phase 16's lm_tp)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import cache_split, shard_lm
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_fn_for, make_train_step
+
+    cfg = replace(get_arch(c["arch"]).config, n_layers=c["layers"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    tokens, timed, mesh_of = lm_tp_tools(torch, cfg, dev, seed)
+
+    serve = mesh_of(LM_TP_SERVE)
+    sm = shard_lm(model, serve)
+    out = dict(arch=cfg.name, layers=cfg.n_layers,
+               of_layers=get_arch(c["arch"]).config.n_layers,
+               nvidia_smi=smi, gpu=gpu, serve_mesh=LM_TP_SERVE,
+               prefill=LM_TP_PREFILL, decode=LM_TP_MOE_DECODE,
+               decode_steps=LM_TP_MOE_DECODE_STEPS,
+               cache_split=cache_split(cfg, serve))
+    prompt = tokens(*LM_TP_PREFILL)
+    with torch.no_grad():
+        for _ in range(2):          # the second call of each is timed
+            want, ms_plain = timed(lambda: T.prefill_states(model, cfg,
+                                                            prompt))
+            _, ms = timed(lambda: T.prefill_states(sm, cfg, prompt,
+                                                   mesh=serve))
+        want = T.logits_of(model, want[0][:, -1])
+        _, coll = counted(torch, lambda: T.prefill_states(
+            sm, cfg, prompt, mesh=serve)[0])
+        with M.routing_log() as plain_log:
+            T.prefill_states(model, cfg, prompt)
+        with M.routing_log() as free_log:
+            T.prefill_states(sm, cfg, prompt, mesh=serve)
+        with M.forced_routing([r["ids"] for r in plain_log]), \
+                M.routing_log() as log:
+            x, _ = T.prefill_states(sm, cfg, prompt, mesh=serve)
+        got = T.logits_of(sm, x[:, -1], serve)
+        out.update(prefill_ms=ms, prefill_plain_ms=ms_plain,
+                   prefill_collectives=coll,
+                   prefill_logits=logit_errors(torch, got, want),
+                   prefill_routing_equal=same_routing(torch, log,
+                                                      plain_log),
+                   prefill_dropped=sum(int(r["dropped"].sum())
+                                       for r in log),
+                   prefill_pairs=sum(r["pairs"] for r in log),
+                   prefill_free_ids_equal=sum(
+                       int((a["ids"] == b["ids"]).all(-1).sum())
+                       for a, b in zip(free_log, plain_log)),
+                   prefill_tokens=prompt.numel() * len(log))
+        del x, got, want, plain_log, free_log, log
+
+        b, s = LM_TP_MOE_DECODE
+        n = s - LM_TP_MOE_DECODE_STEPS
+        rows = tokens(b, n)
+        with M.routing_log() as plain_log:
+            x, c_plain = T.prefill_states(model, cfg, rows, max_len=s)
+        tok = T.logits_of(model, x[:, -1]).argmax(-1).int()
+        del x
+        with M.forced_routing([r["ids"] for r in plain_log]):
+            _, c_tp = T.prefill_states(sm, cfg, rows, max_len=s, mesh=serve)
+        errs, ms_tp, ms_pl, same, drops_ok, dropped = [], [], [], 0, True, 0
+        for i in range(LM_TP_MOE_DECODE_STEPS):
+            pos = torch.full((b,), n + i, device=dev, dtype=torch.int32)
+            with M.routing_log() as plain_log:
+                (lp, c_plain), t_pl = timed(lambda: T.decode_step(
+                    model, cfg, tok, c_plain, pos))
+            if i == 0:
+                _, coll = counted(torch, lambda: T.decode_step(
+                    sm, cfg, tok, c_tp, pos, mesh=serve)[0])
+                out["decode_collectives"] = coll
+            with M.forced_routing([r["ids"] for r in plain_log]), \
+                    M.routing_log() as log:
+                (lt, c_tp), t_tp = timed(lambda: T.decode_step(
+                    sm, cfg, tok, c_tp, pos, mesh=serve))
+            drops_ok &= same_routing(torch, log, plain_log)
+            dropped += sum(int(r["dropped"].sum()) for r in log)
+            errs.append(logit_errors(torch, lt, lp))
+            ms_pl.append(t_pl)
+            ms_tp.append(t_tp)
+            same += int(torch.equal(lt.argmax(-1), lp.argmax(-1)))
+            tok = lp.argmax(-1).int()
+        out.update(decode_ms=statistics.median(ms_tp),
+                   decode_plain_ms=statistics.median(ms_pl),
+                   decode_rel_rms_max=max(e["rel_rms"] for e in errs),
+                   decode_max_err_of_scale=max(e["max_err_of_scale"]
+                                               for e in errs),
+                   decode_steps_same_ids=same,
+                   decode_routing_equal=drops_ok, decode_dropped=dropped)
+        del c_plain, c_tp, lp, lt
+    del sm
+    torch.cuda.empty_cache()
+
+    loss = loss_plain = float("nan")
+    finite = True
+    if c["train"]:
+        train = mesh_of(LM_TP_TRAIN)
+        t = tokens(*LM_TP_BATCH)
+        batch = {"tokens": t, "labels": torch.roll(t, -1, dims=1)}
+        opt = adamw(3e-4)
+        plain = copy.deepcopy(model)
+        st_plain = opt.init(plain)
+        step_plain = make_train_step(loss_fn_for("lm", cfg), opt)
+        _, _, met_plain = step_plain(plain, st_plain, batch)
+        _, ms_plain = timed(lambda: step_plain(plain, st_plain, batch))
+        del plain, st_plain
+        torch.cuda.empty_cache()
+        sm = shard_lm(model, train)
+        st_tp = opt.init(sm)
+        step_tp = make_train_step(loss_fn_for("lm", cfg, mesh=train), opt,
+                                  mesh=train)
+        _, _, met_tp = step_tp(sm, st_tp, batch)
+        _, ms = timed(lambda: step_tp(sm, st_tp, batch))
+        _, coll = counted(torch, lambda: step_tp(sm, st_tp, batch))
+        finite = all(bool(torch.isfinite(p).all()) for p in sm.parameters())
+        loss, loss_plain = float(met_tp["loss"]), float(met_plain["loss"])
+        out.update(train_mesh=LM_TP_TRAIN, batch=LM_TP_BATCH, train_ms=ms,
+                   train_plain_ms=ms_plain, train_collectives=coll,
+                   loss=loss, loss_plain=loss_plain,
+                   loss_rel_diff=abs(loss - loss_plain) / abs(loss_plain),
+                   aux=float(met_tp["aux"]), aux_plain=float(
+                       met_plain["aux"]), params_finite=finite)
+        del sm, st_tp
+    del model
+    torch.cuda.empty_cache()
+    emit("lm_tp", **out)
+    pre = out["prefill_logits"]
+    if not (pre["rel_rms"] <= LM_BF16_REL
+            and pre["max_err_of_scale"] <= LM_BF16_MAX
+            and out["decode_rel_rms_max"] <= LM_BF16_REL
+            and out["decode_max_err_of_scale"] <= LM_BF16_MAX
+            and out["prefill_routing_equal"] and out["decode_routing_equal"]
+            and (not c["train"] or (out["loss_rel_diff"] <= LM_TP_LOSS_RTOL
+                                    and math.isfinite(loss) and finite))):
+        raise AssertionError(f"lm_tp: {cfg.name} tensor- and expert-"
+                             f"parallel left its limits: {out}")
     return out
 
 

@@ -47,8 +47,7 @@ update of the table). Per device, the counter gives the busiest (group,
 shard) program's costs, plus each split bucket over its n, plus the rest
 divided by ``outside_split`` (1: every device runs it, as nodes
 replicated over an edge partition; the batch axes' size for a batch the
-reference splits over them; the mesh size for an LM the reference
-partitions by its rules alone, marked ``"partition": "ideal"``). The
+reference splits over them). The
 bucket of n = 1 is work every device does once: a train step's
 gradients' all-reduce (``launch/specs.py``) is recorded there.
 

@@ -33,14 +33,15 @@ path``), so its spec drops the stacked axis. ``tree_shardings`` gives
 each leaf's spec with the reference's divisibility guard, ``shard_shape``
 a leaf's per-device shape under one.
 
-The dense LM's tensor-parallel program (``distributed.tensor_parallel``,
-``models.transformer``'s ``mesh=``) runs on ``shard_lm``'s ``ShardedLM``:
-each parameter sliced as ``lm_param_shardings`` gives its spec, one slice
-per ``model`` shard; a replicated parameter is one leaf that every shard's
-module holds. ``batch_seq_spec`` is the reference's ``shard_batch_seq``
-rule, by which the programs split the batch over the data axes and the
-sequence over ``model``; ``init_sharded_cache`` splits a KV cache as
-``kv_cache_sharding`` says.
+The LM's tensor- and expert-parallel program
+(``distributed.tensor_parallel``, ``models.transformer``'s ``mesh=``) runs
+on ``shard_lm``'s ``ShardedLM``: each parameter sliced as
+``lm_param_shardings`` gives its spec, one slice per ``model`` shard (an
+MoE layer's routed experts on their expert axis); a replicated parameter
+is one leaf that every shard's module holds. ``batch_seq_spec`` is the
+reference's ``shard_batch_seq`` rule, by which the programs split the
+batch over the data axes and the sequence over ``model``;
+``init_sharded_cache`` splits a KV cache as ``kv_cache_sharding`` says.
 
 Left out: the reference's ``set_active_mesh``, ``maybe_shard`` and
 ``active_dp_axes`` (its ``:41-118``). They place tensors inside one XLA
@@ -548,7 +549,7 @@ def _set_param(module: nn.Module, name: str, param: nn.Parameter) -> None:
 
 
 def shard_lm(model, mesh) -> ShardedLM:
-    """``model`` (a dense ``TransformerLM``) split as ``lm_param_shardings``
+    """``model`` (a ``TransformerLM``) split as ``lm_param_shardings``
     gives each parameter's spec, a dimension that does not divide
     replicated (the reference's guard). A shard's slice is a view of
     ``model``'s parameter where it already lies on the shard's device (an
@@ -557,9 +558,6 @@ def shard_lm(model, mesh) -> ShardedLM:
     slices."""
     from repro_torch.carry import lm_from_named
     cfg = model.cfg
-    if cfg.moe or cfg.use_mla:
-        raise ValueError(f"{cfg.name}: the tensor-parallel LM is the dense "
-                         f"GQA decoder's (no MoE or MLA partition yet)")
     cols = columns(mesh)
     for s in range(cols.shape[1]):
         if len(set(cols[:, s])) != 1:
@@ -605,14 +603,18 @@ class ShardedKVCache(NamedTuple):
     """A KV cache split as ``kv_cache_sharding`` says: ``blocks[g][s]`` =
     (a, b), batch group g's rows of the (Lyr, B, Smax, KV, hd) cache on
     device (g, s), their KV heads split over ``model`` or their positions
-    (``cache_split``); ``length`` (B,) on the mesh's first device."""
+    (``cache_split``), or of an MLA cache's latent c_kv (Lyr, B, Smax, r)
+    and rope key (Lyr, B, Smax, rd), their positions split; ``length``
+    (B,) on the mesh's first device."""
     blocks: list
     length: torch.Tensor
 
 
 def cache_split(cfg, mesh) -> str:
     """``kv_cache_sharding``'s choice: "heads" when the KV heads divide over
-    ``model``, else "seq"."""
+    ``model``, else "seq"; an MLA latent cache always "seq"."""
+    if cfg.use_mla:
+        return "seq"
     return "heads" if cfg.n_kv_heads % model_size(mesh) == 0 else "seq"
 
 
@@ -630,11 +632,15 @@ def init_sharded_cache(cfg, mesh, batch: int, max_len: int,
             raise ValueError(f"a {what} of {size} does not split over {by}")
     kv = cfg.n_kv_heads // n if split == "heads" else cfg.n_kv_heads
     seq = max_len // n if split == "seq" else max_len
-    shape = (cfg.n_layers, batch // n_groups, seq, kv, cfg.head_dim)
+    lead = (cfg.n_layers, batch // n_groups, seq)
+    if cfg.use_mla:                 # the latent c_kv and the rope key
+        shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.qk_rope_head_dim,))
+    else:
+        shapes = (lead + (kv, cfg.head_dim),) * 2
 
     def zeros(dev):
-        return (torch.zeros(shape, dtype=dtype, device=dev),
-                torch.zeros(shape, dtype=dtype, device=dev))
+        return tuple(torch.zeros(sh, dtype=dtype, device=dev)
+                     for sh in shapes)
 
     blocks = [[op_costs.in_shard((g, s), zeros, cols[g, s])
                for s in range(n)] for g in range(n_groups)]

@@ -29,6 +29,16 @@ matching collective (Megatron's f / g pair):
     inverse all-to-all.
   * ``all_reduce_max``: the elementwise max over the shards, on ``home``,
     without a gradient (a softmax's shift, whose gradient is zero).
+  * ``out_cols``: a product whose weight is split on its output columns
+    (the reference's rules on an MoE config's leading dense block): each
+    shard its columns of a replicated input, all-gathered.
+
+Two reductions run over the data axes instead, between batch groups (the
+MoE router's statistics, ``models.moe``): ``data_all_reduce`` sums the
+groups' partials in group order on the mesh's first device (its backward
+hands each group the gradient), and ``data_scan`` prices the exclusive
+prefix sum of the groups' integer counts that a dispatch group split over
+batch groups needs, as an all-gather of every group's counts.
 
 Each is priced once, at the bytes one device's result holds, by
 ``op_costs.record_collective`` with ``hlo.py``'s wire factors; its own
@@ -91,25 +101,28 @@ def _stand_in(parts: Sequence[torch.Tensor], n: int) -> list:
 
 # --------------------------------------------------------------- g / f
 class _AllReduce(Function):
+    """The parts summed in order on ``home``, priced as an all-reduce over
+    ``size`` devices; the backward hands each part the gradient."""
+
     @staticmethod
-    def forward(ctx, grp: Group, *parts):
+    def forward(ctx, home, size: int, *parts):
         ctx.devices = [p.device for p in parts]
         with op_costs.suspended():
-            out = _to(parts[0], grp.home)
+            out = _to(parts[0], home)
             for p in parts[1:]:
-                out = out + p.to(grp.home)
-        op_costs.record_collective("all-reduce", _nbytes(out), grp.size)
+                out = out + p.to(home)
+        op_costs.record_collective("all-reduce", _nbytes(out), size)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         with op_costs.suspended():
-            return (None,) + tuple(grad.to(d) for d in ctx.devices)
+            return (None, None) + tuple(grad.to(d) for d in ctx.devices)
 
 
 def all_reduce(grp: Group, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The shards' partials summed in shard order, on ``home``."""
-    return grp.local(_AllReduce.apply, grp, *parts)
+    return grp.local(_AllReduce.apply, grp.home, grp.size, *parts)
 
 
 class _Copy(Function):
@@ -226,3 +239,32 @@ def _max(grp: Group, parts) -> torch.Tensor:
             out = torch.maximum(out, p.to(grp.home))
     op_costs.record_collective("all-reduce", _nbytes(out), grp.size)
     return out
+
+
+def out_cols(grp: Group, ws: Sequence[torch.Tensor],
+             x: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a replicated ``x`` (on ``home``) and a weight split on
+    its output columns (``ws[s]``: shard s's): each shard its columns,
+    gathered on the last dim. The backward sums the shards' gradients of
+    ``x`` (an all-reduce)."""
+    xs = fan_out(grp, x)
+    return all_gather(grp, [grp.run(i, torch.matmul, xs[k], ws[i])
+                            for k, i in enumerate(grp.shards)], -1)
+
+
+# ------------------------------------------------- over the data axes
+def data_all_reduce(mesh, parts: Sequence[torch.Tensor],
+                    size: int) -> torch.Tensor:
+    """The batch groups' partials summed in group order on the mesh's
+    first device, priced once as an all-reduce over ``size`` devices (the
+    data axes' size where the batch split over them, else 1). On a meta
+    mesh the first group's part stands in for the sum."""
+    return _AllReduce.apply(mesh.devices.reshape(-1)[0], size, *parts)
+
+
+def data_scan(mesh, counts: torch.Tensor, size: int) -> None:
+    """Price one batch group's share of an exclusive prefix sum over the
+    data axes: its integer ``counts`` all-gathered over ``size`` devices
+    (each group then sums the ones before its own; one process has them
+    already)."""
+    op_costs.record_collective("all-gather", _nbytes(counts) * size, size)

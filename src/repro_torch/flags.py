@@ -1,5 +1,5 @@
 """Optimization toggles (the reference's ``flags.py``): the three ANN
-toggles and the four of the dense LM.
+toggles and the four of the LM.
 
 Each toggle reads the reference's environment variable, off by default,
 and is read at call time (``flags.ANN_TIGHT_BUDGET``), so a test can flip
@@ -42,9 +42,12 @@ The LM's:
     ``enable_all`` / ``disable_all`` flip every toggle (the dry run's
     ``--opt``).
 
-The reference's ``MOE_SHARD_CONSTRAINTS`` (``REPRO_MOE_SHARD``), which
-pins the MoE dispatch tensors' shardings on a mesh, has no counterpart:
-on one device there is no placement to pin.
+The reference's ``MOE_SHARD_CONSTRAINTS`` (``REPRO_MOE_SHARD``) pins the
+MoE dispatch tensors' shardings on a mesh: the dispatch groups over the
+data axes, the experts over ``model``. It has no counterpart: the port's
+expert-parallel program (``models.moe.moe_apply_tp``) runs that placement
+on every mesh (each batch group its own dispatch groups, each ``model``
+shard its experts' slots), and without a mesh there is none to pin.
 """
 from __future__ import annotations
 

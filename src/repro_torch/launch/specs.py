@@ -25,13 +25,10 @@ process over its ``Mesh``. So a cell carries:
     recsys and ANN cells run their real per-shard programs (the edge
     partition, the row-sharded lookup, the per-shard searches); the rest
     of a recsys or ANN step runs on the batch the reference splits over
-    the data axes (``dp`` devices). The dense LMs run their
-    tensor-parallel programs (``sharding.shard_lm``, ``mesh=`` on the
+    the data axes (``dp`` devices). The LMs run their tensor- and
+    expert-parallel programs (``sharding.shard_lm``, ``mesh=`` on the
     steps): one per batch group, its shards' work and its collectives
-    counted per device. The MoE and MLA configs have no partition in the
-    port yet: XLA partitioned the reference's from the rules alone, so
-    their cells count the global step over the mesh size
-    (``partition="ideal"``, which their ``notes`` say);
+    counted per device;
   * ``row_split``: (tensor, n) pairs the counter places (``op_costs.
     CostCounter.place``): a recsys table and its row accumulator, whose
     rows the rule ``model`` splits. The table's dense gradient (the
@@ -42,13 +39,13 @@ process over its ``Mesh``. So a cell carries:
     the mesh size (its ``model`` share, then ZeRO-1's over the data
     axes), a replicated leaf over the data axes.
 
-A train cell with ``partition="shards"`` also prices the reference's
-all-reduce of the weights' gradients over the axes that split the step's
-work (recsys and the dense LMs: the batch axes; dimenet: every axis, its
-edges and triplets split over the whole mesh), once per step between the
-backward and the optimizer (``_reduce_grads``; the LM's train step with
-its ``mesh``): each gradient at its per-device bytes under its spec, over
-those of the axes its spec leaves unsharded.
+A train cell also prices the reference's all-reduce of the weights'
+gradients over the axes that split the step's work (recsys and the LMs:
+the batch axes; dimenet: every axis, its edges and triplets split over the
+whole mesh), once per step between the backward and the optimizer
+(``_reduce_grads``; the LM's train step with its ``mesh``): each gradient
+at its per-device bytes under its spec, over those of the axes its spec
+leaves unsharded.
 
 ``model_flops`` are the reference's analytic formulas, copied as they
 are.
@@ -90,7 +87,7 @@ class Cell:
     notes: str = ""
     arg_bytes: int = 0            # per device, under the rules
     outside_split: int = 1        # analysis.op_costs.CostCounter's
-    partition: str = "shards"     # "shards" or "ideal" (module docstring)
+    partition: str = "shards"     # every cell runs its shards' programs
     row_split: tuple = ()         # (tensor, n): CostCounter.place
 
 
@@ -211,17 +208,8 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
     dp = _dp(mesh)
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device(device).type == "meta"
-    dense = not (cfg.moe or cfg.use_mla)
-    if dense:
-        # the tensor-parallel programs on the model's slices
-        model = SH.shard_lm(model, mesh)
-        common = dict(outside_split=1)
-        tail, on = "", mesh
-    else:
-        common = dict(outside_split=mesh.size, partition="ideal")
-        tail = ("; ideal partition: the global step over the mesh, no "
-                "tensor-parallel collectives or gradient all-reduce priced")
-        on = None
+    # the tensor- and expert-parallel programs on the model's slices
+    model = SH.shard_lm(model, mesh)
 
     def tokens(shape_):
         if meta:
@@ -234,8 +222,8 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
         opt_state = opt.init(model)
         per_dev = shape.global_batch // dp_n
         micro = per_dev if cfg.d_model >= 4096 else max(1, per_dev // 4)
-        step = make_train_step(loss_fn_for("lm", cfg, mesh=on), opt,
-                               microbatches=micro, mesh=on)
+        step = make_train_step(loss_fn_for("lm", cfg, mesh=mesh), opt,
+                               microbatches=micro, mesh=mesh)
         t = tokens((b, s))
         batch = {"tokens": t, "labels": torch.roll(t, -1, dims=1)}
         moment_bytes = 2 * sum(          # AdamW's moments are float32
@@ -249,23 +237,19 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
             notes += ", FSDP"
         if flags.GRAD_SHARD_CONSTRAINTS:
             notes += ", grad shardings (no placement in one process)"
-        if dense:
-            notes += "; gradients all-reduced over the batch axes"
-            common["row_split"] = _lm_placed(model, opt_state, mesh)
+        notes += "; gradients all-reduced over the batch axes"
         return Cell(spec.arch_id, shape.name, step,
-                    (model, opt_state, batch), "train", mf,
-                    notes=notes + tail,
+                    (model, opt_state, batch), "train", mf, notes=notes,
                     arg_bytes=param_bytes + moment_bytes + 4 + batch_bytes,
-                    **common)
+                    row_split=_lm_placed(model, opt_state, mesh))
 
     if shape.kind == "prefill":
         t = tokens((b, s))
-        return Cell(spec.arch_id, shape.name, lm_prefill_step(cfg, on),
+        return Cell(spec.arch_id, shape.name, lm_prefill_step(cfg, mesh),
                     (model, t), "prefill", mf,
-                    notes="chunked (flash) attention" + tail,
+                    notes="chunked (flash) attention",
                     arg_bytes=param_bytes + SH.shard_bytes((dp, None), t,
-                                                           mesh),
-                    **common)
+                                                           mesh))
 
     # decode: one token against a seq_len KV cache
     shapes = _cache_shapes(cfg, b, s)
@@ -275,22 +259,16 @@ def _lm_cell(spec, shape: ShapeConfig, mesh, device, seed: int) -> Cell:
     cache_bytes = _spec_bytes(mesh, ((_empty(x.shape, x.dtype, "meta"),
                                       cache_specs[k]) for k, x in
                                      zip(("a", "b", "length"), shapes)))
-    if dense:
-        cache = SH.init_sharded_cache(cfg, mesh, b, s, shapes[0].dtype)
-    elif meta:
-        cache = transformer.KVCache(*(_empty(x.shape, x.dtype, device)
-                                      for x in shapes))
-    else:
-        cache = transformer.init_cache(cfg, b, s, device=device)
+    cache = SH.init_sharded_cache(cfg, mesh, b, s, shapes[0].dtype)
     tok = tokens((b,))
     pos = torch.full((b,), s - 1, dtype=torch.int32, device=device) \
         if not meta else _empty((b,), torch.int32, device)
     notes = "absorbed-MLA latent cache" if cfg.use_mla else \
         "KV cache seq-sharded on model"
-    return Cell(spec.arch_id, shape.name, lm_decode_step(cfg, on),
-                (model, tok, cache, pos), "decode", mf, notes=notes + tail,
+    return Cell(spec.arch_id, shape.name, lm_decode_step(cfg, mesh),
+                (model, tok, cache, pos), "decode", mf, notes=notes,
                 arg_bytes=param_bytes + cache_bytes + _spec_bytes(
-                    mesh, ((tok, (dp,)), (pos, (dp,)))), **common)
+                    mesh, ((tok, (dp,)), (pos, (dp,)))))
 
 
 def _lm_placed(model, opt_state, mesh) -> tuple:

@@ -365,13 +365,24 @@ def mla_init(generator: torch.Generator, cfg,
 def _mla_q(p, cfg, x, positions):
     """x (B, S, d) -> q (B, S, H, nd + rd): the no-rope part, then the
     roped part."""
-    b, s, _ = x.shape
-    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    return _mla_q_heads(p, cfg, _mla_q_a(p, cfg, x), positions)
+
+
+def _mla_q_a(p, cfg, x):
+    """The query's replicated part: the normed rank-``q_lora_rank``
+    bottleneck, or x itself where the config has none."""
     if cfg.q_lora_rank:
-        q = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.rms_eps) @ p["wq_b"]
-    else:
-        q = x @ p["wq"]
-    q = q.reshape(b, s, cfg.n_heads, nd + rd)
+        return rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.rms_eps)
+    return x
+
+
+def _mla_q_heads(p, cfg, qa, positions):
+    """``_mla_q_a``'s output -> q (B, S, heads, nd + rd) of ``p``'s heads
+    (any column block of wq_b / wq), rope on the last rd."""
+    b, s, _ = qa.shape
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = qa @ (p["wq_b"] if cfg.q_lora_rank else p["wq"])
+    q = q.reshape(b, s, -1, nd + rd)
     cos, sin = rope_cache(positions, rd, cfg.rope_theta)
     return torch.cat([q[..., :nd], apply_rope(q[..., nd:], cos, sin)],
                      dim=-1)
@@ -390,27 +401,36 @@ def _mla_latent(p, cfg, x, positions):
 
 def _mla_kv_from_latent(p, cfg, c_kv, k_rope):
     """latent c_kv (B, S, r) + k_rope (B, S, rd) -> the full k (B, S, H,
-    nd + rd) (k_rope shared by every head) and v (B, S, H, vd)."""
-    b, s, _ = c_kv.shape
-    h, nd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
-    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, nd + vd)
-    rope = k_rope[:, :, None, :].expand(b, s, h, k_rope.shape[-1])
+    nd + rd) (k_rope shared by every head) and v (B, S, H, vd), of
+    ``p``'s heads (any column block of wkv_b)."""
+    return _mla_kv_heads(cfg, c_kv @ p["wkv_b"], k_rope)
+
+
+def _mla_kv_heads(cfg, kv, k_rope):
+    """``c_kv @ wkv_b`` (B, S, heads x (nd + vd)) and k_rope -> k, v."""
+    b, s, _ = kv.shape
+    nd, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    kv = kv.reshape(b, s, -1, nd + vd)
+    rope = k_rope[:, :, None, :].expand(b, s, kv.shape[2], k_rope.shape[-1])
     return torch.cat([kv[..., :nd], rope], dim=-1), kv[..., nd:]
 
 
-def mla_attend(q, k, v, *, causal: bool = True):
+def mla_attend(q, k, v, *, causal: bool = True, q_offset: int = 0,
+               seq_len: Optional[int] = None):
     """Attention of MLA's q / k (width nd + rd) over v (width vd).
     From CHUNK_THRESHOLD query rows on, v is zero-padded to q's width so
     that ``chunked_sdpa`` can run, and the output is cut back to vd (the
     reference's own detour: ``attention`` would fall back to ``sdpa`` on
     the unequal widths, whose (B, H, S, S) float32 scores are 34 GB at
     128 heads x 8,192 tokens); below it, ``sdpa`` takes the unequal
-    widths."""
-    if q.shape[1] >= CHUNK_THRESHOLD:
+    widths. ``q_offset`` / ``seq_len``: a shard's rows of the sequence,
+    as ``attention``'s."""
+    if (seq_len or q.shape[1]) >= CHUNK_THRESHOLD:
         vd = v.shape[-1]
         vpad = F.pad(v, (0, q.shape[-1] - vd))
-        return chunked_sdpa(q, k, vpad, causal=causal)[..., :vd]
-    return sdpa(q, k, v, causal=causal)
+        return chunked_sdpa(q, k, vpad, causal=causal,
+                            q_offset=q_offset)[..., :vd]
+    return sdpa(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def mla_apply(p, cfg, x, positions, *, causal: bool = True):
@@ -498,7 +518,18 @@ def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
 # One batch group's programs over a mesh's ``model`` axis: ``attns`` /
 # ``ffns`` hold each shard's parameter blocks (``sharding.shard_lm``), a
 # replicated tensor lies on the group's first device, and the collectives
-# are ``distributed.tensor_parallel``'s (its docstring).
+# are ``distributed.tensor_parallel``'s (its docstring). A block's split
+# is its weights': "heads" / "seq" (Megatron's column- then row-parallel
+# attention), "tp" (the same for an FFN), "cols" (every weight
+# replicated but the last, split on its output columns: the reference's
+# rules on an MoE config's leading dense block) or "rep".
+
+def _out_proj(grp, ps, o, mode: str, name: str = "wo"):
+    """A replicated ``o`` times ``ps``' last weight ``name``: replicated
+    ("rep") or split on its output columns and gathered ("cols")."""
+    if mode == "cols":
+        return TP.out_cols(grp, [p[name] for p in ps], o)
+    return grp.local(torch.matmul, o, ps[0][name])
 
 def _q_heads(p, cfg, q, positions):
     """Projected q (B, S, H x hd) -> heads, qk-norm, rope at
@@ -522,27 +553,64 @@ def _kv_for(cfg, k, v, s: int, n: int):
     return k.narrow(2, s * hq // gs, w), v.narrow(2, s * hq // gs, w)
 
 
-def gqa_apply_tp(grp, attns, cfg, h, positions, mode: str):
+def _attend_split(grp, cfg, q, k, v, mode: str, attend):
+    """Attention of replicated q (B, S, H, .), k / v (B, S, KV, .) on
+    ``home``, split over the shards: "heads", shard s its H / n query heads
+    and the KV heads they read; "seq", its S / n query rows against all of
+    k / v. The shards' outputs gathered on ``home``, (B, S, H x vd). The
+    backward sums the shards' gradients of q, k and v (all-reduces)."""
+    n = grp.size
+    b, s, h = q.shape[:3]
+    qs, ks, vs = (TP.fan_out(grp, t) for t in (q, k, v))
+    run = list(enumerate(grp.shards))
+    if mode == "heads":
+        hq = h // n
+
+        def heads(i, q_, k_, v_):
+            kk, vv = _kv_for(cfg, k_, v_, i, n) if k_.shape[2] != h else (
+                k_[:, :, i * hq:(i + 1) * hq], v_[:, :, i * hq:(i + 1) * hq])
+            return attend(q_[:, :, i * hq:(i + 1) * hq], kk, vv).reshape(
+                b, s, -1)
+        return TP.all_gather(grp, [grp.run(i, heads, i, qs[j], ks[j], vs[j])
+                                   for j, i in run], -1)
+    rows = s // n
+
+    def seq(i, q_, k_, v_):
+        return attend(q_[:, i * rows:(i + 1) * rows], k_, v_,
+                      q_offset=i * rows, seq_len=s).reshape(b, rows, -1)
+    return TP.all_gather(grp, [grp.run(i, seq, i, qs[j], ks[j], vs[j])
+                               for j, i in run], 1)
+
+
+def _causal(q, k, v, **kw):
+    return attention(q, k, v, causal=True, **kw)
+
+
+def gqa_apply_tp(grp, attns, cfg, h, positions, mode: str, split: str):
     """Causal GQA attention of one batch group, h (B, S, d) on its first
     device -> (the output there, each running shard's K / V after rope:
     its own KV heads, or all of them).
 
-    ``mode``: "rep", the weights are replicated and every device computes
-    the whole; "heads" (head-TP), shard s takes its H / n query heads from
-    its column blocks of wq / wk / wv, and the KV heads they read (its own
-    blocks' when the KV heads divide, else all of them gathered); "seq"
-    (sequence-parallel), shard s takes its S / n query rows against the
-    group's whole K / V: its q columns traded for q rows by an all-to-all,
-    K / V gathered, the output traded back. Either split ends in a
-    row-parallel ``wo`` and an all-reduce."""
+    ``mode`` "rep": every device computes the whole. "heads" (head-TP):
+    shard s takes its H / n query heads and the KV heads they read.
+    "seq" (sequence-parallel): shard s takes its S / n query rows against
+    the group's whole K / V. ``split``, the weights': "tp", shard s
+    projects its heads from its column blocks of wq / wk / wv (its own KV
+    heads when they divide, else all of them gathered; in "seq" its q
+    columns are traded for q rows by an all-to-all, K / V gathered, the
+    output traded back) and a row-parallel ``wo`` ends in an all-reduce;
+    "rep" / "cols", q / k / v are projected replicated, the split's
+    outputs gathered, and ``wo`` (``_out_proj``) is replicated or split on
+    its output columns."""
     b, s, _ = h.shape
-    if mode == "rep":
-        def rep(p):
-            q, k, v = gqa_qkv(p, cfg, h, positions)
-            o = attention(q, k, v, causal=True)
-            return o.reshape(b, s, -1) @ p["wo"], k, v
-        out, k, v = grp.local(rep, attns[0])
-        return out, list(zip(TP.replicate(grp, k), TP.replicate(grp, v)))
+    if split != "tp":
+        q, k, v = grp.local(gqa_qkv, attns[0], cfg, h, positions)
+        if mode == "rep":
+            o = grp.local(lambda: _causal(q, k, v).reshape(b, s, -1))
+        else:
+            o = _attend_split(grp, cfg, q, k, v, mode, _causal)
+        return _out_proj(grp, attns, o, split), \
+            list(zip(TP.replicate(grp, k), TP.replicate(grp, v)))
     n = grp.size
     hs = TP.fan_out(grp, h)
     proj = [grp.run(i, gqa_project, attns[i], cfg, hs[i])
@@ -580,13 +648,19 @@ def gqa_apply_tp(grp, attns, cfg, h, positions, mode: str):
     return TP.all_reduce(grp, parts), [a[1:] for a in att]
 
 
-def swiglu_apply_tp(grp, ffns, h, split: bool):
-    """The SwiGLU of one batch group, column-parallel ``w_gate`` / ``w_up``
-    then row-parallel ``w_down`` and an all-reduce (``split``), else
-    replicated."""
-    if not split:
+def swiglu_apply_tp(grp, ffns, h, mode: str, hs=None):
+    """The SwiGLU of one batch group: "tp", column-parallel ``w_gate`` /
+    ``w_up`` then row-parallel ``w_down`` and an all-reduce (on ``hs``,
+    the shards' copies of h, where the caller fanned it out already);
+    "cols", the gate replicated and ``w_down`` split on its output
+    columns; "rep", replicated."""
+    if mode == "rep":
         return grp.local(swiglu_apply, ffns[0], h)
-    hs = TP.fan_out(grp, h)
+    if mode == "cols":
+        a = grp.local(lambda p: F.silu(h @ p["w_gate"]) * (h @ p["w_up"]),
+                      ffns[0])
+        return _out_proj(grp, ffns, a, mode, "w_down")
+    hs = hs if hs is not None else TP.fan_out(grp, h)
     return TP.all_reduce(grp, [grp.run(i, swiglu_apply, ffns[i], hs[k])
                                for k, i in enumerate(grp.shards)])
 
@@ -617,22 +691,25 @@ def _local_pos(pos, lo: int, size: int, smax: int):
 
 @torch.no_grad()
 def gqa_decode_tp(grp, attns, cfg, x, pos, caches, kv_valid, split: str,
-                  tp: bool):
+                  mode: str):
     """One decode step of one batch group's attention, x (B, 1, d) on its
     first device; ``caches``: each shard's (k, v) block of this layer,
-    written in place. ``split`` "heads": shard s decodes its KV heads and
-    their query heads (``gqa_decode`` on its blocks), a row-parallel
-    ``wo``. "seq": every shard holds all heads over its positions; q and
-    the new k / v (column-parallel and gathered where ``tp``) go to every
-    shard, each writes the new entry if it holds the position and scores
-    its own positions; the shards' partial softmaxes (max, sum, weighted
-    values) are combined by an all-reduce of the max and one of the
-    rescaled sums, exact up to float order, and ``wo`` is row-parallel
-    where ``tp``."""
+    written in place. ``mode`` "tp": column-parallel wq / wk / wv and a
+    row-parallel ``wo``; "cols" / "rep": q, k and v replicated, ``wo``
+    split on its output columns or replicated (``_out_proj``).
+    ``split`` "heads": shard s decodes its KV heads and their query heads
+    (``gqa_decode`` on its blocks; or, from replicated q / k / v, its
+    heads' slices, the outputs gathered). "seq": every shard holds all
+    heads over its positions; q and the new k / v (gathered where
+    column-parallel) go to every shard, each writes the new entry if it
+    holds the position and scores its own positions; the shards' partial
+    softmaxes (max, sum, weighted values) are combined by an all-reduce of
+    the max and one of the rescaled sums, exact up to float order."""
     n = grp.size
     b = x.shape[0]
     xs = TP.replicate(grp, x)
-    if split == "heads":
+    tp = mode == "tp"
+    if split == "heads" and tp:
         cfg_s = replace(cfg, n_heads=cfg.n_heads // n,
                         n_kv_heads=cfg.n_kv_heads // n)
         parts = [grp.run(i, lambda i, k_: gqa_decode(
@@ -649,6 +726,20 @@ def gqa_decode_tp(grp, attns, cfg, x, pos, caches, kv_valid, split: str,
         q, k, v = grp.local(gqa_project, attns[0], cfg, x)
     q, k, v = grp.local(gqa_heads, attns[0], cfg, q, k, v, pos[:, None])
     qs, ks, vs = (TP.replicate(grp, t) for t in (q, k, v))
+    if split == "heads":
+        kvh, hq = cfg.n_kv_heads // n, cfg.n_heads // n
+
+        def own(i, k_):
+            ck, cv = caches[k_]
+            dev = ck.device
+            write_rows(ck, pos.to(dev), ks[k_][:, 0, i * kvh:(i + 1) * kvh])
+            write_rows(cv, pos.to(dev), vs[k_][:, 0, i * kvh:(i + 1) * kvh])
+            o = sdpa(qs[k_][:, :, i * hq:(i + 1) * hq], ck, cv, causal=False,
+                     kv_len_valid=kv_valid.to(dev))
+            return o.reshape(b, 1, -1)
+        o = TP.all_gather(grp, [grp.run(i, own, i, k_)
+                                for k_, i in enumerate(grp.shards)], -1)
+        return _out_proj(grp, attns, o, mode)
     size = caches[0][0].shape[1]
 
     def block(i, k_):
@@ -661,23 +752,174 @@ def gqa_decode_tp(grp, attns, cfg, x, pos, caches, kv_valid, split: str,
             < kv_valid.to(dev)[:, None]
         return sdpa_partial(qs[k_], ck, cv, valid)
     pieces = [grp.run(i, block, i, k_) for k_, i in enumerate(grp.shards)]
-    top = TP.replicate(grp, TP.all_reduce_max(grp, [m for m, _, _ in
-                                                    pieces]))
-
-    def rescale(k_, m, l, acc):
-        w = torch.exp(m - top[k_])
-        return torch.cat([(l * w)[..., None], acc * w[..., None]], dim=-1)
-    tot = TP.all_reduce(grp, [grp.run(i, rescale, k_, *pieces[k_])
-                              for k_, i in enumerate(grp.shards)])
+    tot = _combine(grp, pieces)
 
     def finish(tot):
         o = tot[..., 1:] / tot[..., :1]                   # (B, KV, G, 1, hd)
         return o.permute(0, 3, 1, 2, 4).reshape(b, 1, -1).to(x.dtype)
     o = grp.local(finish, tot)
     if not tp:
-        return grp.local(torch.matmul, o, attns[0]["wo"])
+        return _out_proj(grp, attns, o, mode)
     os_ = TP.replicate(grp, o)
     w = o.shape[-1] // n
     return TP.all_reduce(grp, [grp.run(
         i, lambda o_, wo: o_[..., i * w:(i + 1) * w] @ wo, os_[k_],
         attns[i]["wo"]) for k_, i in enumerate(grp.shards)])
+
+
+def _combine(grp, pieces):
+    """The shards' partial softmaxes (max, sum, weighted values) combined:
+    an all-reduce of the max, then one of the sums and values rescaled to
+    it, side by side (the sum first) on ``home``."""
+    top = TP.replicate(grp, TP.all_reduce_max(grp, [m for m, _, _ in
+                                                    pieces]))
+
+    def rescale(k_, m, l, acc):
+        w = torch.exp(m - top[k_])
+        return torch.cat([(l * w)[..., None], acc * w[..., None]], dim=-1)
+    return TP.all_reduce(grp, [grp.run(i, rescale, k_, *pieces[k_])
+                               for k_, i in enumerate(grp.shards)])
+
+
+# ------------------------------------------------------- MLA over ``model``
+def mla_apply_tp(grp, attns, cfg, h, positions, mode: str, split: str):
+    """Causal MLA attention of one batch group, h (B, S, d) on its first
+    device -> (the output there, the latent c_kv (B, S, r) and k_rope
+    (B, S, rd) there: what the cache holds).
+
+    ``mode`` and ``split`` as ``gqa_apply_tp``'s. ``split`` "rep" /
+    "cols": q, k and v are projected replicated. "tp": the
+    down-projections ``wq_a`` / ``wkv_a`` and their norms run once
+    (replicated); shard s takes its H / n heads' q, k and v from its
+    column blocks of ``wq_b`` (or ``wq``) and ``wkv_b``. In "heads" it
+    attends its heads; in "seq" its S / n query rows of every head: q
+    traded from columns to rows by an all-to-all, the up-projected latent
+    (B, S, H / n x (nd + vd)) gathered, the output traded back. Either
+    ends in a row-parallel ``wo`` and an all-reduce."""
+    b, s, _ = h.shape
+    if split != "tp":
+        def proj(p):
+            q = _mla_q(p, cfg, h, positions)
+            c_kv, k_rope = _mla_latent(p, cfg, h, positions)
+            return (q,) + _mla_kv_from_latent(p, cfg, c_kv, k_rope) + (
+                c_kv, k_rope)
+        q, k, v, c_kv, k_rope = grp.local(proj, attns[0])
+        if mode == "rep":
+            o = grp.local(lambda: mla_attend(q, k, v).reshape(b, s, -1))
+        else:
+            o = _attend_split(grp, cfg, q, k, v, mode, mla_attend)
+        return _out_proj(grp, attns, o, split), (c_kv, k_rope)
+
+    def down(p):
+        return (_mla_q_a(p, cfg, h),) + _mla_latent(p, cfg, h, positions)
+    qa, c_kv, k_rope = grp.local(down, attns[0])
+    qas, cs, krs = (TP.fan_out(grp, t) for t in (qa, c_kv, k_rope))
+    run = list(enumerate(grp.shards))
+    if mode == "heads":
+        def shard(i, p, qa_, c, kr):
+            pos = positions.to(qa_.device)
+            q = _mla_q_heads(p, cfg, qa_, pos)
+            k, v = _mla_kv_from_latent(p, cfg, c, kr)
+            return mla_attend(q, k, v).reshape(b, s, -1) @ p["wo"]
+        return TP.all_reduce(grp, [grp.run(i, shard, i, attns[i], qas[j],
+                                           cs[j], krs[j]) for j, i in run]
+                             ), (c_kv, k_rope)
+    n = grp.size
+    rows = s // n
+    qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+
+    def proj(p, qa_, c):
+        q = _mla_q_heads(p, cfg, qa_, positions.to(qa_.device))
+        return q.reshape(b, s, -1), c @ p["wkv_b"]
+    pr = [grp.run(i, proj, attns[i], qas[j], cs[j]) for j, i in run]
+    q_rows = TP.all_to_all(grp, [x[0] for x in pr], 1, 2)
+    kvs = TP.all_gather_to_shards(grp, [x[1] for x in pr], -1)
+
+    def attend(i, q, kv, kr):
+        k, v = _mla_kv_heads(cfg, kv, kr)
+        o = mla_attend(q.reshape(b, rows, -1, qd), k, v,
+                       q_offset=i * rows, seq_len=s)
+        return o.reshape(b, rows, -1)
+    att = [grp.run(i, attend, i, q_rows[j], kvs[j], krs[j]) for j, i in run]
+    o_cols = TP.all_to_all(grp, att, 2, 1)
+    return TP.all_reduce(grp, [grp.run(i, torch.matmul, o_cols[j],
+                                       attns[i]["wo"]) for j, i in run]
+                         ), (c_kv, k_rope)
+
+
+@torch.no_grad()
+def mla_decode_tp(grp, attns, cfg, x, pos, caches, kv_valid, mode: str):
+    """One absorbed MLA decode step (``mla_decode_absorbed``) of one batch
+    group, x (B, 1, d) on its first device, over a latent cache split on
+    sequence: ``caches`` each shard's (c_kv, k_rope) block of this layer,
+    written in place by the shard that holds ``pos``.
+
+    The down-projections and the new latent run replicated. ``mode``
+    "tp": shard s folds its heads' ``W_uk`` (its column block of
+    ``wkv_b``) into its heads' query, and the latent queries q_lat (B, H,
+    r) and their rope parts (B, H, rd) are gathered over ``model``;
+    "cols" / "rep": every device computes them for all heads. Each shard
+    scores its own positions and keeps a partial softmax in latent space;
+    the partials are combined as ``gqa_decode_tp``'s (an all-reduce of the
+    max, one of the rescaled sums). Then ``W_uv``: in "tp" each shard its
+    heads' and a row-parallel ``wo``; else replicated, ``wo`` by
+    ``_out_proj``."""
+    n = grp.size
+    b, hh = x.shape[0], cfg.n_heads
+    nd, rd, vd, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim, cfg.kv_lora_rank)
+    tp = mode == "tp"
+
+    def down(p):
+        return (_mla_q_a(p, cfg, x),) + _mla_latent(p, cfg, x, pos[:, None])
+    qa, c_new, kr_new = grp.local(down, attns[0])
+
+    def query(p, qa_):
+        q = _mla_q_heads(p, cfg, qa_, pos[:, None].to(qa_.device))
+        w_uk = p["wkv_b"].reshape(r, -1, nd + vd)[..., :nd].float()
+        return (torch.einsum("bhn,rhn->bhr", q[:, 0, :, :nd].float(), w_uk),
+                q[:, 0, :, nd:].float())
+    if tp:
+        qas = TP.replicate(grp, qa)
+        qs = [grp.run(i, query, attns[i], qas[j])
+              for j, i in enumerate(grp.shards)]
+        q_lat, q_rope = (TP.all_gather(grp, [q[m] for q in qs], 1)
+                         for m in range(2))
+    else:
+        q_lat, q_rope = grp.local(query, attns[0], qa)
+    ql, qr, cn, krn = (TP.replicate(grp, t)
+                       for t in (q_lat, q_rope, c_new, kr_new))
+    size = caches[0][0].shape[1]
+
+    def block(i, j):
+        cc, ckr = caches[j]
+        dev = cc.device
+        lp = _local_pos(pos.to(dev), i * size, size, n * size)
+        write_rows(cc, lp, cn[j][:, 0])
+        write_rows(ckr, lp, krn[j][:, 0])
+        ccf = cc.float()
+        s_nope = ql[j] @ ccf.transpose(1, 2)                  # (B, H, S/n)
+        s_rope = qr[j] @ ckr.float().transpose(1, 2)
+        scores = (s_nope + s_rope) / ((nd + rd) ** 0.5)
+        valid = (i * size + torch.arange(size, device=dev))[None, :] \
+            < kv_valid.to(dev)[:, None]
+        scores = torch.where(valid[:, None, :], scores, MASKED)
+        m = scores.amax(-1)
+        p = torch.exp(scores - m[..., None])
+        return m, p.sum(-1), p @ ccf                          # (B, H, r)
+    pieces = [grp.run(i, block, i, j) for j, i in enumerate(grp.shards)]
+    tot = _combine(grp, pieces)
+    ctx = grp.local(lambda t: t[..., 1:] / t[..., :1], tot)   # (B, H, r)
+
+    def up(p, c, lo: int, heads: int):
+        w_uv = p["wkv_b"].reshape(r, heads, nd + vd)[..., nd:].float()
+        o = torch.einsum("bhr,rhv->bhv", c[:, lo:lo + heads], w_uv)
+        return o.reshape(b, 1, heads * vd).to(x.dtype)
+    if not tp:
+        return _out_proj(grp, attns, grp.local(up, attns[0], ctx, 0, hh),
+                         mode)
+    cs = TP.replicate(grp, ctx)
+    hs = hh // n
+    return TP.all_reduce(grp, [grp.run(
+        i, lambda p, c: up(p, c, i * hs, hs) @ p["wo"], attns[i], cs[j])
+        for j, i in enumerate(grp.shards)])

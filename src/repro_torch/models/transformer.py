@@ -9,7 +9,7 @@ deepseek-v2-236b.
     logits, cache = prefill(model, cfg, tokens, max_len=None)
     logits, cache = decode_step(model, cfg, token, cache, pos)
 
-Each entry point also takes a ``mesh=``: the dense decoders' tensor-parallel
+Each entry point also takes a ``mesh=``: the tensor- and expert-parallel
 programs over a ``sharding.ShardedLM`` (the section at the end of this
 file); without one, nothing changes.
 
@@ -56,7 +56,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoE, moe_apply, moe_init
+from repro_torch.models.moe import MeshRouting, MoE, moe_apply, \
+    moe_apply_tp, moe_init
 
 
 class Block(nn.Module):
@@ -168,10 +169,8 @@ def forward(model, cfg: LMConfig, tokens: torch.Tensor,
     ``ShardedLM``), each batch group runs its tensor-parallel program
     (module docstring)."""
     if mesh is not None:
-        x = _tp_over_groups(mesh, tokens, lambda grp, t: _tp_states(
-            model, cfg, grp, t, remat))
-        return logits_of(model, x, mesh), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+        x, aux = _tp_forward(model, cfg, tokens, remat, mesh)
+        return logits_of(model, x, mesh), aux
     b, s = tokens.shape
     x = model.embed[tokens]
     positions = _positions(b, s, tokens.device)
@@ -220,8 +219,7 @@ def lm_loss(model, cfg: LMConfig, batch: Dict[str, torch.Tensor],
     max, sum of exponentials and the label's logit), averaged over the
     groups."""
     if mesh is not None:
-        loss = _tp_loss(model, cfg, batch, remat, mesh)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        loss, aux = _tp_loss(model, cfg, batch, remat, mesh)
     else:
         logits, aux = forward(model, cfg, batch["tokens"], remat=remat)
         loss = _masked_mean(_nll(logits, batch["labels"]))
@@ -330,32 +328,45 @@ def decode_step(model, cfg: LMConfig, token: torch.Tensor, cache,
 
 
 # ------------------------------------------------------ tensor parallel
-# The dense decoder over a mesh (``mesh=`` above): ``model`` is a
-# ``sharding.ShardedLM``. Each batch group (the batch split over the data
-# axes where it divides, ``sharding.batch_seq_spec``) runs one program over
-# its ``model`` shards: the vocabulary-parallel lookup (each shard its own
-# rows, an all-reduce), per block the replicated norms and residual adds,
-# attention (``layers.gqa_apply_tp``: head-TP under
-# ``flags.HEAD_TP_ATTENTION`` when the heads divide, else
-# sequence-parallel, as the reference's ``chunked_sdpa`` places q) and the
-# SwiGLU (column- then row-parallel), and the vocabulary-parallel head. A
-# block is recomputed in the backward pass under ``remat``. On a meta mesh
-# the first group's program stands in for every group's.
+# The LM over a mesh (``mesh=`` above): ``model`` is a ``sharding.ShardedLM``.
+# Each batch group (the batch split over the data axes where it divides,
+# ``sharding.batch_seq_spec``) runs one program over its ``model`` shards: the
+# vocabulary-parallel lookup (each shard its own rows, an all-reduce), per
+# block the replicated norms and residual adds, attention
+# (``layers.gqa_apply_tp`` / ``mla_apply_tp``: head-TP under
+# ``flags.HEAD_TP_ATTENTION`` when the heads divide, else sequence-parallel, as
+# the reference's ``chunked_sdpa`` places q), the SwiGLU (column- then
+# row-parallel) or the MoE layer (``moe.moe_apply_tp``: its experts over
+# ``model``), and the vocabulary-parallel head. Each block runs the splits the
+# rules give its own weights (``_splits``): an MoE config's leading dense block
+# matches the stacked layers' rules cut to its rank, so its projections and FFN
+# run replicated and only ``wo`` / ``w_down`` split, on their output columns
+# (its attention still splits by heads or rows, from the replicated q / k / v).
+# A block is recomputed in the backward pass under ``remat``. The groups share
+# a ``moe.MeshRouting``: the MoE layers' dispatch layout and aux loss span
+# every group's tokens. On a meta mesh the first group's program stands in for
+# every group's.
 
-def _tp_over_groups(mesh, x: torch.Tensor, fn) -> torch.Tensor:
+def _tp_over_groups(mesh, x: torch.Tensor, fn,
+                    book: Optional[MeshRouting] = None) -> torch.Tensor:
     """``fn(group, rows)`` over each batch group's rows of ``x`` (axis 0),
     the results joined on axis 0 on the mesh's first device: every group
     where the batch divides over the data axes, else group 0 over all of
-    it (every group computes the same)."""
+    it (every group computes the same). ``book``: told how many groups
+    the rows split over; its routing log is written once they ran."""
     n = SH.columns(mesh).shape[0]
     if SH.batch_seq_spec(mesh, x.shape)[0] is None:
         n = 1
+    if book is not None:
+        book.parts = n
     parts = x.split(x.shape[0] // n)
     run = 1 if SH.on_meta(mesh) else n
     outs = []
     for g in range(run):
         grp = TP.Group(mesh, g)
         outs.append(fn(grp, parts[g].to(grp.home)))
+    if book is not None:
+        book.flush_log()
     home = mesh.devices.reshape(-1)[0]
     if run < n:
         return op_costs.stand_in(outs[0], n, dim=0)
@@ -365,12 +376,49 @@ def _tp_over_groups(mesh, x: torch.Tensor, fn) -> torch.Tensor:
         return torch.cat([o.to(home) for o in outs])
 
 
-def _tp_mode(model, cfg: LMConfig, mesh, s: int) -> str:
-    """How the groups run attention over ``model`` (``gqa_apply_tp``)."""
-    n = SH.model_size(mesh)
-    if not all(model.split(f"blocks.0.attn.{w}")
-               for w in ("wq", "wk", "wv", "wo")):
+def _split_of(model, names, last: str) -> str:
+    """"tp" where every weight of ``names`` splits on its columns and
+    ``last`` on its rows, "cols" where only ``last`` splits, on its
+    output columns, "rep" where none does."""
+    d_last = model.dims[last]
+    if d_last == 0 and all(model.dims[n] == 1 for n in names):
+        return "tp"
+    if d_last in (None, 1) and not any(model.split(n) for n in names):
+        return "cols" if d_last == 1 else "rep"
+    raise ValueError(f"{last}: no program for the split "
+                     f"{[model.dims[n] for n in names + [last]]}")
+
+
+def _splits(model, cfg: LMConfig, i: int):
+    """Block i's (attention split, FFN split, routed experts split):
+    ``_split_of`` on its weights; the FFN's is its shared experts' in an
+    MoE block, whose routed experts split on their expert axis (True) or
+    are replicated."""
+    a = f"blocks.{i}.attn."
+    if cfg.use_mla:
+        ins = ["wq_b" if cfg.q_lora_rank else "wq", "wkv_b"]
+    else:
+        ins = ["wq", "wk", "wv"]
+    attn = _split_of(model, [a + w for w in ins], a + "wo")
+    moe = model.shards[0].blocks[i].moe
+    f = f"blocks.{i}.moe.shared." if moe is not None else f"blocks.{i}.ffn."
+    if moe is not None and moe.shared is None:
+        ffn = "rep"
+    else:
+        ffn = _split_of(model, [f + "w_gate", f + "w_up"], f + "w_down")
+    experts = moe is not None and model.split(f"blocks.{i}.moe.w_gate")
+    return attn, ffn, experts
+
+
+def _tp_mode(model, cfg: LMConfig, mesh, s: int, i: int) -> str:
+    """How the groups run block i's attention over ``model``
+    (``gqa_apply_tp``): "rep" where its weights are replicated, else by
+    heads or by rows as the reference's ``chunked_sdpa`` places q (also
+    where only ``wo`` splits: the placement is the activations')."""
+    split = _splits(model, cfg, i)[0]
+    if split == "rep":
         return "rep"
+    n = SH.model_size(mesh)
     if flags.HEAD_TP_ATTENTION and cfg.n_heads % n == 0:
         return "heads"
     if SH.batch_seq_spec(mesh, (1, s), 0, 1)[1] == "model":
@@ -399,32 +447,65 @@ def _tp_embed(model, grp, tokens: torch.Tensor) -> torch.Tensor:
                                enumerate(grp.shards)])
 
 
-def _tp_block(model, cfg: LMConfig, grp, i: int, x, positions, mode: str):
+def _tp_attend(model, cfg, grp, i: int, h, positions, mode: str):
+    """Block i's attention on h -> (output, the cache's entries: each
+    running shard's (K, V), or the MLA latent (c_kv, k_rope))."""
+    attns = [m.blocks[i].attn for m in model.shards]
+    apply = L.mla_apply_tp if cfg.use_mla else L.gqa_apply_tp
+    return apply(grp, attns, cfg, h, positions, mode,
+                 _splits(model, cfg, i)[0])
+
+
+def _tp_ffn(model, cfg, grp, i: int, h, book: MeshRouting):
+    """Block i's FFN or MoE layer on h -> (out, None or the MoE layer's
+    (pair counts, probability sums))."""
+    _, ffn, experts = _splits(model, cfg, i)
     blks = [m.blocks[i] for m in model.shards]
-    h = grp.local(L.rms_norm, x, blks[0].ln1, cfg.rms_eps)
-    a, _ = L.gqa_apply_tp(grp, [b.attn for b in blks], cfg, h, positions,
-                          mode)
+    if blks[0].moe is None:
+        return L.swiglu_apply_tp(grp, [b.ffn for b in blks], h, ffn), None
+    out, counts, psum = moe_apply_tp(grp, [b.moe for b in blks], cfg, h,
+                                     book, i, experts, ffn)
+    return out, (counts, psum)
+
+
+def _tp_block(model, cfg: LMConfig, grp, i: int, x, positions, mode: str,
+              book: MeshRouting):
+    ln1, ln2 = model.shards[0].blocks[i].ln1, model.shards[0].blocks[i].ln2
+    h = grp.local(L.rms_norm, x, ln1, cfg.rms_eps)
+    a, _ = _tp_attend(model, cfg, grp, i, h, positions, mode)
     x = grp.local(torch.add, x, a)
-    h = grp.local(L.rms_norm, x, blks[0].ln2, cfg.rms_eps)
-    f = L.swiglu_apply_tp(grp, [b.ffn for b in blks], h,
-                          model.split(f"blocks.{i}.ffn.w_gate"))
-    return grp.local(torch.add, x, f)
+    h = grp.local(L.rms_norm, x, ln2, cfg.rms_eps)
+    f, stats = _tp_ffn(model, cfg, grp, i, h, book)
+    return grp.local(torch.add, x, f), stats
 
 
-def _tp_states(model, cfg: LMConfig, grp, tokens, remat: bool):
+def _tp_states(model, cfg: LMConfig, grp, tokens, remat: bool,
+               book: MeshRouting):
     """One group's tokens (B, S) -> its final-normed states (B, S, d)."""
     b, s = tokens.shape
     x = _tp_embed(model, grp, tokens)
     positions = _positions(b, s, grp.home)
-    mode = _tp_mode(model, cfg, grp.mesh, s)
     for i in range(cfg.n_layers):
+        mode = _tp_mode(model, cfg, grp.mesh, s, i)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_tp_block, model, cfg, grp, i, x, positions,
-                           mode, use_reentrant=False)
+            x, stats = checkpoint(_tp_block, model, cfg, grp, i, x,
+                                  positions, mode, book, use_reentrant=False)
         else:
-            x = _tp_block(model, cfg, grp, i, x, positions, mode)
+            x, stats = _tp_block(model, cfg, grp, i, x, positions, mode,
+                                 book)
+        if stats is not None:
+            book.stats.setdefault(i, {})[book.part(grp)] = stats
     return grp.local(L.rms_norm, x, model.shards[0].final_norm,
                      cfg.rms_eps)
+
+
+def _tp_forward(model, cfg: LMConfig, tokens, remat: bool, mesh):
+    """The groups' final-normed states (B, S, d) and the summed aux
+    loss."""
+    book = MeshRouting(mesh)
+    x = _tp_over_groups(mesh, tokens, lambda grp, t: _tp_states(
+        model, cfg, grp, t, remat, book), book)
+    return x, book.aux_loss(cfg)
 
 
 def _tp_head(model, grp, x):
@@ -479,19 +560,20 @@ def _tp_nll(model, grp, x, labels) -> torch.Tensor:
 
 
 def _tp_loss(model, cfg: LMConfig, batch, remat: bool, mesh):
-    """The mean of the groups' losses (equal row counts), the groups'
-    scalars all-reduced over the data axes."""
+    """(The mean of the groups' losses (equal row counts), the groups'
+    scalars all-reduced over the data axes; the summed aux loss)."""
     both = torch.stack([batch["tokens"], batch["labels"].to(
         batch["tokens"].dtype)], dim=-1)
+    book = MeshRouting(mesh)
 
     def group_loss(grp, tl):
-        x = _tp_states(model, cfg, grp, tl[..., 0], remat)
+        x = _tp_states(model, cfg, grp, tl[..., 0], remat, book)
         return grp.local(_masked_mean, _tp_nll(model, grp, x, tl[..., 1]))[
             None]
-    losses = _tp_over_groups(mesh, both, group_loss)
+    losses = _tp_over_groups(mesh, both, group_loss, book)
     op_costs.record_collective("all-reduce", 4, SH.axes_size(
         mesh, SH.batch_axes(mesh)) if losses.shape[0] > 1 else 1)
-    return losses.mean()
+    return losses.mean(), book.aux_loss(cfg)
 
 
 def _tp_prefill(model, cfg: LMConfig, tokens, max_len: int, mesh):
@@ -499,37 +581,39 @@ def _tp_prefill(model, cfg: LMConfig, tokens, max_len: int, mesh):
     cache = SH.init_sharded_cache(cfg, mesh, b, max_len,
                                   model.shards[0].embed.dtype)
     split = SH.cache_split(cfg, mesh)
+    book = MeshRouting(mesh)
 
     def group(grp, t):
         blocks = cache.blocks[grp.g]
         x = _tp_embed(model, grp, t)
         positions = _positions(t.shape[0], s, grp.home)
-        mode = _tp_mode(model, cfg, mesh, s)
         for i in range(cfg.n_layers):
-            blks = [m.blocks[i] for m in model.shards]
-            h = grp.local(L.rms_norm, x, blks[0].ln1, cfg.rms_eps)
-            a, kvs = L.gqa_apply_tp(grp, [b_.attn for b_ in blks], cfg, h,
-                                    positions, mode)
+            ln1 = model.shards[0].blocks[i].ln1
+            ln2 = model.shards[0].blocks[i].ln2
+            h = grp.local(L.rms_norm, x, ln1, cfg.rms_eps)
+            a, kvs = _tp_attend(model, cfg, grp, i, h, positions,
+                                _tp_mode(model, cfg, mesh, s, i))
+            if cfg.use_mla:                   # the latent, replicated
+                kvs = list(zip(*(TP.replicate(grp, t_) for t_ in kvs)))
             for k, j in enumerate(grp.shards):
                 grp.run(j, _write_prefill, cfg, blocks[j], i, kvs[k], j,
                         grp.size, split, s)
             x = grp.local(torch.add, x, a)
-            h = grp.local(L.rms_norm, x, blks[0].ln2, cfg.rms_eps)
-            x = grp.local(torch.add, x, L.swiglu_apply_tp(
-                grp, [b_.ffn for b_ in blks], h,
-                model.split(f"blocks.{i}.ffn.w_gate")))
+            h = grp.local(L.rms_norm, x, ln2, cfg.rms_eps)
+            x = grp.local(torch.add, x, _tp_ffn(model, cfg, grp, i, h,
+                                                book)[0])
         return grp.local(L.rms_norm, x, model.shards[0].final_norm,
                          cfg.rms_eps)
-    x = _tp_over_groups(mesh, tokens, group)
+    x = _tp_over_groups(mesh, tokens, group, book)
     cache.length.fill_(s)
     return x, cache
 
 
 def _write_prefill(cfg, block, i: int, kv, j: int, n: int, split: str,
                    s: int) -> None:
-    """Shard j's part of layer i's K / V for the prompt's s positions into
-    its cache block: its KV heads ("heads"), or the prompt positions its
-    block of the sequence holds ("seq")."""
+    """Shard j's part of layer i's K / V (or MLA latent) for the prompt's
+    s positions into its cache block: its KV heads ("heads"), or the
+    prompt positions its block of the sequence holds ("seq")."""
     (ca, cb), (k, v) = block, kv
     if split == "heads":
         if k.shape[2] == cfg.n_kv_heads:            # it holds all heads
@@ -545,11 +629,23 @@ def _write_prefill(cfg, block, i: int, kv, j: int, n: int, split: str,
         cb[i, :, :hi - lo] = v[:, lo:hi]
 
 
+def _tp_decode_attn(model, cfg: LMConfig, grp, i: int, h, pos, caches,
+                    kv_valid, split: str):
+    """Block i's decode attention (``layers.gqa_decode_tp`` on a cache
+    split as ``split`` says, or ``mla_decode_tp``)."""
+    attns = [m.blocks[i].attn for m in model.shards]
+    mode = _splits(model, cfg, i)[0]
+    if cfg.use_mla:
+        return L.mla_decode_tp(grp, attns, cfg, h, pos, caches, kv_valid,
+                               mode)
+    return L.gqa_decode_tp(grp, attns, cfg, h, pos, caches, kv_valid, split,
+                           mode)
+
+
 def _tp_decode(model, cfg: LMConfig, token, cache, pos, mesh):
     split = SH.cache_split(cfg, mesh)
-    tp = all(model.split(f"blocks.0.attn.{w}")
-             for w in ("wq", "wk", "wv", "wo"))
     both = torch.stack([token.to(pos.dtype), pos], dim=-1)
+    book = MeshRouting(mesh)
 
     def group(grp, tp_):
         tok, p = tp_[:, 0], tp_[:, 1]
@@ -557,18 +653,16 @@ def _tp_decode(model, cfg: LMConfig, token, cache, pos, mesh):
         kv_valid = p + 1
         x = _tp_embed(model, grp, tok[:, None])
         for i in range(cfg.n_layers):
-            blks = [m.blocks[i] for m in model.shards]
-            h = grp.local(L.rms_norm, x, blks[0].ln1, cfg.rms_eps)
+            blk = model.shards[0].blocks[i]
+            h = grp.local(L.rms_norm, x, blk.ln1, cfg.rms_eps)
             caches = [(blocks[j][0][i], blocks[j][1][i]) for j in grp.shards]
-            x = grp.local(torch.add, x, L.gqa_decode_tp(
-                grp, [b_.attn for b_ in blks], cfg, h, p, caches, kv_valid,
-                split, tp))
-            h = grp.local(L.rms_norm, x, blks[0].ln2, cfg.rms_eps)
-            x = grp.local(torch.add, x, L.swiglu_apply_tp(
-                grp, [b_.ffn for b_ in blks], h,
-                model.split(f"blocks.{i}.ffn.w_gate")))
+            x = grp.local(torch.add, x, _tp_decode_attn(
+                model, cfg, grp, i, h, p, caches, kv_valid, split))
+            h = grp.local(L.rms_norm, x, blk.ln2, cfg.rms_eps)
+            x = grp.local(torch.add, x, _tp_ffn(model, cfg, grp, i, h,
+                                                book)[0])
         x = grp.local(L.rms_norm, x, model.shards[0].final_norm,
                       cfg.rms_eps)
         return _tp_full_logits(model, grp, x[:, 0])
-    logits = _tp_over_groups(mesh, both, group)
+    logits = _tp_over_groups(mesh, both, group, book)
     return logits, cache._replace(length=(pos + 1).to(cache.length.device))

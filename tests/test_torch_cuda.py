@@ -2008,6 +2008,67 @@ def test_lm_tensor_parallel_on_the_card_equals_unsharded(dev):
         close(lg, lw)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-236b"])
+def test_moe_and_mla_tensor_parallel_on_the_card_equal_unsharded(dev, arch):
+    """The smoke config (vocabulary 512; dispatch groups of 16 tokens at
+    capacity factor 1.0, so pairs drop) in float32, tensor- and
+    expert-parallel over a (1, 2) mesh naming cuda:0 twice: forward's
+    logits and the loss, and a prefill then 2 decode steps (the MLA
+    latent cache split on sequence), each equal to the unsharded model's
+    on the card to rtol 1e-5 (atol 1e-5 of the compared tensor's largest
+    magnitude); every MoE call's routed ids and dropped pairs equal."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import shard_lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = replace(get_arch(arch).smoke_config, vocab_size=512,
+                  moe_group_size=16, moe_capacity_factor=1.0)
+    model = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    mesh = make_host_mesh(1, 2, devices=[dev] * 2)
+    sm = shard_lm(model, mesh)
+    toks = torch.randint(0, 512, (4, 12), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def close(got, want):
+        scale = float(want.abs().max()) or 1.0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+    def same(got, want):
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            assert torch.equal(a["ids"], b["ids"])
+            assert torch.equal(a["dropped"], b["dropped"])
+
+    with torch.no_grad(), M.routing_log() as got_log:
+        got = T.forward(sm, cfg, toks, mesh=mesh)[0]
+    with torch.no_grad(), M.routing_log() as want_log:
+        want = T.forward(model, cfg, toks)[0]
+    close(got, want)
+    same(got_log, want_log)
+    assert sum(int(r["dropped"].sum()) for r in want_log) > 0
+    close(T.lm_loss(sm, cfg, batch, mesh=mesh)[0].detach(),
+          T.lm_loss(model, cfg, batch)[0].detach())
+    with M.routing_log() as got_log:
+        lg, cache = T.prefill(sm, cfg, toks[:, :8], max_len=12, mesh=mesh)
+    with M.routing_log() as want_log:
+        lw, cw = T.prefill(model, cfg, toks[:, :8], max_len=12)
+    close(lg, lw)
+    same(got_log, want_log)
+    for i in range(2):
+        tok = lw[:, -1].argmax(-1).int() if i == 0 else lw.argmax(-1).int()
+        pos = torch.full((4,), 8 + i, dtype=torch.int32, device=dev)
+        with M.routing_log() as got_log:
+            lg, cache = T.decode_step(sm, cfg, tok, cache, pos, mesh=mesh)
+        with M.routing_log() as want_log:
+            lw, cw = T.decode_step(model, cfg, tok, cw, pos)
+        close(lg, lw)
+        same(got_log, want_log)
+
 # -- MoE and MLA (no kernel of the port: plain PyTorch on the card) ----------
 
 def _int_moe(dev, cfg, seed):

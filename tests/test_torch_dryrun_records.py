@@ -264,11 +264,11 @@ def test_table_update_bytes_per_device_are_over_model():
 
 # ---------------------------------------------------- the dense LMs
 @functools.lru_cache(maxsize=None)
-def _lm_counted(mesh_name):
-    """qwen2-1.5b's train_4k cell cut to LM_LAYERS layers: (the record,
-    the link bytes and all-reduces of its loss and gradients alone over
-    the step's microbatches, the cell, the reference config)."""
-    spec = get_arch("qwen2-1.5b")
+def _lm_counted(mesh_name, arch="qwen2-1.5b"):
+    """``arch``'s train_4k cell cut to LM_LAYERS layers: (the record, the
+    link bytes and all-reduces of its loss and gradients alone over the
+    step's microbatches, the cell, the reference config)."""
+    spec = get_arch(arch)
     spec = replace(spec, config=replace(spec.config, n_layers=LM_LAYERS))
     mesh = _mesh(mesh_name)
     cell = S._lm_cell(spec, spec.shape("train_4k"), mesh, "meta", 0)
@@ -283,23 +283,26 @@ def _lm_counted(mesh_name):
                                       mesh=mesh)
         torch.autograd.grad(loss, list(model.parameters()),
                             allow_unused=True)
-    ref_cfg = replace(RC.get_arch("qwen2-1.5b").config, n_layers=LM_LAYERS)
+    ref_cfg = replace(RC.get_arch(arch).config, n_layers=LM_LAYERS)
     return rec, micro * merges.per_device().link_bytes, \
         merges.per_device().collective_counts["all-reduce"], cell, ref_cfg
 
 
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b"])
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_lm_train_link_bytes_are_tp_collectives_plus_gradient_allreduce(
-        mesh_name):
-    """A dense LM's train record (``"partition": "shards"``): its link
-    bytes are its tensor-parallel collectives (the loss and gradients of
-    each microbatch: the lookup's and the row-parallel all-reduces, the
-    attention's all-to-alls and K / V gathers, the fan-outs' backward
-    all-reduces, the head's gather) plus the reference's all-reduce of
-    every weight's gradient over the data axes (rtol 1e-9); its
-    all-reduces are those of the programs plus one per leaf a device
-    holds; its notes drop the ideal partition."""
-    rec, tp_bytes, tp_reduces, cell, ref_cfg = _lm_counted(mesh_name)
+        mesh_name, arch):
+    """An LM's train record (``"partition": "shards"``; deepseek-moe-16b's
+    2 layers are its dense block and an MoE block): its link bytes are
+    its tensor- and expert-parallel collectives (the loss and gradients
+    of each microbatch: the lookup's and the row-parallel all-reduces,
+    the attention's all-to-alls and K / V gathers, the fan-outs' backward
+    all-reduces, the head's gather; the MoE layer's combine and its aux
+    loss's all-reduces over the data axes) plus the reference's
+    all-reduce of every weight's gradient over the data axes (rtol 1e-9);
+    its all-reduces are those of the programs plus one per leaf a device
+    holds; its notes name that all-reduce."""
+    rec, tp_bytes, tp_reduces, cell, ref_cfg = _lm_counted(mesh_name, arch)
     dims, axes = MESHES[mesh_name]
     mesh = AbstractMesh(dims, axes)
     tree = jax.eval_shape(lambda: r_transformer.init_params(

@@ -1,11 +1,13 @@
-"""The collectives of the reference's dense-LM steps as XLA partitions them
-over a (2, 4) ("data", "model") mesh of 8 forced host devices (in a
-process of its own, with the rules' shardings and ``set_active_mesh``, as
-``src/repro/launch/dryrun.py`` runs them), beside the port's
-tensor-parallel programs counted on a meta (2, 4) mesh, for reduced
-qwen2-1.5b (4 heads, 1 KV head, 2 layers, vocabulary 512):
+"""The collectives of the reference's LM steps as XLA partitions them over
+a (2, 4) ("data", "model") mesh of 8 forced host devices (in a process of
+its own, with the rules' shardings and ``set_active_mesh``, as
+``src/repro/launch/dryrun.py`` runs them), beside the port's tensor- and
+expert-parallel programs counted on a meta (2, 4) mesh, for reduced
+qwen2-1.5b (4 heads, 1 KV head, 2 layers), deepseek-moe-16b (1 dense
+block, 1 MoE block of 8 experts, top-2) and deepseek-v2-236b (the same,
+MLA attention), each with a vocabulary of 512:
 
-    PYTHONPATH=src python tests/tp_collectives.py
+    PYTHONPATH=src python tests/tp_collectives.py [arch ...]
 
 Prints one markdown row per cell and side: the collectives by kind
 (calls, and the reference's result bytes), the per-device link bytes and
@@ -20,13 +22,21 @@ from dataclasses import replace
 
 import torch
 
-# (name, kind, batch, sequence, head-TP)
-CELLS = [("train 4 x 64", "train", 4, 64, False),
-         ("train 2 x 2048", "train", 2, 2048, False),
-         ("train 2 x 2048 head-TP", "train", 2, 2048, True),
-         ("prefill 2 x 2048", "prefill", 2, 2048, False),
-         ("prefill 2 x 2048 head-TP", "prefill", 2, 2048, True),
-         ("decode 2 x 64", "decode", 2, 64, False)]
+# (name, arch, kind, batch, sequence, head-TP)
+CELLS = [("train 4 x 64", "qwen2-1.5b", "train", 4, 64, False),
+         ("train 2 x 2048", "qwen2-1.5b", "train", 2, 2048, False),
+         ("train 2 x 2048 head-TP", "qwen2-1.5b", "train", 2, 2048, True),
+         ("prefill 2 x 2048", "qwen2-1.5b", "prefill", 2, 2048, False),
+         ("prefill 2 x 2048 head-TP", "qwen2-1.5b", "prefill", 2, 2048,
+          True),
+         ("decode 2 x 64", "qwen2-1.5b", "decode", 2, 64, False)] + [
+    (name, arch, kind, b, s, head_tp)
+    for arch in ("deepseek-moe-16b", "deepseek-v2-236b")
+    for name, kind, b, s, head_tp in (
+        ("train 4 x 64", "train", 4, 64, False),
+        ("prefill 2 x 2048", "prefill", 2, 2048, False),
+        ("prefill 2 x 2048 head-TP", "prefill", 2, 2048, True),
+        ("decode 2 x 64", "decode", 2, 64, False))]
 
 _REFERENCE = r"""
 import json, os, sys
@@ -47,11 +57,11 @@ mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 4),
 SH.set_active_mesh(mesh)
 ns = lambda *s: NamedSharding(mesh, P(*s))
 dp = ("data",)
-cfg = reduced_lm(get_arch("qwen2-1.5b").config, vocab_size=512)
-ps = jax.eval_shape(lambda: T.init_params(jax.random.PRNGKey(0), cfg))
-psh = SH.tree_shardings(mesh, ps, SH.lm_rules(mesh))
 out = []
-for name, kind, b, s, head_tp in json.loads(sys.argv[1]):
+for name, arch, kind, b, s, head_tp in json.loads(sys.argv[1]):
+    cfg = reduced_lm(get_arch(arch).config, vocab_size=512)
+    ps = jax.eval_shape(lambda: T.init_params(jax.random.PRNGKey(0), cfg))
+    psh = SH.tree_shardings(mesh, ps, SH.lm_rules(mesh))
     flags.HEAD_TP_ATTENTION = head_tp
     tok = jax.ShapeDtypeStruct((b, s), jnp.int32)
     if kind == "train":
@@ -83,16 +93,16 @@ print(json.dumps(out))
 """
 
 
-def reference() -> list:
+def reference(cells=CELLS) -> list:
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
                JAX_PLATFORMS="cpu")
     return json.loads(subprocess.run(
-        [sys.executable, "-c", _REFERENCE, json.dumps(CELLS)],
+        [sys.executable, "-c", _REFERENCE, json.dumps(cells)],
         capture_output=True, text=True, env=env, check=True).stdout)
 
 
-def port() -> list:
+def port(cells=CELLS) -> list:
     from repro_torch import flags
     from repro_torch.analysis.op_costs import CostCounter
     from repro_torch.configs import get_arch, reduced_lm
@@ -104,11 +114,11 @@ def port() -> list:
     from repro_torch.train.train_step import loss_fn_for, make_train_step
     meta = torch.device("meta")
     mesh = make_host_mesh(2, 4, devices=[meta] * 8)
-    cfg = replace(reduced_lm(get_arch("qwen2-1.5b").config), vocab_size=512)
-    sm = SH.shard_lm(T.init_params(torch.Generator().manual_seed(0), cfg,
-                                   device=meta), mesh)
     out = []
-    for _, kind, b, s, head_tp in CELLS:
+    for _, arch, kind, b, s, head_tp in cells:
+        cfg = replace(reduced_lm(get_arch(arch).config), vocab_size=512)
+        sm = SH.shard_lm(T.init_params(torch.Generator().manual_seed(0),
+                                       cfg, device=meta), mesh)
         flags.HEAD_TP_ATTENTION = head_tp
         tok = torch.empty((b, s), dtype=torch.int32, device=meta)
         with CostCounter() as c:
@@ -131,11 +141,14 @@ def port() -> list:
 
 def main() -> None:
     torch.set_num_threads(1)
-    ref, mine = reference(), port()
+    archs = sys.argv[1:]
+    cells = [c for c in CELLS if not archs or c[1] in archs]
+    ref, mine = reference(cells), port(cells)
     print("| Cell | Side | Collectives (calls; reference: result bytes) "
           "| Link bytes / device | FLOPs / device |")
     print("|---|---|---|---|---|")
-    for (name, *_), r, p in zip(CELLS, ref, mine):
+    for (name, arch, *_), r, p in zip(cells, ref, mine):
+        name = f"{arch} {name}"
         kinds = "; ".join(f"{k} {n} ({r['result_bytes'][k]:,} B)"
                           for k, n in sorted(r["counts"].items()))
         print(f"| {name} | reference (XLA) | {kinds} | "
